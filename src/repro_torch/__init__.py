@@ -1,0 +1,11 @@
+"""repro_torch — the PyTorch + CUDA port of the RNT-J columnar writer.
+
+A twin of the ``repro`` package, module for module: ``repro_torch.core``
+holds the writer and reader (their host algorithms copied unchanged),
+``repro_torch.kernels`` the CUDA kernels of the write -> read path for
+NVIDIA Hopper with their plain PyTorch versions, and
+``repro_torch.configs`` the paper's configuration.  Writers and readers
+take ``device=`` (default ``"cuda"``); the CPU runs only when asked for.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,67 @@
+// Shared pieces of the port's CUDA kernels: the C error-string export
+// every library carries, a block-wide inclusive scan, and 16-byte vector
+// helpers.  Each library compiles exactly one .cu that includes this.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+namespace repro {
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// Inclusive scan of one value per thread over a block of NT threads
+// (warp shuffles, then one warp scans the warp totals).  Unsigned T: the
+// sums wrap modulo 2^bits, which is two's-complement addition of the
+// signed values.  `total` gets the block's sum.  Every thread of the
+// block must call it; `warp_sums` is shared scratch of NT / 32 values.
+template <typename T, int NT>
+__device__ __forceinline__ T block_inclusive_scan(T v, T* warp_sums, T& total) {
+  static_assert(NT % 32 == 0 && NT / 32 <= 32, "block of 32..1024 threads");
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < NW ? warp_sums[lane] : T(0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < NW) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  total = warp_sums[NW - 1];
+  const T out = v + (warp ? warp_sums[warp - 1] : T(0));
+  __syncthreads();  // warp_sums is reused by the next call
+  return out;
+}
+
+// 16 bytes as one vector or as bytes (constant indices keep it in
+// registers).
+union V16 {
+  uint4 v;
+  uint8_t b[16];
+};
+
+// N bytes as one machine word W or as bytes.
+template <typename W, int N>
+union Word {
+  W w;
+  uint8_t b[N];
+};
+
+}  // namespace repro
