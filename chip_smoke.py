@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's write -> read path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's write -> read and serve paths on one
+NVIDIA card.
 
     python3 chip_smoke.py [--entries 1000000] [--producers 4] [--seed 0]
+                          [--requests 16] [--prompt-len 1000] [--max-new 64]
                           [--profile DIR]
 
 Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source);
-2. every kernel against its plain PyTorch version on the card, bit for
-   bit, at ragged shapes and at the paper configuration's page shapes;
-3. the main path: the paper's configuration written by ``ParallelWriter``
-   on the card (``--producers`` threads, ``--entries`` each, fill batches
-   of 100,000), read back with ``RNTJReader.iter_clusters_device``, every
-   column checked against the generated data and the reader's host
-   decode; the launch counts of all four kernels must be > 0; then one
-   producer's data written once with the kernels and once with the numpy
-   backend: the files must be byte-identical;
-4. each kernel timed at the shape the main path gave it most often: on
-   the card (CUDA events between 30 launches queued back to back) and
-   per call with its host overhead, beside its bound, its plain version
-   and, where one exists, the one PyTorch call computing the same
-   function; the host entries of K1 and K2 with their PCIe copies; one
-   JSON ``kernels`` line;
-5. the last line: ``{"ok": true, "device": {...}}``.
+2. every kernel against its plain PyTorch version on the card: K1-K4 bit
+   for bit at ragged shapes and at the paper configuration's page shapes;
+   K5 (flash attention) and K6 (decode attention) at ragged shapes, GQA,
+   MQA and MHA, head dims 32 to 256, windows, lengths from 1 to the
+   cache, in fp32 (within 2e-5) and in bf16 (against the plain version
+   computed in fp32 from the same bf16 inputs, within 1.6e-2), each as
+   ``|got - want| <= tol * (1 + |want|)``;
+3. the write -> read path: the paper's configuration written by
+   ``ParallelWriter`` on the card (``--producers`` threads, ``--entries``
+   each, fill batches of 100,000), read back with
+   ``RNTJReader.iter_clusters_device``, every column checked against the
+   generated data and the reader's host decode; the launch counts of
+   K1-K4 must be > 0; then one producer's data written once with the
+   kernels and once with the numpy backend: the files must be
+   byte-identical;
+4. the serve path: ``repro_torch.launch.serve`` with smollm-360m at its
+   full width (``--requests`` prompts of ``--prompt-len`` tokens,
+   ``--max-new`` greedy tokens, bf16 compute, random weights from
+   ``--seed``); K5 must launch once per layer in prefill and K6 once per
+   layer and decode step; the generations file must read back equal to
+   the returned tokens; the decode-step logits are held against the
+   teacher-forced ``forward`` logits at the same positions (bf16, and
+   fp32 on two requests);
+5. each kernel timed at the shape its path gave it most often: on the
+   card (CUDA events between 30 launches queued back to back) and per
+   call with its host overhead, beside its bound, its plain version and,
+   where one exists, the one PyTorch call computing the same function
+   (``scaled_dot_product_attention`` for K5 and K6); the host entries of
+   K1 and K2 with their PCIe copies; one JSON ``kernels`` line;
+6. the last line: ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` also traces one read-back and one single-producer
-write with torch.profiler (the card's busy share; chrome traces in DIR).
-Needs a CUDA card and the repository's ``src/`` beside this file.
+``--profile DIR`` also traces one read-back, one single-producer write,
+and the served batch's prefill and 8 of its decode steps with
+torch.profiler (the card's busy share; chrome traces in DIR).  Needs a
+CUDA card and the repository's ``src/`` beside this file.
 """
 
 from __future__ import annotations
@@ -44,10 +61,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM memory rate and peak integer/float32 rate outside the tensor
-#: cores (NVIDIA data sheet), for the bounds
+#: H100 SXM memory rate, peak integer/float32 rate outside the tensor
+#: cores and dense bf16 tensor-core rate (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 BATCH = 100_000
 
@@ -60,7 +78,20 @@ KERNEL_INFO = {
                       "src/repro/kernels/decode_pages.py:46"),
     "decode_offset_pages": ("src/repro_torch/csrc/scans.cu",
                             "src/repro/kernels/decode_pages.py:97"),
+    "flash_attention": ("src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
+    "decode_attention": ("src/repro_torch/csrc/attention.cu",
+                         "src/repro/kernels/decode_attention.py:71"),
 }
+
+#: K5/K6 tolerances against the plain version (see the docstring)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+#: the serve path's decode-step logits against teacher-forced ``forward``
+#: logits at the same positions, as a share of the largest |logit|: in
+#: bf16 the two paths round different products (GEMMs of 16 rows against
+#: 16,000, K6 against K5) to 8 mantissa bits in each of 32 layers; in fp32
+#: only the order of the sums differs
+CONSISTENCY_TOL = {"bfloat16": 8e-2, "float32": 1e-3}
 
 
 def fail(msg: str) -> "NoReturn":
@@ -134,10 +165,33 @@ def bound(name: str, shape):
     else:
         p, a, b = shape
         nbytes, ops = 2 * p * a * b, 0
+    return _larger(nbytes, ops, SCALAR_OPS_PER_S)
+
+
+def _larger(nbytes: float, ops: float, ops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
+
+
+def attention_bound(name: str, shape, itemsize: int, length=None):
+    """(bound_ms, bound_by, bytes) of one K5 or K6 launch on this run's
+    inputs: q, k, v read once and o written once over the memory rate;
+    ``4 D`` operations per visible (query, key) pair (QK^T and PV) over
+    the bf16 tensor-core rate.  K5 counts the causal pairs
+    (``q_offset = Sk - Sq``), K6 the ``length`` cache rows it reads."""
+    if name == "flash_attention":
+        b, h, g, sq, sk, d = shape
+        off = sk - sq
+        pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
+        ops = 4 * b * h * d * pairs
+        nbytes = itemsize * (2 * b * h * sq * d + 2 * b * g * sk * d)
+    else:
+        b, h, g, _s, d = shape
+        ops = 4 * b * h * length * d
+        nbytes = itemsize * (2 * b * g * length * d + 2 * b * h * d)
+    return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -167,23 +221,31 @@ def device_ms(torch, fn, x, host_ms: float, reps: int = 30) -> float:
 
     The launches queue behind a sleep kernel that outlasts their enqueue,
     so the card runs them back to back and the CUDA events between them
-    time the kernels, not the host's rate of launching them."""
+    time the kernels, not the host's rate of launching them.  The sleep
+    only delays the first event, so a long one costs nothing but wall
+    time; an enqueue that still outlasts it (a stall of the shared host)
+    is measured again, up to three times."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda.synchronize()
-    # >= 2e6 cycles per ms at the H100's clocks: sleep for 3x the enqueue
-    torch.cuda._sleep(int(2e6 * (3 * host_ms * reps + 2)))
-    t0 = time.perf_counter()
-    for i in range(reps):
-        events[i].record()
-        fn(x)
-    events[reps].record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if enqueue_ms > 2 * host_ms * reps + 1:
-        fail(f"enqueue ({enqueue_ms:.3f} ms) outlasted the sleep: the "
-             "device timing would measure the host")
-    return statistics.median(events[i].elapsed_time(events[i + 1])
-                             for i in range(reps))
+    # the enqueue's expected length, 10x over, plus 20 ms for host stalls
+    sleep_ms = 10 * host_ms * reps + 20
+    for _attempt in range(3):
+        torch.cuda.synchronize()
+        # >= 2e6 cycles per ms at the H100's clocks (at most 1.98 GHz)
+        torch.cuda._sleep(int(2e6 * sleep_ms))
+        t0 = time.perf_counter()
+        for i in range(reps):
+            events[i].record()
+            fn(x)
+        events[reps].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms < sleep_ms:
+            return statistics.median(events[i].elapsed_time(events[i + 1])
+                                     for i in range(reps))
+        log(f"enqueue ({enqueue_ms:.3f} ms) outlasted the sleep "
+            f"({sleep_ms:.3f} ms): timing again")
+    fail("the enqueue outlasted the sleep three times: the device timing "
+         "would measure the host")
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +286,98 @@ def ragged_shapes():
     }
 
 
+def attention_cases():
+    """K5 cases (b, h, g, sq, sk, d, causal, window) and K6 cases
+    (b, h, g, s, d, window): no tile multiples, Sq < Sk, GQA 3:1, MQA and
+    MHA, windows, non-causal calls with a padded kv tile, smollm-360m's
+    (D=64, 15 over 5 heads) and gemma-2b's (D=256, 8 over 1) head shapes."""
+    flash = [
+        (1, 15, 5, 1000, 1000, 64, True, None),    # smollm-360m prefill
+        (2, 8, 1, 1000, 1000, 256, True, None),    # gemma-2b prefill
+        (2, 15, 15, 77, 77, 64, True, None),       # MHA
+        (2, 15, 1, 130, 300, 64, True, None),      # MQA, Sq < Sk
+        (2, 8, 8, 65, 129, 256, True, 48),         # window at D=256
+        (1, 6, 2, 100, 100, 64, True, 33),         # window
+        (1, 6, 2, 50, 200, 64, False, None),       # non-causal, padded kv
+        (1, 8, 1, 33, 97, 256, False, 40),         # non-causal window
+        (2, 4, 4, 1, 90, 32, True, None),          # one query row
+        (1, 4, 2, 300, 300, 128, True, None),
+    ]
+    decode = [
+        (16, 15, 5, 1064, 64, None),               # smollm-360m decode
+        (16, 8, 1, 1064, 256, None),               # gemma-2b decode
+        (3, 15, 15, 500, 64, None),                # MHA
+        (4, 15, 1, 777, 64, 100),                  # MQA, window
+        (3, 8, 8, 300, 256, 64),
+        (5, 6, 2, 2049, 128, None),
+        (1, 4, 2, 1, 32, None),                    # a one-row cache
+    ]
+    return flash, decode
+
+
+def _attention_inputs(torch, gen, dtype, *shapes):
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in shapes]
+
+
+def _attention_err(torch, got, want, tol: float, what: str) -> float:
+    """Max abs error; fails unless |got - want| <= tol (1 + |want|)."""
+    diff = (got.float() - want).abs()
+    if not bool((diff <= tol * (1 + want.abs())).all()):
+        fail(f"{what} differs from its plain version (max abs err "
+             f"{float(diff.max()):.3e}, tol {tol})")
+    return float(diff.max())
+
+
+def check_attention(torch, flash_cases, decode_cases) -> dict:
+    """K5 and K6 against their plain versions in fp32 and bf16; returns
+    the worst error per (kernel, dtype)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    worst = {}
+    for dname, tol in ATTN_TOL.items():
+        dtype = getattr(torch, dname)
+        for b, h, g, sq, sk, d, causal, window in flash_cases:
+            q, k, v = _attention_inputs(torch, gen, dtype, (b, h, sq, d),
+                                        (b, g, sk, d), (b, g, sk, d))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           causal=causal, window=window)
+            err = _attention_err(torch, got, want, tol, (
+                f"flash_attention {dname} at {(b, h, g, sq, sk, d)} "
+                f"causal={causal} window={window}"))
+            key = ("flash_attention", dname)
+            worst[key] = max(worst.get(key, 0.0), err)
+            del q, k, v, got, want
+        for b, h, g, s, d, window in decode_cases:
+            q, k, v = _attention_inputs(torch, gen, dtype, (b, h, d),
+                                        (b, g, s, d), (b, g, s, d))
+            # lengths from 1 to s across the batch
+            length = torch.linspace(1, s, b, device="cuda").round().to(
+                torch.int32)
+            got = decode_attention(q, k, v, length=length, window=window)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            length=length, window=window)
+            err = _attention_err(torch, got, want, tol, (
+                f"decode_attention {dname} at {(b, h, g, s, d)} "
+                f"window={window}"))
+            key = ("decode_attention", dname)
+            worst[key] = max(worst.get(key, 0.0), err)
+    for (name, dname), err in sorted(worst.items()):
+        log(f"kernel {name} {dname}: within {ATTN_TOL[dname]} of its plain "
+            f"version at {len(flash_cases if name == 'flash_attention' else decode_cases)} "
+            f"shapes (max abs err {err:.3e})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the write -> read path
 
 
 def make_data(np, seed: int, producers: int, entries: int):
@@ -347,14 +499,44 @@ def write_single(core, schema, opts, path, item, backend: str) -> float:
             os.environ["REPRO_TORCH_KERNEL_BACKEND"] = old
 
 
-def profile(torch, core, schema, opts, path, item, out_dir) -> None:
-    """Trace one device read-back and one single-producer write: the
-    card's busy time (the union of its kernels' and copies' intervals)
-    against the wall clock, and the device work that took it."""
+def trace_card(torch, name: str, fn, out_dir) -> None:
+    """Trace ``fn`` with torch.profiler: the card's busy time (the union of
+    its kernels' and copies' intervals) against the wall clock, and the
+    device work that took it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     os.makedirs(out_dir, exist_ok=True)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    log(f"profile {name}: wall {wall_ms:.3f} ms, card busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.3f} %), idle "
+        f"{100 - 100 * busy_ms / wall_ms:.3f} %")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {key[:60]}: {t / 1e3:.3f} ms over {c} calls")
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+
+
+def profile_write_read(torch, core, schema, opts, path, item, out_dir) -> None:
+    """Trace one device read-back and one single-producer write."""
 
     def read():
         with core.RNTJReader(path, device="cuda", options=core.ReadOptions(
@@ -368,34 +550,209 @@ def profile(torch, core, schema, opts, path, item, out_dir) -> None:
             for b in batches(core, schema, item):
                 w.fill_batch(b)
 
-    for name, fn in (("read", read), ("write", write)):
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:  # union of the device intervals
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
-        busy_ms = busy_us / 1e3
-        log(f"profile {name}: wall {wall_ms:.3f} ms, card busy "
-            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.3f} %), idle "
-            f"{100 - 100 * busy_ms / wall_ms:.3f} %")
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t, c = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            log(f"  {key[:60]}: {t / 1e3:.3f} ms over {c} calls")
-        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    trace_card(torch, "read", read, out_dir)
+    trace_card(torch, "write", write, out_dir)
     os.remove(path + ".prof")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the serve path
+
+
+def serve_path(np, core, serve, ops, args, tmp):
+    """Serve smollm-360m at full width through the launcher; -> (result,
+    launch counts, launch shapes) of that run alone."""
+    out = os.path.join(tmp, "generations.rntj")
+    argv = ["--arch", "smollm-360m", "--seed", str(args.seed), "--out", out]
+    # a warm-up at a tiny size: the CUDA context's lazy module loads and
+    # cuBLAS's set-up stay out of the timed run
+    serve.main(argv + ["--requests", "1", "--prompt-len", "16",
+                       "--max-new", "2"])
+    argv += ["--requests", str(args.requests), "--prompt-len",
+             str(args.prompt_len), "--max-new", str(args.max_new)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.main(argv, keep_logits=True)
+    wall = time.perf_counter() - t0
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    cfg, b, s, n_new = res.cfg, args.requests, args.prompt_len, args.max_new
+    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.compute_dtype} compute; {b} requests x {s} prompt tokens, "
+        f"{n_new} new tokens; wall {wall:.3f} s (parameter init included)")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (n_new - 1)}
+    log(f"launches on the serve path: {json.dumps(counts)} (K5 expected "
+        f"{want['flash_attention']} in prefill, K6 "
+        f"{want['decode_attention']} in decode)")
+    for name in ops.SERVE_KERNELS:
+        log(f"  {name} shapes: " + ", ".join(
+            f"{tuple(x)} x{c}" for x, c in shapes[name].most_common()))
+        if counts[name] != want[name]:
+            fail(f"{name} launched {counts[name]} times on the serve path, "
+                 f"expected {want[name]}")
+    if res.tokens.shape != (b, n_new):
+        fail(f"generated {res.tokens.shape}, expected {(b, n_new)}")
+    with core.RNTJReader(out, device="cuda") as r:
+        got = r.read_column("tokens._0").reshape(b, n_new)
+        ids = r.read_column("request_id")
+        plen = r.read_column("prompt_len")
+    if not (np.array_equal(got, res.tokens) and np.array_equal(ids, np.arange(b))
+            and np.array_equal(plen, np.full(b, s))):
+        fail("the generations file does not read back equal to the tokens")
+    os.remove(out)
+    tm = res.timings
+    log(f"serve timings: prefill {tm['prefill_s'] * 1e3:.3f} ms "
+        f"({b * s / tm['prefill_s']:.1f} prompt tokens/s); decode "
+        f"{tm['decode_s'] * 1e3:.3f} ms for {n_new - 1} steps = "
+        f"{tm['decode_s'] * 1e3 / (n_new - 1):.3f} ms per token step "
+        f"({b * (n_new - 1) / tm['decode_s']:.1f} tokens/s); end to end "
+        f"{b * n_new / (tm['prefill_s'] + tm['decode_s']):.1f} generated "
+        f"tokens/s; write {tm['write_s'] * 1e3:.3f} ms; generations file "
+        "read back equal")
+    return res, counts, shapes
+
+
+def profile_serve(torch, res, out_dir, steps: int = 8) -> None:
+    """Trace the served batch's prefill, then ``steps`` decode steps on
+    its cache (a few steps keep the trace small; each step is alike)."""
+    bundle, params, prompts = res.bundle, res.params, res.prompts
+    b, s = prompts.shape
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = bundle.prefill(
+            params, prompts, max_len=s + steps + 1)
+
+    def decode():
+        tok = torch.argmax(state["logits"], dim=-1).to(torch.int32)
+        cache = state["cache"]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            logits, cache = bundle.decode_step(params, tok, cache, pos)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    trace_card(torch, "serve_prefill", prefill, out_dir)
+    trace_card(torch, f"serve_decode_{steps}_steps", decode, out_dir)
+
+
+def check_consistency(torch, res, n_req: int, n_prompt: int, n_new: int,
+                      bundle=None, what: str = "bfloat16") -> None:
+    """Decode-step logits (K6 on the cache) against the teacher-forced
+    ``forward`` logits (K5 over prompt + generated tokens) at the same
+    positions.  With ``bundle`` (another compute dtype on the same
+    parameters) a fresh generation runs first."""
+    from repro_torch.launch.serve import generate
+
+    prompts = res.prompts[:n_req, :n_prompt]
+    if bundle is None:
+        bundle, tokens, dec = res.bundle, res.tokens, res.logits
+    else:
+        tokens, dec = generate(bundle, res.params, prompts, n_new,
+                               keep_logits=True)
+    full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).to(
+        prompts.device)], dim=1)
+    logits, _ = bundle.forward(res.params, full)
+    want = logits[:, n_prompt - 1:].float()
+    dec = dec.float()
+    diff = (dec - want).abs()
+    rel = float(diff.max() / want.abs().max())
+    mean_rel = float(diff.mean() / want.abs().mean())
+    agree = float((want.argmax(-1).cpu() == torch.from_numpy(tokens)).float()
+                  .mean())
+    log(f"consistency {what} ({n_req} x {n_prompt} + {n_new}): decode vs "
+        f"teacher-forced logits max abs diff {float(diff.max()):.4e} = "
+        f"{rel:.4e} of max |logit| {float(want.abs().max()):.4f} (tol "
+        f"{CONSISTENCY_TOL[what]}), mean {mean_rel:.4e} of mean |logit|; "
+        f"forward's argmax equals the generated token at {100 * agree:.2f} % "
+        "of positions")
+    if not rel <= CONSISTENCY_TOL[what]:
+        fail(f"decode-step logits ({what}) disagree with forward")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timings of the attention kernels
+
+
+def time_attention(torch, ops, shapes, counts, worst) -> list:
+    """K5 and K6 at the serve path's most frequent shape in bf16: card
+    time, plain version, SDPA, bound; -> their ``kernels`` rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    bf16 = torch.bfloat16
+    rows = []
+    for name in ops.SERVE_KERNELS:
+        shape = shapes[name].most_common(1)[0][0]
+        if name == "flash_attention":
+            b, h, g, sq, sk, d = shape
+            q, k, v = _attention_inputs(torch, gen, bf16, (b, h, sq, d),
+                                        (b, g, sk, d), (b, g, sk, d))
+            length = None
+            kern = lambda _: flash_attention(q, k, v, causal=True)
+            plain = lambda _: ref.flash_attention_ref(q, k, v, causal=True)
+            lib = lambda _: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+        else:
+            b, h, g, s, d = shape
+            q, k, v = _attention_inputs(torch, gen, bf16, (b, h, d),
+                                        (b, g, s, d), (b, g, s, d))
+            # the middle of the decode: every sequence holds the prompt and
+            # half of the new tokens
+            length = (s + shapes["flash_attention"].most_common(1)[0][0][3]) // 2
+            lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+            k_l, v_l = k[:, :, :length].contiguous(), v[:, :, :length].contiguous()
+            kern = lambda _: decode_attention(q, k, v, length=lens)
+            plain = lambda _: ref.decode_attention_ref(q, k, v, length=lens)
+            lib = lambda _: F.scaled_dot_product_attention(
+                q[:, :, None], k_l, v_l, enable_gqa=True)[:, :, 0]
+            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            length=lens)
+        got = kern(None)
+        torch.cuda.synchronize()
+        err = _attention_err(torch, got, want, ATTN_TOL["bfloat16"],
+                             f"{name} at the serve shape {shape}")
+        lib_err = float((lib(None).float() - want).abs().max())
+        before = ops.launch_counts()[name]
+        timed = {}
+        for key, fn in (("", kern), ("plain_", plain), ("library_", lib)):
+            c_ms = call_ms(torch, fn, None)
+            timed[key + "call_ms"] = c_ms
+            timed[key + "ms"] = device_ms(torch, fn, None, c_ms)
+        assert ops.launch_counts()[name] > before  # the timing ran the kernel
+        b_ms, b_by, nbytes = attention_bound(name, shape, 2, length)
+        source, replaces = KERNEL_INFO[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": err, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": timed["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "shape": list(shape), "dtype": "bfloat16", "length": length,
+            "bytes": nbytes, "call_ms": timed["call_ms"],
+            "plain_call_ms": timed["plain_call_ms"],
+            "library_call_ms": timed["library_call_ms"],
+            "library_max_abs_err": lib_err,
+            "max_abs_err_fp32_checks": worst[(name, "float32")],
+            "max_abs_err_bf16_checks": worst[(name, "bfloat16")],
+        })
+        log(f"{name} at {shape} bf16{'' if length is None else f' length {length}'}: "
+            f"card {timed['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
+            f"plain {timed['plain_ms']:.5f} ms, SDPA {timed['library_ms']:.5f} "
+            f"ms); per call with host overhead {timed['call_ms']:.5f} ms "
+            f"(plain {timed['plain_call_ms']:.5f}, SDPA "
+            f"{timed['library_call_ms']:.5f} ms); max abs err {err:.3e} "
+            f"(SDPA {lib_err:.3e}) against the fp32 plain version")
+        del q, k, v, want
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +764,15 @@ def main() -> int:
                     help="entries per producer")
     ap.add_argument("--producers", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=16,
+                    help="prompts served in one batch")
+    ap.add_argument("--prompt-len", type=int, default=1000)
+    ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also trace one read-back and one single-producer "
-                         "write with torch.profiler; chrome traces go to DIR")
+                    help="also trace one read-back, one single-producer "
+                         "write, and the served batch's prefill and 8 "
+                         "decode steps with torch.profiler; chrome traces "
+                         "go to DIR")
     args = ap.parse_args()
 
     import numpy as np
@@ -427,10 +790,14 @@ def main() -> int:
             PAPER_WRITE_OPTIONS, SYNTH_EVENT_SCHEMA,
         )
         from repro_torch.kernels import _build, ops
+        from repro_torch.launch import serve
     except ImportError as e:
         print(f"FAIL: the repository's src/repro_torch is missing: {e}",
               file=sys.stderr)
         return 2
+    # full-precision fp32 products in the fp32 checks (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -450,8 +817,10 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions ----------------------
     check_kernels(torch, kernels, ragged_shapes())
+    flash_cases, decode_cases = attention_cases()
+    worst = check_attention(torch, flash_cases, decode_cases)
 
-    # -- phase 3: the main path ---------------------------------------------
+    # -- phase 3: the write -> read path ------------------------------------
     data = make_data(np, args.seed, args.producers, args.entries)
     raw_bytes = sum(len(ids) * 16 + len(vals) * 4
                     for ids, _s, vals, _e in data)
@@ -462,7 +831,7 @@ def main() -> int:
                                  PAPER_WRITE_OPTIONS, path, data)
     r_s, rstats, n_clusters = check_read_back(np, torch, core, path, data,
                                               args.entries)
-    # the main path's own launches: taken before any check launches more
+    # the path's own launches: taken before any check launches more
     counts = ops.launch_counts()
     shapes = ops.launch_shapes()
     check_host_decode(np, torch, core, path)
@@ -476,10 +845,10 @@ def main() -> int:
         r2 = r.stats
     r2_s = time.perf_counter() - t0
     file_mb = os.path.getsize(path) / 1e6
-    log(f"main path: {args.producers} producers x {args.entries} entries, "
-        f"{raw_bytes / 1e6:.3f} MB uncompressed, {file_mb:.3f} MB file, "
-        f"{n_clusters} clusters; read back equal to the generated data "
-        "and, on the first and last cluster, to the host decode")
+    log(f"write -> read path: {args.producers} producers x {args.entries} "
+        f"entries, {raw_bytes / 1e6:.3f} MB uncompressed, {file_mb:.3f} MB "
+        f"file, {n_clusters} clusters; read back equal to the generated "
+        "data and, on the first and last cluster, to the host decode")
     log(f"write: {w_s:.4f} s = {raw_bytes / 1e6 / w_s:.3f} MB/s; "
         f"read (device read-back + checks): {r_s:.4f} s = "
         f"{raw_bytes / 1e6 / r_s:.3f} MB/s")
@@ -495,13 +864,14 @@ def main() -> int:
     log("second read-back phases (ms): " + json.dumps(
         {k: round(r2.as_dict()[k], 3) for k in (
             "io_ms", "decompress_ms", "h2d_ms", "decode_ms", "wait_ms")}))
-    log(f"launches on the main path: {json.dumps(counts)}")
-    for name in ops.KERNELS:
+    log("launches on the write -> read path: " + json.dumps(
+        {k: counts[k] for k in ops.WRITE_READ_KERNELS}))
+    for name in ops.WRITE_READ_KERNELS:
         log(f"  {name} shapes: "
             + ", ".join(f"{tuple(s)} x{c}" for s, c in shapes[name].most_common()))
-    missing = [k for k in ops.KERNELS if counts[k] <= 0]
+    missing = [k for k in ops.WRITE_READ_KERNELS if counts[k] <= 0]
     if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+        fail(f"kernels not launched on the write -> read path: {missing}")
 
     p_card = os.path.join(tmp, "single_card.rntj")
     p_numpy = os.path.join(tmp, "single_numpy.rntj")
@@ -517,21 +887,40 @@ def main() -> int:
         f"numpy {s_numpy:.4f} s ({one_mb / s_numpy:.3f} MB/s); files "
         "byte-identical")
     if args.profile:
-        profile(torch, core, SYNTH_EVENT_SCHEMA, PAPER_WRITE_OPTIONS, path,
-                data[0], args.profile)
+        profile_write_read(torch, core, SYNTH_EVENT_SCHEMA,
+                           PAPER_WRITE_OPTIONS, path, data[0], args.profile)
     for f in (path, p_card, p_numpy):
         os.remove(f)
-    os.rmdir(tmp)
 
-    # -- phase 4: time every kernel at the main path's shapes ---------------
+    # -- phase 4: the serve path --------------------------------------------
+    res, s_counts, s_shapes = serve_path(np, core, serve, ops, args, tmp)
+    os.rmdir(tmp)
+    check_consistency(torch, res, args.requests, args.prompt_len,
+                      args.max_new)
+    res.logits = None
+    from repro_torch.models import build
+
+    n_req32 = min(2, args.requests)
+    check_consistency(torch, res, n_req32, args.prompt_len, 8,
+                      bundle=build(res.cfg.with_(compute_dtype="float32")),
+                      what="float32")
+    if args.profile:
+        profile_serve(torch, res, args.profile)
+    del res
+    torch.cuda.empty_cache()
+
+    # -- phase 5: time every kernel at its path's shapes ---------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     fns = kernel_fns(kernels)
-    # every distinct shape the main path gave a kernel is checked too
+    # every distinct shape a path gave a kernel is checked too
     check_kernels(torch, kernels,
-                  {k: list(shapes[k]) for k in ops.KERNELS})
+                  {k: list(shapes[k]) for k in ops.WRITE_READ_KERNELS})
+    served = [x + (True, None) for x in s_shapes["flash_attention"]]
+    check_attention(torch, served, [
+        x + (None,) for x in s_shapes["decode_attention"]])
     rows = []
-    for name in ops.KERNELS:
+    for name in ops.WRITE_READ_KERNELS:
         shape = shapes[name].most_common(1)[0][0]
         kern, plain, lib = fns[name]
         x = kernel_input(torch, name, shape, gen)
@@ -584,6 +973,7 @@ def main() -> int:
                 r["host_entry_ms"] = med
         log(f"{name} host entry (H2D + kernel + D2H) at {shape}: "
             f"{med:.5f} ms median of 20")
+    rows += time_attention(torch, ops, s_shapes, s_counts, worst)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 A twin of the ``repro`` package, module for module: ``repro_torch.core``
 holds the writer and reader (their host algorithms copied unchanged),
-``repro_torch.kernels`` the CUDA kernels of the write -> read path for
-NVIDIA Hopper with their plain PyTorch versions, and
-``repro_torch.configs`` the paper's configuration.  Writers and readers
-take ``device=`` (default ``"cuda"``); the CPU runs only when asked for.
+``repro_torch.kernels`` the CUDA kernels for NVIDIA Hopper with their
+plain PyTorch versions, ``repro_torch.models`` the dense-family models,
+``repro_torch.launch.serve`` the serving launcher, and
+``repro_torch.configs`` the paper's writer configuration and the ten
+architectures.  Writers, readers, models and the launcher take
+``device=`` (default ``"cuda"``); the CPU runs only when asked for.
 """
 
 __version__ = "0.1.0"

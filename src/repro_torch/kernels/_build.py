@@ -30,7 +30,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
 
 #: library -> {C function: argtypes}; every launcher returns the
 #: ``cudaGetLastError()`` code of its launches (0 = success)
@@ -47,6 +48,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # (in, out, n_pages, per, nb, stream)
         "repro_byteshuffle_pages": [_P, _P, _I64, _I64, _INT, _P],
         "repro_unsplit_pages": [_P, _P, _I64, _I64, _INT, _P],
+    },
+    "attention": {
+        # (q, k, v, o, B, H, G, Sq, Sk, D, dtype, causal, window, scale,
+        #  stream)
+        "repro_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                  _I64, _INT, _INT, _INT, _INT, _F32, _P],
+        # (q, k, v, length, o, part_m, part_l, part_acc, B, H, G, S, D,
+        #  dtype, chunk, n_chunks, window, scale, stream)
+        "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                   _I64, _I64, _I64, _INT, _INT, _INT, _INT,
+                                   _INT, _F32, _P],
     },
 }
 _ERROR_STRING = "repro_cuda_error_string"  # (code) -> const char*, in every library

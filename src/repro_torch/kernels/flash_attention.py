@@ -1,0 +1,78 @@
+"""K5: flash attention of the serve path's prefill (and of ``forward``).
+
+Replaces the Pallas ``flash_attention``
+(``src/repro/kernels/flash_attention.py``): q ``(B, H, Sq, D)`` attends to
+k/v ``(B, G, Sk, D)`` with GQA grouping ``H // G``, query row ``i`` at
+position ``i + Sk - Sq``, a causal mask and an optional sliding window;
+softmax statistics and the accumulator in fp32, the output in the
+inputs' dtype.  The CUDA kernel lives in ``csrc/attention.cu``; on a CPU
+tensor the wrapper runs the plain version (``ref.flash_attention_ref``),
+on a CUDA tensor it launches the kernel or raises.
+
+Unlike the Pallas kernel, padded kv columns are masked (``k_pos < Sk``)
+whether or not the call is causal, so non-causal calls equal the oracle.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+from .ops import count_launch
+
+#: head dims the CUDA kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)
+#: the kernels' dtype codes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_kernel_args(name: str, q: torch.Tensor, *rest: torch.Tensor,
+                      window: Optional[int]) -> None:
+    """What the CUDA kernels take: one card, one dtype (fp32 or bf16), a
+    built head dim, a window of at least 1 when given."""
+    if any(t.device != q.device or t.dtype != q.dtype for t in rest):
+        raise ValueError(f"{name}: q, k and v must share device and dtype")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, H, Sq, D), k/v (B, G, Sk, D) -> (B, H, Sq, D)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention: q (B,H,Sq,D), k/v (B,G,Sk,D)")
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or g < 1 or h % g:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not group")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    check_kernel_args("flash_attention", q, k, v, window=window)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if sk == 0:
+        return out.zero_()
+    lib = _build.library("attention")
+    guard, stream = _build.launch_args(q)
+    with guard:
+        rc = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, g,
+            sq, sk, d, DTYPE_CODES[q.dtype], int(causal),
+            0 if window is None else int(window), float(scale), stream)
+    _build.check(lib, rc, "flash_attention")
+    count_launch("flash_attention", (b, h, g, sq, sk, d))
+    return out

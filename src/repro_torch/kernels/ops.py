@@ -10,12 +10,16 @@ The twin of ``KernelDispatch`` in the JAX package, with three changes:
 * environment variables live under their own prefix (``REPRO_TORCH_*``),
   so the JAX package's variables never change what the port does.
 
-``REPRO_TORCH_KERNEL_BACKEND`` selects the backend of every kernel:
-``auto`` (the default) runs the kernel's host entry (the CUDA kernel on a
-card, its plain PyTorch version on ``device="cpu"``) when the call's size
-reaches the floor ``REPRO_TORCH_<NAME>_MIN``; ``numpy`` pins the numpy
-reference.
+``REPRO_TORCH_KERNEL_BACKEND`` selects the backend of every write-path
+kernel: ``auto`` (the default) runs the kernel's host entry (the CUDA
+kernel on a card, its plain PyTorch version on ``device="cpu"``) when the
+call's size reaches the floor ``REPRO_TORCH_<NAME>_MIN``; ``numpy`` pins
+the numpy reference.
 The floors are the JAX package's: they are part of its host algorithm.
+The serve path's attention kernels have no dispatch here: their wrappers
+(``flash_attention.flash_attention``, ``decode_attention.decode_attention``)
+follow their inputs' device, and the reference's ``use_pallas`` and
+``impl`` have no counterpart.
 
 Every kernel wrapper counts its launches here (:func:`count_launch`), one
 per launch of its CUDA kernel and nowhere else, with the shape it was
@@ -37,8 +41,11 @@ GLOBAL_BACKEND_ENV = "REPRO_TORCH_KERNEL_BACKEND"
 BACKENDS = ("auto", "numpy")
 
 #: the kernels of the write -> read path, by wrapper name
-KERNELS = ("offsets_scan", "byteshuffle_pages", "unsplit_pages",
-           "decode_offset_pages")
+WRITE_READ_KERNELS = ("offsets_scan", "byteshuffle_pages", "unsplit_pages",
+                      "decode_offset_pages")
+#: the kernels of the serve path: K5 in prefill, K6 in every decode step
+SERVE_KERNELS = ("flash_attention", "decode_attention")
+KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS
 
 _count_lock = threading.Lock()
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)

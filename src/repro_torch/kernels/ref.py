@@ -1,12 +1,16 @@
-"""Plain PyTorch versions of the write -> read path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function computes exactly what its CUDA kernel computes, with
-PyTorch ops on whatever device its input lies on.  The wrappers run them
+Each function computes what its CUDA kernel computes (bit for bit for
+K1-K4; up to the order of the sums, and to the bf16 rounding of the
+products, for the attention kernels K5 and K6), with PyTorch ops on
+whatever device its input lies on.  The wrappers run them
 for tensors on the CPU; ``chip_smoke.py`` holds every kernel against them
 on the card.  They are oracles, not yardsticks of speed.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,3 +56,67 @@ def decode_offset_pages_ref(planes: torch.Tensor) -> torch.Tensor:
     d = unzigzag_ref(low_u32(planes[:, 0], planes[:, 1], planes[:, 2],
                              planes[:, 3]))
     return torch.cumsum(d, dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# attention (the serve path's K5 and K6): twins of the jnp oracles, with
+# the same GQA expansion, masks and fp32 softmax; the products run in the
+# inputs' dtype, as there
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, G, S, D) -> (B, H, S, D) by repeating each kv head H//G times."""
+    g = k.shape[1]
+    if g == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // g, dim=1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None,
+                        scale=None) -> torch.Tensor:
+    """q (B, H, Sq, D), k/v (B, G, Sk, D) -> (B, H, Sq, D).
+
+    Query row ``i`` sits at position ``i + Sk - Sq`` (the ends align, as
+    in prefill); ``causal`` keeps keys at or before it, ``window`` the
+    last ``window`` of those.  A row with no visible key is NaN, as in
+    the reference oracle (the kernel writes 0 there)."""
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kk, vv = _expand_kv(k, h), _expand_kv(v, h)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * scale, kk)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length=None, window=None, scale=None) -> torch.Tensor:
+    """One new token per sequence: q (B, H, D), k/v (B, G, S, D) cache,
+    ``length`` (B,) valid cache lengths (all S when None) -> (B, H, D).
+    ``window`` keeps positions ``>= length - window``."""
+    b, h, d = q.shape
+    s = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kk, vv = _expand_kv(k, h), _expand_kv(v, h)
+    logits = torch.einsum("bhd,bhkd->bhk", q * scale, kk)
+    pos = torch.arange(s, device=q.device)[None, :]
+    valid = torch.ones((b, s), dtype=torch.bool, device=q.device)
+    if length is not None:
+        last = length.to(q.device)[:, None]
+        valid &= pos < last
+    else:
+        last = torch.full((b, 1), s, device=q.device)
+    if window is not None:
+        valid &= pos >= last - window
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    p = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p.to(vv.dtype), vv)

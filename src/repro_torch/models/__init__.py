@@ -1,0 +1,7 @@
+"""Models of the port: the dense family (GQA/MQA, gated MLP) on one
+backbone, twins of ``repro.models`` with the reference's parameter
+trees (``weights`` carries them across)."""
+
+from .registry import ModelBundle, build, make_batch
+
+__all__ = ["ModelBundle", "build", "make_batch"]

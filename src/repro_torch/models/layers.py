@@ -1,0 +1,137 @@
+"""Shared model layers: norms, rope, MLPs, embeddings.
+
+The twin of ``repro.models.layers``.  Params are nested dicts of tensors
+with the reference's names and its ``(in, out)`` matrix layout, applied as
+``x @ w``.  Init functions take a ``torch.Generator`` (``None`` on the
+``meta`` device) and a device; their numbers differ from ``jax.random``'s,
+so parity tests carry the reference's weights over
+(``repro_torch.models.weights``).  The reference's ``shard(...)``
+annotations are no-ops on one card and are dropped.  ``cross_entropy_loss``
+and ``layer_norm`` wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+
+def cdtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def pdtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _normal(gen, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return (_normal(gen, (in_dim, out_dim), device) * scale).to(dtype)
+
+
+def embed_init(gen, vocab: int, d: int, dtype, device) -> torch.Tensor:
+    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+
+
+def ones(n: int, dtype, device) -> torch.Tensor:
+    return torch.ones((n,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm in fp32; ``gamma`` multiplies directly (not ``1 + gamma``)."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(ms + eps)) * gamma.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+
+
+def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, D) with D even; positions: (..., S) int.  Split-half
+    rotation (first half against second half), angles in fp32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (D/2,)
+    angles = positions[..., None].float() * freqs                # (..., S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs (the dense family's gated ones)
+
+
+def mlp_init(gen, cfg: ArchConfig, device) -> Dict:
+    if cfg.mlp not in ("swiglu", "geglu"):
+        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
+    d, f, dt = cfg.d_model, cfg.d_ff, pdtype(cfg)
+    return {
+        "w_gate": dense_init(gen, d, f, dt, device),
+        "w_up": dense_init(gen, d, f, dt, device),
+        "w_down": dense_init(gen, f, d, dt, device),
+    }
+
+
+def mlp_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, T, D).  SwiGLU, or GeGLU with the tanh-approximate gelu."""
+    dt = cdtype(cfg)
+    x = x.to(dt)
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    act = F.silu(g) if cfg.mlp == "swiglu" else F.gelu(g, approximate="tanh")
+    return (act * u) @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / lm head
+
+
+def embedding_init(gen, cfg: ArchConfig, device) -> Dict:
+    dt = pdtype(cfg)
+    p: Dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
+                                   device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
+    p["final_norm"] = ones(cfg.d_model, dt, device)
+    return p
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """tokens: (B, T) int.  The rows are gathered, then cast (the same
+    values as the reference's cast-then-gather, without casting the whole
+    table)."""
+    dt = cdtype(cfg)
+    x = params["embed"][tokens.long()].to(dt)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    return x
+
+
+def lm_logits(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = cdtype(cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.to(dt) @ w.to(dt)

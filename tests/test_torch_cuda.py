@@ -89,4 +89,69 @@ def test_write_and_read_back_on_the_card(card, tmp_path):
         got = [c for _, c in r.iter_clusters_device()]
     np.testing.assert_array_equal(
         np.concatenate([c[2].cpu().numpy() for c in got]), vals)
-    assert all(v > 0 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ops.WRITE_READ_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 against their plain versions.  Tolerances: fp32 within 2e-5
+# (sums in another order); bf16 kernels against the plain version computed
+# in fp32 from the same bf16 inputs, within 1.6e-2 (the output rounds to
+# bf16: 2^-8 relative, and the kernel's fp32 sums differ in order).
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+
+
+def _attn_inputs(card, seed, dtype, *shapes):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+    (1, 4, 4, 64, 64, 32, True, None),
+    (2, 15, 5, 1000, 1000, 64, True, None),   # smollm's prefill heads
+    (1, 8, 1, 100, 100, 256, True, None),     # gemma-2b's MQA
+    (1, 4, 2, 37, 200, 64, True, None),       # Sq < Sk
+    (2, 6, 2, 150, 150, 128, True, 16),       # window
+    (1, 4, 2, 50, 200, 64, False, None),      # non-causal, padded kv tile
+    (1, 6, 3, 20, 90, 256, False, 30),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
+                                     window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _attn_inputs(card, sq + sk + d, dtype, (b, h, sq, d),
+                           (b, g, sk, d), (b, g, sk, d))
+    before = ops.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,g,s,d", [
+    (16, 15, 5, 1064, 64),    # smollm's decode
+    (2, 8, 1, 700, 256),      # gemma-2b's MQA
+    (3, 6, 6, 333, 32),       # MHA
+    (4, 12, 4, 2000, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_the_card(card, b, h, g, s, d, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q, k, v = _attn_inputs(card, s + d, dtype, (b, h, d), (b, g, s, d),
+                           (b, g, s, d))
+    length = torch.linspace(1, s, b, device=card).round().to(torch.int32)
+    tol = ATTN_TOL[dtype]
+    for window in (None, 40):
+        got = decode_attention(q, k, v, length=length, window=window)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        length=length, window=window)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)

@@ -4,9 +4,9 @@
   or anything of the ``repro`` package (an AST scan).
 * ``import repro_torch`` and a write -> read round trip work in a process
   in which neither jax nor ``repro`` can be imported.
-* Without a card, writers and the reader refuse to run unless the caller
-  asked for ``device="cpu"``; the JAX package's backend variables do not
-  change the port's dispatch.
+* Without a card, writers, the reader, the models and the serving
+  launcher refuse to run unless the caller asked for ``device="cpu"``;
+  the JAX package's backend variables do not change the port's dispatch.
 """
 
 import ast
@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,6 +96,26 @@ def test_writers_and_reader_refuse_without_a_card(tmp_path, no_card):
         T.RNTJReader(str(path))
     with T.RNTJReader(str(path), device="cpu") as r:
         assert r.n_entries == 0
+
+
+def test_serving_refuses_without_a_card(tmp_path, no_card):
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build, make_batch
+
+    out = tmp_path / "never.rntj"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--requests", "1", "--out", str(out)])
+    assert not out.exists()
+    bundle = build(smoke_config("smollm-360m"))
+    with pytest.raises(RuntimeError):
+        bundle.init(torch.Generator())
+    with pytest.raises(RuntimeError):
+        bundle.init_cache(1, 8)
+    with pytest.raises(RuntimeError):
+        make_batch(bundle, np.random.default_rng(0), 1, 4)
+    # the meta device builds shapes without a card
+    assert bundle.init(None, "meta")["embedding"]["embed"].is_meta
 
 
 def test_reference_backend_variables_do_not_change_the_port(monkeypatch):
