@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero:
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes;
    K5 (flash attention) and K6 (decode attention) at ragged shapes, GQA,
-   MQA and MHA, head dims 32 to 256, windows, lengths from 1 to the
-   cache, in fp32 (within 2e-5) and in bf16 (against the plain version
-   computed in fp32 from the same bf16 inputs, within 1.6e-2), each as
-   ``|got - want| <= tol * (1 + |want|)``;
+   MQA and MHA, head dims 32 to 256 (80: zamba2's shared attention),
+   windows, lengths from 1 to the cache, in fp32 (within 2e-5) and in
+   bf16 (against the plain version computed in fp32 from the same bf16
+   inputs, within 1.6e-2); K7 (RWKV-6 scan) and K8 (Mamba-2 SSD scan) at
+   T of 1, 31, 32 and 100 and at the serve shapes, K7 with strong decay
+   and with decays of exactly 0 (finite), output and final state, fp32
+   within 1e-4 and bf16 outputs within 1e-2; each as ``|got - want| <=
+   tol * (1 + |want|)``;
 3. the write -> read path: the paper's configuration written by
    ``ParallelWriter`` on the card (``--producers`` threads, ``--entries``
    each, fill batches of 100,000), read back with
@@ -25,24 +29,32 @@ Phases, in order; any failure exits non-zero:
    K1-K4 must be > 0; then one producer's data written once with the
    kernels and once with the numpy backend: the files must be
    byte-identical;
-4. the serve path: ``repro_torch.launch.serve`` with smollm-360m at its
-   full width (``--requests`` prompts of ``--prompt-len`` tokens,
+4. the serve path: ``repro_torch.launch.serve`` with smollm-360m,
+   rwkv6-7b and zamba2-2.7b, one after another, each at its full width
+   and depth (``--requests`` prompts of ``--prompt-len`` tokens,
    ``--max-new`` greedy tokens, bf16 compute, random weights from
-   ``--seed``); K5 must launch once per layer in prefill and K6 once per
-   layer and decode step; the generations file must read back equal to
-   the returned tokens; the decode-step logits are held against the
-   teacher-forced ``forward`` logits at the same positions (bf16, and
-   fp32 on two requests);
+   ``--seed``), each model freed before the next; the launch counts of
+   each run alone must be K5 once per attention block in prefill and K6
+   once per attention block and decode step (smollm: every layer;
+   zamba2: its 9 shared blocks), K7 once per rwkv6 layer and K8 once per
+   Mamba-2 layer in prefill, and 0 for every other serve kernel; the
+   generations file must read back equal to the returned tokens; the
+   decode-step logits are held against teacher-forced ``forward`` logits
+   at the same positions: the served bf16 batch against the fp32 forward
+   on its tokens (no farther from it than 1.5 times the bf16 forward, plus
+   1e-2 of max |logit|), and a fresh fp32 generation of two requests
+   against its own forward (within 1e-3);
 5. each kernel timed at the shape its path gave it most often: on the
    card (CUDA events between 30 launches queued back to back) and per
    call with its host overhead, beside its bound, its plain version and,
    where one exists, the one PyTorch call computing the same function
-   (``scaled_dot_product_attention`` for K5 and K6); the host entries of
+   (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's and
+   at zamba2-2.7b's head shapes; none for K7 and K8); the host entries of
    K1 and K2 with their PCIe copies; one JSON ``kernels`` line;
 6. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
-and the served batch's prefill and 8 of its decode steps with
+and each served batch's prefill and 8 of its decode steps with
 torch.profiler (the card's busy share; chrome traces in DIR).  Needs a
 CUDA card and the repository's ``src/`` beside this file.
 """
@@ -50,6 +62,7 @@ CUDA card and the repository's ``src/`` beside this file.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -82,16 +95,40 @@ KERNEL_INFO = {
                         "src/repro/kernels/flash_attention.py:82"),
     "decode_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/decode_attention.py:71"),
+    "rwkv6_scan": ("src/repro_torch/csrc/ssm.cu",
+                   "src/repro/kernels/rwkv6_scan.py:82"),
+    "mamba2_ssd": ("src/repro_torch/csrc/ssm.cu",
+                   "src/repro/kernels/mamba2_ssd.py:70"),
 }
+
+#: the served models, in the order they run: each at its full width and
+#: depth, the dense family (K5, K6), rwkv6 (K7) and the zamba2 hybrid (K8,
+#: and K5/K6 at head dim 80 in its shared attention blocks)
+SERVE_ARCHS = ("smollm-360m", "rwkv6-7b", "zamba2-2.7b")
 
 #: K5/K6 tolerances against the plain version (see the docstring)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+#: K7/K8 tolerances against the plain version, as |got - want| <= tol (1 +
+#: |want|): fp32 results (the outputs of fp32 inputs, and every final
+#: state) within 1e-4, the same step-by-step recurrence with fused
+#: multiply-adds and the sums over the state rows in another order,
+#: compounding over up to 1,000 steps; bf16 outputs against the plain
+#: version computed in fp32 from the same bf16 inputs within 1e-2 (the
+#: output rounds to bf16: 2^-9 relative)
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 #: the serve path's decode-step logits against teacher-forced ``forward``
-#: logits at the same positions, as a share of the largest |logit|: in
-#: bf16 the two paths round different products (GEMMs of 16 rows against
-#: 16,000, K6 against K5) to 8 mantissa bits in each of 32 layers; in fp32
-#: only the order of the sums differs
-CONSISTENCY_TOL = {"bfloat16": 8e-2, "float32": 1e-3}
+#: logits at the same positions, as a share of the largest |logit|.  In
+#: fp32 only the order of the sums differs: within 1e-3.  In bf16 the two
+#: paths round to 8 mantissa bits at different places (GEMMs of 16 rows
+#: against 16,000, K6 against K5, the one-token recurrences against K7 and
+#: K8), and random weights amplify a perturbation through the layers (in
+#: fp32, sum-order noise of ~1e-7 reaches 6e-6 of max |logit| after
+#: rwkv6-7b's 32 layers): a fixed bound would measure that amplification.
+#: So bf16 decode logits are held against the fp32 forward on the same
+#: tokens: no farther from it than 1.5 times the bf16 forward's own
+#: distance from it, plus 1e-2.
+CONSISTENCY_TOL = {"float32": 1e-3}
+BF16_SPREAD, BF16_SLACK = 1.5, 1e-2
 
 
 def fail(msg: str) -> "NoReturn":
@@ -290,7 +327,9 @@ def attention_cases():
     """K5 cases (b, h, g, sq, sk, d, causal, window) and K6 cases
     (b, h, g, s, d, window): no tile multiples, Sq < Sk, GQA 3:1, MQA and
     MHA, windows, non-causal calls with a padded kv tile, smollm-360m's
-    (D=64, 15 over 5 heads) and gemma-2b's (D=256, 8 over 1) head shapes."""
+    (D=64, 15 over 5 heads), gemma-2b's (D=256, 8 over 1) and zamba2-2.7b's
+    shared attention's (D=80, 32 over 32: a lane's last output dim is
+    guarded) head shapes."""
     flash = [
         (1, 15, 5, 1000, 1000, 64, True, None),    # smollm-360m prefill
         (2, 8, 1, 1000, 1000, 256, True, None),    # gemma-2b prefill
@@ -302,6 +341,8 @@ def attention_cases():
         (1, 8, 1, 33, 97, 256, False, 40),         # non-causal window
         (2, 4, 4, 1, 90, 32, True, None),          # one query row
         (1, 4, 2, 300, 300, 128, True, None),
+        (1, 32, 32, 1000, 1000, 80, True, None),   # zamba2-2.7b shared attn
+        (2, 6, 6, 77, 130, 80, False, 20),         # D=80, non-causal window
     ]
     decode = [
         (16, 15, 5, 1064, 64, None),               # smollm-360m decode
@@ -311,6 +352,8 @@ def attention_cases():
         (3, 8, 8, 300, 256, 64),
         (5, 6, 2, 2049, 128, None),
         (1, 4, 2, 1, 32, None),                    # a one-row cache
+        (16, 32, 32, 1064, 80, None),              # zamba2-2.7b shared attn
+        (3, 4, 4, 300, 80, 64),
     ]
     return flash, decode
 
@@ -373,6 +416,120 @@ def check_attention(torch, flash_cases, decode_cases) -> dict:
         log(f"kernel {name} {dname}: within {ATTN_TOL[dname]} of its plain "
             f"version at {len(flash_cases if name == 'flash_attention' else decode_cases)} "
             f"shapes (max abs err {err:.3e})")
+    return worst
+
+
+#: K7's decay w = exp(-exp(x)), x uniform in these ranges: the reference's
+#: test range, strong decay, and underflow to exact zeros ("zero" also
+#: sets every 7th step to 0)
+DECAYS = {"reference": (-4.0, 1.0), "strong": (2.0, 4.0), "zero": (2.0, 6.0)}
+
+
+def scan_cases():
+    """K7 cases (b, h, t, dk, dv, decay) and K8 cases (b, h, t, p, n): T of
+    1, 31, 32, 33 and 100 (one step; whole and ragged 16-step stages),
+    every built state width, Dv and P of 40
+    and 96 (no multiple of 32), and the serve shapes of rwkv6-7b and zamba2-2.7b."""
+    rwkv6 = [
+        (2, 3, 1, 16, 16, "reference"),
+        (2, 3, 31, 32, 32, "strong"),
+        (1, 4, 32, 64, 64, "zero"),
+        (2, 4, 100, 64, 64, "reference"),
+        (1, 2, 100, 128, 96, "strong"),
+        (1, 2, 33, 16, 40, "zero"),
+        (16, 64, 1000, 64, 64, "reference"),        # rwkv6-7b prefill
+        (16, 64, 1000, 64, 64, "zero"),
+    ]
+    mamba2 = [
+        (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
+        (2, 4, 100, 64, 64), (1, 2, 100, 96, 128), (1, 2, 33, 40, 16),
+        (16, 80, 1000, 64, 64),                     # zamba2-2.7b prefill
+    ]
+    return rwkv6, mamba2
+
+
+def rwkv6_inputs(torch, gen, shape, decay: str, dtype):
+    """r, k, v, w, u on the card; w from ``DECAYS[decay]``."""
+    b, h, t, dk, dv = shape
+    r, k = (torch.randn((b, h, t, dk), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=gen, device="cuda")
+    u = torch.randn((h, dk), generator=gen, device="cuda")
+    lo, hi = DECAYS[decay]
+    w = torch.exp(-torch.exp(lo + (hi - lo) * torch.rand(
+        (b, h, t, dk), generator=gen, device="cuda")))
+    if decay == "zero":
+        w[..., ::7, :] = 0.0
+    return [a.to(dtype) for a in (r, k, v, w, u)]
+
+
+def mamba2_inputs(torch, gen, shape, dtype):
+    """x (in ``dtype``), log_a = -exp(uniform(-3, 0.5)), B, C on the card."""
+    b, h, t, p, n = shape
+    x = torch.randn((b, h, t, p), generator=gen, device="cuda").to(dtype)
+    log_a = -torch.exp(-3 + 3.5 * torch.rand((b, h, t), generator=gen,
+                                             device="cuda"))
+    Bm, Cm = (torch.randn((b, t, n), generator=gen, device="cuda")
+              for _ in range(2))
+    return [x, log_a, Bm, Cm]
+
+
+def _scan_err(torch, got, want, what: str) -> float:
+    """Max abs error; fails unless finite and |got - want| <= tol (1 +
+    |want|), tol by ``got``'s dtype (``SCAN_TOL``)."""
+    tol = SCAN_TOL["bfloat16" if got.dtype == torch.bfloat16 else "float32"]
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what} is not finite")
+    diff = (got - want).abs()
+    if not bool((diff <= tol * (1 + want.abs())).all()):
+        fail(f"{what} differs from its plain version (max abs err "
+             f"{float(diff.max()):.3e}, tol {tol})")
+    return float(diff.max())
+
+
+def check_scans(torch, rwkv6_cases, mamba2_cases) -> dict:
+    """K7 and K8 against their plain versions with fp32 and bf16 inputs
+    (output and final state); returns the worst error per (kernel,
+    dtype)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    worst = {}
+    for dname in SCAN_TOL:
+        dtype = getattr(torch, dname)
+        for case in rwkv6_cases:
+            shape, decay = case[:5], case[5]
+            ins = rwkv6_inputs(torch, gen, shape, decay, dtype)
+            out, state = rwkv6_scan(*ins)
+            torch.cuda.synchronize()
+            want, want_s = ref.rwkv6_ref(*(a.float() for a in ins))
+            what = f"rwkv6_scan {dname} at {tuple(shape)} decay {decay}"
+            err = max(_scan_err(torch, out, want, what),
+                      _scan_err(torch, state, want_s, what + " (state)"))
+            key = ("rwkv6_scan", dname)
+            worst[key] = max(worst.get(key, 0.0), err)
+            del ins, out, state, want, want_s
+        for shape in mamba2_cases:
+            ins = mamba2_inputs(torch, gen, shape, dtype)
+            y, state = mamba2_ssd(*ins)
+            torch.cuda.synchronize()
+            want, want_s = ref.mamba2_ref(ins[0].float(), *ins[1:])
+            what = f"mamba2_ssd {dname} at {tuple(shape)}"
+            err = max(_scan_err(torch, y, want, what),
+                      _scan_err(torch, state, want_s, what + " (state)"))
+            key = ("mamba2_ssd", dname)
+            worst[key] = max(worst.get(key, 0.0), err)
+            del ins, y, state, want, want_s
+    for (name, dname), err in sorted(worst.items()):
+        n = len(rwkv6_cases if name == "rwkv6_scan" else mamba2_cases)
+        log(f"kernel {name} {dname} inputs: finite and within "
+            f"{SCAN_TOL[dname]} (outputs; states within "
+            f"{SCAN_TOL['float32']}) of its plain version at {n} shapes "
+            f"(max abs err {err:.3e})")
     return worst
 
 
@@ -559,11 +716,29 @@ def profile_write_read(torch, core, schema, opts, path, item, out_dir) -> None:
 # phase 4: the serve path
 
 
-def serve_path(np, core, serve, ops, args, tmp):
-    """Serve smollm-360m at full width through the launcher; -> (result,
-    launch counts, launch shapes) of that run alone."""
+def expected_launches(cfg, kernels, n_new: int) -> dict:
+    """Launches of each serve kernel in one served batch (prefill, then
+    ``n_new - 1`` decode steps): K5 once per attention block in prefill
+    and K6 once per attention block and step (every layer of a dense
+    model, zamba2's shared blocks); K7 once per rwkv6 layer and K8 once
+    per Mamba-2 layer in prefill (their decode steps are plain PyTorch)."""
+    want = dict.fromkeys(kernels, 0)
+    attn = cfg.n_layers
+    if cfg.family == "ssm":
+        want["rwkv6_scan"], attn = cfg.n_layers, 0
+    elif cfg.family == "hybrid":
+        want["mamba2_ssd"] = cfg.n_layers
+        attn = cfg.n_layers // cfg.shared_attn_every
+    want["flash_attention"] = attn
+    want["decode_attention"] = attn * (n_new - 1)
+    return want
+
+
+def serve_path(np, core, serve, ops, args, tmp, arch: str):
+    """Serve ``arch`` at full width and depth through the launcher; ->
+    (result, launch counts, launch shapes) of that run alone."""
     out = os.path.join(tmp, "generations.rntj")
-    argv = ["--arch", "smollm-360m", "--seed", str(args.seed), "--out", out]
+    argv = ["--arch", arch, "--seed", str(args.seed), "--out", out]
     # a warm-up at a tiny size: the CUDA context's lazy module loads and
     # cuBLAS's set-up stay out of the timed run
     serve.main(argv + ["--requests", "1", "--prompt-len", "16",
@@ -576,22 +751,26 @@ def serve_path(np, core, serve, ops, args, tmp):
     wall = time.perf_counter() - t0
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
     cfg, b, s, n_new = res.cfg, args.requests, args.prompt_len, args.max_new
+    ssm = ""
+    if cfg.ssm:  # rwkv6's state is head_dim x head_dim, mamba2's N x P
+        n = cfg.ssm.d_state if cfg.ssm.kind == "mamba2" else cfg.ssm.head_dim
+        ssm = f"; {cfg.ssm.kind} state {n} x {cfg.ssm.head_dim}"
     log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
-        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
-        f"{cfg.compute_dtype} compute; {b} requests x {s} prompt tokens, "
-        f"{n_new} new tokens; wall {wall:.3f} s (parameter init included)")
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (n_new - 1)}
-    log(f"launches on the serve path: {json.dumps(counts)} (K5 expected "
-        f"{want['flash_attention']} in prefill, K6 "
-        f"{want['decode_attention']} in decode)")
+        f"{cfg.resolved_head_dim}{ssm}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count():,} parameters, {cfg.compute_dtype} compute; "
+        f"{b} requests x {s} prompt tokens, {n_new} new tokens; wall "
+        f"{wall:.3f} s (parameter init included)")
+    want = expected_launches(cfg, ops.SERVE_KERNELS, n_new)
+    log(f"launches on the {cfg.name} serve path: {json.dumps(counts)} "
+        f"(expected {json.dumps(want)})")
     for name in ops.SERVE_KERNELS:
-        log(f"  {name} shapes: " + ", ".join(
-            f"{tuple(x)} x{c}" for x, c in shapes[name].most_common()))
+        if shapes[name]:
+            log(f"  {name} shapes: " + ", ".join(
+                f"{tuple(x)} x{c}" for x, c in shapes[name].most_common()))
         if counts[name] != want[name]:
-            fail(f"{name} launched {counts[name]} times on the serve path, "
-                 f"expected {want[name]}")
+            fail(f"{name} launched {counts[name]} times on the {cfg.name} "
+                 f"serve path, expected {want[name]}")
     if res.tokens.shape != (b, n_new):
         fail(f"generated {res.tokens.shape}, expected {(b, n_new)}")
     with core.RNTJReader(out, device="cuda") as r:
@@ -603,7 +782,7 @@ def serve_path(np, core, serve, ops, args, tmp):
         fail("the generations file does not read back equal to the tokens")
     os.remove(out)
     tm = res.timings
-    log(f"serve timings: prefill {tm['prefill_s'] * 1e3:.3f} ms "
+    log(f"serve {cfg.name} timings: prefill {tm['prefill_s'] * 1e3:.3f} ms "
         f"({b * s / tm['prefill_s']:.1f} prompt tokens/s); decode "
         f"{tm['decode_s'] * 1e3:.3f} ms for {n_new - 1} steps = "
         f"{tm['decode_s'] * 1e3 / (n_new - 1):.3f} ms per token step "
@@ -633,42 +812,76 @@ def profile_serve(torch, res, out_dir, steps: int = 8) -> None:
             logits, cache = bundle.decode_step(params, tok, cache, pos)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
 
-    trace_card(torch, "serve_prefill", prefill, out_dir)
-    trace_card(torch, f"serve_decode_{steps}_steps", decode, out_dir)
+    name = res.cfg.name
+    trace_card(torch, f"serve_{name}_prefill", prefill, out_dir)
+    trace_card(torch, f"serve_{name}_decode_{steps}_steps", decode, out_dir)
 
 
-def check_consistency(torch, res, n_req: int, n_prompt: int, n_new: int,
-                      bundle=None, what: str = "bfloat16") -> None:
-    """Decode-step logits (K6 on the cache) against the teacher-forced
-    ``forward`` logits (K5 over prompt + generated tokens) at the same
-    positions.  With ``bundle`` (another compute dtype on the same
-    parameters) a fresh generation runs first."""
-    from repro_torch.launch.serve import generate
+def _teacher_forced(bundle, params, prompts, tokens):
+    """``bundle.forward`` logits (fp32) at the positions that chose each
+    generated token: prompt + all but the last token."""
+    import torch
 
-    prompts = res.prompts[:n_req, :n_prompt]
-    if bundle is None:
-        bundle, tokens, dec = res.bundle, res.tokens, res.logits
-    else:
-        tokens, dec = generate(bundle, res.params, prompts, n_new,
-                               keep_logits=True)
+    n_prompt = prompts.shape[1]
     full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).to(
         prompts.device)], dim=1)
-    logits, _ = bundle.forward(res.params, full)
-    want = logits[:, n_prompt - 1:].float()
-    dec = dec.float()
-    diff = (dec - want).abs()
+    logits, _ = bundle.forward(params, full)
+    return logits[:, n_prompt - 1:].float().clone()
+
+
+def _agree(torch, logits, tokens) -> float:
+    return float((logits.argmax(-1).cpu() == torch.from_numpy(tokens))
+                 .float().mean())
+
+
+def check_consistency(torch, res, bundle32, n_req32: int,
+                      n_new32: int) -> None:
+    """Decode-step logits (K6 on the cache, the one-token recurrences)
+    against teacher-forced ``forward`` logits (K5, K7, K8 over prompt +
+    generated tokens) at the same positions: the served bf16 batch against
+    the fp32 forward on its tokens (see ``CONSISTENCY_TOL``), then a fresh
+    fp32 generation of ``n_req32`` requests x ``n_new32`` tokens against
+    its own fp32 forward."""
+    from repro_torch.launch.serve import generate
+
+    name, (b, s) = res.cfg.name, res.prompts.shape
+    dec = res.logits.float()
+    fwd16 = _teacher_forced(res.bundle, res.params, res.prompts, res.tokens)
+    fwd32 = _teacher_forced(bundle32, res.params, res.prompts, res.tokens)
+    scale = float(fwd32.abs().max())
+    d_dec = float((dec - fwd32).abs().max()) / scale
+    d_fwd = float((fwd16 - fwd32).abs().max()) / scale
+    d_pair = float((dec - fwd16).abs().max()) / scale
+    mean_rel = float((dec - fwd32).abs().mean() / fwd32.abs().mean())
+    tol = BF16_SPREAD * d_fwd + BF16_SLACK
+    log(f"consistency {name} bfloat16 ({b} x {s} + {res.tokens.shape[1]}): "
+        f"decode logits {d_dec:.4e} of max |logit| {scale:.4f} from the fp32 "
+        f"forward's (tol {tol:.4e} = {BF16_SPREAD} x the bf16 forward's "
+        f"{d_fwd:.4e} + {BF16_SLACK}); decode vs bf16 forward {d_pair:.4e}; "
+        f"mean |decode - fp32 forward| {mean_rel:.4e} of mean |logit|; "
+        f"the fp32 forward's argmax equals the generated "
+        f"token at {100 * _agree(torch, fwd32, res.tokens):.2f} % of "
+        f"positions, the bf16 forward's at "
+        f"{100 * _agree(torch, fwd16, res.tokens):.2f} %")
+    if not d_dec <= tol:
+        fail(f"{name}: bf16 decode-step logits disagree with forward")
+    del dec, fwd16, fwd32
+
+    prompts = res.prompts[:n_req32]
+    tokens, dec = generate(bundle32, res.params, prompts, n_new32,
+                           keep_logits=True)
+    want = _teacher_forced(bundle32, res.params, prompts, tokens)
+    diff = (dec.float() - want).abs()
     rel = float(diff.max() / want.abs().max())
-    mean_rel = float(diff.mean() / want.abs().mean())
-    agree = float((want.argmax(-1).cpu() == torch.from_numpy(tokens)).float()
-                  .mean())
-    log(f"consistency {what} ({n_req} x {n_prompt} + {n_new}): decode vs "
-        f"teacher-forced logits max abs diff {float(diff.max()):.4e} = "
+    log(f"consistency {name} float32 ({n_req32} x {s} + {n_new32}): decode "
+        f"vs teacher-forced logits max abs diff {float(diff.max()):.4e} = "
         f"{rel:.4e} of max |logit| {float(want.abs().max()):.4f} (tol "
-        f"{CONSISTENCY_TOL[what]}), mean {mean_rel:.4e} of mean |logit|; "
-        f"forward's argmax equals the generated token at {100 * agree:.2f} % "
-        "of positions")
-    if not rel <= CONSISTENCY_TOL[what]:
-        fail(f"decode-step logits ({what}) disagree with forward")
+        f"{CONSISTENCY_TOL['float32']}), mean "
+        f"{float(diff.mean() / want.abs().mean()):.4e} of mean |logit|; "
+        f"forward's argmax equals the generated token at "
+        f"{100 * _agree(torch, want, tokens):.2f} % of positions")
+    if not rel <= CONSISTENCY_TOL["float32"]:
+        fail(f"{name}: fp32 decode-step logits disagree with forward")
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +901,7 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
     gen.manual_seed(77)
     bf16 = torch.bfloat16
     rows = []
-    for name in ops.SERVE_KERNELS:
+    for name in ("flash_attention", "decode_attention"):
         shape = shapes[name].most_common(1)[0][0]
         if name == "flash_attention":
             b, h, g, sq, sk, d = shape
@@ -752,6 +965,101 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
             f"{timed['library_call_ms']:.5f} ms); max abs err {err:.3e} "
             f"(SDPA {lib_err:.3e}) against the fp32 plain version")
         del q, k, v, want
+    return rows
+
+
+def scan_bound(name: str, shape, itemsize: int):
+    """(bound_ms, bound_by, bytes) of one K7 or K8 launch: inputs read once
+    and outputs written once over the memory rate (r/k/v/w/u and the
+    output in the inputs' type, the final state fp32; K8's log_a, B, C and
+    state fp32); two multiply-adds per state element and step (K7: the
+    output and the update; K8: the update and C H) over the bf16
+    tensor-core rate."""
+    if name == "rwkv6_scan":
+        b, h, t, dk, dv = shape
+        nbytes = (itemsize * (3 * b * h * t * dk + 2 * b * h * t * dv + h * dk)
+                  + 4 * b * h * dk * dv)
+        ops = 4 * b * h * t * dk * dv
+    else:
+        b, h, t, p, n = shape
+        nbytes = (itemsize * 2 * b * h * t * p
+                  + 4 * (b * h * t + 2 * b * t * n + b * h * n * p))
+        ops = 4 * b * h * t * n * p
+    return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+
+
+def events_ms(torch, fn, reps: int = 3) -> float:
+    """Median over ``reps`` of CUDA events around one call: for the plain
+    scans, whose one call is T steps of PyTorch launches (more than can
+    queue behind ``device_ms``'s sleep), so the host's pace is in it."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def time_scans(torch, ops, served, worst) -> list:
+    """K7 and K8 at the shape their serve path gave them, bf16 inputs:
+    card time, plain version, bound; -> their ``kernels`` rows.  No single
+    PyTorch call computes either scan (``library_ms`` null)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(88)
+    bf16 = torch.bfloat16
+    rows = []
+    for name, arch in (("rwkv6_scan", "rwkv6-7b"), ("mamba2_ssd", "zamba2-2.7b")):
+        _cfg, counts, shapes = served[arch]
+        shape = shapes[name].most_common(1)[0][0]
+        if name == "rwkv6_scan":
+            ins = rwkv6_inputs(torch, gen, shape, "reference", bf16)
+            kern = lambda: rwkv6_scan(*ins)
+            plain = lambda: ref.rwkv6_ref(*ins)
+            want = ref.rwkv6_ref(*(a.float() for a in ins))
+        else:
+            ins = mamba2_inputs(torch, gen, shape, bf16)
+            kern = lambda: mamba2_ssd(*ins)
+            plain = lambda: ref.mamba2_ref(*ins)
+            want = ref.mamba2_ref(ins[0].float(), *ins[1:])
+        got = kern()
+        torch.cuda.synchronize()
+        err = _scan_err(torch, got[0], want[0], f"{name} at the serve shape "
+                        f"{shape}")
+        _scan_err(torch, got[1], want[1], f"{name} state at {shape}")
+        del got, want
+        before = ops.launch_counts()[name]
+        c_ms = call_ms(torch, lambda _: kern(), None)
+        ms = device_ms(torch, lambda _: kern(), None, c_ms)
+        assert ops.launch_counts()[name] > before  # the timing ran the kernel
+        plain_ms = events_ms(torch, plain)
+        b_ms, b_by, nbytes = scan_bound(name, shape, 2)
+        source, replaces = KERNEL_INFO[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": None, "path": f"serve {arch} prefill",
+            "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
+            "call_ms": c_ms,
+            "plain_timing": "CUDA events around one call, median of 3",
+            "max_abs_err_fp32_checks": worst[(name, "float32")],
+            "max_abs_err_bf16_checks": worst[(name, "bfloat16")],
+        })
+        log(f"{name} at {shape} bf16: card {ms:.5f} ms (bound {b_ms:.5f} ms "
+            f"by {b_by}, plain {plain_ms:.5f} ms, library none); per call "
+            f"with host overhead {c_ms:.5f} ms; max abs err {err:.3e} "
+            "against the fp32 plain version")
+        del ins
     return rows
 
 
@@ -819,6 +1127,7 @@ def main() -> int:
     check_kernels(torch, kernels, ragged_shapes())
     flash_cases, decode_cases = attention_cases()
     worst = check_attention(torch, flash_cases, decode_cases)
+    worst.update(check_scans(torch, *scan_cases()))
 
     # -- phase 3: the write -> read path ------------------------------------
     data = make_data(np, args.seed, args.producers, args.entries)
@@ -892,22 +1201,25 @@ def main() -> int:
     for f in (path, p_card, p_numpy):
         os.remove(f)
 
-    # -- phase 4: the serve path --------------------------------------------
-    res, s_counts, s_shapes = serve_path(np, core, serve, ops, args, tmp)
-    os.rmdir(tmp)
-    check_consistency(torch, res, args.requests, args.prompt_len,
-                      args.max_new)
-    res.logits = None
+    # -- phase 4: the serve path, one model after another --------------------
     from repro_torch.models import build
 
-    n_req32 = min(2, args.requests)
-    check_consistency(torch, res, n_req32, args.prompt_len, 8,
-                      bundle=build(res.cfg.with_(compute_dtype="float32")),
-                      what="float32")
-    if args.profile:
-        profile_serve(torch, res, args.profile)
-    del res
-    torch.cuda.empty_cache()
+    served = {}
+    for arch in SERVE_ARCHS:
+        res, s_counts, s_shapes = serve_path(np, core, serve, ops, args, tmp,
+                                             arch)
+        check_consistency(torch, res,
+                          build(res.cfg.with_(compute_dtype="float32")),
+                          min(2, args.requests), 8)
+        res.logits = None
+        if args.profile:
+            profile_serve(torch, res, args.profile)
+        served[arch] = (res.cfg, s_counts, s_shapes)
+        # free the model before the next one (rwkv6-7b: 30 GB in fp32)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.rmdir(tmp)
 
     # -- phase 5: time every kernel at its path's shapes ---------------------
     gen = torch.Generator(device="cuda")
@@ -916,9 +1228,14 @@ def main() -> int:
     # every distinct shape a path gave a kernel is checked too
     check_kernels(torch, kernels,
                   {k: list(shapes[k]) for k in ops.WRITE_READ_KERNELS})
-    served = [x + (True, None) for x in s_shapes["flash_attention"]]
-    check_attention(torch, served, [
-        x + (None,) for x in s_shapes["decode_attention"]])
+    for _cfg, _counts, s_shapes in served.values():
+        check_attention(torch, [x + (True, None)
+                                for x in s_shapes["flash_attention"]],
+                        [x + (None,) for x in s_shapes["decode_attention"]])
+    _cfg, r_counts, r_shapes = served["rwkv6-7b"]
+    _cfg, z_counts, z_shapes = served["zamba2-2.7b"]
+    check_scans(torch, [x + ("reference",) for x in r_shapes["rwkv6_scan"]],
+                list(z_shapes["mamba2_ssd"]))
     rows = []
     for name in ops.WRITE_READ_KERNELS:
         shape = shapes[name].most_common(1)[0][0]
@@ -973,7 +1290,22 @@ def main() -> int:
                 r["host_entry_ms"] = med
         log(f"{name} host entry (H2D + kernel + D2H) at {shape}: "
             f"{med:.5f} ms median of 20")
-    rows += time_attention(torch, ops, s_shapes, s_counts, worst)
+    # K5/K6 at smollm-360m's shapes (the rows), and at zamba2-2.7b's
+    # head dim 80 (nested); launches summed over the serve paths
+    _cfg, d_counts, d_shapes = served["smollm-360m"]
+    attn_rows = time_attention(torch, ops, d_shapes, d_counts, worst)
+    at_z = time_attention(torch, ops, z_shapes, z_counts, worst)
+    for row, rz in zip(attn_rows, at_z):
+        name = row["name"]
+        row["path"] = "serve smollm-360m"
+        row["launches_by_path"] = {a: c[name] for a, (_g, c, _s) in
+                                   served.items() if c[name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["at_zamba2-2.7b"] = {k: rz[k] for k in (
+            "launches", "shape", "length", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err", "bytes", "call_ms")}
+    rows += attn_rows
+    rows += time_scans(torch, ops, served, worst)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

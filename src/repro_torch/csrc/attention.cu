@@ -26,7 +26,8 @@
 // window) exit at once.  Bound on the card: bytes (the cache read once).
 //
 // Both take fp32 or bf16 inputs (dtype 0 / 1) with the output in the
-// input's type, and head dims 32, 64, 128 and 256.  Every launcher returns
+// input's type, and head dims 32, 64, 80 (zamba2's shared attention: a
+// lane's last output dim is guarded, D % 32 != 0), 128 and 256.  Every launcher returns
 // cudaGetLastError() (0 = success).
 
 #include <cuda_bf16.h>
@@ -88,7 +89,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int sk, int causal, int window, float scale) {
   constexpr int BK = fa_bk<D>();
   constexpr int NC = BK / 32;  // score columns per lane
-  constexpr int ND = D / 32;   // output dims per lane
+  constexpr int ND = (D + 31) / 32;  // output dims per lane (the last guarded)
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + FA_BQ * D;
@@ -187,7 +188,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const float* vrow = Vs + (j * 32 + cc) * D + lane;
         float vv[ND];
 #pragma unroll
-        for (int e = 0; e < ND; ++e) vv[e] = vrow[32 * e];
+        for (int e = 0; e < ND; ++e)
+          vv[e] = (D % 32 == 0 || lane + 32 * e < D) ? vrow[32 * e] : 0.f;
 #pragma unroll
         for (int r = 0; r < FA_ROWS; ++r) {
           const float p = __shfl_sync(FULL, s[r][j], cc);
@@ -205,7 +207,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key -> 0
 #pragma unroll
       for (int e = 0; e < ND; ++e)
-        ob[(size_t)row * D + lane + 32 * e] = from_f<T>(acc[r][e] * inv);
+        if (D % 32 == 0 || lane + 32 * e < D)
+          ob[(size_t)row * D + lane + 32 * e] = from_f<T>(acc[r][e] * inv);
     }
   }
 }
@@ -234,6 +237,7 @@ int flash_by_dim(int D, const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 32: return launch_flash<T, 32>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, stream);
     case 64: return launch_flash<T, 64>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, stream);
+    case 80: return launch_flash<T, 80>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, stream);
     case 128: return launch_flash<T, 128>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, stream);
     case 256: return launch_flash<T, 256>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
@@ -429,6 +433,7 @@ int decode_by_dim(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch_decode<T, 32>(q, k, v, length, o, pm, pl, pacc, B, H, G, S, chunk, nch, window, scale, stream);
     case 64: return launch_decode<T, 64>(q, k, v, length, o, pm, pl, pacc, B, H, G, S, chunk, nch, window, scale, stream);
+    case 80: return launch_decode<T, 80>(q, k, v, length, o, pm, pl, pacc, B, H, G, S, chunk, nch, window, scale, stream);
     case 128: return launch_decode<T, 128>(q, k, v, length, o, pm, pl, pacc, B, H, G, S, chunk, nch, window, scale, stream);
     case 256: return launch_decode<T, 256>(q, k, v, length, o, pm, pl, pacc, B, H, G, S, chunk, nch, window, scale, stream);
     default: return cudaErrorInvalidValue;

@@ -60,6 +60,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                    _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                                    _INT, _F32, _P],
     },
+    "ssm": {
+        # (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream)
+        "repro_rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _INT, _INT, _INT, _P],
+        # (x, log_a, Bm, Cm, y, state, B, H, T, N, P, dtype, stream)
+        "repro_mamba2_ssd": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                             _INT, _INT, _P],
+    },
 }
 _ERROR_STRING = "repro_cuda_error_string"  # (code) -> const char*, in every library
 

@@ -26,7 +26,7 @@ from .flash_attention import DTYPE_CODES, check_kernel_args
 from .ops import count_launch
 
 #: cache rows a block stages per tile (as in the kernel)
-TILE_ROWS = {32: 64, 64: 64, 128: 64, 256: 32}
+TILE_ROWS = {32: 64, 64: 64, 80: 64, 128: 64, 256: 32}
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,8 +23,8 @@ import torch
 from . import _build, ref
 from .ops import count_launch
 
-#: head dims the CUDA kernels are built for
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the CUDA kernels are built for (80: zamba2's shared attention)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 #: the kernels' dtype codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

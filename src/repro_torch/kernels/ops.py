@@ -16,10 +16,11 @@ kernel on a card, its plain PyTorch version on ``device="cpu"``) when the
 call's size reaches the floor ``REPRO_TORCH_<NAME>_MIN``; ``numpy`` pins
 the numpy reference.
 The floors are the JAX package's: they are part of its host algorithm.
-The serve path's attention kernels have no dispatch here: their wrappers
-(``flash_attention.flash_attention``, ``decode_attention.decode_attention``)
-follow their inputs' device, and the reference's ``use_pallas`` and
-``impl`` have no counterpart.
+The serve path's kernels have no dispatch here: their wrappers
+(``flash_attention.flash_attention``, ``decode_attention.decode_attention``,
+``rwkv6_scan.rwkv6_scan``, ``mamba2_ssd.mamba2_ssd``) follow their
+inputs' device, and the reference's ``use_pallas``, ``impl`` and
+``chunk`` have no counterpart.
 
 Every kernel wrapper counts its launches here (:func:`count_launch`), one
 per launch of its CUDA kernel and nowhere else, with the shape it was
@@ -43,8 +44,11 @@ BACKENDS = ("auto", "numpy")
 #: the kernels of the write -> read path, by wrapper name
 WRITE_READ_KERNELS = ("offsets_scan", "byteshuffle_pages", "unsplit_pages",
                       "decode_offset_pages")
-#: the kernels of the serve path: K5 in prefill, K6 in every decode step
-SERVE_KERNELS = ("flash_attention", "decode_attention")
+#: the kernels of the serve path: K5 in prefill and K6 in every decode
+#: step (dense family; zamba2's shared attention blocks), K7 in the rwkv6
+#: family's prefill, K8 in zamba2's
+SERVE_KERNELS = ("flash_attention", "decode_attention", "rwkv6_scan",
+                 "mamba2_ssd")
 KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS
 
 _count_lock = threading.Lock()

@@ -2,8 +2,8 @@
 
 Each function computes what its CUDA kernel computes (bit for bit for
 K1-K4; up to the order of the sums, and to the bf16 rounding of the
-products, for the attention kernels K5 and K6), with PyTorch ops on
-whatever device its input lies on.  The wrappers run them
+products, for the attention kernels K5 and K6 and the scans K7 and K8),
+with PyTorch ops on whatever device its input lies on.  The wrappers run them
 for tensors on the CPU; ``chip_smoke.py`` holds every kernel against them
 on the card.  They are oracles, not yardsticks of speed.
 """
@@ -120,3 +120,55 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
     p = torch.softmax(logits.float(), dim=-1)
     return torch.einsum("bhk,bhkd->bhd", p.to(vv.dtype), vv)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent scans (the serve path's K7 and K8): twins of the jnp
+# oracles, step by step over T with an fp32 state
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, initial_state=None):
+    """RWKV-6 wkv: r/k/w (B, H, T, Dk), v (B, H, T, Dv), u (H, Dk),
+    ``initial_state`` (B, H, Dk, Dv) -> (out (B, H, T, Dv) in v's dtype,
+    final state (B, H, Dk, Dv) fp32)::
+
+        o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    """
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    r_, k_, v_, w_ = (x.float() for x in (r, k, v, w))
+    u_ = u.float()[None, :, :, None]
+    s = (initial_state.float().clone() if initial_state is not None else
+         torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device))
+    out = torch.empty((b, h, t, dv), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        kv = k_[:, :, i, :, None] * v_[:, :, i, None, :]
+        out[:, :, i] = torch.einsum("bhk,bhkv->bhv", r_[:, :, i], s + u_ * kv)
+        s = w_[:, :, i, :, None] * s + kv
+    return out.to(v.dtype), s
+
+
+def mamba2_ref(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, initial_state=None):
+    """Mamba-2 SSD without the D skip: x (B, H, T, P), log_a (B, H, T),
+    Bm/Cm (B, T, N) shared across heads, ``initial_state`` (B, H, N, P)
+    -> (y (B, H, T, P) in x's dtype, final state (B, H, N, P) fp32)::
+
+        H_t = exp(a_t) H_{t-1} + B_t^T x_t
+        y_t = C_t H_t
+
+    The reference's ``mamba2_ref`` with ``D = 0``, as ``ops.mamba2``
+    calls it and as the kernel computes."""
+    b, h, t, p = x.shape
+    n = Bm.shape[-1]
+    x_, la, B_, C_ = (a.float() for a in (x, log_a, Bm, Cm))
+    s = (initial_state.float().clone() if initial_state is not None else
+         torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device))
+    y = torch.empty((b, h, t, p), dtype=torch.float32, device=x.device)
+    for i in range(t):
+        s = (torch.exp(la[:, :, i])[..., None, None] * s
+             + torch.einsum("bn,bhp->bhnp", B_[:, i], x_[:, :, i]))
+        y[:, :, i] = torch.einsum("bn,bhnp->bhp", C_[:, i], s)
+    return y.to(x.dtype), s

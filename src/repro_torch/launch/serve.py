@@ -5,16 +5,20 @@ The twin of ``repro.launch.serve``.  Generations are variable-length
 nested data ({request_id, prompt_len, tokens[]}) written through
 ``repro_torch.core.ParallelWriter`` on the model's device, the
 inference-side instance of the paper's technique.  Prefill runs K5
-(``flash_attention``) once per layer, each decode step K6
-(``decode_attention``) once per layer.
+(``flash_attention``) once per attention block (every layer of a dense
+model, each of zamba2's shared blocks), K7 (``rwkv6_scan``) once per
+rwkv6 layer and K8 (``mamba2_ssd``) once per Mamba-2 layer; each decode
+step runs K6 (``decode_attention``) once per attention block (the
+recurrent layers' one-token steps are plain PyTorch).
 
 Parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; prompts come from ``numpy.random.default_rng(--seed)``.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the kernels' plain versions.
 
-Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+Usage (``--arch`` smollm-360m, gemma-2b, deepseek-67b, rwkv6-7b or
+zamba2-2.7b; the other archs raise ``NotImplementedError``):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --requests 16 --prompt-len 1000 --max-new 64 --out gen.rntj
 """
 

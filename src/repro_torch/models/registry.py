@@ -1,8 +1,8 @@
 """Model registry: ArchConfig -> ModelBundle (init/forward/prefill/decode).
 
 The twin of ``repro.models.registry`` for the families the port has (the
-dense family, see ``backbone.check_ported``); ``build`` raises
-``NotImplementedError`` for the others.  The reference's dry-run pieces
+dense family, rwkv6 and the zamba2 hybrid, see ``backbone.check_ported``);
+``build`` raises ``NotImplementedError`` for the others.  The reference's dry-run pieces
 (``param_shapes``, ``input_specs``, ``runnable``) and ``loss`` wait for
 their slices.
 """

@@ -64,6 +64,7 @@ def _np(x):
     (1, 4, 2, 37, 200, 64, None),     # Sq < Sk: ends aligned
     (2, 6, 2, 150, 150, 32, 16),      # sliding window
     (1, 3, 1, 70, 133, 64, 64),       # window, Sq < Sk, MQA
+    (2, 4, 4, 90, 90, 80, None),      # zamba2's shared attention: MHA, D=80
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_oracle_and_pallas(b, h, g, sq, sk, d,
@@ -121,11 +122,12 @@ def test_kernel_argument_checks():
         check_kernel_args("k", q.half(), q.half(), window=None)
     with pytest.raises(ValueError):
         check_kernel_args("k", q, q.bfloat16(), window=None)
+    check_kernel_args("k", torch.zeros(1, 2, 4, 80), window=None)
     with pytest.raises(ValueError):
-        check_kernel_args("k", torch.zeros(1, 2, 4, 80), window=None)
+        check_kernel_args("k", torch.zeros(1, 2, 4, 96), window=None)
     with pytest.raises(ValueError):
         check_kernel_args("k", q, q, window=0)
-    assert HEAD_DIMS == (32, 64, 128, 256)
+    assert HEAD_DIMS == (32, 64, 80, 128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +139,7 @@ def test_kernel_argument_checks():
     (3, 15, 5, 300, 64),     # smollm's heads, ragged cache
     (2, 8, 1, 200, 256),     # gemma-2b's MQA and head dim
     (1, 6, 2, 777, 32),
+    (2, 4, 4, 170, 80),      # zamba2's shared attention: MHA, D=80
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_oracle_and_pallas(b, h, g, s, d, dtype):

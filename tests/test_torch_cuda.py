@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, bit for bit, and the write -> read path with ``device="cuda"``.
+version (bit for bit for K1-K4, within stated tolerances for K5-K8), and
+the write -> read path with ``device="cuda"``.
 
 Marked ``cuda``: without a card every test skips.  On the card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -116,6 +117,8 @@ def _attn_inputs(card, seed, dtype, *shapes):
     (2, 6, 2, 150, 150, 128, True, 16),       # window
     (1, 4, 2, 50, 200, 64, False, None),      # non-causal, padded kv tile
     (1, 6, 3, 20, 90, 256, False, 30),
+    (2, 32, 32, 300, 300, 80, True, None),   # zamba2's shared attention
+    (1, 4, 4, 70, 133, 80, False, 50),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
@@ -140,6 +143,7 @@ def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
     (2, 8, 1, 700, 256),      # gemma-2b's MQA
     (3, 6, 6, 333, 32),       # MHA
     (4, 12, 4, 2000, 128),
+    (16, 32, 32, 1064, 80),   # zamba2's shared attention decode
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_on_the_card(card, b, h, g, s, d, dtype):
@@ -155,3 +159,82 @@ def test_decode_attention_on_the_card(card, b, h, g, s, d, dtype):
         want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
                                         length=length, window=window)
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8 against their plain versions.  Tolerances, as
+# ``|got - want| <= tol * (1 + |want|)``: fp32 within 1e-4 (the same
+# step-by-step recurrence, fused multiply-adds and sums over the state
+# rows in another order, compounding over up to 1,000 steps), and so are
+# the fp32 states from bf16 inputs; bf16 outputs against the plain version
+# computed in fp32 from the same bf16 inputs, within 1e-2 (the output
+# rounds to bf16: 2^-9 relative).
+
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _scan_close(got, want):
+    """The tolerance follows ``got``'s dtype: a bf16 output rounds, an
+    fp32 state from bf16 inputs does not."""
+    tol = SCAN_TOL[got.dtype]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol * (1 + want.float().abs())).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv", [
+    (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
+    (2, 4, 100, 64, 64), (1, 2, 70, 128, 96), (16, 64, 1000, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["reference", "strong", "zero"])
+def test_rwkv6_scan_on_the_card(card, b, h, t, dk, dv, dtype, decay):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    g = torch.Generator(device=card)
+    g.manual_seed(t + dk)
+    r, k = (torch.randn((b, h, t, dk), generator=g, device=card)
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g, device=card)
+    u = torch.randn((h, dk), generator=g, device=card)
+    x = torch.rand((b, h, t, dk), generator=g, device=card)
+    lo, hi = {"reference": (-4.0, 1.0), "strong": (2.0, 4.0),
+              "zero": (2.0, 6.0)}[decay]
+    w = torch.exp(-torch.exp(lo + (hi - lo) * x))
+    if decay == "zero":  # exp(-exp(6)) underflows: exact zeros, finite out
+        w[..., ::7, :] = 0.0
+    r, k, v, w, u = (a.to(dtype) for a in (r, k, v, w, u))
+    before = ops.launch_counts()["rwkv6_scan"]
+    out, state = rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    assert out.dtype == dtype and state.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(state).all()
+    want, want_s = ref.rwkv6_ref(*(a.float() for a in (r, k, v, w, u)))
+    _scan_close(out, want)
+    _scan_close(state, want_s)
+
+
+@pytest.mark.parametrize("b,h,t,p,n", [
+    (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 64, 64, 64),
+    (2, 4, 100, 64, 64), (1, 2, 70, 96, 128), (16, 80, 1000, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_on_the_card(card, b, h, t, p, n, dtype):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+
+    g = torch.Generator(device=card)
+    g.manual_seed(t + n)
+    x = torch.randn((b, h, t, p), generator=g, device=card).to(dtype)
+    log_a = -torch.exp(-3 + 3.5 * torch.rand((b, h, t), generator=g,
+                                             device=card))
+    Bm, Cm = (torch.randn((b, t, n), generator=g, device=card)
+              for _ in range(2))
+    before = ops.launch_counts()["mamba2_ssd"]
+    y, state = mamba2_ssd(x, log_a, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_ssd"] == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    want, want_s = ref.mamba2_ref(x.float(), log_a, Bm, Cm)
+    _scan_close(y, want)
+    _scan_close(state, want_s)

@@ -234,7 +234,8 @@ def test_weights_carry_round_trips_and_checks_shapes():
 
 
 @pytest.mark.parametrize("name", sorted(set(ARCHS) - set(DENSE)
-                                        - {"deepseek-67b"}))
+                                        - {"deepseek-67b", "rwkv6-7b",
+                                           "zamba2-2.7b"}))
 def test_other_families_are_not_ported_yet(name):
     with pytest.raises(NotImplementedError):
         build(name)

@@ -24,7 +24,8 @@ def _serve(tmp_path, name="gen.rntj", seed=3, arch="smollm-360m"):
     return res, out
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma-2b", "rwkv6-7b",
+                                  "zamba2-2.7b"])
 def test_serve_writes_generations_the_reference_reads(tmp_path, arch):
     res, out = _serve(tmp_path, arch=arch)
     assert res.tokens.shape == (4, 6) and res.tokens.dtype == np.int32
