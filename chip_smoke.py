@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's write -> read and serve paths on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's write -> read and serve paths and its
+kernel API on one NVIDIA card.
 
     python3 chip_smoke.py [--entries 1000000] [--producers 4] [--seed 0]
                           [--requests 16] [--prompt-len 1000] [--max-new 64]
@@ -12,6 +12,10 @@ Phases, in order; any failure exits non-zero:
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source);
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes;
+   K9 (single-buffer byteshuffle) bit for bit at element widths 1, 2, 3,
+   4, 8 and 16 x N of 1 to 1,000,003, K10 (delta + zigzag) in int32 and
+   int64 at N of 1 to 1,000,003 over the whole range with the extremes,
+   both also on unaligned views;
    K5 (flash attention) and K6 (decode attention) at ragged shapes, GQA,
    MQA and MHA, head dims 32 to 256 (80: zamba2's shared attention),
    windows, lengths from 1 to the cache, in fp32 (within 2e-5) and in
@@ -44,14 +48,23 @@ Phases, in order; any failure exits non-zero:
    on its tokens (no farther from it than 1.5 times the bf16 forward, plus
    1e-2 of max |logit|), and a fresh fp32 generation of two requests
    against its own forward (within 1e-3);
-5. each kernel timed at the shape its path gave it most often: on the
+5. the kernels package's entry points: each of the nine op entries of
+   ``repro_torch.kernels.ops`` called on CUDA tensors at the shapes of
+   the reference's own sweep (``tests/test_kernels.py``), each result
+   held against the plain version on the card (exact for the codec ops,
+   ``ATTN_TOL``/``SCAN_TOL`` for attention and the scans); the launch
+   counts of these calls alone must show K1 and K3-K10;
+6. each kernel timed at the shape its path gave it most often: on the
    card (CUDA events between 30 launches queued back to back) and per
    call with its host overhead, beside its bound, its plain version and,
    where one exists, the one PyTorch call computing the same function
    (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's and
-   at zamba2-2.7b's head shapes; none for K7 and K8); the host entries of
-   K1 and K2 with their PCIe copies; one JSON ``kernels`` line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   at zamba2-2.7b's head shapes; none for K7 and K8); K9 and K10 at one
+   cluster's column of phase 3 (250,000 entries) and at a 2^24-element
+   buffer (``t().contiguous()`` the library call of K9, none for K10);
+   the host entries of K1, K2 and K9 with their PCIe copies; one JSON
+   ``kernels`` line of the ten kernels;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
 and each served batch's prefill and 8 of its decode steps with
@@ -99,6 +112,10 @@ KERNEL_INFO = {
                    "src/repro/kernels/rwkv6_scan.py:82"),
     "mamba2_ssd": ("src/repro_torch/csrc/ssm.cu",
                    "src/repro/kernels/mamba2_ssd.py:70"),
+    "byteshuffle": ("src/repro_torch/csrc/byteplanes.cu",
+                    "src/repro/kernels/byteshuffle.py:27"),
+    "delta_zigzag": ("src/repro_torch/csrc/scans.cu",
+                     "src/repro/kernels/delta_zigzag.py:38"),
 }
 
 #: the served models, in the order they run: each at its full width and
@@ -144,9 +161,22 @@ def log(msg: str) -> None:
 # inputs of each kernel, made on the card from a seed
 
 
-def kernel_input(torch, name: str, shape, gen):
-    """A realistic input of ``shape`` for kernel ``name`` on the card."""
+def kernel_input(torch, name: str, shape, gen, dtype=None):
+    """A realistic input of ``shape`` for kernel ``name`` on the card
+    (``dtype``: K10's int32 or int64)."""
     dev = "cuda"
+    if name == "delta_zigzag":
+        # values over the whole range of the type, with its extremes and
+        # their neighbours at every 97th position
+        (n,) = shape
+        info = torch.iinfo(dtype)
+        hi, lo = torch.randint(0, 2**32, (2, n), dtype=torch.int64,
+                               device=dev, generator=gen)
+        x = ((hi << 32) | lo if dtype == torch.int64 else lo - 2**31).to(dtype)
+        edges = torch.tensor([info.min, info.min + 1, info.max - 1, info.max,
+                              -1, 0, 1], dtype=dtype, device=dev)
+        x[::97] = edges.repeat(-(-n // (97 * len(edges))))[:len(x[::97])]
+        return x
     if name == "offsets_scan":
         (n,) = shape
         return torch.poisson(torch.full((n,), 5.0, device=dev),
@@ -170,11 +200,16 @@ def kernel_input(torch, name: str, shape, gen):
 def kernel_fns(kernels):
     """name -> (kernel wrapper, plain version, library call or None).
 
-    The plain versions of K1-K3 are each one PyTorch call, named here:
-    their time is the library call's time.  K4 has no such call."""
+    The plain versions of K1-K3 and K9 are each one PyTorch call, named
+    here: their time is the library call's time.  K4 and K10 have no such
+    call."""
     from repro_torch.kernels import ref
 
     return {
+        "byteshuffle": (kernels.byteshuffle.byteshuffle,
+                        ref.byteshuffle_ref, "t().contiguous()"),
+        "delta_zigzag": (kernels.delta_zigzag.delta_zigzag,
+                         ref.delta_zigzag_ref, None),
         "offsets_scan": (kernels.offsets_scan.offsets_scan,
                          ref.offsets_scan_ref, "torch.cumsum"),
         "byteshuffle_pages": (kernels.byteshuffle.byteshuffle_pages,
@@ -188,13 +223,21 @@ def kernel_fns(kernels):
     }
 
 
-def bound(name: str, shape):
+def bound(name: str, shape, itemsize: int = 1):
     """(bound_ms, bound_by, bytes) of one launch: each input byte read
     once, each output byte written once, over the memory rate; the
-    operations over the scalar rate; the larger of the two."""
+    operations over the scalar rate; the larger of the two.  ``itemsize``:
+    K10's element width."""
     if name == "offsets_scan":
         (n,) = shape
         nbytes, ops = 16 * n, n
+    elif name == "byteshuffle":
+        n, nb = shape
+        nbytes, ops = 2 * n * nb, 0
+    elif name == "delta_zigzag":
+        # a subtraction, two shifts and a xor per element
+        (n,) = shape
+        nbytes, ops = 2 * n * itemsize, 4 * n
     elif name == "decode_offset_pages":
         p, _, per = shape
         # the low four planes are all the function needs; int32 out
@@ -231,11 +274,29 @@ def attention_bound(name: str, shape, itemsize: int, length=None):
     return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
 
 
+#: the signed view of each unsigned result, for comparisons on the card
+SIGNED_VIEW = {"uint32": "int32", "uint64": "int64"}
+
+
 def max_abs_err(torch, a, b) -> float:
+    """Largest |a - b| of two integer tensors of one dtype and shape (inf
+    when those differ).  uint32/uint64 results (K10) are compared by the
+    equality of their signed views; only where they differ is the gap
+    taken, in Python integers, so no difference overflows."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return float("inf")
-    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
-        if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    signed = SIGNED_VIEW.get(str(a.dtype).replace("torch.", ""))
+    if signed is None:
+        return float((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+    av, bv = a.view(getattr(torch, signed)), b.view(getattr(torch, signed))
+    if torch.equal(av, bv):
+        return 0.0
+    bits = 8 * a.element_size()
+    diff = av != bv
+    return float(max(abs((x % 2**bits) - (y % 2**bits)) for x, y in
+                     zip(av[diff].tolist(), bv[diff].tolist())))
 
 
 def call_ms(torch, fn, x, reps: int = 30, warmup: int = 5) -> float:
@@ -321,6 +382,58 @@ def ragged_shapes():
         "decode_offset_pages": [(36, 8, 8192), (1, 8, 8192), (3, 8, 1000),
                                 (2, 8, 1027), (4, 8, 2)],
     }
+
+
+#: K9's element widths, and K9's and K10's lengths, in phase 2
+CODEC_WIDTHS = (1, 2, 3, 4, 8, 16)
+CODEC_LENGTHS = (1, 2, 7, 4097, 1_000_003)
+
+
+def unaligned(torch, x):
+    """``x``'s values in a view that starts one element into its storage:
+    its pointer is not 16-byte aligned, so the kernels take their scalar
+    paths."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+def check_codec(torch, kernels) -> None:
+    """K9 and K10 bit for bit against their plain versions: K9 at every
+    width of ``CODEC_WIDTHS`` x ``CODEC_LENGTHS`` (1, 2, 4 and 8 take the
+    vector path where N allows, 3 and 16 the scalar one), K10 in int32
+    and int64 at ``CODEC_LENGTHS`` over the whole range of the type with
+    its extremes; then unaligned views of both."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    fns = kernel_fns(kernels)
+    i32, i64 = torch.int32, torch.int64
+    cases = [("byteshuffle", (n, nb), None, False) for nb in CODEC_WIDTHS
+             for n in CODEC_LENGTHS]
+    cases += [("delta_zigzag", (n,), dt, False) for dt in (i32, i64)
+              for n in CODEC_LENGTHS]
+    cases += [("byteshuffle", (4096, 8), None, True),
+              ("byteshuffle", (250_000, 4), None, True),
+              ("delta_zigzag", (4097,), i32, True),
+              ("delta_zigzag", (250_000,), i64, True)]
+    for name, shape, dtype, odd in cases:
+        kern, plain, _ = fns[name]
+        x = kernel_input(torch, name, shape, gen, dtype)
+        if odd:
+            x = unaligned(torch, x)
+        got = kern(x)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, plain(x))
+        if err != 0.0:
+            fail(f"{name} at {shape} {dtype or ''}{' unaligned' if odd else ''} "
+                 f"differs from its plain version (max abs err {err})")
+    log(f"kernel byteshuffle: bit-identical to its plain version at nb "
+        f"{CODEC_WIDTHS} x N {CODEC_LENGTHS} and on 2 unaligned views")
+    log(f"kernel delta_zigzag: bit-identical to its plain version in int32 "
+        f"and int64 at N {CODEC_LENGTHS}, values over the whole range with "
+        "the extremes, and on 2 unaligned views")
 
 
 def attention_cases():
@@ -885,7 +998,147 @@ def check_consistency(torch, res, bundle32, n_req32: int,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings of the attention kernels
+# phase 5: the kernels package's entry points
+
+
+#: the op entries' cases: the shapes of the reference's own sweep
+#: (tests/test_kernels.py) where the kernels take them; K3/K4 have none
+#: there and take the port's CPU test shapes; K7's sweep row at Dk = 48
+#: is left out (K7 is built for Dk 16, 32, 64 and 128)
+OPS_CASES = {
+    "offsets_scan": [1, 7, 128, 1000, 5000],
+    "delta_zigzag": [1, 64, 999, 4096],
+    "byteshuffle": [(n, nb) for nb in (2, 4, 8) for n in (1, 100, 2048, 6000)],
+    "unsplit_pages": [(3, 8, 1000), (2, 4, 777), (4, 2, 2048), (2, 1, 16)],
+    "decode_offset_pages": [(4, 8, 2048), (3, 8, 1000), (1, 8, 5)],
+    "flash_attention": [  # (b, h, g, sq, sk, d, window)
+        (1, 4, 4, 128, 128, 64, None), (2, 8, 2, 256, 256, 64, None),
+        (1, 8, 1, 128, 128, 128, None), (1, 4, 4, 64, 256, 64, None),
+        (1, 4, 2, 200, 200, 80, None), (1, 4, 2, 256, 256, 64, 64),
+        (1, 4, 2, 256, 256, 64, 128), (1, 4, 2, 256, 256, 64, 1024)],
+    "decode_attention": [  # (b, h, g, s, d, lengths, window)
+        (2, 4, 4, 512, 64, None, None), (2, 8, 2, 1024, 64, None, None),
+        (1, 8, 1, 777, 128, None, None), (3, 4, 2, 640, 64, (100, 640, 333),
+                                          None),
+        (3, 4, 2, 640, 64, (100, 640, 333), 64)],
+    "rwkv6": [(1, 2, 64, 32, 32), (2, 2, 128, 64, 64)],
+    "mamba2": [(1, 2, 128, 32, 16), (2, 4, 128, 64, 64), (1, 2, 256, 64, 32)],
+}
+#: the kernel each op entry launches (K2 has no op entry)
+OPS_KERNELS = ("offsets_scan", "unsplit_pages", "decode_offset_pages",
+               "flash_attention", "decode_attention", "rwkv6_scan",
+               "mamba2_ssd", "byteshuffle", "delta_zigzag")
+
+
+def ops_phase(torch, ops):
+    """Call each of the nine op entries of ``repro_torch.kernels.ops`` on
+    CUDA tensors at ``OPS_CASES``, each result held against the plain
+    version on the card (exact for the codec ops; ``ATTN_TOL`` and
+    ``SCAN_TOL`` with fp32 inputs, bf16 attention too); -> (launch
+    counts, launch shapes) of these calls alone."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    dev = "cuda"
+    n_calls = dict.fromkeys(OPS_CASES, 0)
+
+    def exact(op, got, want, what):
+        n_calls[op] += 1
+        if got.dtype != want.dtype or max_abs_err(torch, got, want) != 0.0:
+            fail(f"ops.{op} at {what} differs from its plain version")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ops.reset_launch_counts()
+    for n in OPS_CASES["offsets_scan"]:
+        sizes = torch.poisson(torch.full((n,), 5.0, device=dev),
+                              generator=gen).to(torch.int32)
+        exact("offsets_scan", ops.offsets_scan(sizes, block=128),
+              ref.offsets_scan_ref(sizes.long()).int(), (n,))
+    for n in OPS_CASES["delta_zigzag"]:
+        sizes = torch.poisson(torch.full((n,), 5.0, device=dev), generator=gen)
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+        exact("delta_zigzag", ops.delta_zigzag(offs, block=256),
+              ref.delta_zigzag_ref(offs), (n,))
+    for shape in OPS_CASES["byteshuffle"]:
+        x = kernel_input(torch, "byteshuffle", shape, gen)
+        exact("byteshuffle", ops.byteshuffle(x, block=512),
+              ref.byteshuffle_ref(x), shape)
+    for shape in OPS_CASES["unsplit_pages"]:
+        x = kernel_input(torch, "unsplit_pages", shape, gen)
+        exact("unsplit_pages", ops.unsplit_pages(x), ref.unsplit_pages_ref(x),
+              shape)
+    for shape in OPS_CASES["decode_offset_pages"]:
+        x = kernel_input(torch, "decode_offset_pages", shape, gen)
+        exact("decode_offset_pages", ops.decode_offset_pages(x),
+              ref.decode_offset_pages_ref(x), shape)
+    for dname, tol in ATTN_TOL.items():
+        dtype = getattr(torch, dname)
+        for b, h, g, sq, sk, d, window in OPS_CASES["flash_attention"]:
+            q, k, v = (a.to(dtype) for a in (randn(b, h, sq, d),
+                                             randn(b, g, sk, d),
+                                             randn(b, g, sk, d)))
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           window=window)
+            for impl in ("ref", "chunked"):
+                got = ops.flash_attention(q, k, v, causal=True, window=window,
+                                          impl=impl, block_q=128,
+                                          block_k=128)
+                if got.dtype != dtype or got.shape != q.shape:
+                    fail(f"ops.flash_attention returned {got.dtype} "
+                         f"{tuple(got.shape)}")
+                _attention_err(torch, got, want, tol, (
+                    f"ops.flash_attention {dname} impl={impl} at "
+                    f"{(b, h, g, sq, sk, d)} window={window}"))
+                n_calls["flash_attention"] += 1
+        for b, h, g, s, d, lengths, window in OPS_CASES["decode_attention"]:
+            q, k, v = (a.to(dtype) for a in (randn(b, h, d), randn(b, g, s, d),
+                                             randn(b, g, s, d)))
+            length = (None if lengths is None else
+                      torch.tensor(lengths, dtype=torch.int32, device=dev))
+            got = ops.decode_attention(q, k, v, length=length, window=window,
+                                       block_k=256)
+            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            length=length, window=window)
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"ops.decode_attention returned {got.dtype} "
+                     f"{tuple(got.shape)}")
+            _attention_err(torch, got, want, tol, (
+                f"ops.decode_attention {dname} at {(b, h, g, s, d)} "
+                f"lengths={lengths} window={window}"))
+            n_calls["decode_attention"] += 1
+    for shape in OPS_CASES["rwkv6"]:
+        ins = rwkv6_inputs(torch, gen, shape, "reference", torch.float32)
+        out, state = ops.rwkv6(*ins, chunk=16)
+        want, want_s = ref.rwkv6_ref(*ins)
+        _scan_err(torch, out, want, f"ops.rwkv6 at {shape}")
+        _scan_err(torch, state, want_s, f"ops.rwkv6 state at {shape}")
+        n_calls["rwkv6"] += 1
+    for shape in OPS_CASES["mamba2"]:
+        ins = mamba2_inputs(torch, gen, shape, torch.float32)
+        y, state = ops.mamba2(*ins, chunk=32)
+        want, want_s = ref.mamba2_ref(*ins)
+        _scan_err(torch, y, want, f"ops.mamba2 at {shape}")
+        _scan_err(torch, state, want_s, f"ops.mamba2 state at {shape}")
+        n_calls["mamba2"] += 1
+    torch.cuda.synchronize()
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    log("the kernels package's entry points: " + ", ".join(
+        f"ops.{op} {c} calls" for op, c in n_calls.items())
+        + "; each result equal to (codec) or within tolerance of "
+        "(attention, scans) its plain version on the card")
+    log("launches of the op entries: " + json.dumps(
+        {k: counts[k] for k in OPS_KERNELS}))
+    missing = [k for k in OPS_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by the op entries: {missing}")
+    return counts, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timings of the kernels
 
 
 def time_attention(torch, ops, shapes, counts, worst) -> list:
@@ -1063,6 +1316,70 @@ def time_scans(torch, ops, served, worst) -> list:
     return rows
 
 
+#: K9's and K10's timed shapes: one cluster's column of phase 3 (4,000,000
+#: entries over 16 clusters: the 8-byte id column and the int64 offsets),
+#: then a large buffer where the memory rate shows; (shape, K10 dtype)
+CODEC_TIMED = {
+    "byteshuffle": [((250_000, 8), None), ((16_777_216, 8), None)],
+    "delta_zigzag": [((250_000,), "int64"), ((16_777_216,), "int64"),
+                     ((16_777_216,), "int32")],
+}
+
+
+def time_codec(torch, kernels, counts) -> list:
+    """K9 and K10 at ``CODEC_TIMED``: card time, plain version, library
+    call (K9: ``t().contiguous()``, the plain version itself; K10: none),
+    bound.  -> their ``kernels`` rows: the first shape in the row, the
+    others nested under ``at``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(111)
+    fns = kernel_fns(kernels)
+    rows = []
+    for name, timed in CODEC_TIMED.items():
+        kern, plain, lib = fns[name]
+        at = []
+        for shape, dname in timed:
+            dtype = getattr(torch, dname) if dname else None
+            x = kernel_input(torch, name, shape, gen, dtype)
+            got, want = kern(x), plain(x)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, got, want)
+            if err != 0.0:
+                fail(f"{name} at {shape} differs from its plain version")
+            del got, want
+            timed_ms = {}
+            for key, fn in (("", kern), ("plain_", plain)):
+                c_ms = call_ms(torch, fn, x)
+                timed_ms[key + "call_ms"] = c_ms
+                timed_ms[key + "ms"] = device_ms(torch, fn, x, c_ms)
+            b_ms, b_by, nbytes = bound(name, shape,
+                                       x.element_size() if dname else 1)
+            at.append({
+                "shape": list(shape), "dtype": dname or "uint8",
+                "max_abs_err": err, "ms": timed_ms["ms"],
+                "plain_ms": timed_ms["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": timed_ms["plain_ms"] if lib else None,
+                "bytes": nbytes, "call_ms": timed_ms["call_ms"],
+                "plain_call_ms": timed_ms["plain_call_ms"],
+            })
+            lib_txt = f"{timed_ms['plain_ms']:.5f} ms ({lib})" if lib else "none"
+            log(f"{name} at {shape} {dname or 'uint8'}: card "
+                f"{timed_ms['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
+                f"plain {timed_ms['plain_ms']:.5f} ms, library {lib_txt}); "
+                f"per call with host overhead {timed_ms['call_ms']:.5f} ms "
+                f"(plain {timed_ms['plain_call_ms']:.5f} ms)")
+            del x
+        source, replaces = KERNEL_INFO[name]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": counts[name],
+               "path": "the op entries (phase 5)", "library": lib}
+        row.update(at[0])
+        row["at"] = at[1:]
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1125,6 +1442,7 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions ----------------------
     check_kernels(torch, kernels, ragged_shapes())
+    check_codec(torch, kernels)
     flash_cases, decode_cases = attention_cases()
     worst = check_attention(torch, flash_cases, decode_cases)
     worst.update(check_scans(torch, *scan_cases()))
@@ -1221,7 +1539,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     os.rmdir(tmp)
 
-    # -- phase 5: time every kernel at its path's shapes ---------------------
+    # -- phase 5: the kernels package's entry points -------------------------
+    o_counts, _o_shapes = ops_phase(torch, ops)
+
+    # -- phase 6: time every kernel at its path's shapes ---------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     fns = kernel_fns(kernels)
@@ -1270,26 +1591,6 @@ def main() -> int:
             f"{f'{lib_ms:.5f} ms ({lib})' if lib else 'none'}); per call "
             f"with host overhead {timed['call_ms']:.5f} ms (plain "
             f"{timed['plain_call_ms']:.5f} ms)")
-    # the host entries of the seal path: numpy in, numpy out, PCIe both ways
-    for name, entry, shape in (
-            ("offsets_scan", kernels.offsets_scan.offsets_scan_host,
-             shapes["offsets_scan"].most_common(1)[0][0]),
-            ("byteshuffle_pages", kernels.byteshuffle.byteshuffle_pages_host,
-             shapes["byteshuffle_pages"].most_common(1)[0][0])):
-        x = kernel_input(torch, name, shape, gen).cpu().numpy()
-        for _ in range(3):
-            entry(x, torch.device("cuda"))
-        ts = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            entry(x, torch.device("cuda"))
-            ts.append((time.perf_counter() - t0) * 1e3)
-        med = statistics.median(ts)
-        for r in rows:
-            if r["name"] == name:
-                r["host_entry_ms"] = med
-        log(f"{name} host entry (H2D + kernel + D2H) at {shape}: "
-            f"{med:.5f} ms median of 20")
     # K5/K6 at smollm-360m's shapes (the rows), and at zamba2-2.7b's
     # head dim 80 (nested); launches summed over the serve paths
     _cfg, d_counts, d_shapes = served["smollm-360m"]
@@ -1306,6 +1607,32 @@ def main() -> int:
             "bound_by", "library_ms", "max_abs_err", "bytes", "call_ms")}
     rows += attn_rows
     rows += time_scans(torch, ops, served, worst)
+    rows += time_codec(torch, kernels, o_counts)
+    # the host entries (K1, K2: the seal path's; K9): numpy in, numpy
+    # out, PCIe both ways
+    for name, entry, shape in (
+            ("offsets_scan", kernels.offsets_scan.offsets_scan_host,
+             shapes["offsets_scan"].most_common(1)[0][0]),
+            ("byteshuffle_pages", kernels.byteshuffle.byteshuffle_pages_host,
+             shapes["byteshuffle_pages"].most_common(1)[0][0]),
+            ("byteshuffle", kernels.byteshuffle.byteshuffle_host,
+             CODEC_TIMED["byteshuffle"][0][0])):
+        x = kernel_input(torch, name, shape, gen).cpu().numpy()
+        for _ in range(3):
+            entry(x, torch.device("cuda"))
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            entry(x, torch.device("cuda"))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(ts)
+        for r in rows:
+            if r["name"] == name:
+                r["host_entry_ms"] = med
+        log(f"{name} host entry (H2D + kernel + D2H) at {shape}: "
+            f"{med:.5f} ms median of 20")
+    for row in rows:
+        row["launches_by_op_entries"] = o_counts[row["name"]]
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

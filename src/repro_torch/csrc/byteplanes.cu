@@ -6,6 +6,12 @@
 // K3 repro_unsplit_pages:     (P, nb, per) uint8 -> (P, per, nb)
 //   replaces unsplit_pages (src/repro/kernels/decode_pages.py, the
 //   Pallas kernel of the device read-back of split columns).
+// K9 repro_byteshuffle:       (N, nb) uint8 -> (nb, N), any nb >= 1
+//   replaces byteshuffle (src/repro/kernels/byteshuffle.py, the Pallas
+//   single-buffer split behind ops.byteshuffle).  One page of per = N
+//   through K2's code: the vector path for nb in {1, 2, 4, 8}, the
+//   scalar path (runtime nb) for other widths, ragged N or unaligned
+//   pointers.  Bound: 2 N nb bytes (2^24 x 8 bytes: 268 MB, 0.080 ms).
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Each kernel reads every byte once
 // and writes it once and computes nothing: 2 * P * per * nb bytes.  On the
@@ -109,20 +115,25 @@ transpose_scalar(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   }
 }
 
+template <bool SHUFFLE>
+int launch_scalar(const uint8_t* in, uint8_t* out, int64_t n_pages,
+                  int64_t per, int nb, cudaStream_t stream) {
+  const int64_t chunks = (per + kElemsPerBlock - 1) / kElemsPerBlock;
+  const dim3 grid(static_cast<unsigned>(n_pages * chunks));
+  transpose_scalar<SHUFFLE><<<grid, kThreads, 0, stream>>>(in, out, per, nb, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NB, bool SHUFFLE>
 int launch(const uint8_t* in, uint8_t* out, int64_t n_pages, int64_t per,
            cudaStream_t stream) {
   constexpr int EPV = 16 / NB;
-  if (per % EPV == 0 && repro::aligned(in, 16) && repro::aligned(out, 16)) {
-    const int64_t chunks = (per / EPV + kVecsPerBlock - 1) / kVecsPerBlock;
-    const dim3 grid(static_cast<unsigned>(n_pages * chunks));
-    if (SHUFFLE) shuffle_vec<NB><<<grid, kThreads, 0, stream>>>(in, out, per, chunks);
-    else unsplit_vec<NB><<<grid, kThreads, 0, stream>>>(in, out, per, chunks);
-  } else {
-    const int64_t chunks = (per + kElemsPerBlock - 1) / kElemsPerBlock;
-    const dim3 grid(static_cast<unsigned>(n_pages * chunks));
-    transpose_scalar<SHUFFLE><<<grid, kThreads, 0, stream>>>(in, out, per, NB, chunks);
-  }
+  if (per % EPV != 0 || !repro::aligned(in, 16) || !repro::aligned(out, 16))
+    return launch_scalar<SHUFFLE>(in, out, n_pages, per, NB, stream);
+  const int64_t chunks = (per / EPV + kVecsPerBlock - 1) / kVecsPerBlock;
+  const dim3 grid(static_cast<unsigned>(n_pages * chunks));
+  if (SHUFFLE) shuffle_vec<NB><<<grid, kThreads, 0, stream>>>(in, out, per, chunks);
+  else unsplit_vec<NB><<<grid, kThreads, 0, stream>>>(in, out, per, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,4 +164,18 @@ extern "C" int repro_byteshuffle_pages(const void* in, void* out,
 extern "C" int repro_unsplit_pages(const void* in, void* out, int64_t n_pages,
                                    int64_t per, int nb, void* stream) {
   return dispatch<false>(in, out, n_pages, per, nb, stream);
+}
+
+extern "C" int repro_byteshuffle(const void* in, void* out, int64_t n, int nb,
+                                 void* stream) {
+  if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  switch (nb) {
+    case 1: case 2: case 4: case 8:
+      return dispatch<true>(in, out, 1, n, nb, stream);
+    default:
+      return launch_scalar<true>(static_cast<const uint8_t*>(in),
+                                 static_cast<uint8_t*>(out), 1, n, nb,
+                                 static_cast<cudaStream_t>(stream));
+  }
 }

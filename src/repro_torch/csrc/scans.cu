@@ -1,4 +1,4 @@
-// Scans of the RNT-J offset columns.
+// Scans and delta codes of the RNT-J offset columns.
 //
 // K1 repro_offsets_scan_i64: (N,) int64 sizes -> (N,) int64 inclusive scan
 //   replaces offsets_scan (src/repro/kernels/offsets_scan.py, the Pallas
@@ -7,13 +7,18 @@
 // K4 repro_decode_offset_pages: (P, 8, per) uint8 -> (P, per) int32
 //   replaces decode_offset_pages (src/repro/kernels/decode_pages.py, the
 //   Pallas kernel of the device read-back of offset columns).
+// K10 repro_delta_zigzag_i32 / _i64: (N,) int32 -> uint32, int64 -> uint64
+//   replaces delta_zigzag (src/repro/kernels/delta_zigzag.py, the Pallas
+//   kernel behind ops.delta_zigzag): z[i] = zigzag(x[i] - x[i-1]) with
+//   x[-1] = 0, the encode side of K4's unzigzag.
 //
 // Bound on an H100 (3.35 TB/s): bytes; the adds are far below the card's
 // integer rate.  K1 reads 8 N and writes 8 N bytes: a fill batch of 100k
 // sizes is 1.6 MB, about 0.5 us.  K4 reads the four low byte planes
 // (4 P per bytes) and writes 4 P per bytes of int32: for one cluster's
 // offset column of about 300k entries, 2.4 MB, about 0.7 us.  Both are
-// far below a launch plus the PCIe copies around them.
+// far below a launch plus the PCIe copies around them.  K10 reads and
+// writes each element once: 2^24 int64 move 268 MB, 0.080 ms.
 //
 // Design.  The TPU kernels walk a sequential grid with a running carry in
 // SMEM; blocks on the card run in no order, so:
@@ -31,6 +36,15 @@
 //   un-zigzags, scans its four values, and the block scan adds the
 //   running carry of the page.  int32 is exact under the reader's route
 //   guard (the cluster's child total is below 2^31).
+// * K10 needs no carry at all: the Pallas kernel carries the previous
+//   block's last element across its sequential grid, but each element's
+//   delta needs only its predecessor.  A thread takes 16 bytes (four
+//   int32 or two int64; one vector load and store where both pointers
+//   are 16-byte aligned, scalar loads otherwise) and reads the element
+//   before them itself (its neighbour's, from L1/L2).  The subtraction
+//   and the shift run in the unsigned type, where they wrap as the
+//   reference's int32/int64 jnp ops do (signed overflow is undefined in
+//   C++); the sign mask is the arithmetic shift of the signed delta.
 #include "common.cuh"
 
 namespace {
@@ -142,7 +156,73 @@ decode_offsets(const uint8_t* __restrict__ planes, int32_t* __restrict__ out,
   }
 }
 
+template <typename S> struct Unsigned;
+template <> struct Unsigned<int32_t> { using T = uint32_t; };
+template <> struct Unsigned<int64_t> { using T = u64; };
+
+template <typename S>
+__device__ __forceinline__ typename Unsigned<S>::T zigzag_delta(S cur, S prev) {
+  using U = typename Unsigned<S>::T;
+  const U d = static_cast<U>(cur) - static_cast<U>(prev);
+  return (d << 1) ^ static_cast<U>(static_cast<S>(d) >> (sizeof(S) * 8 - 1));
+}
+
+constexpr int kDzThreads = 256;
+
+// Thread t takes the 16 bytes of elements [t EPV, t EPV + EPV); the last
+// thread may hold a ragged tail.
+template <typename S>
+__global__ void __launch_bounds__(kDzThreads)
+delta_zigzag(const S* __restrict__ in, typename Unsigned<S>::T* __restrict__ out,
+             int64_t n, bool vec) {
+  using U = typename Unsigned<S>::T;
+  constexpr int EPV = 16 / sizeof(S);
+  const int64_t e0 = (int64_t(blockIdx.x) * kDzThreads + threadIdx.x) * EPV;
+  if (e0 >= n) return;
+  S prev = e0 ? in[e0 - 1] : S(0);
+  if (vec && e0 + EPV <= n) {
+    union { uint4 v; S s[EPV]; } x;
+    union { uint4 v; U u[EPV]; } z;
+    x.v = *reinterpret_cast<const uint4*>(in + e0);
+#pragma unroll
+    for (int k = 0; k < EPV; ++k) {
+      z.u[k] = zigzag_delta(x.s[k], prev);
+      prev = x.s[k];
+    }
+    *reinterpret_cast<uint4*>(out + e0) = z.v;
+  } else {
+    const int64_t e1 = e0 + EPV < n ? e0 + EPV : n;
+    for (int64_t e = e0; e < e1; ++e) {
+      const S cur = in[e];
+      out[e] = zigzag_delta(cur, prev);
+      prev = cur;
+    }
+  }
+}
+
+template <typename S>
+int launch_delta_zigzag(const void* in, void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  constexpr int EPV = 16 / sizeof(S);
+  const int64_t threads = (n + EPV - 1) / EPV;
+  const dim3 grid(static_cast<unsigned>((threads + kDzThreads - 1) / kDzThreads));
+  const bool vec = repro::aligned(in, 16) && repro::aligned(out, 16);
+  delta_zigzag<S><<<grid, kDzThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(in), static_cast<typename Unsigned<S>::T*>(out), n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int repro_delta_zigzag_i32(const void* in, void* out, int64_t n,
+                                      void* stream) {
+  return launch_delta_zigzag<int32_t>(in, out, n, stream);
+}
+
+extern "C" int repro_delta_zigzag_i64(const void* in, void* out, int64_t n,
+                                      void* stream) {
+  return launch_delta_zigzag<int64_t>(in, out, n, stream);
+}
 
 extern "C" int repro_offsets_scan_i64(const void* in, void* out, void* tile_sums,
                                       int64_t n, void* stream) {

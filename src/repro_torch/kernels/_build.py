@@ -43,11 +43,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_offsets_scan_tile": [],
         # (planes, out, n_pages, per, stream)
         "repro_decode_offset_pages": [_P, _P, _I64, _I64, _P],
+        # (in, out, n, stream)
+        "repro_delta_zigzag_i32": [_P, _P, _I64, _P],
+        "repro_delta_zigzag_i64": [_P, _P, _I64, _P],
     },
     "byteplanes": {
         # (in, out, n_pages, per, nb, stream)
         "repro_byteshuffle_pages": [_P, _P, _I64, _I64, _INT, _P],
         "repro_unsplit_pages": [_P, _P, _I64, _I64, _INT, _P],
+        # (in, out, n, nb, stream)
+        "repro_byteshuffle": [_P, _P, _I64, _INT, _P],
     },
     "attention": {
         # (q, k, v, o, B, H, G, Sq, Sk, D, dtype, causal, window, scale,

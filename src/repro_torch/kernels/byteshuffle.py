@@ -1,9 +1,15 @@
-"""K2: page-wise byte-plane split ("byteshuffle") of the seal path.
+"""K2 and K9: byte-plane split ("byteshuffle").
 
-The CUDA kernel (``csrc/byteplanes.cu``) replaces the JAX package's
-Pallas ``byteshuffle_pages``: ``(P, per, nb) uint8 -> (P, nb, per)``,
-each page its own transpose.  On a CPU tensor the wrapper runs the plain
-PyTorch version; on a CUDA tensor it launches the kernel or raises.
+* :func:`byteshuffle_pages` (K2), the seal path's page-wise split:
+  ``(P, per, nb) uint8 -> (P, nb, per)``, each page its own transpose;
+  replaces the Pallas ``byteshuffle_pages``.
+* :func:`byteshuffle` (K9), the single-buffer split behind
+  ``ops.byteshuffle``: ``(N, nb) uint8 -> (nb, N)`` for any ``nb >= 1``;
+  replaces the Pallas ``byteshuffle``.
+
+Both CUDA kernels live in ``csrc/byteplanes.cu``.  On a CPU tensor each
+wrapper runs its plain PyTorch version; on a CUDA tensor it launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -66,3 +72,39 @@ def byteshuffle_pages_host(pages: np.ndarray, device) -> np.ndarray:
         a = a.copy()  # torch.from_numpy wants writable memory
     x = torch.from_numpy(a).to(device)
     return byteshuffle_pages(x).cpu().numpy()
+
+
+def byteshuffle(planes: torch.Tensor) -> torch.Tensor:
+    """(N, nb) uint8 -> (nb, N): byte plane ``j`` of every element lands
+    contiguously in ``out[j]``; any element width ``nb``."""
+    if planes.dtype != torch.uint8 or planes.dim() != 2:
+        raise ValueError(
+            f"byteshuffle takes a 2-D uint8 tensor, got {planes.dtype} of "
+            f"shape {tuple(planes.shape)}"
+        )
+    if planes.device.type == "cpu":
+        return ref.byteshuffle_ref(planes)
+    if planes.device.type != "cuda":
+        raise ValueError(f"byteshuffle: unsupported device {planes.device}")
+    planes = planes.contiguous()
+    n, nb = planes.shape
+    out = torch.empty((nb, n), dtype=torch.uint8, device=planes.device)
+    if planes.numel():
+        lib = _build.library("byteplanes")
+        guard, stream = _build.launch_args(planes)
+        with guard:
+            rc = lib.repro_byteshuffle(planes.data_ptr(), out.data_ptr(), n,
+                                       nb, stream)
+        _build.check(lib, rc, "byteshuffle")
+        count_launch("byteshuffle", planes.shape)
+    return out
+
+
+def byteshuffle_host(planes: np.ndarray, device) -> np.ndarray:
+    """Numpy-in / numpy-out single-buffer entry point: the (N, nb) uint8
+    view of one contiguous primitive array -> its (nb, N) planes, through
+    one H2D copy, the kernel and one D2H copy."""
+    a = np.ascontiguousarray(planes, dtype=np.uint8)
+    if not a.flags.writeable:
+        a = a.copy()  # torch.from_numpy wants writable memory
+    return byteshuffle(torch.from_numpy(a).to(device)).cpu().numpy()

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function computes what its CUDA kernel computes (bit for bit for
-K1-K4; up to the order of the sums, and to the bf16 rounding of the
-products, for the attention kernels K5 and K6 and the scans K7 and K8),
-with PyTorch ops on whatever device its input lies on.  The wrappers run them
-for tensors on the CPU; ``chip_smoke.py`` holds every kernel against them
-on the card.  They are oracles, not yardsticks of speed.
+the codec kernels K1-K4, K9 and K10; up to the order of the sums, and to
+the bf16 rounding of the products, for the attention kernels K5 and K6
+and the scans K7 and K8), with PyTorch ops on whatever device its input
+lies on.  The wrappers run them for tensors on the CPU; ``chip_smoke.py``
+holds every kernel against them on the card.  They are oracles, not
+yardsticks of speed.  ``flash_attention_chunked`` and the one-token
+``*_decode_ref`` steps have no kernel of their own: they are the twins of
+the reference's oracles of the same names.
 """
 
 from __future__ import annotations
@@ -18,6 +21,27 @@ import torch
 def offsets_scan_ref(sizes: torch.Tensor) -> torch.Tensor:
     """(N,) int64 collection sizes -> (N,) int64 inclusive scan."""
     return torch.cumsum(sizes, dim=0)
+
+
+def byteshuffle_ref(planes: torch.Tensor) -> torch.Tensor:
+    """(N, nb) uint8 -> (nb, N) byte planes."""
+    return planes.t().contiguous()
+
+
+#: the unsigned view of each signed dtype delta + zigzag takes
+ZIGZAG_DTYPES = {torch.int32: torch.uint32, torch.int64: torch.uint64}
+
+
+def delta_zigzag_ref(x: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 -> uint32, int64 -> uint64: ``zigzag(x[i] - x[i-1])``
+    with the first element absolute.
+
+    Computed in the signed dtype, where PyTorch's subtraction and left
+    shift wrap as the reference's do, then viewed as unsigned (PyTorch
+    has few ops on uint32/uint64 tensors)."""
+    d = torch.cat([x[:1], x[1:] - x[:-1]])
+    bits = x.element_size() * 8 - 1
+    return ((d << 1) ^ (d >> bits)).view(ZIGZAG_DTYPES[x.dtype])
 
 
 def byteshuffle_pages_ref(pages: torch.Tensor) -> torch.Tensor:
@@ -98,6 +122,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
 
 
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window=None, scale=None,
+                            block: int = 1024) -> torch.Tensor:
+    """:func:`flash_attention_ref` as an online-softmax scan over kv blocks
+    of ``block`` rows: the (Sq, Sk) scores never exist at once.  v's head
+    dim may differ from q's (MLA).  A row with no visible key is 0, not
+    NaN (the reference's ``flash_attention_chunked``)."""
+    b, h, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    block = max(1, min(block, sk))
+    kk, vv = _expand_kv(k, h), _expand_kv(v, h)
+    q32 = (q * scale).float()
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, block):
+        kb = kk[:, :, k0:k0 + block].float()
+        vb = vv[:, :, k0:k0 + block].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
+        k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
+        mask = torch.ones((sq, kb.shape[2]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]).masked_fill(~mask, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length=None, window=None, scale=None) -> torch.Tensor:
     """One new token per sequence: q (B, H, D), k/v (B, G, S, D) cache,
@@ -172,3 +235,25 @@ def mamba2_ref(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
              + torch.einsum("bn,bhp->bhnp", B_[:, i], x_[:, :, i]))
         y[:, :, i] = torch.einsum("bn,bhnp->bhp", C_[:, i], s)
     return y.to(x.dtype), s
+
+
+def rwkv6_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """One-token RWKV-6 step: r/k/w (B, H, Dk), v (B, H, Dv), u (H, Dk),
+    ``state`` (B, H, Dk, Dv) -> (out (B, H, Dv) in v's dtype, new state
+    fp32); ``state`` is left as it is."""
+    out, new_state = rwkv6_ref(r[:, :, None], k[:, :, None], v[:, :, None],
+                               w[:, :, None], u, state)
+    return out[:, :, 0], new_state
+
+
+def mamba2_decode_ref(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+                      Cm: torch.Tensor, D: torch.Tensor, state: torch.Tensor):
+    """One-token Mamba-2 step with the D skip: x (B, H, P), log_a (B, H),
+    Bm/Cm (B, N), D (H,), ``state`` (B, H, N, P) -> (y (B, H, P) in x's
+    dtype, new state fp32); ``state`` is left as it is.  As the
+    reference's, the skip is added in fp32 before the cast."""
+    y, new_state = mamba2_ref(x.float()[:, :, None], log_a[:, :, None],
+                              Bm[:, None], Cm[:, None], state)
+    y = y[:, :, 0] + D.float()[None, :, None] * x.float()
+    return y.to(x.dtype), new_state

@@ -126,6 +126,22 @@ def mamba2_init_cache(cfg: ArchConfig, n_layers: int, batch: int, dtype,
     }
 
 
+def ssd_step(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, D: torch.Tensor,
+             state: torch.Tensor) -> torch.Tensor:
+    """One SSD step in fp32: x (B, H, P), log_a (B, H), Bm/Cm (B, N), D
+    (H,); ``state`` (B, H, N, P) fp32 is advanced in place -> y (B, H, P)
+    fp32, as ``ref.mamba2_decode_ref`` computes::
+
+        H <- exp(a) H + B^T x,   y = C H + D x
+    """
+    x = x.float()
+    state.copy_(torch.exp(log_a)[..., None, None] * state
+                + torch.einsum("bn,bhp->bhnp", Bm.float(), x))
+    return (torch.einsum("bn,bhnp->bhp", Cm.float(), state)
+            + D.float()[None, :, None] * x)
+
+
 def mamba2_block_decode(p: Dict, x_in: torch.Tensor, cfg: ArchConfig,
                         cache: Dict) -> torch.Tensor:
     """x (B, 1, D), one token against this layer's ``cache`` (views of the
@@ -145,12 +161,7 @@ def mamba2_block_decode(p: Dict, x_in: torch.Tensor, cfg: ArchConfig,
                 out[..., d_inner + n:])
     delta = F.softplus(dt_raw.float() + p["dt_bias"].float())[:, 0]  # (B, H)
     log_a = delta * -torch.exp(p["A_log"].float())
-    xh = (xr.reshape(b, h, pdim) * delta[..., None].to(dt_)).float()
-    # one SSD step in fp32: H <- exp(a) H + B^T x, y = C H + D x
-    s = cache["ssd"]
-    s.copy_(torch.exp(log_a)[..., None, None] * s
-            + torch.einsum("bn,bhp->bhnp", B[:, 0].float(), xh))
-    y = (torch.einsum("bn,bhnp->bhp", C[:, 0].float(), s)
-         + p["D"].float()[None, :, None] * xh)
+    xh = xr.reshape(b, h, pdim) * delta[..., None].to(dt_)
+    y = ssd_step(xh, log_a, B[:, 0], C[:, 0], p["D"], cache["ssd"])
     cache["conv"].copy_(window[:, 1:])
     return _gated_out(p, x_in, y.reshape(b, 1, d_inner).to(dt_), z, cfg)

@@ -160,6 +160,22 @@ def rwkv6_init_cache(cfg: ArchConfig, n_layers: int, batch: int, dtype,
     }
 
 
+def wkv_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             state: torch.Tensor) -> torch.Tensor:
+    """One wkv step in fp32: r/k/w (B, H, Dk), v (B, H, Dv), u (H, Dk);
+    ``state`` (B, H, Dk, Dv) fp32 is advanced in place -> o (B, H, Dv)
+    fp32, as ``ref.rwkv6_decode_ref`` computes::
+
+        o = r (S + diag(u) k^T v),   S <- diag(w) S + k^T v
+    """
+    r, k, v, w, u = (z.float() for z in (r, k, v, w, u))
+    kv = k[..., :, None] * v[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r, state + u[None, :, :, None] * kv)
+    state.copy_(w[..., :, None] * state + kv)
+    return o
+
+
 def rwkv6_block_decode(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                        cache: Dict) -> torch.Tensor:
     """x (B, 1, D), one token against this layer's ``cache`` (views of the
@@ -170,13 +186,8 @@ def rwkv6_block_decode(p: Dict, x: torch.Tensor, cfg: ArchConfig,
 
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     r, k, v, w, g = _time_mix(p, xn, cache["shift_tm"][:, None].to(dt), cfg)
-    # one wkv step in fp32: o = r (S + u k^T v), S <- w S + k^T v
-    rt, kt, vt, wt = (z[:, :, 0].float() for z in (r, k, v, w))   # (B, H, hd)
-    u = p["u"].to(dt).float()[None, :, :, None]
-    s = cache["wkv"]
-    kv = kt[..., :, None] * vt[..., None, :]
-    o = torch.einsum("bhk,bhkv->bhv", rt, s + u * kv).to(dt)
-    s.copy_(wt[..., :, None] * s + kv)
+    o = wkv_step(*(z[:, :, 0] for z in (r, k, v, w)), p["u"].to(dt),
+                 cache["wkv"]).to(dt)                              # (B, H, hd)
     x = _time_out(p, x, o.reshape(b, 1, d), g, cfg)
     cache["shift_tm"].copy_(xn[:, 0])
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (bit for bit for K1-K4, within stated tolerances for K5-K8), and
-the write -> read path with ``device="cuda"``.
+version (bit for bit for K1-K4, K9 and K10, within stated tolerances for
+K5-K8), the op entries of ``repro_torch.kernels.ops``, and the write ->
+read path with ``device="cuda"``.
 
 Marked ``cuda``: without a card every test skips.  On the card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -238,3 +239,112 @@ def test_mamba2_ssd_on_the_card(card, b, h, t, p, n, dtype):
     want, want_s = ref.mamba2_ref(x.float(), log_a, Bm, Cm)
     _scan_close(y, want)
     _scan_close(state, want_s)
+
+
+# ---------------------------------------------------------------------------
+# K9 byteshuffle and K10 delta_zigzag: bit for bit against the plain
+# versions, at ragged lengths and on views that start one element into
+# their storage (unaligned pointers take the scalar paths)
+
+
+def _unaligned(x):
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 7, 4097, 250_000])
+def test_byteshuffle_on_the_card(card, nb, n):
+    from repro_torch.kernels.byteshuffle import byteshuffle
+
+    x = torch.from_numpy(np.random.default_rng(n + nb).integers(
+        0, 256, (n, nb), dtype=np.uint8)).to(card)
+    before = ops.launch_counts()["byteshuffle"]
+    got = byteshuffle(x)
+    assert ops.launch_counts()["byteshuffle"] == before + 1
+    want = ref.byteshuffle_ref(x)
+    assert torch.equal(got, want)
+    assert torch.equal(byteshuffle(_unaligned(x)), want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4097, 1_000_003])
+def test_delta_zigzag_on_the_card(card, dtype, n):
+    from repro_torch.kernels.delta_zigzag import delta_zigzag
+
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(n)
+    a = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    a[::5] = np.resize(np.array([info.min, info.max, info.min + 1,
+                                 info.max - 1, 0], dtype=dtype),
+                       len(a[::5]))
+    x = torch.from_numpy(a).to(card)
+    before = ops.launch_counts()["delta_zigzag"]
+    got = delta_zigzag(x)
+    assert ops.launch_counts()["delta_zigzag"] == before + 1
+    want = ref.delta_zigzag_ref(x)
+    assert got.dtype == want.dtype
+    signed = x.dtype
+    assert torch.equal(got.view(signed), want.view(signed))
+    assert torch.equal(delta_zigzag(_unaligned(x)).view(signed),
+                       want.view(signed))
+    # and the host's numpy, bit for bit
+    cpu = ref.delta_zigzag_ref(torch.from_numpy(a))
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+
+
+def test_op_entries_on_the_card(card):
+    """Each of the nine op entries on CUDA tensors launches its kernel and
+    agrees with the plain version (exact for the codec ops)."""
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    ops.reset_launch_counts()
+    sizes = torch.randint(0, 9, (5000,), dtype=torch.int32, device=card,
+                          generator=g)
+    got = ops.offsets_scan(sizes, block=128)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.offsets_scan_ref(sizes.long()).int())
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    assert torch.equal(ops.delta_zigzag(offs).view(torch.int32),
+                       ref.delta_zigzag_ref(offs).view(torch.int32))
+    planes = torch.randint(0, 256, (6000, 8), dtype=torch.uint8, device=card,
+                           generator=g)
+    assert torch.equal(ops.byteshuffle(planes, block=512), planes.t())
+    pages = torch.randint(0, 256, (3, 8, 1000), dtype=torch.uint8,
+                          device=card, generator=g)
+    assert torch.equal(ops.unsplit_pages(pages), ref.unsplit_pages_ref(pages))
+    assert torch.equal(ops.decode_offset_pages(torch.zeros_like(pages)),
+                       torch.zeros((3, 1000), dtype=torch.int32, device=card))
+    q, k, v = _attn_inputs(card, 6, torch.float32, (1, 4, 200, 80),
+                           (1, 2, 200, 80), (1, 2, 200, 80))
+    want = ref.flash_attention_ref(q, k, v)
+    for impl in ("ref", "chunked"):
+        torch.testing.assert_close(ops.flash_attention(q, k, v, impl=impl),
+                                   want, atol=2e-5, rtol=2e-5)
+    length = torch.tensor([77], dtype=torch.int32, device=card)
+    torch.testing.assert_close(
+        ops.decode_attention(q[:, :, 0], k, v, length=length, block_k=256),
+        ref.decode_attention_ref(q[:, :, 0], k, v, length=length),
+        atol=2e-5, rtol=2e-5)
+    r, kk, vv, u = (torch.randn(s, generator=g, device=card) for s in
+                    ((1, 2, 64, 32), (1, 2, 64, 32), (1, 2, 64, 32), (2, 32)))
+    w = torch.rand((1, 2, 64, 32), generator=g, device=card)
+    out, state = ops.rwkv6(r, kk, vv, w, u, chunk=16)
+    want, want_s = ref.rwkv6_ref(r, kk, vv, w, u)
+    _scan_close(out, want)
+    _scan_close(state, want_s)
+    x = torch.randn((1, 2, 128, 32), generator=g, device=card)
+    log_a = -torch.rand((1, 2, 128), generator=g, device=card)
+    Bm, Cm = (torch.randn((1, 128, 16), generator=g, device=card)
+              for _ in range(2))
+    y, state = ops.mamba2(x, log_a, Bm, Cm, chunk=32)
+    want, want_s = ref.mamba2_ref(x, log_a, Bm, Cm)
+    _scan_close(y, want)
+    _scan_close(state, want_s)
+    counts = ops.launch_counts()
+    assert counts["byteshuffle_pages"] == 0
+    assert all(counts[k] >= 1 for k in ops.KERNELS
+               if k != "byteshuffle_pages"), counts
