@@ -9,16 +9,19 @@ kernel API on one NVIDIA card.
 Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source);
+   CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
+   ``ptxas``'s registers and spills of the tensor-core K5 and of K6;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes;
    K9 (single-buffer byteshuffle) bit for bit at element widths 1, 2, 3,
    4, 8 and 16 x N of 1 to 1,000,003, K10 (delta + zigzag) in int32 and
    int64 at N of 1 to 1,000,003 over the whole range with the extremes,
    both also on unaligned views;
-   K5 (flash attention) and K6 (decode attention) at ragged shapes, GQA,
-   MQA and MHA, head dims 32 to 256 (80: zamba2's shared attention),
-   windows, lengths from 1 to the cache, in fp32 (within 2e-5) and in
+   K5 (flash attention: bf16 on the tensor cores, fp32 on the CUDA cores)
+   and K6 (decode attention) at ragged shapes, GQA, MQA and MHA, head
+   dims 32 to 256 (80: zamba2's shared attention), Sk under one kv tile,
+   Sq of 1 and 129 against 1,000, windows, lengths from 1 to the cache,
+   H/G of 1, 3 and 8, in fp32 (within 2e-5) and in
    bf16 (against the plain version computed in fp32 from the same bf16
    inputs, within 1.6e-2); K7 (RWKV-6 scan) and K8 (Mamba-2 SSD scan) at
    T of 1, 31, 32 and 100 and at the serve shapes, K7 with strong decay
@@ -63,7 +66,8 @@ Phases, in order; any failure exits non-zero:
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
    the host entries of K1, K2 and K9 with their PCIe copies; one JSON
-   ``kernels`` line of the ten kernels;
+   ``kernels`` line of the ten kernels (K5's and K6's rows name the
+   ``design`` they timed);
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
@@ -116,6 +120,14 @@ KERNEL_INFO = {
                     "src/repro/kernels/byteshuffle.py:27"),
     "delta_zigzag": ("src/repro_torch/csrc/scans.cu",
                      "src/repro/kernels/delta_zigzag.py:38"),
+}
+
+#: which kernel design each attention row times (K5 picks by dtype: the
+#: phase-6 rows are bf16)
+ATTN_DESIGN = {
+    "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
+    "decode_attention": {"bfloat16": "cp.async ring",
+                         "float32": "cp.async ring"},
 }
 
 #: the served models, in the order they run: each at its full width and
@@ -346,6 +358,19 @@ def device_ms(torch, fn, x, host_ms: float, reps: int = 30) -> float:
          "would measure the host")
 
 
+def ptxas_report(path) -> list:
+    """``ptxas -v``'s registers and spills of the attention kernels that
+    take the tensor cores or the cp.async ring, one line each."""
+    out, name = [], None
+    for line in open(path, errors="replace").read().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            name = fn if ("wgmma" in fn or "decode_partial" in fn) else None
+        elif name and ("spill" in line or "Used" in line):
+            out.append(f"ptxas {name[:72]}: {line.split(':')[-1].strip()}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: every kernel against its plain version
 
@@ -441,8 +466,10 @@ def attention_cases():
     (b, h, g, s, d, window): no tile multiples, Sq < Sk, GQA 3:1, MQA and
     MHA, windows, non-causal calls with a padded kv tile, smollm-360m's
     (D=64, 15 over 5 heads), gemma-2b's (D=256, 8 over 1) and zamba2-2.7b's
-    shared attention's (D=80, 32 over 32: a lane's last output dim is
-    guarded) head shapes."""
+    shared attention's (D=80, 32 over 32: two swizzled column blocks in
+    K5, ten lanes a row in K6) head shapes; Sk under one kv tile, Sq of 1
+    and 129 against 1,000 (q_offset no tile multiple), K6 at H/G of 1, 3
+    and 8 with lengths from 1 to S."""
     flash = [
         (1, 15, 5, 1000, 1000, 64, True, None),    # smollm-360m prefill
         (2, 8, 1, 1000, 1000, 256, True, None),    # gemma-2b prefill
@@ -456,6 +483,12 @@ def attention_cases():
         (1, 4, 2, 300, 300, 128, True, None),
         (1, 32, 32, 1000, 1000, 80, True, None),   # zamba2-2.7b shared attn
         (2, 6, 6, 77, 130, 80, False, 20),         # D=80, non-causal window
+        (1, 4, 2, 17, 17, 64, True, None),         # Sk under one kv tile
+        (1, 6, 2, 1, 1000, 64, True, None),        # Sq = 1 against 1,000
+        (2, 6, 2, 129, 1000, 64, True, None),      # q_offset no tile multiple
+        (1, 8, 8, 300, 300, 80, True, 100),        # D=80 with a window
+        (1, 4, 1, 1000, 1000, 256, True, None),    # D=256 at the prefill length
+        (2, 8, 1, 200, 300, 128, True, None),      # MQA at D=128
     ]
     decode = [
         (16, 15, 5, 1064, 64, None),               # smollm-360m decode
@@ -467,6 +500,9 @@ def attention_cases():
         (1, 4, 2, 1, 32, None),                    # a one-row cache
         (16, 32, 32, 1064, 80, None),              # zamba2-2.7b shared attn
         (3, 4, 4, 300, 80, 64),
+        (2, 3, 1, 517, 64, None),                  # H/G = 3, lengths 1 and S
+        (2, 8, 1, 517, 80, 7),                     # H/G = 8 at D=80
+        (2, 2, 2, 517, 80, None),                  # H/G = 1 at D=80
     ]
     return flash, decode
 
@@ -1202,6 +1238,8 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
             "plain_ms": timed["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": timed["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
+            "design": ATTN_DESIGN[name]["bfloat16"],
+            "design_by_dtype": ATTN_DESIGN[name],
             "shape": list(shape), "dtype": "bfloat16", "length": length,
             "bytes": nbytes, "call_ms": timed["call_ms"],
             "plain_call_ms": timed["plain_call_ms"],
@@ -1439,6 +1477,8 @@ def main() -> int:
         _build.library(lib)
     log(f"build and load: {time.perf_counter() - t0:.3f} s into "
         f"{_build.build_dir()}")
+    for line in ptxas_report(_build.build_log("attention")):
+        log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
     check_kernels(torch, kernels, ragged_shapes())
@@ -1603,7 +1643,7 @@ def main() -> int:
                                    served.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["at_zamba2-2.7b"] = {k: rz[k] for k in (
-            "launches", "shape", "length", "ms", "plain_ms", "bound_ms",
+            "launches", "shape", "length", "design", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err", "bytes", "call_ms")}
     rows += attn_rows
     rows += time_scans(torch, ops, served, worst)

@@ -30,6 +30,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+#: extra flags per library: the attention library reports each kernel's
+#: registers and spills (``ptxas -v``, kept in its build log) and takes
+#: ``dlopen`` for libcuda's tensor-map encoder
+EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"]}
+
 _P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 
@@ -59,11 +64,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         #  stream)
         "repro_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _I64, _INT, _INT, _INT, _INT, _F32, _P],
-        # (q, k, v, length, o, part_m, part_l, part_acc, B, H, G, S, D,
-        #  dtype, chunk, n_chunks, window, scale, stream)
-        "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+        # (q, k, v, length, o, part_m, part_l, part_acc, counters, B, H, G,
+        #  S, D, dtype, chunk, n_chunks, warps, window, scale, stream)
+        "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                    _I64, _I64, _I64, _INT, _INT, _INT, _INT,
-                                   _INT, _F32, _P],
+                                   _INT, _INT, _F32, _P],
     },
     "ssm": {
         # (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream)
@@ -103,6 +108,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(EXTRA_FLAGS.items())).encode())
     for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -113,10 +119,16 @@ def _target(name: str, digest: str) -> Path:
     return build_dir() / f"lib{name}-{digest}.so"
 
 
+def build_log(name: str) -> Path:
+    """The compiler's output of library ``name``'s last build."""
+    return _target(name, _digest()).with_suffix(".log")
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every library that is not built yet, one ``nvcc`` per
     source in parallel; returns ``{name: path}``.  Raises with the
-    compiler's output when a build fails."""
+    compiler's output when a build fails; keeps it beside the library
+    (:func:`build_log`) when it succeeds."""
     digest = _digest()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
@@ -126,8 +138,8 @@ def build_all() -> Dict[str, Path]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
@@ -136,6 +148,7 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed:\n{log.decode(errors='replace')}")
         else:
+            target.with_suffix(".log").write_bytes(log)
             os.replace(tmp, target)  # atomic: a reader never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))

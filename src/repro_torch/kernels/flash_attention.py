@@ -5,9 +5,16 @@ Replaces the Pallas ``flash_attention``
 k/v ``(B, G, Sk, D)`` with GQA grouping ``H // G``, query row ``i`` at
 position ``i + Sk - Sq``, a causal mask and an optional sliding window;
 softmax statistics and the accumulator in fp32, the output in the
-inputs' dtype.  The CUDA kernel lives in ``csrc/attention.cu``; on a CPU
+inputs' dtype.  The CUDA kernels live in ``csrc/attention.cu``; on a CPU
 tensor the wrapper runs the plain version (``ref.flash_attention_ref``),
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel of its dtype or raises:
+
+- bfloat16 (the serve path): ``flash_fwd_wgmma``, both products on the
+  tensor cores (``wgmma``, fp32 accumulators, P rounded to bf16 before
+  ``P V``), K/V tiles streamed by TMA through a ring of shared-memory
+  stages.  ``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.
+- float32: ``flash_fwd``, fp32 FMAs on the CUDA cores (a tensor-core
+  route would be TF32, too coarse for the fp32 tolerance of 2e-5).
 
 Unlike the Pallas kernel, padded kv columns are masked (``k_pos < Sk``)
 whether or not the call is causal, so non-causal calls equal the oracle.
@@ -44,6 +51,12 @@ def check_kernel_args(name: str, q: torch.Tensor, *rest: torch.Tensor,
         raise ValueError(f"{name}: window must be >= 1, got {window}")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied when its data does not start on 16
+    bytes: TMA and 16-byte ``cp.async`` read from such addresses only."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -60,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        scale=scale)
     check_kernel_args("flash_attention", q, k, v, window=window)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -25,7 +25,10 @@ from repro.kernels.decode_attention import decode_attention as j_decode
 from repro.kernels.flash_attention import flash_attention as j_flash
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import chunking, decode_attention
+from repro_torch.kernels.decode_attention import (
+    MAX_CHUNKS, TILE_ROWS, chunking, decode_attention, heads_per_block,
+    launch_shape,
+)
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS, check_kernel_args, flash_attention,
 )
@@ -131,6 +134,80 @@ def test_kernel_argument_checks():
 
 
 # ---------------------------------------------------------------------------
+# K5's bf16 numerics on the card, emulated tile by tile
+
+LOG2E = 1.4426950408889634
+#: the card's bf16 tolerance against the plain version in fp32 (chip_smoke
+#: ``ATTN_TOL``), as ``|got - want| <= tol (1 + |want|)``
+CARD_BF16_TOL = 1.6e-2
+
+
+def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128):
+    """K5's bf16 kernel in plain PyTorch, one (query tile, kv tile) at a
+    time: fp32 scores of the bf16 inputs, ``scale * log2(e)`` folded and
+    ``exp2``, fp32 ``(m, l, acc)``, P rounded to bf16 per kv tile before
+    ``P V``, the kv tiles a query tile cannot see skipped, a row that sees
+    no key 0, the output rounded to bf16."""
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // g, dim=1)
+    vf = v.float().repeat_interleave(h // g, dim=1)
+    qf = q.float()
+    c = LOG2E / np.sqrt(d)
+    out = torch.zeros(b, h, sq, d)
+    for q0 in range(0, sq, bq):
+        rows = min(bq, sq - q0)
+        qpos = torch.arange(q0, q0 + rows) + sk - sq
+        k_end = min(sk, int(qpos[-1]) + 1) if causal else sk
+        k_begin = max(0, int(qpos[0]) - window + 1) if window else 0
+        m = torch.full((b, h, rows), -1e30)
+        l = torch.zeros(b, h, rows)
+        acc = torch.zeros(b, h, rows, d)
+        for k0 in range(k_begin // bk * bk, k_end, bk):
+            kpos = torch.arange(k0, min(k0 + bk, sk))
+            s = qf[:, :, q0:q0 + rows] @ kf[:, :, kpos].transpose(-1, -2) * c
+            ok = torch.ones(rows, len(kpos), dtype=torch.bool)
+            if causal:
+                ok &= kpos[None, :] <= qpos[:, None]
+            if window:
+                ok &= kpos[None, :] > qpos[:, None] - window
+            s = s.masked_fill(~ok, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            a = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * a + p.sum(-1)
+            acc = acc * a[..., None] + p.bfloat16().float() @ vf[:, :, kpos]
+            m = m_new
+        out[:, :, q0:q0 + rows] = torch.where(
+            l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
+            torch.zeros(()))
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+    (1, 4, 2, 150, 200, 64, True, None),   # two query tiles, Sq < Sk
+    (2, 3, 1, 77, 300, 64, True, 40),      # MQA, window, Sq < Sk
+    (1, 4, 4, 130, 130, 80, True, None),   # D=80, a ragged second tile
+    (1, 2, 2, 90, 260, 80, True, 70),      # D=80, window
+    (1, 2, 1, 60, 140, 80, False, None),   # non-causal, padded kv tile
+    (1, 2, 1, 70, 150, 256, True, None),   # D=256 takes kv tiles of 64
+])
+def test_k5_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d, causal,
+                                                 window):
+    """Rounding P to bf16 per kv tile (what the tensor-core kernel does)
+    stays within the tolerance the card holds K5 to, against the JAX
+    oracle in fp32 on the same bf16 inputs."""
+    arrs = _inputs(sq + sk + d, (b, h, sq, d), (b, g, sk, d), (b, g, sk, d))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    got = _np(_k5_bf16_emulation(q, k, v, causal, window,
+                                 bk=128 if d <= 128 else 64))
+    jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                        window=window))
+    assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
+
+
+# ---------------------------------------------------------------------------
 # K6 decode_attention
 
 
@@ -184,11 +261,33 @@ def test_decode_is_the_last_row_of_flash():
                                    atol=FP32_TOL, rtol=FP32_TOL)
 
 
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("b,g,hg,s,d", [(16, 5, 3, 1064, 64), (16, 32, 1, 1064, 80),
+                                        (1, 1, 1, 100_000, 64), (2, 1, 15, 700, 256),
+                                        (1, 1, 8, 7, 256), (128, 8, 2, 33, 32)])
+def test_decode_launch_shape(b, g, hg, s, d, sms):
+    chunk, nch, warps = launch_shape(b, g, hg, s, d, sms)
+    assert (nch - 1) * chunk < s <= nch * chunk and nch <= MAX_CHUNKS
+    assert warps in (4, 8)
+    if heads_per_block(hg) > 4:
+        assert warps == 4   # 8 heads a block: the registers of 128 threads
+
+
+def test_decode_launch_shape_at_the_serve_shapes():
+    # smollm-360m: 80 (sequence, kv group) blocks, one chunk, 8 warps each;
+    # zamba2-2.7b: 512 blocks of 4 warps
+    assert launch_shape(16, 5, 3, 1064, 64, 132)[1:] == (1, 8)
+    assert launch_shape(16, 32, 1, 1064, 80, 132)[1:] == (1, 4)
+
+
 @pytest.mark.parametrize("target", [228, 264])   # two waves of 114 / 132 SMs
 @pytest.mark.parametrize("b,g,s,d", [(16, 5, 1064, 64), (1, 1, 7, 256),
-                                     (4, 1, 5000, 256), (128, 8, 33, 32)])
+                                     (4, 1, 5000, 256), (128, 8, 33, 32),
+                                     (16, 32, 1064, 80), (1, 1, 100_000, 64)])
 def test_decode_chunking_covers_the_cache(b, g, s, d, target):
     chunk, nch = chunking(b, g, s, d, target)
-    tile = {32: 64, 64: 64, 128: 64, 256: 32}[d]
+    tile = {32: 128, 64: 64, 80: 48, 128: 32, 256: 16}[d]
+    assert TILE_ROWS[d] == tile
     assert chunk % tile == 0 and chunk > 0
     assert (nch - 1) * chunk < s <= nch * chunk
+    assert nch <= MAX_CHUNKS

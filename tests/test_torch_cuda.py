@@ -120,6 +120,13 @@ def _attn_inputs(card, seed, dtype, *shapes):
     (1, 6, 3, 20, 90, 256, False, 30),
     (2, 32, 32, 300, 300, 80, True, None),   # zamba2's shared attention
     (1, 4, 4, 70, 133, 80, False, 50),
+    (1, 4, 2, 17, 17, 64, True, None),        # Sk under one kv tile
+    (1, 4, 2, 9, 17, 32, False, None),
+    (1, 6, 2, 1, 1000, 64, True, None),       # Sq = 1: q_offset 999
+    (1, 6, 2, 129, 1000, 64, True, None),     # q_offset no tile multiple
+    (1, 4, 4, 300, 300, 80, True, 100),       # D=80 with a window
+    (1, 4, 1, 1000, 1000, 256, True, None),   # D=256 at the prefill length
+    (2, 8, 1, 200, 300, 128, True, None),     # MQA at D=128
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
@@ -157,6 +164,28 @@ def test_decode_attention_on_the_card(card, b, h, g, s, d, dtype):
     for window in (None, 40):
         got = decode_attention(q, k, v, length=length, window=window)
         torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        length=length, window=window)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hg", [1, 3, 8])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lengths_and_groups_on_the_card(card, hg, d, dtype):
+    """K6 with lengths 1, S and between, H / G of 1, 3 and 8."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    b, g, s = 3, 2, 517
+    q, k, v = _attn_inputs(card, hg * d, dtype, (b, g * hg, d), (b, g, s, d),
+                           (b, g, s, d))
+    length = torch.tensor([1, s, 250], dtype=torch.int32, device=card)
+    tol = ATTN_TOL[dtype]
+    for window in (None, 7):
+        before = ops.launch_counts()["decode_attention"]
+        got = decode_attention(q, k, v, length=length, window=window)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == before + 1
         want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
                                         length=length, window=window)
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
