@@ -10,9 +10,13 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
-   ``ptxas``'s registers and spills of the tensor-core K5 and of K6;
+   ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1
+   and of K8's chunked route;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
-   for bit at ragged shapes and at the paper configuration's page shapes;
+   for bit at ragged shapes and at the paper configuration's page shapes
+   (K1 up to 2^24 values), K1 also over 200 calls in a row, with wrapping
+   sums, and under 4 concurrent callers on one stream, on a stream each
+   and through its host entry;
    K9 (single-buffer byteshuffle) bit for bit at element widths 1, 2, 3,
    4, 8 and 16 x N of 1 to 1,000,003, K10 (delta + zigzag) in int32 and
    int64 at N of 1 to 1,000,003 over the whole range with the extremes,
@@ -24,8 +28,10 @@ Phases, in order; any failure exits non-zero:
    H/G of 1, 3 and 8, in fp32 (within 2e-5) and in
    bf16 (against the plain version computed in fp32 from the same bf16
    inputs, within 1.6e-2); K7 (RWKV-6 scan) and K8 (Mamba-2 SSD scan) at
-   T of 1, 31, 32 and 100 and at the serve shapes, K7 with strong decay
-   and with decays of exactly 0 (finite), output and final state, fp32
+   T of 1, 31, 32 and 100 (K8 also 64, 65 and 129, its chunk edges),
+   state widths 16 to 128 with 48, P of 40 to 1,024 and at the serve
+   shapes, K7 with strong decay and with decays of exactly 0, K8 with
+   log_a of -inf and down to -1e4 (finite), output and final state, fp32
    within 1e-4 and bf16 outputs within 1e-2; each as ``|got - want| <=
    tol * (1 + |want|)``;
 3. the write -> read path: the paper's configuration written by
@@ -65,9 +71,10 @@ Phases, in order; any failure exits non-zero:
    at zamba2-2.7b's head shapes; none for K7 and K8); K9 and K10 at one
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
+   K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``;
    the host entries of K1, K2 and K9 with their PCIe copies; one JSON
-   ``kernels`` line of the ten kernels (K5's and K6's rows name the
-   ``design`` they timed);
+   ``kernels`` line of the ten kernels (K1's, K5's, K6's and K8's rows
+   name the ``design`` they timed);
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
@@ -122,12 +129,15 @@ KERNEL_INFO = {
                      "src/repro/kernels/delta_zigzag.py:38"),
 }
 
-#: which kernel design each attention row times (K5 picks by dtype: the
-#: phase-6 rows are bf16)
-ATTN_DESIGN = {
+#: which kernel design each phase-6 row times (K5 and K8 pick by dtype:
+#: their phase-6 rows are bf16)
+KERNEL_DESIGN = {
+    "offsets_scan": {"int64": "single-pass look-back"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
     "decode_attention": {"bfloat16": "cp.async ring",
                          "float32": "cp.async ring"},
+    "mamba2_ssd": {"bfloat16": "chunked split-bf16 mma",
+                   "float32": "simt steps"},
 }
 
 #: the served models, in the order they run: each at its full width and
@@ -358,14 +368,43 @@ def device_ms(torch, fn, x, host_ms: float, reps: int = 30) -> float:
          "would measure the host")
 
 
+#: sizes past the write path's batches at which phase 6 also times K1
+#: against ``torch.cumsum`` (phase 2 checks K1 there)
+OFFSETS_TIMED = (1_100_003, 1 << 24)
+
+
+def time_offsets_sizes(torch, kern, plain, gen) -> list:
+    """K1 and its plain version, ``torch.cumsum``, on the card at each of
+    ``OFFSETS_TIMED``, beside the bytes bound."""
+    out = []
+    for n in OFFSETS_TIMED:
+        x = kernel_input(torch, "offsets_scan", (n,), gen)
+        if not torch.equal(kern(x), plain(x)):
+            fail(f"offsets_scan at ({n},) differs from torch.cumsum")
+        ms = device_ms(torch, kern, x, call_ms(torch, kern, x))
+        lib_ms = device_ms(torch, plain, x, call_ms(torch, plain, x))
+        b_ms, b_by, _ = bound("offsets_scan", (n,))
+        out.append({"n": n, "ms": ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by})
+        log(f"offsets_scan at ({n},): card {ms:.5f} ms, torch.cumsum "
+            f"{lib_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}")
+    return out
+
+
+#: the kernels whose registers and spills phase 1 prints (name fragments
+#: of their mangled names)
+PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked")
+
+
 def ptxas_report(path) -> list:
-    """``ptxas -v``'s registers and spills of the attention kernels that
-    take the tensor cores or the cp.async ring, one line each."""
+    """``ptxas -v``'s registers and spills of the tensor-core and
+    cp.async kernels (K5, K6, K8's chunked route) and of K1, one line
+    each."""
     out, name = [], None
     for line in open(path, errors="replace").read().splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            name = fn if ("wgmma" in fn or "decode_partial" in fn) else None
+            name = fn if any(k in fn for k in PTXAS_KERNELS) else None
         elif name and ("spill" in line or "Used" in line):
             out.append(f"ptxas {name[:72]}: {line.split(':')[-1].strip()}")
     return out
@@ -394,10 +433,68 @@ def check_kernels(torch, kernels, shapes) -> None:
             f"{len(shape_list)} shapes")
 
 
+def check_offsets_calls(np, torch, kernels) -> None:
+    """K1 across calls: 200 calls in a row at lengths of 1 to 300,000
+    (epochs and tickets carry over on one workspace), values over the
+    whole int64 range (sums wrap as ``torch.cumsum``'s), and 4 threads x
+    50 calls at once on the default stream, on a stream per thread and
+    through the write path's host entry; all bit for bit."""
+    scan = kernels.offsets_scan.offsets_scan
+    host = kernels.offsets_scan.offsets_scan_host
+    rng = np.random.default_rng(4321)
+
+    def sizes(r, n, wrapping=False):
+        if wrapping:
+            return r.integers(-2**63, 2**63 - 1, n, dtype=np.int64,
+                              endpoint=True)
+        return r.poisson(5, n).astype(np.int64)
+
+    for i in range(200):
+        n = int(rng.integers(1, 300_000 if i % 3 else 5000))
+        a = sizes(rng, n, i % 5 == 0)
+        got = scan(torch.from_numpy(a).cuda()).cpu().numpy()
+        if not np.array_equal(got, np.cumsum(a, dtype=np.int64)):
+            fail(f"offsets_scan call {i} (n {n}) differs from np.cumsum")
+    errors = []
+
+    def worker(mode, seed):
+        r = np.random.default_rng(seed)
+        try:
+            stream = (torch.cuda.Stream() if mode == "stream per thread"
+                      else torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    a = sizes(r, int(r.integers(1, 200_000)))
+                    if mode == "host entry":
+                        got = host(a, torch.device("cuda"))
+                    else:
+                        got = scan(torch.from_numpy(a).cuda()).cpu().numpy()
+                    if not np.array_equal(got, np.cumsum(a, dtype=np.int64)):
+                        errors.append(f"{mode} thread {seed}")
+        except Exception as e:  # reported below
+            errors.append(f"{mode} thread {seed}: {e!r}")
+
+    for mode in ("default stream", "stream per thread", "host entry"):
+        threads = [threading.Thread(target=worker, args=(mode, k))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                fail(f"offsets_scan: a caller ({mode}) did not finish")
+    if errors:
+        fail(f"offsets_scan under concurrent callers: {errors[:4]}")
+    log("kernel offsets_scan: bit-identical to np.cumsum over 200 calls in "
+        "a row (wrapping sums included) and 4 threads x 50 calls on the "
+        "default stream, on a stream each and through the host entry")
+
+
 def ragged_shapes():
     return {
-        # 1 tile, a ragged tile, several tiles, > 256 tiles (pass 2 loops)
-        "offsets_scan": [(1,), (4095,), (4097,), (100_000,), (1_100_003,)],
+        # 1 tile, ragged tiles, several tiles, look-backs past 32 tiles
+        "offsets_scan": [(1,), (2047,), (4095,), (4097,), (100_000,),
+                         (1_100_003,), (2**20 + 3,), (2**24,)],
         # the paper config's page shapes, plus ragged and odd `per`
         "byteshuffle_pages": [(36, 8192, 8), (91, 16384, 4), (3, 1000, 8),
                               (2, 777, 4), (5, 4099, 2), (2, 33, 1),
@@ -575,10 +672,13 @@ DECAYS = {"reference": (-4.0, 1.0), "strong": (2.0, 4.0), "zero": (2.0, 6.0)}
 
 
 def scan_cases():
-    """K7 cases (b, h, t, dk, dv, decay) and K8 cases (b, h, t, p, n): T of
-    1, 31, 32, 33 and 100 (one step; whole and ragged 16-step stages),
-    every built state width, Dv and P of 40
-    and 96 (no multiple of 32), and the serve shapes of rwkv6-7b and zamba2-2.7b."""
+    """K7 cases (b, h, t, dk, dv, decay) and K8 cases (b, h, t, p, n[,
+    decay]): T of 1, 31, 32, 33 and 100 (one step; whole and ragged
+    16-step stages), K8 also 64, 65 and 129 (its chunk edges), every
+    built state width (48: the reference sweep's rwkv6 row), Dv and P of
+    40 and 96 (no multiple of 32), P of 1,024, K8 with log_a of -inf at
+    every 7th step and down to -1e4, and the serve shapes of rwkv6-7b and
+    zamba2-2.7b."""
     rwkv6 = [
         (2, 3, 1, 16, 16, "reference"),
         (2, 3, 31, 32, 32, "strong"),
@@ -586,12 +686,16 @@ def scan_cases():
         (2, 4, 100, 64, 64, "reference"),
         (1, 2, 100, 128, 96, "strong"),
         (1, 2, 33, 16, 40, "zero"),
+        (1, 4, 96, 48, 64, "reference"),            # the reference's Dk = 48
         (16, 64, 1000, 64, 64, "reference"),        # rwkv6-7b prefill
         (16, 64, 1000, 64, 64, "zero"),
     ]
     mamba2 = [
         (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
         (2, 4, 100, 64, 64), (1, 2, 100, 96, 128), (1, 2, 33, 40, 16),
+        (1, 4, 96, 64, 48), (2, 3, 64, 40, 48), (2, 3, 65, 64, 64),
+        (1, 3, 129, 1024, 32),
+        (2, 3, 130, 64, 64, "-inf"), (1, 4, 100, 40, 48, "-1e4"),
         (16, 80, 1000, 64, 64),                     # zamba2-2.7b prefill
     ]
     return rwkv6, mamba2
@@ -612,28 +716,42 @@ def rwkv6_inputs(torch, gen, shape, decay: str, dtype):
     return [a.to(dtype) for a in (r, k, v, w, u)]
 
 
-def mamba2_inputs(torch, gen, shape, dtype):
-    """x (in ``dtype``), log_a = -exp(uniform(-3, 0.5)), B, C on the card."""
+#: K8's log-decay -exp(uniform(-3, hi)): the reference's range, and one
+#: down to -1e4; "-inf" also sets every 7th step to -inf (decay 0)
+LOG_DECAY_HI = {"reference": 0.5, "-inf": 0.5, "-1e4": 9.2}
+
+
+def mamba2_inputs(torch, gen, shape, dtype, decay="reference"):
+    """x (in ``dtype``), log_a = -exp(uniform(-3, ``LOG_DECAY_HI[decay]``)),
+    B, C on the card."""
     b, h, t, p, n = shape
     x = torch.randn((b, h, t, p), generator=gen, device="cuda").to(dtype)
-    log_a = -torch.exp(-3 + 3.5 * torch.rand((b, h, t), generator=gen,
-                                             device="cuda"))
+    hi = LOG_DECAY_HI[decay]
+    log_a = -torch.exp(-3 + (hi + 3) * torch.rand((b, h, t), generator=gen,
+                                                  device="cuda"))
+    if decay == "-inf":
+        log_a[..., ::7] = -float("inf")
     Bm, Cm = (torch.randn((b, t, n), generator=gen, device="cuda")
               for _ in range(2))
     return [x, log_a, Bm, Cm]
 
 
-def _scan_err(torch, got, want, what: str) -> float:
+def _scan_err(torch, got, want, what: str, shares=None, key=None) -> float:
     """Max abs error; fails unless finite and |got - want| <= tol (1 +
-    |want|), tol by ``got``'s dtype (``SCAN_TOL``)."""
+    |want|), tol by ``got``'s dtype (``SCAN_TOL``).  ``shares[key]`` keeps
+    the largest |got - want| / (tol (1 + |want|)): the share of the
+    tolerance used."""
     tol = SCAN_TOL["bfloat16" if got.dtype == torch.bfloat16 else "float32"]
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         fail(f"{what} is not finite")
     diff = (got - want).abs()
-    if not bool((diff <= tol * (1 + want.abs())).all()):
+    share = float((diff / (tol * (1 + want.abs()))).max())
+    if share > 1.0:
         fail(f"{what} differs from its plain version (max abs err "
              f"{float(diff.max()):.3e}, tol {tol})")
+    if shares is not None:
+        shares[key] = max(shares.get(key, 0.0), share)
     return float(diff.max())
 
 
@@ -647,7 +765,7 @@ def check_scans(torch, rwkv6_cases, mamba2_cases) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
-    worst = {}
+    worst, shares = {}, {}
     for dname in SCAN_TOL:
         dtype = getattr(torch, dname)
         for case in rwkv6_cases:
@@ -657,20 +775,23 @@ def check_scans(torch, rwkv6_cases, mamba2_cases) -> dict:
             torch.cuda.synchronize()
             want, want_s = ref.rwkv6_ref(*(a.float() for a in ins))
             what = f"rwkv6_scan {dname} at {tuple(shape)} decay {decay}"
-            err = max(_scan_err(torch, out, want, what),
-                      _scan_err(torch, state, want_s, what + " (state)"))
             key = ("rwkv6_scan", dname)
+            err = max(_scan_err(torch, out, want, what, shares, key + ("out",)),
+                      _scan_err(torch, state, want_s, what + " (state)",
+                                shares, key + ("state",)))
             worst[key] = max(worst.get(key, 0.0), err)
             del ins, out, state, want, want_s
-        for shape in mamba2_cases:
-            ins = mamba2_inputs(torch, gen, shape, dtype)
+        for case in mamba2_cases:
+            shape, decay = case[:5], (case[5] if len(case) > 5 else "reference")
+            ins = mamba2_inputs(torch, gen, shape, dtype, decay)
             y, state = mamba2_ssd(*ins)
             torch.cuda.synchronize()
             want, want_s = ref.mamba2_ref(ins[0].float(), *ins[1:])
-            what = f"mamba2_ssd {dname} at {tuple(shape)}"
-            err = max(_scan_err(torch, y, want, what),
-                      _scan_err(torch, state, want_s, what + " (state)"))
+            what = f"mamba2_ssd {dname} at {tuple(shape)} decay {decay}"
             key = ("mamba2_ssd", dname)
+            err = max(_scan_err(torch, y, want, what, shares, key + ("out",)),
+                      _scan_err(torch, state, want_s, what + " (state)",
+                                shares, key + ("state",)))
             worst[key] = max(worst.get(key, 0.0), err)
             del ins, y, state, want, want_s
     for (name, dname), err in sorted(worst.items()):
@@ -678,7 +799,9 @@ def check_scans(torch, rwkv6_cases, mamba2_cases) -> dict:
         log(f"kernel {name} {dname} inputs: finite and within "
             f"{SCAN_TOL[dname]} (outputs; states within "
             f"{SCAN_TOL['float32']}) of its plain version at {n} shapes "
-            f"(max abs err {err:.3e})")
+            f"(max abs err {err:.3e}; largest share of the tolerance: "
+            f"outputs {shares[(name, dname, 'out')]:.4f}, states "
+            f"{shares[(name, dname, 'state')]:.4f})")
     return worst
 
 
@@ -1238,8 +1361,8 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
             "plain_ms": timed["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": timed["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
-            "design": ATTN_DESIGN[name]["bfloat16"],
-            "design_by_dtype": ATTN_DESIGN[name],
+            "design": KERNEL_DESIGN[name]["bfloat16"],
+            "design_by_dtype": KERNEL_DESIGN[name],
             "shape": list(shape), "dtype": "bfloat16", "length": length,
             "bytes": nbytes, "call_ms": timed["call_ms"],
             "plain_call_ms": timed["plain_call_ms"],
@@ -1323,9 +1446,11 @@ def time_scans(torch, ops, served, worst) -> list:
             want = ref.mamba2_ref(ins[0].float(), *ins[1:])
         got = kern()
         torch.cuda.synchronize()
+        shares = {}
         err = _scan_err(torch, got[0], want[0], f"{name} at the serve shape "
-                        f"{shape}")
-        _scan_err(torch, got[1], want[1], f"{name} state at {shape}")
+                        f"{shape}", shares, "out")
+        _scan_err(torch, got[1], want[1], f"{name} state at {shape}", shares,
+                  "state")
         del got, want
         before = ops.launch_counts()[name]
         c_ms = call_ms(torch, lambda _: kern(), None)
@@ -1343,6 +1468,9 @@ def time_scans(torch, ops, served, worst) -> list:
             "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
             "call_ms": c_ms,
             "plain_timing": "CUDA events around one call, median of 3",
+            "tol_share": shares,
+            "design": KERNEL_DESIGN.get(name, {}).get("bfloat16"),
+            "design_by_dtype": KERNEL_DESIGN.get(name),
             "max_abs_err_fp32_checks": worst[(name, "float32")],
             "max_abs_err_bf16_checks": worst[(name, "bfloat16")],
         })
@@ -1477,11 +1605,13 @@ def main() -> int:
         _build.library(lib)
     log(f"build and load: {time.perf_counter() - t0:.3f} s into "
         f"{_build.build_dir()}")
-    for line in ptxas_report(_build.build_log("attention")):
-        log(line)
+    for lib in ("attention", "scans", "ssm"):
+        for line in ptxas_report(_build.build_log(lib)):
+            log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
     check_kernels(torch, kernels, ragged_shapes())
+    check_offsets_calls(np, torch, kernels)
     check_codec(torch, kernels)
     flash_cases, decode_cases = attention_cases()
     worst = check_attention(torch, flash_cases, decode_cases)
@@ -1626,6 +1756,10 @@ def main() -> int:
             "library": lib, "shape": list(shape), "bytes": nbytes,
             "call_ms": timed["call_ms"], "plain_call_ms": timed["plain_call_ms"],
         })
+        if name == "offsets_scan":
+            rows[-1]["design"] = KERNEL_DESIGN[name]["int64"]
+            rows[-1]["at_sizes"] = time_offsets_sizes(torch, kern, plain,
+                                                      gen)
         log(f"{name} at {shape}: card {ms:.5f} ms (bound {b_ms:.5f} ms by "
             f"{b_by}, plain {plain_ms:.5f} ms, library "
             f"{f'{lib_ms:.5f} ms ({lib})' if lib else 'none'}); per call "

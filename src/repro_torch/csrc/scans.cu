@@ -14,21 +14,43 @@
 //
 // Bound on an H100 (3.35 TB/s): bytes; the adds are far below the card's
 // integer rate.  K1 reads 8 N and writes 8 N bytes: a fill batch of 100k
-// sizes is 1.6 MB, about 0.5 us.  K4 reads the four low byte planes
-// (4 P per bytes) and writes 4 P per bytes of int32: for one cluster's
-// offset column of about 300k entries, 2.4 MB, about 0.7 us.  Both are
-// far below a launch plus the PCIe copies around them.  K10 reads and
-// writes each element once: 2^24 int64 move 268 MB, 0.080 ms.
+// sizes is 1.6 MB, about 0.5 us, less than one launch, so what K1 costs
+// is its launches and the latency chain of one (ticket, load, block scan,
+// look-back over L2, store).  K4 reads the four low byte planes (4 P per bytes) and
+// writes 4 P per bytes of int32: for one cluster's offset column of about
+// 300k entries, 2.4 MB, about 0.7 us.  K10 reads and writes each element
+// once: 2^24 int64 move 268 MB, 0.080 ms.
 //
 // Design.  The TPU kernels walk a sequential grid with a running carry in
 // SMEM; blocks on the card run in no order, so:
-// * K1 is a three-pass scan.  Pass 1: each block scans its tile of 4096
-//   values (16 rounds of a 256-thread block scan with a carry between
-//   rounds; loads and stores coalesced) and writes the tile's total.
-//   Pass 2: one block scans the tile totals into exclusive prefixes.
-//   Pass 3: each block after the first adds its prefix to its tile.  The
-//   adds are in uint64, i.e. two's-complement int64, so the result equals
-//   numpy's int64 cumsum bit for bit.
+// * K1 is ONE launch, a single-pass scan with decoupled look-back (no
+//   second pass over the output, no memset or init kernel).  A block
+//   takes a tile of 2,048 values (256 threads x 8, loaded and stored as
+//   16-byte vectors where aligned), scans it in registers and shared
+//   memory, publishes the tile's aggregate, and one warp looks back over
+//   the predecessors' published aggregates and inclusive prefixes, 32
+//   tiles at a time, until it meets a prefix; the block then publishes
+//   its own inclusive prefix and writes its tile once.  Forward progress:
+//   a block takes its tile from a ticket (atomicAdd on a counter), not
+//   from blockIdx, so it only ever waits on tiles that blocks already
+//   running own; while the ticket's atomic is in flight the block loads
+//   the tile of its launch order, which the ticket names almost always
+//   (else it loads the right one).  No reset: the workspace (tickets and per-tile status
+//   words) belongs to K1 alone, one per (device, stream), zeroed once
+//   when it is made; the counter is never reset (the wrapper passes the
+//   tiles issued on it so far as the base: tile = ticket - base), and a
+//   status word is epoch << 2 | flag with a per-call epoch from the
+//   wrapper, so a word left by an earlier call never reads as ready.
+//   A tile's status and value share one 16-byte slot, stored and loaded
+//   as one aligned 16-byte vector access, so no fence stands between a
+//   value and its flag.  This relies on the hardware making such an
+//   access single-copy atomic, as CUB's look-back does; the PTX memory
+//   model does not promise it (it orders a vector access as separate
+//   scalar ones).  The model's own way, the value and then its status by
+//   a release store, the status read by an acquire and then the value,
+//   made K1 13 % slower (PERF.md §6).  The adds are in uint64,
+//   i.e. two's-complement int64, so the result equals numpy's int64
+//   cumsum bit for bit.
 // * K4 needs no carry across blocks: pages restart their deltas.  One
 //   block takes one page and loops over it in rounds of 1024 elements;
 //   each thread gathers bytes 0-3 of four consecutive elements from the
@@ -52,51 +74,119 @@ namespace {
 using u64 = unsigned long long;
 
 constexpr int kScanThreads = 256;
-constexpr int kScanRounds = 16;
-constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanRounds;  // 4096
+constexpr int kScanItems = 8;  // four 16-byte vectors a thread
+constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanItems;  // 2048
 
-__global__ void __launch_bounds__(kScanThreads)
-scan_tiles(const u64* __restrict__ in, u64* __restrict__ out,
-           u64* __restrict__ tile_sums, int64_t n) {
-  __shared__ u64 ws[kScanThreads / 32];
-  const int64_t base = int64_t(blockIdx.x) * kScanTile;
-  u64 carry = 0;
-  for (int r = 0; r < kScanRounds; ++r) {
-    const int64_t start = base + int64_t(r) * kScanThreads;
-    if (start >= n) break;  // uniform across the block
-    const int64_t i = start + threadIdx.x;
-    const u64 v = i < n ? in[i] : 0ull;
-    u64 total;
-    const u64 s = repro::block_inclusive_scan<u64, kScanThreads>(v, ws, total);
-    if (i < n) out[i] = s + carry;
-    carry += total;
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = carry;
+// Flags of a tile's status word (epoch << 2 | flag).
+constexpr u64 kAggregate = 1, kPrefix = 2;
+
+// A tile's slot is 16 bytes, {status, value}, written and read whole (one
+// 16-byte access, as CUB's look-back keeps an 8-byte value beside its
+// status): a reader that sees a status sees the value written with it,
+// with no fence between two separate words, as long as the card performs
+// an aligned 16-byte access as one (see the note at the top).
+__device__ __forceinline__ void store_slot(ulonglong2* p, u64 status, u64 value) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(status), "l"(value)
+               : "memory");
+}
+__device__ __forceinline__ ulonglong2 load_slot(const ulonglong2* p) {
+  ulonglong2 v;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];" : "=l"(v.x), "=l"(v.y) : "l"(p)
+               : "memory");
+  return v;
 }
 
-// One block: tile totals -> exclusive prefixes, in place.
+// Workspace of `cap` tiles: [counter, pad, slot[cap]], a slot {status,
+// value} of two u64: value the tile's aggregate (flag kAggregate) or its
+// inclusive prefix (flag kPrefix).
 __global__ void __launch_bounds__(kScanThreads)
-scan_tile_sums(u64* __restrict__ sums, int64_t m) {
-  __shared__ u64 ws[kScanThreads / 32];
-  u64 carry = 0;
-  for (int64_t start = 0; start < m; start += kScanThreads) {
-    const int64_t i = start + threadIdx.x;
-    const u64 v = i < m ? sums[i] : 0ull;
-    u64 total;
-    const u64 s = repro::block_inclusive_scan<u64, kScanThreads>(v, ws, total);
-    if (i < m) sums[i] = carry + s - v;
-    carry += total;
-  }
-}
+scan_lookback(const u64* __restrict__ in, u64* __restrict__ out, u64* ws,
+              int64_t cap, int64_t n, u64 epoch, u64 base, bool vec) {
+  __shared__ u64 warp_sums[kScanThreads / 32];
+  __shared__ u64 shared_tile, shared_prefix;
+  u64* counter = ws;
+  ulonglong2* slot = reinterpret_cast<ulonglong2*>(ws + 2);
+  // The tile comes from the ticket.  Blocks mostly start in launch
+  // order, so the loads of tile blockIdx.x go out while the ticket is in
+  // flight, and a block whose ticket names another tile loads that one.
+  if (threadIdx.x == 0) shared_tile = atomicAdd(counter, 1ull) - base;
+  u64 v[kScanItems];
+  auto load = [&](int64_t t) {
+    const int64_t e = t * kScanTile + int64_t(threadIdx.x) * kScanItems;
+    if (vec && e + kScanItems <= n) {
+      const ulonglong2* p = reinterpret_cast<const ulonglong2*>(in + e);
+#pragma unroll
+      for (int q = 0; q < kScanItems / 2; ++q) {
+        const ulonglong2 w = p[q];
+        v[2 * q] = w.x;
+        v[2 * q + 1] = w.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kScanItems; ++k) v[k] = e + k < n ? in[e + k] : 0ull;
+    }
+  };
+  load(blockIdx.x);
+  __syncthreads();
+  const int64_t tile = static_cast<int64_t>(shared_tile);
+  if (tile != int64_t(blockIdx.x)) load(tile);  // uniform across the block
+  const int64_t e0 = tile * kScanTile + int64_t(threadIdx.x) * kScanItems;
+  const bool full = vec && e0 + kScanItems <= n;
+#pragma unroll
+  for (int k = 1; k < kScanItems; ++k) v[k] += v[k - 1];
+  u64 total;
+  const u64 incl =
+      repro::block_inclusive_scan<u64, kScanThreads>(v[kScanItems - 1], warp_sums, total);
+  const u64 before = incl - v[kScanItems - 1];  // the thread's exclusive offset
 
-// Block b adds the prefix of tile b + 1 (tile 0's prefix is 0).
-__global__ void __launch_bounds__(kScanThreads)
-add_tile_prefix(u64* __restrict__ out, const u64* __restrict__ sums, int64_t n) {
-  const int64_t tile = int64_t(blockIdx.x) + 1;
-  const u64 add = sums[tile];
-  const int64_t base = tile * kScanTile;
-  const int64_t end = base + kScanTile < n ? base + kScanTile : n;
-  for (int64_t i = base + threadIdx.x; i < end; i += kScanThreads) out[i] += add;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    u64 exclusive = 0;
+    if (tile == 0) {
+      if (lane == 0) store_slot(&slot[0], epoch << 2 | kPrefix, total);
+    } else {
+      if (lane == 0) store_slot(&slot[tile], epoch << 2 | kAggregate, total);
+      // Lane i reads tile end - i; tiles below 0 never come into a
+      // window, since tile 0 publishes its prefix.
+      int64_t end = tile - 1;
+      while (true) {
+        const int64_t i = end - lane;
+        u64 flag = kPrefix, val = 0;
+        if (i >= 0) {
+          ulonglong2 sv;
+          do {
+            sv = load_slot(&slot[i]);
+          } while ((sv.x >> 2) != epoch);
+          flag = sv.x & 3;
+          val = sv.y;
+        }
+        const unsigned found = __ballot_sync(0xffffffffu, flag == kPrefix);
+        // The nearest predecessor with a prefix ends the look-back: sum
+        // the lanes up to it; without one, all 32 aggregates count.
+        const int last = found ? __ffs(found) - 1 : 31;
+        u64 s = lane <= last ? val : 0ull;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        exclusive += s;
+        if (found) break;
+        end -= 32;
+      }
+      if (lane == 0) store_slot(&slot[tile], epoch << 2 | kPrefix, exclusive + total);
+    }
+    if (lane == 0) shared_prefix = exclusive;
+  }
+  __syncthreads();
+  const u64 add = shared_prefix + before;
+  if (full) {
+    ulonglong2* p = reinterpret_cast<ulonglong2*>(out + e0);
+#pragma unroll
+    for (int q = 0; q < kScanItems / 2; ++q)
+      p[q] = make_ulonglong2(add + v[2 * q], add + v[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      if (e0 + k < n) out[e0 + k] = add + v[k];
+  }
 }
 
 constexpr int kDecThreads = 256;
@@ -224,22 +314,26 @@ extern "C" int repro_delta_zigzag_i64(const void* in, void* out, int64_t n,
   return launch_delta_zigzag<int64_t>(in, out, n, stream);
 }
 
-extern "C" int repro_offsets_scan_i64(const void* in, void* out, void* tile_sums,
-                                      int64_t n, void* stream) {
+// (in, out, workspace, capacity in tiles, n, epoch, base, stream): one
+// launch of ceil(n / tile) blocks.  The caller serialises calls on one
+// workspace in stream order, gives each a fresh epoch (>= 1) and the
+// count of tiles issued on the workspace before it as the base.
+extern "C" int repro_offsets_scan_i64(const void* in, void* out, void* workspace,
+                                      int64_t capacity, int64_t n, int64_t epoch,
+                                      int64_t base, void* stream) {
   if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* i = static_cast<const u64*>(in);
-  auto* o = static_cast<u64*>(out);
-  auto* sums = static_cast<u64*>(tile_sums);
   const int64_t tiles = (n + kScanTile - 1) / kScanTile;
-  scan_tiles<<<static_cast<unsigned>(tiles), kScanThreads, 0, s>>>(i, o, sums, n);
-  if (tiles > 1) {
-    scan_tile_sums<<<1, kScanThreads, 0, s>>>(sums, tiles);
-    add_tile_prefix<<<static_cast<unsigned>(tiles - 1), kScanThreads, 0, s>>>(o, sums, n);
-  }
+  if (tiles > capacity || epoch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = repro::aligned(in, 16) && repro::aligned(out, 16);
+  scan_lookback<<<static_cast<unsigned>(tiles), kScanThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(in), static_cast<u64*>(out), static_cast<u64*>(workspace),
+      capacity, n, static_cast<u64>(epoch), static_cast<u64>(base), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Values per tile: the wrapper sizes the workspace and counts tickets in
+// these units.
 extern "C" int repro_offsets_scan_tile() { return static_cast<int>(kScanTile); }
 
 extern "C" int repro_decode_offset_pages(const void* planes, void* out,

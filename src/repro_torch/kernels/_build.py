@@ -30,10 +30,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-#: extra flags per library: the attention library reports each kernel's
-#: registers and spills (``ptxas -v``, kept in its build log) and takes
-#: ``dlopen`` for libcuda's tensor-map encoder
-EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"]}
+#: extra flags per library: the attention, scans and ssm libraries report
+#: each kernel's registers and spills (``ptxas -v``, kept in the build
+#: log), and the attention library takes ``dlopen`` for libcuda's
+#: tensor-map encoder
+EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"],
+                                     "scans": ["-Xptxas", "-v"],
+                                     "ssm": ["-Xptxas", "-v"]}
 
 _P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
@@ -42,9 +45,9 @@ _P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 #: ``cudaGetLastError()`` code of its launches (0 = success)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "scans": {
-        # (in, out, tile_sums, n, stream)
-        "repro_offsets_scan_i64": [_P, _P, _P, _I64, _P],
-        # () -> values per tile, the length of the tile-sums scratch unit
+        # (in, out, workspace, capacity, n, epoch, base, stream)
+        "repro_offsets_scan_i64": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        # () -> values per tile, the unit of the workspace's capacity
         "repro_offsets_scan_tile": [],
         # (planes, out, n_pages, per, stream)
         "repro_decode_offset_pages": [_P, _P, _I64, _I64, _P],

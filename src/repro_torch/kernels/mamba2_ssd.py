@@ -10,11 +10,22 @@ scalar decay per step::
 x ``(B, H, T, P)`` fp32 or bf16, log_a ``(B, H, T)``, Bm/Cm ``(B, T, N)``
 shared across heads, all three fp32 -> y ``(B, H, T, P)`` in x's dtype and
 the final state ``(B, H, N, P)`` in fp32.  The CUDA kernel
-(``csrc/ssm.cu``) keeps the state in registers and walks T step by step,
-so any T works (the Pallas kernel asserts ``T % chunk == 0``) and only
-the exponentials the recurrence needs are taken.  On a CPU tensor the
-wrapper runs the plain version (``ref.mamba2_ref``), on a CUDA tensor it
-launches the kernel or raises.
+(``csrc/ssm.cu``) takes its route by x's dtype, one kernel each:
+
+* bf16 x (the serve dtype): the chunked form on the tensor cores, chunks
+  of 64 steps, ``mma.sync`` bf16 with each fp32 operand (B, C, the state
+  and the decays' products) split into two bf16 pieces, so outputs stay
+  within 1e-2 and the final state within 1e-4 of the fp32 recurrence.
+  A block serves several heads of a sequence and shares their B, C and
+  C B^T.
+* fp32 x: the state in registers, T walked step by step on the CUDA
+  cores (outputs within 1e-4: no room for TF32 rounding).
+
+Both take any T (the Pallas kernel asserts ``T % chunk == 0``) and give
+finite results where a decay is exactly 0 (``log_a = -inf``; log_a <= 0,
+as the model gives).  N is one of ``STATE_DIMS``, P at most
+``MAX_COLS``.  On a CPU tensor the wrapper runs the plain version
+(``ref.mamba2_ref``), on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -50,7 +61,11 @@ def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
     if n not in STATE_DIMS or not 1 <= p <= MAX_COLS:
         raise ValueError(f"mamba2_ssd: N {n} not in {STATE_DIMS} or P {p} "
                          f"not in [1, {MAX_COLS}]")
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
     x, log_a, Bm, Cm = (a.contiguous() for a in (x, log_a, Bm, Cm))
+    # the chunked kernel stages B and C rows with 16-byte copies
+    Bm, Cm = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (Bm, Cm))
     y = torch.empty_like(x)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     if b * h == 0:

@@ -25,7 +25,7 @@ from .flash_attention import DTYPE_CODES
 from .ops import count_launch
 
 #: state widths (Dk) the CUDA kernel is built for
-STATE_DIMS = (16, 32, 64, 128)
+STATE_DIMS = (16, 32, 48, 64, 128)
 #: the widest Dv (one thread per state column)
 MAX_COLS = 1024
 
@@ -53,6 +53,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk not in STATE_DIMS or not 1 <= dv <= MAX_COLS:
         raise ValueError(f"rwkv6_scan: Dk {dk} not in {STATE_DIMS} or Dv "
                          f"{dv} not in [1, {MAX_COLS}]")
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
     out = torch.empty((b, h, t, dv), dtype=v.dtype, device=r.device)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)

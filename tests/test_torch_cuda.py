@@ -27,11 +27,74 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4097, 100_000, 1_100_003])
-def test_offsets_scan_on_the_card(card, n):
-    sizes = torch.from_numpy(np.random.default_rng(n).poisson(5, n)).to(card)
+def _sizes(rng, n, kind="poisson"):
+    """Poisson(5) collection sizes, or int64 values over the whole range
+    (negative ones too), whose sums wrap as ``torch.cumsum``'s do."""
+    if kind == "poisson":
+        return rng.poisson(5, n).astype(np.int64)
+    return rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+
+
+@pytest.mark.parametrize("kind", ["poisson", "wrapping"])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 100_000, 1_100_003, 2**20 + 3,
+                               2**24])
+def test_offsets_scan_on_the_card(card, n, kind):
+    sizes = torch.from_numpy(_sizes(np.random.default_rng(n), n, kind)).to(card)
+    before = ops.launch_counts()["offsets_scan"]
     got = offsets_scan(sizes)
+    assert ops.launch_counts()["offsets_scan"] == before + 1
     assert torch.equal(got, ref.offsets_scan_ref(sizes))
+
+
+def test_offsets_scan_many_calls_on_the_card(card):
+    """200 calls in a row at lengths from 1 to 300,000: each call's epoch
+    and tickets follow the last one's on the same workspace."""
+    rng = np.random.default_rng(200)
+    for i in range(200):
+        n = int(rng.integers(1, 300_000)) if i % 3 else int(rng.integers(1, 5000))
+        sizes = _sizes(rng, n, "wrapping" if i % 5 == 0 else "poisson")
+        got = offsets_scan(torch.from_numpy(sizes).to(card)).cpu().numpy()
+        np.testing.assert_array_equal(got, np.cumsum(sizes, dtype=np.int64))
+
+
+@pytest.mark.parametrize("mode", ["default stream", "stream per thread",
+                                  "host entry"])
+def test_offsets_scan_concurrent_callers_on_the_card(card, mode):
+    """4 threads x 50 calls at once, on the default stream (one workspace
+    shared by all), on a stream per thread (a workspace each), and
+    through the write path's host entry: all bit-identical."""
+    import threading
+
+    from repro_torch.kernels.offsets_scan import offsets_scan_host
+
+    errors = []
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            stream = (torch.cuda.Stream(card) if mode == "stream per thread"
+                      else torch.cuda.current_stream(card))
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    sizes = _sizes(rng, int(rng.integers(1, 200_000)))
+                    want = np.cumsum(sizes, dtype=np.int64)
+                    if mode == "host entry":
+                        got = offsets_scan_host(sizes, card)
+                    else:
+                        got = offsets_scan(torch.from_numpy(sizes).to(card))
+                        got = got.cpu().numpy()
+                    if not np.array_equal(got, want):
+                        errors.append(seed)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a caller did not finish"
+    assert not errors, errors
 
 
 @pytest.mark.parametrize("shape", [(36, 8192, 8), (91, 16384, 4), (3, 1000, 8),
@@ -215,6 +278,7 @@ def _scan_close(got, want):
 @pytest.mark.parametrize("b,h,t,dk,dv", [
     (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
     (2, 4, 100, 64, 64), (1, 2, 70, 128, 96), (16, 64, 1000, 64, 64),
+    (1, 4, 96, 48, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("decay", ["reference", "strong", "zero"])
@@ -245,26 +309,58 @@ def test_rwkv6_scan_on_the_card(card, b, h, t, dk, dv, dtype, decay):
     _scan_close(state, want_s)
 
 
+def _mamba2_inputs(card, b, h, t, p, n, dtype, decay="reference"):
+    """x, log_a, B, C on the card.  log_a: -exp(uniform(-3, 0.5)); "-inf"
+    also sets every 7th step to -inf (a decay of exactly 0); "-1e4" draws
+    -exp(uniform(-3, 9.2)), down to -1e4."""
+    g = torch.Generator(device=card)
+    g.manual_seed(t + n)
+    x = torch.randn((b, h, t, p), generator=g, device=card).to(dtype)
+    hi = 9.2 if decay == "-1e4" else 0.5
+    log_a = -torch.exp(-3 + (hi + 3) * torch.rand((b, h, t), generator=g,
+                                                  device=card))
+    if decay == "-inf":
+        log_a[..., ::7] = -float("inf")
+    Bm, Cm = (torch.randn((b, t, n), generator=g, device=card)
+              for _ in range(2))
+    return x, log_a, Bm, Cm
+
+
 @pytest.mark.parametrize("b,h,t,p,n", [
     (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 64, 64, 64),
     (2, 4, 100, 64, 64), (1, 2, 70, 96, 128), (16, 80, 1000, 64, 64),
+    (1, 4, 96, 64, 48), (2, 3, 65, 40, 48), (1, 2, 129, 1024, 32),
+    (2, 5, 129, 64, 64), (1, 3, 64, 40, 16), (2, 3, 70, 33, 16),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba2_ssd_on_the_card(card, b, h, t, p, n, dtype):
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 
-    g = torch.Generator(device=card)
-    g.manual_seed(t + n)
-    x = torch.randn((b, h, t, p), generator=g, device=card).to(dtype)
-    log_a = -torch.exp(-3 + 3.5 * torch.rand((b, h, t), generator=g,
-                                             device=card))
-    Bm, Cm = (torch.randn((b, t, n), generator=g, device=card)
-              for _ in range(2))
+    x, log_a, Bm, Cm = _mamba2_inputs(card, b, h, t, p, n, dtype)
     before = ops.launch_counts()["mamba2_ssd"]
     y, state = mamba2_ssd(x, log_a, Bm, Cm)
     torch.cuda.synchronize()
     assert ops.launch_counts()["mamba2_ssd"] == before + 1
     assert y.dtype == dtype and state.dtype == torch.float32
+    want, want_s = ref.mamba2_ref(x.float(), log_a, Bm, Cm)
+    _scan_close(y, want)
+    _scan_close(state, want_s)
+
+
+@pytest.mark.parametrize("decay", ["-inf", "-1e4"])
+@pytest.mark.parametrize("b,h,t,p,n", [(2, 3, 130, 64, 64),
+                                       (1, 4, 100, 40, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_extreme_decay_on_the_card(card, b, h, t, p, n, dtype,
+                                              decay):
+    """Decays of exactly 0 and log-decays down to -1e4: finite, and
+    within the tolerances of the plain version."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+
+    x, log_a, Bm, Cm = _mamba2_inputs(card, b, h, t, p, n, dtype, decay)
+    y, state = mamba2_ssd(x, log_a, Bm, Cm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
     want, want_s = ref.mamba2_ref(x.float(), log_a, Bm, Cm)
     _scan_close(y, want)
     _scan_close(state, want_s)

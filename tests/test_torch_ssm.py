@@ -172,7 +172,7 @@ def test_rwkv6_wrapper_checks_shapes():
         rwkv6_scan(r, k, v[:, :1], w, u)
     with pytest.raises(ValueError):
         rwkv6_scan(r, k, v, w, u[:1])
-    assert STATE_DIMS == (16, 32, 64, 128)
+    assert STATE_DIMS == (16, 32, 48, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +273,161 @@ def test_pallas_scans_refuse_a_serve_prompt_the_port_takes():
     y, _ = mamba2_ssd(*_torch(*arrs))
     _close(y, jref.mamba2_ref(*(jnp.asarray(a) for a in arrs),
                               jnp.zeros((2,), jnp.float32))[0], FP32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K8's bf16 route: a plain emulation of the chunked tensor-core algorithm
+# (csrc/ssm.cu, ssd_chunked), rounding where the kernel rounds, held
+# against the JAX oracle.  The kernel itself runs only on the card
+# (tests/test_torch_cuda.py); this shows on the CPU that its algorithm
+# meets the card's tolerances (outputs 1e-2, final states 1e-4, as
+# |got - want| <= tol (1 + |want|)) and that its split products are
+# needed.
+
+Q = 64                    # the kernel's chunk
+LOG_DECAY_FLOOR = -128.0  # the kernel's floor of log_a (e^-128 is 0 in fp32)
+
+
+def _pieces(x, k):
+    """x as k bf16 pieces, each the rounding (to nearest even) of what
+    the pieces before it leave: the kernel's ``split_bf16``."""
+    out, rest = [], x
+    for _ in range(k):
+        p = rest.bfloat16().float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def _mma(a, b, split=True):
+    """a @ b on bf16 operands with fp32 sums: two pieces a side and the
+    three products hi hi + hi lo + lo hi, or one rounding a side."""
+    if not split:
+        return (_pieces(a, 1)[0].double() @ _pieces(b, 1)[0].double()).float()
+    (a0, a1), (b0, b1) = _pieces(a, 2), _pieces(b, 2)
+    return (a0.double() @ b0.double() + a0.double() @ b1.double()
+            + a1.double() @ b0.double()).float()
+
+
+def _mma_exact_b(a, b, k):
+    """a @ b with b exact in bf16 (x): a in k pieces, a product each."""
+    return sum(p.double() @ b.double() for p in _pieces(a, k)).float()
+
+
+def chunked_ssd_emulation(x, log_a, Bm, Cm, split=True):
+    """The bf16 route of K8 in plain PyTorch: x (B, H, T, P) with bf16
+    values, log_a (B, H, T), Bm/Cm (B, T, N) fp32 -> (y rounded to bf16 as
+    fp32, final state (B, H, N, P) fp32).  Per chunk of 64 steps: fp64
+    sums of the floored log-decays, every decay from an fp64 difference
+    of them; C B^T and C H (the state kept in two bf16 pieces) as three
+    bf16 products of two pieces a side; (C B^T o L) x with two pieces of
+    C B^T o L and the state update with two of B o decay (x is exact).
+    ``split=False`` rounds every operand to bf16 once instead."""
+    b, h, t, p = x.shape
+    n = Bm.shape[-1]
+    nc = -(-t // Q)
+    pad = nc * Q - t
+    x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    la = torch.nn.functional.pad(log_a, (0, pad))
+    Bp = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+    Cp = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    H = torch.zeros((b, h, n, p), dtype=torch.float32)
+    y = torch.empty((b, h, nc * Q, p), dtype=torch.float32)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, Bc, Cc = x[:, :, sl], Bp[:, sl], Cp[:, sl]
+        cum = torch.cumsum(la[:, :, sl].double().clamp(min=LOG_DECAY_FLOOR), -1)
+        G = _mma(Cc, Bc.transpose(1, 2), split)                  # (b, t, s)
+        L = torch.where(causal, torch.exp(
+            (cum[..., :, None] - cum[..., None, :]).float()), 0.0)
+        y_intra = _mma_exact_b(G[:, None] * L, xc, 2 if split else 1)
+        Hs = sum(_pieces(H, 2)) if split else H                   # stored
+        y_state = _mma(Cc[:, None].expand(b, h, Q, n), Hs, split)
+        y[:, :, sl] = torch.exp(cum.float())[..., None] * y_state + y_intra
+        decay = torch.exp((cum[..., -1:] - cum).float())          # (b, h, s)
+        Bd = Bc[:, None] * decay[..., None]                       # (b, h, s, n)
+        H = (torch.exp(cum[..., -1].float())[..., None, None] * H
+             + _mma_exact_b(Bd.transpose(-1, -2), xc, 2 if split else 1))
+    return y[:, :, :t].bfloat16().float(), H
+
+
+def _ssd_case(seed, b, h, t, p, n, decay):
+    """numpy inputs: x with bf16 values; log_a -exp(uniform(-3, 0.5)),
+    "-inf" with every 7th step -inf, "-1e4" -exp(uniform(-3, 9.2))."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, t, p)).astype(np.float32))
+    x = x.bfloat16().float().numpy()
+    hi = 9.2 if decay == "-1e4" else 0.5
+    log_a = -np.exp(rng.uniform(-3, hi, (b, h, t))).astype(np.float32)
+    if decay == "-inf":
+        log_a[..., ::7] = -np.inf
+    Bm, Cm = (rng.standard_normal((b, t, n)).astype(np.float32)
+              for _ in range(2))
+    return x, log_a, Bm, Cm
+
+
+def _ratio(got, want, tol):
+    """Largest |got - want| / (tol (1 + |want|)): <= 1 meets ``tol``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (tol * (1 + np.abs(want)))).max())
+
+
+@pytest.mark.parametrize("decay", ["reference", "-inf", "-1e4"])
+@pytest.mark.parametrize("t", [1, 65, 130])
+@pytest.mark.parametrize("n", [16, 48])
+def test_mamba2_chunked_emulation_matches_oracle(n, t, decay):
+    b, h, p = 2, 3, 40
+    arrs = _ssd_case(n + t, b, h, t, p, n, decay)
+    y, state = chunked_ssd_emulation(*(torch.from_numpy(a) for a in arrs))
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    o_y, o_state = jref.mamba2_ref(*(jnp.asarray(a) for a in arrs),
+                                   jnp.zeros((h,), jnp.float32))
+    assert _ratio(y, o_y, 1e-2) <= 1.0
+    assert _ratio(state, o_state, 1e-4) <= 1.0
+
+
+def test_mamba2_chunked_emulation_needs_its_split_products():
+    """At zamba2's head shape (P = N = 64) over 1,000 steps, rounding each
+    fp32 operand to bf16 once misses both tolerances (outputs 1e-2, final
+    states 1e-4); the kernel's split products meet them."""
+    b, h, t, p, n = 1, 4, 1000, 64, 64
+    arrs = _ssd_case(64, b, h, t, p, n, "reference")
+    o_y, o_state = jref.mamba2_ref(*(jnp.asarray(a) for a in arrs),
+                                   jnp.zeros((h,), jnp.float32))
+    tensors = [torch.from_numpy(a) for a in arrs]
+    y, state = chunked_ssd_emulation(*tensors)
+    assert _ratio(y, o_y, 1e-2) <= 1.0
+    assert _ratio(state, o_state, 1e-4) <= 1.0
+    y1, state1 = chunked_ssd_emulation(*tensors, split=False)
+    assert _ratio(y1, o_y, 1e-2) > 1.0
+    assert _ratio(state1, o_state, 1e-4) > 1.0
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_state_width_48_passes_the_wrappers_checks(device):
+    """Dk = 48 (the reference sweep's rwkv6 row) and N = 48 are built
+    widths: the wrappers' shape checks take them, on CPU tensors (the
+    plain versions) and up to the device check on meta tensors."""
+    assert 48 in STATE_DIMS
+    if device == "cpu":
+        r, k, v, w, u = _torch(*rwkv6_inputs(1, 1, 4, 96, 48, 64))
+        out, state = rwkv6_scan(r, k, v, w, u)
+        assert out.shape == (1, 4, 96, 64) and state.shape == (1, 4, 48, 64)
+        y, s = mamba2_ssd(*_torch(*mamba2_inputs(2, 1, 4, 96, 40, 48)))
+        assert y.shape == (1, 4, 96, 40) and s.shape == (1, 4, 48, 40)
+        return
+    # on meta tensors a width passes every shape check and meets the
+    # device check last; an unbuilt width (40) is refused before it
+    meta = dict(device="meta")
+    v = torch.empty((1, 4, 96, 64), **meta)
+    x = torch.empty((1, 4, 96, 40), **meta)
+    la = torch.empty((1, 4, 96), **meta)
+    for width, msg in ((48, "unsupported device meta"), (40, "not in")):
+        r = torch.empty((1, 4, 96, width), **meta)
+        u = torch.empty((4, width), **meta)
+        with pytest.raises(ValueError, match=msg):
+            rwkv6_scan(r, r, v, r, u)
+        bc = torch.empty((1, 96, width), **meta)
+        with pytest.raises(ValueError, match=msg):
+            mamba2_ssd(x, la, bc, bc)
