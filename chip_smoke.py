@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
    ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1
-   and of K8's chunked route;
+   and of the chunked routes of K7 and K8;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
    (K1 up to 2^24 values), K1 also over 200 calls in a row, with wrapping
@@ -28,10 +28,11 @@ Phases, in order; any failure exits non-zero:
    H/G of 1, 3 and 8, in fp32 (within 2e-5) and in
    bf16 (against the plain version computed in fp32 from the same bf16
    inputs, within 1.6e-2); K7 (RWKV-6 scan) and K8 (Mamba-2 SSD scan) at
-   T of 1, 31, 32 and 100 (K8 also 64, 65 and 129, its chunk edges),
-   state widths 16 to 128 with 48, P of 40 to 1,024 and at the serve
-   shapes, K7 with strong decay and with decays of exactly 0, K8 with
-   log_a of -inf and down to -1e4 (finite), output and final state, fp32
+   T of 1, 31, 32, 33 and 100 (16-step sub-chunks whole and ragged) and
+   64, 65 and 129 (64-step chunks), state widths 16 to 128 with 48, Dv
+   and P of 40 to 1,024 and at the serve shapes, K7 with strong decay
+   and with decays of exactly 0 (at Dk 16, 48, 64 and 128), K8 with log_a
+   of -inf and down to -1e4 (finite), output and final state, fp32
    within 1e-4 and bf16 outputs within 1e-2; each as ``|got - want| <=
    tol * (1 + |want|)``;
 3. the write -> read path: the paper's configuration written by
@@ -129,13 +130,15 @@ KERNEL_INFO = {
                      "src/repro/kernels/delta_zigzag.py:38"),
 }
 
-#: which kernel design each phase-6 row times (K5 and K8 pick by dtype:
-#: their phase-6 rows are bf16)
+#: which kernel design each phase-6 row times (K5, K7 and K8 pick by
+#: dtype: their phase-6 rows are bf16)
 KERNEL_DESIGN = {
     "offsets_scan": {"int64": "single-pass look-back"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
     "decode_attention": {"bfloat16": "cp.async ring",
                          "float32": "cp.async ring"},
+    "rwkv6_scan": {"bfloat16": "chunked split-bf16 mma, state every 16 steps",
+                   "float32": "simt steps"},
     "mamba2_ssd": {"bfloat16": "chunked split-bf16 mma",
                    "float32": "simt steps"},
 }
@@ -393,13 +396,14 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 
 #: the kernels whose registers and spills phase 1 prints (name fragments
 #: of their mangled names)
-PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked")
+PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
+                 "wkv_chunked")
 
 
 def ptxas_report(path) -> list:
     """``ptxas -v``'s registers and spills of the tensor-core and
-    cp.async kernels (K5, K6, K8's chunked route) and of K1, one line
-    each."""
+    cp.async kernels (K5, K6, the chunked routes of K7 and K8) and of K1,
+    one line each."""
     out, name = [], None
     for line in open(path, errors="replace").read().splitlines():
         if "Compiling entry function" in line:
@@ -674,11 +678,11 @@ DECAYS = {"reference": (-4.0, 1.0), "strong": (2.0, 4.0), "zero": (2.0, 6.0)}
 def scan_cases():
     """K7 cases (b, h, t, dk, dv, decay) and K8 cases (b, h, t, p, n[,
     decay]): T of 1, 31, 32, 33 and 100 (one step; whole and ragged
-    16-step stages), K8 also 64, 65 and 129 (its chunk edges), every
-    built state width (48: the reference sweep's rwkv6 row), Dv and P of
-    40 and 96 (no multiple of 32), P of 1,024, K8 with log_a of -inf at
-    every 7th step and down to -1e4, and the serve shapes of rwkv6-7b and
-    zamba2-2.7b."""
+    16-step sub-chunks), 64, 65 and 129 (64-step chunks), every built
+    state width (48: the reference sweep's rwkv6 row), Dv and P of 40 and
+    96 (no multiple of 32) and of 1,024, K7 with decays of exactly 0 at
+    Dk 16, 48, 64 and 128, K8 with log_a of -inf at every 7th step and
+    down to -1e4, and the serve shapes of rwkv6-7b and zamba2-2.7b."""
     rwkv6 = [
         (2, 3, 1, 16, 16, "reference"),
         (2, 3, 31, 32, 32, "strong"),
@@ -687,6 +691,10 @@ def scan_cases():
         (1, 2, 100, 128, 96, "strong"),
         (1, 2, 33, 16, 40, "zero"),
         (1, 4, 96, 48, 64, "reference"),            # the reference's Dk = 48
+        (1, 4, 64, 64, 64, "strong"),
+        (2, 3, 65, 48, 40, "zero"),
+        (1, 2, 129, 128, 1024, "zero"),
+        (1, 3, 129, 32, 1024, "reference"),
         (16, 64, 1000, 64, 64, "reference"),        # rwkv6-7b prefill
         (16, 64, 1000, 64, 64, "zero"),
     ]
@@ -694,7 +702,7 @@ def scan_cases():
         (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
         (2, 4, 100, 64, 64), (1, 2, 100, 96, 128), (1, 2, 33, 40, 16),
         (1, 4, 96, 64, 48), (2, 3, 64, 40, 48), (2, 3, 65, 64, 64),
-        (1, 3, 129, 1024, 32),
+        (1, 3, 129, 1024, 32), (1, 2, 65, 1024, 128),
         (2, 3, 130, 64, 64, "-inf"), (1, 4, 100, 40, 48, "-1e4"),
         (16, 80, 1000, 64, 64),                     # zamba2-2.7b prefill
     ]
@@ -1162,8 +1170,7 @@ def check_consistency(torch, res, bundle32, n_req32: int,
 
 #: the op entries' cases: the shapes of the reference's own sweep
 #: (tests/test_kernels.py) where the kernels take them; K3/K4 have none
-#: there and take the port's CPU test shapes; K7's sweep row at Dk = 48
-#: is left out (K7 is built for Dk 16, 32, 64 and 128)
+#: there and take the port's CPU test shapes
 OPS_CASES = {
     "offsets_scan": [1, 7, 128, 1000, 5000],
     "delta_zigzag": [1, 64, 999, 4096],
@@ -1180,7 +1187,7 @@ OPS_CASES = {
         (1, 8, 1, 777, 128, None, None), (3, 4, 2, 640, 64, (100, 640, 333),
                                           None),
         (3, 4, 2, 640, 64, (100, 640, 333), 64)],
-    "rwkv6": [(1, 2, 64, 32, 32), (2, 2, 128, 64, 64)],
+    "rwkv6": [(1, 2, 64, 32, 32), (2, 2, 128, 64, 64), (1, 4, 96, 48, 64)],
     "mamba2": [(1, 2, 128, 32, 16), (2, 4, 128, 64, 64), (1, 2, 256, 64, 32)],
 }
 #: the kernel each op entry launches (K2 has no op entry)

@@ -8,12 +8,25 @@ per (batch, head), with a ``(Dk, Dv)`` state ``S`` starting at 0::
 
 r/k/w ``(B, H, T, Dk)``, v ``(B, H, T, Dv)``, u ``(H, Dk)``, all fp32 or
 all bf16 -> the output ``(B, H, T, Dv)`` in v's dtype and the final state
-``(B, H, Dk, Dv)`` in fp32.  The CUDA kernel (``csrc/ssm.cu``) keeps the
-state in registers and walks T step by step, so any T works (the Pallas
-kernel asserts ``T % chunk == 0``) and a decay of exactly 0 gives finite
-output (the Pallas kernel's log-space ratios give NaN there).  On a CPU
-tensor the wrapper runs the plain version (``ref.rwkv6_ref``), on a CUDA
-tensor it launches the kernel or raises.
+``(B, H, Dk, Dv)`` in fp32.  The CUDA kernel (``csrc/ssm.cu``) takes its
+route by the inputs' dtype, one kernel each:
+
+* bf16 (the serve dtype): the chunked form on the tensor cores.  The
+  state is carried every 16 steps; within them ``mma.sync`` bf16 products
+  take the decay-scaled r and k, the state and the 16 x 16 block of
+  step pairs (per-channel decays: its lower 8 x 8 quadrant a product on
+  the tensor cores, the rest pairwise on the CUDA cores) as two bf16
+  pieces each, so outputs stay within 1e-2 and the final state within
+  1e-4 of the fp32 recurrence.
+* fp32: the state in registers, T walked step by step on the CUDA cores
+  (outputs within 1e-4: no room for bf16 pieces).
+
+Every decay either route applies is a product of w, so any T works (the
+Pallas kernel asserts ``T % chunk == 0``) and a decay of exactly 0 gives
+finite output (the Pallas kernel's log-space ratios give NaN there).  Dk
+is one of ``STATE_DIMS``, Dv at most ``MAX_COLS``.  On a CPU tensor the
+wrapper runs the plain version (``ref.rwkv6_ref``), on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ from .ops import count_launch
 
 #: state widths (Dk) the CUDA kernel is built for
 STATE_DIMS = (16, 32, 48, 64, 128)
-#: the widest Dv (one thread per state column)
+#: the widest Dv
 MAX_COLS = 1024
 
 

@@ -1,5 +1,6 @@
-"""Time K1 (offsets scan) and K8 (Mamba-2 SSD, bf16 x) as built from
-several source trees against each other on one card, in one process.
+"""Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs) and K8 (Mamba-2
+SSD, bf16 x) as built from several source trees against each other on one
+card, in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
         [NAME=CSRC_DIR ...] [--rounds 3] [--out FILE]
@@ -8,18 +9,22 @@ Each ``NAME=CSRC_DIR`` is a copy of ``src/repro_torch/csrc`` (a parent
 commit's, from ``git archive``, or an edited variant); the checkout's own
 sources are always built as ``tree``.  Every tree's ``scans.cu`` and
 ``ssm.cu`` compile together (nvcc, one process each); the lines give the
-registers and spills of ``scan_lookback`` and of ``ssd_chunked`` at
-N = 64.  The C entry points are called directly, so a tree's wrapper
-need not match this one's; K1's workspace is zeroed and sized for slots
-of up to 32 bytes a tile.
+registers and spills of ``scan_lookback``, of ``ssd_chunked`` at N = 64
+and of ``wkv_chunked`` at Dk = 64.  The C entry points are called
+directly, so a tree's wrapper need not match this one's; K1's workspace
+is zeroed and sized for slots of up to 32 bytes a tile.  A variant of a
+kernel (one bf16 piece per operand instead of two, a part taken out) is
+timed as an edited copy of the checkout's ``csrc``, one more tree.
 
-K8 runs at zamba2-2.7b's prefill shape (16, 80, 1000, 64, 64): each
-tree's output and final state are held against the plain version and
-printed as the largest share of ``SCAN_TOL`` they use (bf16 outputs
-1e-2, final states 1e-4, as ``|got - want| / (tol (1 + |want|))``).  K1
-runs at 100,000, 1,100,003 and 2^24 values beside ``torch.cumsum`` and
-must equal it bit for bit.  Times are card times (CUDA events between
-launches queued behind a sleep kernel, median), the trees interleaved in
+K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
+inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
+at zamba2-2.7b's (16, 80, 1000, 64, 64): each tree's output and final
+state are held against the plain version and printed as the largest
+share of ``SCAN_TOL`` they use (bf16 outputs 1e-2, final states 1e-4, as
+``|got - want| / (tol (1 + |want|))``; above 1 misses it).  K1 runs at
+100,000, 1,100,003 and 2^24 values beside ``torch.cumsum`` and must equal
+it bit for bit.  Times are card times (CUDA events between launches
+queued behind a sleep kernel, median), the trees interleaved in
 ``--rounds`` rounds whose order alternates.  The last line is one JSON
 object of every number.  Needs a CUDA card.
 """
@@ -38,9 +43,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
+K7_SHAPE = (16, 64, 1000, 64, 64)  # (B, H, T, Dk, Dv)
 K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
-PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64")
+PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64")
 
 
 def card_ms(fn, reps: int = 20) -> float:
@@ -122,6 +128,39 @@ def k8_calls(libs, trees, stream) -> tuple:
     return calls, shares
 
 
+def k7_calls(libs, trees, stream) -> tuple:
+    """({tree: call}, {tree: {"y": share, "state": share}}) of K7 with
+    bf16 inputs, the reference's decays w = exp(-exp(uniform(-4, 1)))."""
+    b, h, t, dk, dv = K7_SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    r, k = (torch.randn((b, h, t, dk), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g, device="cuda").bfloat16()
+    u = torch.randn((h, dk), generator=g, device="cuda").bfloat16()
+    w = torch.exp(-torch.exp(-4 + 5 * torch.rand(
+        (b, h, t, dk), generator=g, device="cuda"))).bfloat16()
+    ins = (r, k, v, w, u)
+    want_o, want_s = ref.rwkv6_ref(*(a.float() for a in ins))
+    calls, shares = {}, {}
+    for tree in trees:
+        f = libs[(tree, "ssm")].repro_rwkv6_scan
+        o = torch.empty_like(v)
+        st = torch.empty((b, h, dk, dv), device="cuda")
+
+        def call(f=f, o=o, st=st):
+            return f(*(a.data_ptr() for a in ins), o.data_ptr(), st.data_ptr(),
+                     b, h, t, dk, dv, 1, stream)
+
+        if call() != 0:
+            sys.exit(f"{tree}: repro_rwkv6_scan failed")
+        torch.cuda.synchronize()
+        shares[tree] = {"y": tol_share(o, want_o, 1e-2),
+                        "state": tol_share(st, want_s, 1e-4)}
+        calls[tree] = call
+    return calls, shares
+
+
 def k1_calls(libs, trees, n, stream) -> dict:
     """{tree: call} of K1 at ``n`` values, each checked against cumsum,
     and ``torch.cumsum`` itself."""
@@ -181,6 +220,13 @@ def main(argv=None) -> int:
     libs = build(trees, Path(args.out))
     stream = torch.cuda.current_stream().cuda_stream
     result = {"device": torch.cuda.get_device_name(0)}
+    k7, shares = k7_calls(libs, trees, stream)
+    for tree, sh in shares.items():
+        print(f"K7 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
+              f"state {sh['state']:.4f}")
+    result["rwkv6_scan"] = {"shape": list(K7_SHAPE), "tol_share": shares,
+                            "ms": rounds(k7, args.rounds, "K7")}
+    del k7
     k8, shares = k8_calls(libs, trees, stream)
     for tree, sh in shares.items():
         print(f"K8 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "

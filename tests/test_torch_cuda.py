@@ -278,7 +278,8 @@ def _scan_close(got, want):
 @pytest.mark.parametrize("b,h,t,dk,dv", [
     (2, 3, 1, 16, 16), (2, 3, 31, 32, 32), (1, 4, 32, 64, 64),
     (2, 4, 100, 64, 64), (1, 2, 70, 128, 96), (16, 64, 1000, 64, 64),
-    (1, 4, 96, 48, 64),
+    (1, 4, 96, 48, 64), (1, 4, 64, 64, 64), (2, 3, 65, 48, 40),
+    (1, 2, 129, 128, 1024), (1, 3, 129, 32, 1024),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("decay", ["reference", "strong", "zero"])
@@ -331,6 +332,7 @@ def _mamba2_inputs(card, b, h, t, p, n, dtype, decay="reference"):
     (2, 4, 100, 64, 64), (1, 2, 70, 96, 128), (16, 80, 1000, 64, 64),
     (1, 4, 96, 64, 48), (2, 3, 65, 40, 48), (1, 2, 129, 1024, 32),
     (2, 5, 129, 64, 64), (1, 3, 64, 40, 16), (2, 3, 70, 33, 16),
+    (1, 2, 65, 1024, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba2_ssd_on_the_card(card, b, h, t, p, n, dtype):

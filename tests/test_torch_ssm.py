@@ -431,3 +431,156 @@ def test_state_width_48_passes_the_wrappers_checks(device):
         bc = torch.empty((1, 96, width), **meta)
         with pytest.raises(ValueError, match=msg):
             mamba2_ssd(x, la, bc, bc)
+
+
+# ---------------------------------------------------------------------------
+# K7's bf16 route: a plain emulation of the chunked tensor-core algorithm
+# (csrc/ssm.cu, wkv_chunked), rounding where the kernel rounds, held
+# against the JAX oracle and the Pallas kernel.  The kernel itself runs
+# only on the card (tests/test_torch_cuda.py); this shows on the CPU that
+# its algorithm meets the card's tolerances (outputs 1e-2, final states
+# 1e-4, as |got - want| <= tol (1 + |want|)), also where a decay is 0,
+# and that its split products are needed.
+
+WT = 16  # the kernel's sub-chunk: the state is carried every 16 steps
+
+
+def _products(a, b, pieces):
+    """a @ b with ``pieces`` bf16 pieces of each fp32 factor and fp32
+    sums: two pieces take hi hi + hi lo + lo hi, one the rounding of
+    each; b may be exact in bf16 (v), then its second piece is 0."""
+    pa, pb = _pieces(a, pieces), _pieces(b, pieces)
+    terms = [(0, 0)] + ([(0, 1), (1, 0)] if pieces == 2 else [])
+    return sum(pa[i] @ pb[j] for i, j in terms)
+
+
+def _lane_channels(dk):
+    """(16, Dk / 16): the channels each of 16 lanes takes in the kernel's
+    diagonal block, in its order (pairs 2 (lane + 16 j), 2 (lane + 16 j)
+    + 1 where Dk / 16 is even, else lane + 16 j)."""
+    nc = dk // 16
+    if nc % 2 == 0:
+        return torch.tensor([[2 * (g + 16 * (m // 2)) + m % 2
+                              for m in range(nc)] for g in range(16)])
+    return torch.tensor([[g + 16 * m for m in range(nc)] for g in range(16)])
+
+
+def _channel_sum(a, b):
+    """sum_c a_c b_c over the last axis as the kernel's diagonal block
+    takes it: each of 16 lanes an fp32 fused multiply-add chain over its
+    channels (the exact product plus the sum, rounded to fp32), then fp32
+    adds across the lanes in the butterfly order of its shuffles."""
+    idx = _lane_channels(a.shape[-1])
+    ag, bg = a[..., idx].double(), b[..., idx].double()
+    acc = torch.zeros(ag.shape[:-1], dtype=torch.float64)
+    for m in range(idx.shape[1]):
+        acc = (ag[..., m] * bg[..., m] + acc).float().double()
+    acc = acc.float()
+    lanes = torch.arange(16)
+    for o in (8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
+
+
+def chunked_wkv_emulation(r, k, v, w, u, split=True):
+    """The bf16 route of K7 in plain PyTorch: r/k/w (B, H, T, Dk), v (B,
+    H, T, Dv), u (H, Dk), all with bf16 values -> (out rounded to bf16 as
+    fp32, final state (B, H, Dk, Dv) fp32).  Per sub-chunk of 16 steps,
+    every decay a product of w in fp32 from a boundary of the sub-chunk
+    or of its halves (so each is in [0, 1] and w = 0 gives exact zeros):
+    rP_t = r_t o prod_{q<t} w_q, K'_s = k_s o prod_{q>s} w_q, W = prod w;
+    the diagonal block A[t][s] (s < t): its quadrant t >= 8 > s as r'' k''^T
+    with r''_t = r_t o prod_{8<=q<t} w_q and k''_s = k_s o prod_{s<q<8}
+    w_q, the rest sum_c r_tc k_sc prod_{s<q<t} w_qc by running products,
+    and A[t][t] = sum_c r_tc u_c k_tc; then o = rP S + A v and S <- diag(W)
+    S + K'^T v.  Every product takes two bf16 pieces of each fp32 factor
+    (r'', k'', rP, S, A, K'; v is exact), the state stays fp32.  Every
+    sum is in fp32, the per-channel ones in the kernel's lanes and order
+    (``_channel_sum``), the products' in PyTorch's order, not the mma's.
+    ``split=False`` rounds every fp32 operand to bf16 once instead."""
+    pieces = 2 if split else 1
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    ns = -(-t // WT)
+    pad = ns * WT - t
+    half = WT // 2
+    r, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (r, k, v))
+    w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    S = torch.zeros((b, h, dk, dv), dtype=torch.float32)
+    out = torch.empty((b, h, ns * WT, dv), dtype=torch.float32)
+    for i in range(ns):
+        sl = slice(i * WT, (i + 1) * WT)
+        rc, kc, vc, wc = r[:, :, sl], k[:, :, sl], v[:, :, sl], w[:, :, sl]
+        # forward products from the start and from step 8, backward ones
+        # from the end and from step 8
+        P, Q, P8, Q8 = (torch.empty_like(wc) for _ in range(4))
+        p = q = p8 = q8 = torch.ones_like(wc[:, :, 0])
+        for j in range(WT):
+            jb = WT - 1 - j
+            if j == half:
+                p8 = q8 = torch.ones_like(p)
+            P[:, :, j], P8[:, :, j] = p, p8
+            Q[:, :, jb], Q8[:, :, jb] = q, q8
+            p, p8 = p * wc[:, :, j], p8 * wc[:, :, j]
+            q, q8 = q * wc[:, :, jb], q8 * wc[:, :, jb]
+        A = torch.zeros((b, h, WT, WT), dtype=torch.float32)
+        for s in range(WT):
+            A[:, :, s, s] = _channel_sum(rc[:, :, s] * u, kc[:, :, s])
+            kp = kc[:, :, s]
+            for tt in range(s + 1, (s // half + 1) * half):
+                A[:, :, tt, s] = _channel_sum(rc[:, :, tt], kp)
+                kp = kp * wc[:, :, tt]
+        A[:, :, half:, :half] = _products(
+            (rc * P8)[:, :, half:], (kc * Q8)[:, :, :half].transpose(-1, -2),
+            pieces)
+        out[:, :, sl] = _products(rc * P, S, pieces) + _products(A, vc, pieces)
+        S = p[..., None] * S + _products((kc * Q).transpose(-1, -2), vc,
+                                         pieces)
+    return out[:, :, :t].bfloat16().float(), S
+
+
+def _wkv_case(seed, b, h, t, dk, dv, decay):
+    """Inputs with bf16 values: r, k, v, u normal; w = exp(-exp(x)), x
+    uniform in the reference's (-4, 1), "strong" (2, 4) or "zero" (2, 6),
+    which also sets every 7th step to 0 (as chip_smoke.py's cases)."""
+    lo, hi = {"reference": (-4.0, 1.0), "strong": (2.0, 4.0),
+              "zero": (2.0, 6.0)}[decay]
+    r, k, v, w, u = rwkv6_inputs(seed, b, h, t, dk, dv, decay=(lo, hi))
+    if decay == "zero":
+        w[:, :, ::7] = 0.0
+    return [torch.from_numpy(a).bfloat16().float().numpy()
+            for a in (r, k, v, w, u)]
+
+
+@pytest.mark.parametrize("decay", ["reference", "strong", "zero"])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("dk", [48, 64])
+def test_rwkv6_chunked_emulation_matches_oracle_and_pallas(dk, t, decay):
+    b, h, dv = 1, 2, 40
+    arrs = _wkv_case(dk + t, b, h, t, dk, dv, decay)
+    out, state = chunked_wkv_emulation(*(torch.from_numpy(a) for a in arrs))
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    jarrs = [jnp.asarray(a) for a in arrs]
+    o_out, o_state = jref.rwkv6_ref(*jarrs)
+    assert _ratio(out, o_out, 1e-2) <= 1.0
+    assert _ratio(state, o_state, 1e-4) <= 1.0
+    if t % 32 == 0 and decay != "zero":  # the Pallas kernel: NaN at w = 0
+        p_out, p_state = j_rwkv6_scan(*jarrs, chunk=32, interpret=True)
+        assert _ratio(out, p_out, 1e-2) <= 1.0
+        assert _ratio(state, p_state, 1e-4) <= 1.0
+
+
+def test_rwkv6_chunked_emulation_needs_its_split_products():
+    """At rwkv6-7b's head shape (Dk = Dv = 64) over 256 steps, rounding
+    each fp32 operand to bf16 once misses both tolerances (outputs 1e-2,
+    final states 1e-4); the kernel's split products meet them."""
+    b, h, t, dk, dv = 1, 4, 256, 64, 64
+    arrs = _wkv_case(17, b, h, t, dk, dv, "reference")
+    o_out, o_state = jref.rwkv6_ref(*(jnp.asarray(a) for a in arrs))
+    tensors = [torch.from_numpy(a) for a in arrs]
+    out, state = chunked_wkv_emulation(*tensors)
+    assert _ratio(out, o_out, 1e-2) <= 1.0
+    assert _ratio(state, o_state, 1e-4) <= 1.0
+    out1, state1 = chunked_wkv_emulation(*tensors, split=False)
+    assert _ratio(out1, o_out, 1e-2) > 1.0
+    assert _ratio(state1, o_state, 1e-4) > 1.0
