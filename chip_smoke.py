@@ -10,15 +10,21 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
-   ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1
-   and of the chunked routes of K7 and K8;
+   ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
+   of K2's register form, of K4's cluster kernel and of the chunked
+   routes of K7 and K8;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
-   (K1 up to 2^24 values), K1 also over 200 calls in a row, with wrapping
+   (K1 up to 2^24 values; K2 at the write path's four page shapes in
+   every element width 1, 2, 4 and 8 and at a per that is no multiple of
+   16; K4 at the read path's shapes, at a per that is no multiple of its
+   cluster's round and at one page of 2^20; both also on unaligned
+   views), K1 also over 200 calls in a row, with wrapping
    sums, and under 4 concurrent callers on one stream, on a stream each
    and through its host entry;
-   K9 (single-buffer byteshuffle) bit for bit at element widths 1, 2, 3,
-   4, 8 and 16 x N of 1 to 1,000,003, K10 (delta + zigzag) in int32 and
+   K9 (single-buffer byteshuffle, K2's code) bit for bit at element
+   widths 1, 2, 3, 4, 8 and 16 x N of 1 to 1,000,003 and at its phase-5
+   and phase-6 shapes, K10 (delta + zigzag) in int32 and
    int64 at N of 1 to 1,000,003 over the whole range with the extremes,
    both also on unaligned views;
    K5 (flash attention: bf16 on the tensor cores, fp32 on the CUDA cores)
@@ -72,10 +78,12 @@ Phases, in order; any failure exits non-zero:
    at zamba2-2.7b's head shapes; none for K7 and K8); K9 and K10 at one
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
-   K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``;
+   K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``; K2 also
+   at (91, 16384, 4) and K4 at (12, 8, 8192), the other shape each path
+   gives it, and both at a near-empty shape, their launch floor;
    the host entries of K1, K2 and K9 with their PCIe copies; one JSON
    ``kernels`` line of the ten kernels (K1's, K5's, K6's and K8's rows
-   name the ``design`` they timed);
+   name the ``design`` they timed, as do K2's, K4's and K9's);
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
@@ -134,6 +142,10 @@ KERNEL_INFO = {
 #: dtype: their phase-6 rows are bf16)
 KERNEL_DESIGN = {
     "offsets_scan": {"int64": "single-pass look-back"},
+    "byteshuffle_pages": {"uint8": "16 elements a thread, warp-staged loads, "
+                                   "prmt transpose, 16-byte plane stores"},
+    "decode_offset_pages": {"uint8": "one thread-block cluster per page"},
+    "byteshuffle": {"uint8": "K2's register form, one page"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
     "decode_attention": {"bfloat16": "cp.async ring",
                          "float32": "cp.async ring"},
@@ -397,13 +409,13 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 #: the kernels whose registers and spills phase 1 prints (name fragments
 #: of their mangled names)
 PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
-                 "wkv_chunked")
+                 "wkv_chunked", "shuffle_reg", "decode_offsets_cluster")
 
 
 def ptxas_report(path) -> list:
     """``ptxas -v``'s registers and spills of the tensor-core and
-    cp.async kernels (K5, K6, the chunked routes of K7 and K8) and of K1,
-    one line each."""
+    cp.async kernels (K5, K6, the chunked routes of K7 and K8), of K1, of
+    K2's register form and of K4's cluster kernel, one line each."""
     out, name = [], None
     for line in open(path, errors="replace").read().splitlines():
         if "Compiling entry function" in line:
@@ -418,23 +430,36 @@ def ptxas_report(path) -> list:
 # phase 2: every kernel against its plain version
 
 
-def check_kernels(torch, kernels, shapes) -> None:
+#: the kernels that phase 2 also holds on unaligned views (their scalar
+#: routes)
+UNALIGNED_CHECKED = ("byteshuffle_pages", "decode_offset_pages")
+
+
+def check_kernels(torch, kernels, shapes, odd_views: bool = False) -> None:
+    """Each kernel at each shape against its plain version, bit for bit;
+    with ``odd_views`` also ``UNALIGNED_CHECKED``'s on an unaligned view
+    of the same input."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     fns = kernel_fns(kernels)
     for name, shape_list in shapes.items():
         kern, plain, _ = fns[name]
+        odd = odd_views and name in UNALIGNED_CHECKED
         for shape in shape_list:
             x = kernel_input(torch, name, shape, gen)
             got = kern(x)
             torch.cuda.synchronize()
             want = plain(x)
             err = max_abs_err(torch, got, want)
+            if odd:
+                err = max(err, max_abs_err(torch, kern(unaligned(torch, x)),
+                                           want))
             if err != 0.0:
                 fail(f"{name} at {tuple(shape)} differs from its plain "
                      f"version (max abs err {err})")
         log(f"kernel {name}: bit-identical to its plain version at "
-            f"{len(shape_list)} shapes")
+            f"{len(shape_list)} shapes"
+            + (" and on an unaligned view of each" if odd else ""))
 
 
 def check_offsets_calls(np, torch, kernels) -> None:
@@ -499,15 +524,26 @@ def ragged_shapes():
         # 1 tile, ragged tiles, several tiles, look-backs past 32 tiles
         "offsets_scan": [(1,), (2047,), (4095,), (4097,), (100_000,),
                          (1_100_003,), (2**20 + 3,), (2**24,)],
-        # the paper config's page shapes, plus ragged and odd `per`
-        "byteshuffle_pages": [(36, 8192, 8), (91, 16384, 4), (3, 1000, 8),
-                              (2, 777, 4), (5, 4099, 2), (2, 33, 1),
-                              (1, 16384, 4)],
+        # the write path's four page shapes in every element width, plus
+        # ragged and odd `per` (no multiple of 16: the scalar kernel)
+        "byteshuffle_pages": [(p, per, nb) for p, per in WRITE_PAGES
+                              for nb in (1, 2, 4, 8)]
+                             + [(3, 1000, 8), (2, 777, 4), (5, 4099, 2),
+                                (2, 33, 1), (1, 16384, 4), (3, 16 * 64 + 9, 8)],
         "unsplit_pages": [(91, 4, 16384), (3, 8, 1000), (2, 4, 777),
                           (5, 2, 4099), (2, 1, 33), (36, 8, 8192)],
-        "decode_offset_pages": [(36, 8, 8192), (1, 8, 8192), (3, 8, 1000),
-                                (2, 8, 1027), (4, 8, 2)],
+        # the read path's shapes, one block (1,000 and 5), a per that is
+        # no multiple of the cluster's round (9,000: a ragged second
+        # round), one page of 2^20 (128 rounds of the carry loop)
+        "decode_offset_pages": [(36, 8, 8192), (12, 8, 8192), (1, 8, 8192),
+                                (3, 8, 1000), (1, 8, 5), (2, 8, 1027),
+                                (4, 8, 2), (2, 8, 9000), (1, 8, 1 << 20)],
     }
+
+
+#: the write path's K2 page counts and widths (64 KiB pages of the 8-byte
+#: and 4-byte columns of phase 3)
+WRITE_PAGES = [(36, 8192), (91, 16384), (12, 8192), (30, 16384)]
 
 
 #: K9's element widths, and K9's and K10's lengths, in phase 2
@@ -540,6 +576,10 @@ def check_codec(torch, kernels) -> None:
              for n in CODEC_LENGTHS]
     cases += [("delta_zigzag", (n,), dt, False) for dt in (i32, i64)
               for n in CODEC_LENGTHS]
+    # the op entries' (phase 5) and phase 6's shapes
+    cases += [("byteshuffle", shape, None, False)
+              for shape in OPS_CASES["byteshuffle"]
+              + [s for s, _ in CODEC_TIMED["byteshuffle"]]]
     cases += [("byteshuffle", (4096, 8), None, True),
               ("byteshuffle", (250_000, 4), None, True),
               ("delta_zigzag", (4097,), i32, True),
@@ -556,7 +596,8 @@ def check_codec(torch, kernels) -> None:
             fail(f"{name} at {shape} {dtype or ''}{' unaligned' if odd else ''} "
                  f"differs from its plain version (max abs err {err})")
     log(f"kernel byteshuffle: bit-identical to its plain version at nb "
-        f"{CODEC_WIDTHS} x N {CODEC_LENGTHS} and on 2 unaligned views")
+        f"{CODEC_WIDTHS} x N {CODEC_LENGTHS}, at the op entries' and the "
+        "timed shapes and on 2 unaligned views")
     log(f"kernel delta_zigzag: bit-identical to its plain version in int32 "
         f"and int64 at N {CODEC_LENGTHS}, values over the whole range with "
         "the extremes, and on 2 unaligned views")
@@ -1307,6 +1348,46 @@ def ops_phase(torch, ops):
 # phase 6: timings of the kernels
 
 
+#: the near-empty shapes at which phase 6 also times K2's and K4's
+#: wrappers: the least one launch costs, measured as the kernels are
+FLOOR_SHAPES = {"byteshuffle_pages": (1, 16, 8),
+                "decode_offset_pages": (1, 8, 16)}
+
+
+def time_wrapper(torch, fns, name: str, shape, gen, dname=None) -> dict:
+    """One codec kernel's wrapper and its plain version at ``shape``
+    (``dname``: K10's int32 or int64): the result bit for bit, card time,
+    time per call with the host's part, bound; the library call's time is
+    the plain version's where that is one PyTorch call."""
+    kern, plain, lib = fns[name]
+    x = kernel_input(torch, name, shape, gen,
+                     getattr(torch, dname) if dname else None)
+    got, want = kern(x), plain(x)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err != 0.0:
+        fail(f"{name} at {shape} differs from its plain version")
+    del got, want
+    timed = {}
+    for key, fn in (("", kern), ("plain_", plain)):
+        c_ms = call_ms(torch, fn, x)
+        timed[key + "call_ms"] = c_ms
+        timed[key + "ms"] = device_ms(torch, fn, x, c_ms)
+    b_ms, b_by, nbytes = bound(name, shape, x.element_size())
+    lib_ms = timed["plain_ms"] if lib else None  # the plain version IS that call
+    dtype = str(x.dtype).replace("torch.", "")
+    log(f"{name} at {tuple(shape)} {dtype}: card {timed['ms']:.5f} ms (bound "
+        f"{b_ms:.5f} ms by {b_by}, plain {timed['plain_ms']:.5f} ms, library "
+        f"{f'{lib_ms:.5f} ms ({lib})' if lib else 'none'}); per call with "
+        f"host overhead {timed['call_ms']:.5f} ms (plain "
+        f"{timed['plain_call_ms']:.5f} ms)")
+    return {"shape": list(shape), "dtype": dtype, "max_abs_err": err,
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bytes": nbytes, "call_ms": timed["call_ms"],
+            "plain_call_ms": timed["plain_call_ms"]}
+
+
 def time_attention(torch, ops, shapes, counts, worst) -> list:
     """K5 and K6 at the serve path's most frequent shape in bf16: card
     time, plain version, SDPA, bound; -> their ``kernels`` rows."""
@@ -1509,44 +1590,14 @@ def time_codec(torch, kernels, counts) -> list:
     fns = kernel_fns(kernels)
     rows = []
     for name, timed in CODEC_TIMED.items():
-        kern, plain, lib = fns[name]
-        at = []
-        for shape, dname in timed:
-            dtype = getattr(torch, dname) if dname else None
-            x = kernel_input(torch, name, shape, gen, dtype)
-            got, want = kern(x), plain(x)
-            torch.cuda.synchronize()
-            err = max_abs_err(torch, got, want)
-            if err != 0.0:
-                fail(f"{name} at {shape} differs from its plain version")
-            del got, want
-            timed_ms = {}
-            for key, fn in (("", kern), ("plain_", plain)):
-                c_ms = call_ms(torch, fn, x)
-                timed_ms[key + "call_ms"] = c_ms
-                timed_ms[key + "ms"] = device_ms(torch, fn, x, c_ms)
-            b_ms, b_by, nbytes = bound(name, shape,
-                                       x.element_size() if dname else 1)
-            at.append({
-                "shape": list(shape), "dtype": dname or "uint8",
-                "max_abs_err": err, "ms": timed_ms["ms"],
-                "plain_ms": timed_ms["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by,
-                "library_ms": timed_ms["plain_ms"] if lib else None,
-                "bytes": nbytes, "call_ms": timed_ms["call_ms"],
-                "plain_call_ms": timed_ms["plain_call_ms"],
-            })
-            lib_txt = f"{timed_ms['plain_ms']:.5f} ms ({lib})" if lib else "none"
-            log(f"{name} at {shape} {dname or 'uint8'}: card "
-                f"{timed_ms['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
-                f"plain {timed_ms['plain_ms']:.5f} ms, library {lib_txt}); "
-                f"per call with host overhead {timed_ms['call_ms']:.5f} ms "
-                f"(plain {timed_ms['plain_call_ms']:.5f} ms)")
-            del x
+        at = [time_wrapper(torch, fns, name, shape, gen, dname)
+              for shape, dname in timed]
         source, replaces = KERNEL_INFO[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[name],
-               "path": "the op entries (phase 5)", "library": lib}
+               "path": "the op entries (phase 5)", "library": fns[name][2]}
+        if name in KERNEL_DESIGN:
+            row["design"] = KERNEL_DESIGN[name]["uint8"]
         row.update(at[0])
         row["at"] = at[1:]
         rows.append(row)
@@ -1612,12 +1663,12 @@ def main() -> int:
         _build.library(lib)
     log(f"build and load: {time.perf_counter() - t0:.3f} s into "
         f"{_build.build_dir()}")
-    for lib in ("attention", "scans", "ssm"):
+    for lib in ("attention", "byteplanes", "scans", "ssm"):
         for line in ptxas_report(_build.build_log(lib)):
             log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
-    check_kernels(torch, kernels, ragged_shapes())
+    check_kernels(torch, kernels, ragged_shapes(), odd_views=True)
     check_offsets_calls(np, torch, kernels)
     check_codec(torch, kernels)
     flash_cases, decode_cases = attention_cases()
@@ -1736,42 +1787,25 @@ def main() -> int:
                 list(z_shapes["mamba2_ssd"]))
     rows = []
     for name in ops.WRITE_READ_KERNELS:
-        shape = shapes[name].most_common(1)[0][0]
-        kern, plain, lib = fns[name]
-        x = kernel_input(torch, name, shape, gen)
-        got, want = kern(x), plain(x)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        if err != 0.0:
-            fail(f"{name} at {shape} differs from its plain version")
+        path_shapes = [x for x, _c in shapes[name].most_common()]
         before = ops.launch_counts()[name]
-        timed = {}
-        for key, fn in (("", kern), ("plain_", plain)):
-            c_ms = call_ms(torch, fn, x)
-            timed[key + "call_ms"] = c_ms
-            timed[key + "ms"] = device_ms(torch, fn, x, c_ms)
-        ms, plain_ms = timed["ms"], timed["plain_ms"]
-        lib_ms = plain_ms if lib else None  # the plain version IS that call
-        b_ms, b_by, nbytes = bound(name, shape)
+        row = time_wrapper(torch, fns, name, path_shapes[0], gen)
         assert ops.launch_counts()[name] > before  # the timing ran the kernel
         source, replaces = KERNEL_INFO[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library": lib, "shape": list(shape), "bytes": nbytes,
-            "call_ms": timed["call_ms"], "plain_call_ms": timed["plain_call_ms"],
-        })
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
+                     "library": fns[name][2], **row})
+        if name in KERNEL_DESIGN:
+            rows[-1]["design"] = next(iter(KERNEL_DESIGN[name].values()))
         if name == "offsets_scan":
-            rows[-1]["design"] = KERNEL_DESIGN[name]["int64"]
-            rows[-1]["at_sizes"] = time_offsets_sizes(torch, kern, plain,
-                                                      gen)
-        log(f"{name} at {shape}: card {ms:.5f} ms (bound {b_ms:.5f} ms by "
-            f"{b_by}, plain {plain_ms:.5f} ms, library "
-            f"{f'{lib_ms:.5f} ms ({lib})' if lib else 'none'}); per call "
-            f"with host overhead {timed['call_ms']:.5f} ms (plain "
-            f"{timed['plain_call_ms']:.5f} ms)")
+            rows[-1]["at_sizes"] = time_offsets_sizes(
+                torch, fns[name][0], fns[name][1], gen)
+        if name in FLOOR_SHAPES:
+            # the path's next shape, and the launch floor
+            rows[-1]["at"] = [time_wrapper(torch, fns, name, x, gen)
+                              for x in path_shapes[1:2]]
+            rows[-1]["floor"] = time_wrapper(torch, fns, name,
+                                             FLOOR_SHAPES[name], gen)
     # K5/K6 at smollm-360m's shapes (the rows), and at zamba2-2.7b's
     # head dim 80 (nested); launches summed over the serve paths
     _cfg, d_counts, d_shapes = served["smollm-360m"]

@@ -50,6 +50,21 @@ __device__ __forceinline__ T block_inclusive_scan(T v, T* warp_sums, T& total) {
   return out;
 }
 
+// 4 x 4 byte-block transpose in registers (eight `prmt`): on entry word i
+// of `w` is row i; on exit word j holds byte j of rows 0..3, row i in its
+// byte i.  __byte_perm(x, y, s) takes result byte n from byte (s >> 4n) &
+// 7 of the pair, x's bytes numbered 0-3 and y's 4-7.
+__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // a0 b0 a1 b1
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);  // a2 b2 a3 b3
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);  // c0 d0 c1 d1
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);  // c2 d2 c3 d3
+  w[0] = __byte_perm(t0, t2, 0x5410);                   // a0 b0 c0 d0
+  w[1] = __byte_perm(t0, t2, 0x7632);                   // a1 b1 c1 d1
+  w[2] = __byte_perm(t1, t3, 0x5410);                   // a2 b2 c2 d2
+  w[3] = __byte_perm(t1, t3, 0x7632);                   // a3 b3 c3 d3
+}
+
 // 16 bytes as one vector or as bytes (constant indices keep it in
 // registers).
 union V16 {

@@ -51,13 +51,43 @@
 //   made K1 13 % slower (PERF.md §6).  The adds are in uint64,
 //   i.e. two's-complement int64, so the result equals numpy's int64
 //   cumsum bit for bit.
-// * K4 needs no carry across blocks: pages restart their deltas.  One
-//   block takes one page and loops over it in rounds of 1024 elements;
-//   each thread gathers bytes 0-3 of four consecutive elements from the
-//   four low planes (one 4-byte load per plane where aligned),
-//   un-zigzags, scans its four values, and the block scan adds the
-//   running carry of the page.  int32 is exact under the reader's route
-//   guard (the cluster's child total is below 2^31).
+// * K4 (replaces `decode_offset_pages` / `_offsets_decode_kernel` of
+//   src/repro/kernels/decode_pages.py) needs no carry across pages:
+//   pages restart their deltas.  Bound: bytes, 8 P per (the four low
+//   planes in, int32 out): 0.0007 ms at the read path's (36, 8, 8192).
+//   The first design ran one block of 256 per page (36 blocks at (36, 8,
+//   8192) on 132 SMs) and walked the page in 8 serial rounds of 1,024,
+//   each a 4-byte load per plane, a block scan and a store: the load
+//   latency paid 8 times in series, 0.0102 ms.  Now a page is one thread-
+//   block cluster of C <= 8 blocks (a launch attribute, grid P C: 288
+//   blocks at (36, 8, 8192)); rank r takes the r-th tile of 1,024
+//   elements of each round of C tiles.  A thread loads its 8 elements'
+//   bytes from the four low planes at once (one 8-byte load each), turns
+//   them into 8 words with two 4 x 4 byte transposes, un-zigzags and
+//   scans them, and the block scans its threads' totals; the block's
+//   total goes to shared memory, `cluster.sync()`, and each warp reads
+//   the C totals over distributed shared memory (lane q reads rank q's,
+//   `map_shared_rank`) and sums those of the ranks before its own; the
+//   thread writes its 8 int32 ends as two 16-byte vectors.  A page longer
+//   than C tiles loops, every rank adding the earlier rounds' totals as a
+//   running carry; the totals alternate between two slots, so one sync a
+//   round suffices, and a last `cluster.sync()` keeps every block's
+//   shared memory alive until its cluster has read it.  No workspace, no
+//   atomics, one launch.  int32 is exact under the reader's route guard
+//   (the cluster's child total is below 2^31); the sums run in uint32,
+//   wrapping as two's-complement int32.  Measured (`python -m
+//   repro_torch.launch.scan_builds`, interleaved with the first design;
+//   NVIDIA H100 80GB HBM3, 700 W): 0.00773 against 0.00994 ms at (36, 8,
+//   8192) and 0.00704 against 0.00989 at (12, 8, 8192); L2-cold 0.0086
+//   against 0.0132 ms.  A cluster launch has a floor of its own: 0.0067
+//   ms at (1, 8, 16) against 0.0055 for a plain launch of one block, so
+//   above the plain floor the time fell from 0.0044 to 0.0022 ms.  Timed
+//   and not kept: the cluster dims fixed at compile time (the same),
+//   blocks of 256 threads and C = 4 (0.0082), 64 threads x 16 elements
+//   (0.0084), one block of 1,024 threads a page (0.0078), and no cluster
+//   with each block summing the tiles before its own again from L2
+//   (0.0076 at (36, 8, 8192) but 0.0073 against 0.0070 at (12, 8,
+//   8192), and no bound on long pages).
 // * K10 needs no carry at all: the Pallas kernel carries the previous
 //   block's last element across its sequential grid, but each element's
 //   delta needs only its predecessor.  A thread takes 16 bytes (four
@@ -67,6 +97,8 @@
 //   and the shift run in the unsigned type, where they wrap as the
 //   reference's int32/int64 jnp ops do (signed overflow is undefined in
 //   C++); the sign mask is the arithmetic shift of the signed delta.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -189,35 +221,54 @@ scan_lookback(const u64* __restrict__ in, u64* __restrict__ out, u64* ws,
   }
 }
 
-constexpr int kDecThreads = 256;
-constexpr int kDecItems = 4;
-constexpr int64_t kDecRound = int64_t(kDecThreads) * kDecItems;  // 1024
+constexpr int kDecThreads = 128;
+constexpr int kDecItems = 8;  // one 8-byte load per plane a thread and round
+constexpr int64_t kDecTile = int64_t(kDecThreads) * kDecItems;  // 1024
+constexpr int kDecMaxCluster = 8;  // the portable cluster size
 
 __device__ __forceinline__ unsigned unzigzag(unsigned z) {
   return (z >> 1) ^ (0u - (z & 1u));
 }
 
+// One page per cluster of C blocks (grid P * C, cluster rank r = block
+// rank).  Round i covers elements [i C tile, (i + 1) C tile) of the page;
+// rank r takes its r-th tile.  The page restarts its sum at 0 (pages
+// restart their deltas); `carry` is the sum of the page's earlier rounds.
 __global__ void __launch_bounds__(kDecThreads)
-decode_offsets(const uint8_t* __restrict__ planes, int32_t* __restrict__ out,
-               int64_t per, bool vec) {
-  __shared__ unsigned ws[kDecThreads / 32];
-  const int64_t page = blockIdx.x;
+decode_offsets_cluster(const uint8_t* __restrict__ planes, int32_t* __restrict__ out,
+                       int64_t per, bool vec) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ unsigned warp_sums[kDecThreads / 32];
+  __shared__ unsigned totals[2];  // this block's total of the last two rounds
+  const unsigned c = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int64_t page = blockIdx.x / c;
   const uint8_t* p = planes + page * 8 * per;  // plane j at p + j * per
   int32_t* o = out + page * per;
+  const int lane = threadIdx.x & 31;
   unsigned carry = 0;
-  for (int64_t r0 = 0; r0 < per; r0 += kDecRound) {
-    const int64_t e0 = r0 + int64_t(threadIdx.x) * kDecItems;
+  int parity = 0;
+  for (int64_t r0 = 0; r0 < per; r0 += c * kDecTile, parity ^= 1) {
+    const int64_t e0 = r0 + rank * kDecTile + int64_t(threadIdx.x) * kDecItems;
     const bool full = vec && e0 + kDecItems <= per;
     unsigned s[kDecItems];
     if (full) {
-      const uchar4 b0 = *reinterpret_cast<const uchar4*>(p + e0);
-      const uchar4 b1 = *reinterpret_cast<const uchar4*>(p + per + e0);
-      const uchar4 b2 = *reinterpret_cast<const uchar4*>(p + 2 * per + e0);
-      const uchar4 b3 = *reinterpret_cast<const uchar4*>(p + 3 * per + e0);
-      s[0] = unzigzag(b0.x | (b1.x << 8) | (b2.x << 16) | (unsigned(b3.x) << 24));
-      s[1] = unzigzag(b0.y | (b1.y << 8) | (b2.y << 16) | (unsigned(b3.y) << 24));
-      s[2] = unzigzag(b0.z | (b1.z << 8) | (b2.z << 16) | (unsigned(b3.z) << 24));
-      s[3] = unzigzag(b0.w | (b1.w << 8) | (b2.w << 16) | (unsigned(b3.w) << 24));
+      // bytes 0-3 of 8 elements: one 8-byte load from each low plane, all
+      // four in flight at once, then two 4 x 4 byte transposes
+      const uint2 b0 = *reinterpret_cast<const uint2*>(p + e0);
+      const uint2 b1 = *reinterpret_cast<const uint2*>(p + per + e0);
+      const uint2 b2 = *reinterpret_cast<const uint2*>(p + 2 * per + e0);
+      const uint2 b3 = *reinterpret_cast<const uint2*>(p + 3 * per + e0);
+      uint32_t lo[4] = {b0.x, b1.x, b2.x, b3.x};
+      uint32_t hi[4] = {b0.y, b1.y, b2.y, b3.y};
+      repro::transpose4x4(lo);
+      repro::transpose4x4(hi);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s[k] = unzigzag(lo[k]);
+        s[k + 4] = unzigzag(hi[k]);
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < kDecItems; ++k) {
@@ -231,19 +282,37 @@ decode_offsets(const uint8_t* __restrict__ planes, int32_t* __restrict__ out,
 #pragma unroll
     for (int k = 1; k < kDecItems; ++k) s[k] += s[k - 1];
     unsigned total;
-    const unsigned incl =
-        repro::block_inclusive_scan<unsigned, kDecThreads>(s[kDecItems - 1], ws, total);
-    const unsigned pre = carry + incl - s[kDecItems - 1];
+    const unsigned incl = repro::block_inclusive_scan<unsigned, kDecThreads>(
+        s[kDecItems - 1], warp_sums, total);
+    if (threadIdx.x == 0) totals[parity] = total;
+    // every rank's total of this round is published; slot `parity` is
+    // written again two rounds on, after the next sync, which no block
+    // reaches before it has read this round's slots
+    cluster.sync();
+    // lane q < C reads rank q's total over distributed shared memory;
+    // each warp sums the ranks before this one, and all C
+    unsigned t = lane < int(c) ? *cluster.map_shared_rank(&totals[parity], lane) : 0u;
+    unsigned before = lane < int(rank) ? t : 0u;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      t += __shfl_xor_sync(0xffffffffu, t, m);
+      before += __shfl_xor_sync(0xffffffffu, before, m);
+    }
+    const unsigned pre = carry + before + incl - s[kDecItems - 1];
     if (full) {
-      *reinterpret_cast<int4*>(o + e0) =
-          make_int4(int(pre + s[0]), int(pre + s[1]), int(pre + s[2]), int(pre + s[3]));
+      int4* q = reinterpret_cast<int4*>(o + e0);
+      q[0] = make_int4(int(pre + s[0]), int(pre + s[1]), int(pre + s[2]), int(pre + s[3]));
+      q[1] = make_int4(int(pre + s[4]), int(pre + s[5]), int(pre + s[6]), int(pre + s[7]));
     } else {
 #pragma unroll
       for (int k = 0; k < kDecItems; ++k)
         if (e0 + k < per) o[e0 + k] = int(pre + s[k]);
     }
-    carry += total;
+    carry += t;
   }
+  // no block may exit while a rank of its cluster can still read its
+  // shared memory: the last round's reads happen before this sync
+  cluster.sync();
 }
 
 template <typename S> struct Unsigned;
@@ -336,13 +405,33 @@ extern "C" int repro_offsets_scan_i64(const void* in, void* out, void* workspace
 // these units.
 extern "C" int repro_offsets_scan_tile() { return static_cast<int>(kScanTile); }
 
+// (planes, out, n_pages, per, cluster, tile, stream): one launch of
+// n_pages * cluster blocks in clusters of `cluster` (1..8), each block
+// taking `tile` elements a round; the wrapper computes both
+// (decode_pages.launch_shape) and this refuses a tile it was not built
+// for.  A refused cluster launch returns its CUDA error.
 extern "C" int repro_decode_offset_pages(const void* planes, void* out,
-                                         int64_t n_pages, int64_t per, void* stream) {
+                                         int64_t n_pages, int64_t per, int cluster,
+                                         int64_t tile, void* stream) {
   if (n_pages <= 0 || per <= 0) return 0;
+  if (cluster < 1 || cluster > kDecMaxCluster || tile != kDecTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* p = static_cast<const uint8_t*>(planes);
   auto* o = static_cast<int32_t*>(out);
-  const bool vec = per % kDecItems == 0 && repro::aligned(p, 4) && repro::aligned(o, 16);
-  decode_offsets<<<static_cast<unsigned>(n_pages), kDecThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(p, o, per, vec);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = per % kDecItems == 0 && repro::aligned(p, 8) && repro::aligned(o, 16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_pages * cluster));
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, decode_offsets_cluster, p, o, per, vec);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }

@@ -30,11 +30,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-#: extra flags per library: the attention, scans and ssm libraries report
-#: each kernel's registers and spills (``ptxas -v``, kept in the build
-#: log), and the attention library takes ``dlopen`` for libcuda's
-#: tensor-map encoder
+#: extra flags per library: every library reports each kernel's
+#: registers and spills (``ptxas -v``, kept in the build log), and the
+#: attention library takes ``dlopen`` for libcuda's tensor-map encoder
 EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"],
+                                     "byteplanes": ["-Xptxas", "-v"],
                                      "scans": ["-Xptxas", "-v"],
                                      "ssm": ["-Xptxas", "-v"]}
 
@@ -49,8 +49,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_offsets_scan_i64": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
         # () -> values per tile, the unit of the workspace's capacity
         "repro_offsets_scan_tile": [],
-        # (planes, out, n_pages, per, stream)
-        "repro_decode_offset_pages": [_P, _P, _I64, _I64, _P],
+        # (planes, out, n_pages, per, cluster, tile, stream)
+        "repro_decode_offset_pages": [_P, _P, _I64, _I64, _INT, _I64, _P],
         # (in, out, n, stream)
         "repro_delta_zigzag_i32": [_P, _P, _I64, _P],
         "repro_delta_zigzag_i64": [_P, _P, _I64, _P],

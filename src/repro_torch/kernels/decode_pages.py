@@ -13,9 +13,10 @@ as torch tensors (DESIGN.md §9).
   ``(P, per) int32`` end offsets; replaces the Pallas
   ``decode_offset_pages``.
 
-Both CUDA kernels live in ``csrc/``.  On a CPU tensor each wrapper runs
-its plain PyTorch version; on a CUDA tensor it launches its kernel or
-raises.  int32 offsets are exact under the reader's route guard (the
+Both CUDA kernels live in ``csrc/``; K4 runs a page as one thread-block
+cluster, its geometry from :func:`launch_shape`.  On a CPU tensor each
+wrapper runs its plain PyTorch version; on a CUDA tensor it launches its
+kernel or raises.  int32 offsets are exact under the reader's route guard (the
 cluster's child element total is below 2**31, so planes 4..7 are zero).
 
 The drivers below (``device_decode_*``) decode one column's staged page
@@ -26,6 +27,8 @@ as torch ops on that device.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -50,6 +53,26 @@ def unsplit_pages(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: K4's geometry (``csrc/scans.cu``, built for it): a block of
+#: ``DECODE_THREADS`` threads takes ``DECODE_ITEMS`` elements a thread and
+#: round, a tile of ``DECODE_TILE``; a page is one cluster of at most
+#: ``MAX_CLUSTER`` blocks (the portable cluster size)
+DECODE_THREADS, DECODE_ITEMS = 128, 8
+DECODE_TILE = DECODE_THREADS * DECODE_ITEMS
+MAX_CLUSTER = 8
+
+
+def launch_shape(per: int) -> Tuple[int, int]:
+    """``(C, tile)`` of K4 for pages of ``per`` elements: one cluster of
+    ``C`` blocks a page, as many as the page has tiles up to 8; in each
+    round of ``C * tile`` elements rank ``r`` takes the ``r``-th tile, and
+    a longer page loops in rounds with a running carry.  The grid is
+    ``n_pages * C`` blocks."""
+    if per < 1:
+        raise ValueError(f"decode_offset_pages: per {per} < 1")
+    return max(1, min(MAX_CLUSTER, -(-per // DECODE_TILE))), DECODE_TILE
+
+
 def decode_offset_pages(planes: torch.Tensor) -> torch.Tensor:
     """(P, 8, per) uint8 split zigzag deltas -> (P, per) int32 end offsets."""
     check_pages(planes, "decode_offset_pages")
@@ -61,12 +84,13 @@ def decode_offset_pages(planes: torch.Tensor) -> torch.Tensor:
     n_pages, _, per = planes.shape
     out = torch.empty((n_pages, per), dtype=torch.int32, device=planes.device)
     if planes.numel():
+        cluster, tile = launch_shape(per)
         lib = _build.library("scans")
         guard, stream = _build.launch_args(planes)
         with guard:
             rc = lib.repro_decode_offset_pages(planes.data_ptr(),
                                                out.data_ptr(), n_pages, per,
-                                               stream)
+                                               cluster, tile, stream)
         _build.check(lib, rc, "decode_offset_pages")
         count_launch("decode_offset_pages", planes.shape)
     return out

@@ -1,20 +1,25 @@
-"""Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs) and K8 (Mamba-2
-SSD, bf16 x) as built from several source trees against each other on one
-card, in one process.
+"""Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs), K8 (Mamba-2
+SSD, bf16 x) and the codec kernels K2, K3, K4 and K9 as built from several
+source trees against each other on one card, in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
-        [NAME=CSRC_DIR ...] [--rounds 3] [--out FILE]
+        [NAME=CSRC_DIR ...] [--rounds 3] [--only GROUP ...] [--out DIR]
 
 Each ``NAME=CSRC_DIR`` is a copy of ``src/repro_torch/csrc`` (a parent
 commit's, from ``git archive``, or an edited variant); the checkout's own
-sources are always built as ``tree``.  Every tree's ``scans.cu`` and
-``ssm.cu`` compile together (nvcc, one process each); the lines give the
-registers and spills of ``scan_lookback``, of ``ssd_chunked`` at N = 64
-and of ``wkv_chunked`` at Dk = 64.  The C entry points are called
-directly, so a tree's wrapper need not match this one's; K1's workspace
-is zeroed and sized for slots of up to 32 bytes a tile.  A variant of a
-kernel (one bf16 piece per operand instead of two, a part taken out) is
-timed as an edited copy of the checkout's ``csrc``, one more tree.
+sources are always built as ``tree``.  Every tree's ``byteplanes.cu``,
+``scans.cu`` and ``ssm.cu`` compile together (nvcc, one process each);
+the lines give the registers and spills of ``scan_lookback``, of
+``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk = 64 and of the codec
+kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's ``unsplit_vec``,
+K4's ``decode_offsets``).  The C entry points are called directly, so a
+tree's wrapper need not match this one's (K4's entry takes its cluster
+geometry; a tree whose source declares the entry without it, the first
+design's, is called without it); K1's workspace is zeroed and sized for slots of up to 32 bytes
+a tile.  A variant of a kernel (one bf16 piece per operand instead of
+two, a part taken out) is timed as an edited copy of the checkout's
+``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8),
+``k1``, ``codec``; all by default.
 
 K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
 inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
@@ -23,10 +28,17 @@ state are held against the plain version and printed as the largest
 share of ``SCAN_TOL`` they use (bf16 outputs 1e-2, final states 1e-4, as
 ``|got - want| / (tol (1 + |want|))``; above 1 misses it).  K1 runs at
 100,000, 1,100,003 and 2^24 values beside ``torch.cumsum`` and must equal
-it bit for bit.  Times are card times (CUDA events between launches
-queued behind a sleep kernel, median), the trees interleaved in
-``--rounds`` rounds whose order alternates.  The last line is one JSON
-object of every number.  Needs a CUDA card.
+it bit for bit.  The codec kernels run at the write -> read path's shapes
+(K2 at its four seal shapes, K4 at its two read shapes, K3 at (91, 4,
+16384)) and K9 at (250000, 8) and (2^24, 8), each tree's output bit for
+bit against the plain version; beside K2 and K4 each tree's launch floor
+(the same entry at (1, 16, 8) and (1, 8, 16)), and K2 and K4 once more
+with the L2 cache flushed before every launch (a 128 MB buffer written
+outside the timed events), as the write path's freshly uploaded pages
+find it.  Times are card times (CUDA events between launches queued
+behind a sleep kernel, median), the trees interleaved in ``--rounds``
+rounds whose order alternates.  The last line is one JSON object of every
+number.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -46,7 +59,30 @@ from repro_torch.kernels import _build, ref
 K7_SHAPE = (16, 64, 1000, 64, 64)  # (B, H, T, Dk, Dv)
 K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
-PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64")
+PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
+                 "shuffle_reg", "shuffle_vec", "unsplit_vec", "decode_offsets")
+#: which libraries each group of timings needs
+GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans")}
+
+#: the codec kernels' timed shapes: K2's four on the write path (most
+#: launches first), K4's two and K3's most frequent on the read path, K9's
+#: two in chip_smoke's phase 6
+CODEC_SHAPES = {
+    "byteshuffle_pages": ((36, 8192, 8), (91, 16384, 4), (12, 8192, 8),
+                          (30, 16384, 4)),
+    "decode_offset_pages": ((36, 8, 8192), (12, 8, 8192)),
+    "unsplit_pages": ((91, 4, 16384),),
+    "byteshuffle": ((250_000, 8), (1 << 24, 8)),
+}
+#: the near-empty shape at which K2 and K4 give their launch floor
+FLOOR_SHAPES = {"byteshuffle_pages": (1, 16, 8),
+                "decode_offset_pages": (1, 8, 16)}
+#: bytes written between launches to flush the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+HBM_BYTES_PER_S = 3.35e12
+#: K4's entry in its first design: (planes, out, n_pages, per, stream)
+K4_ARGS_BEFORE_CLUSTERS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_void_p]
 
 
 def card_ms(fn, reps: int = 20) -> float:
@@ -65,12 +101,20 @@ def card_ms(fn, reps: int = 20) -> float:
     return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
 
 
-def build(trees: dict, out_dir: Path) -> dict:
+def c_params(csrc, lib: str, fn: str) -> int:
+    """The number of parameters of ``fn``'s ``extern "C"`` definition in
+    the tree's ``lib.cu``."""
+    src = (Path(csrc) / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    return len(m.group(1).split(","))
+
+
+def build(trees: dict, out_dir: Path, lib_names) -> dict:
     """{(tree, lib): ctypes library}, printing the ptxas lines."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tree, csrc in trees.items():
-        for lib in ("scans", "ssm"):
+        for lib in lib_names:
             target = out_dir / f"lib{lib}_{tree}.so"
             cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
                    str(csrc), "-o", str(target), str(Path(csrc) / f"{lib}.cu")]
@@ -91,6 +135,9 @@ def build(trees: dict, out_dir: Path) -> dict:
         for fn, argtypes in _build.SIGNATURES[lib].items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
+        if lib == "scans" and c_params(trees[tree], lib,
+                                       "repro_decode_offset_pages") == 5:
+            cdll.repro_decode_offset_pages.argtypes = K4_ARGS_BEFORE_CLUSTERS
         libs[(tree, lib)] = cdll
     return libs
 
@@ -193,21 +240,156 @@ def k1_calls(libs, trees, n, stream) -> dict:
     return calls
 
 
-def rounds(calls: dict, n_rounds: int, what: str) -> dict:
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median card time of one call with the L2 cache flushed before it:
+    each launch follows a write of ``L2_FLUSH_BYTES`` outside the events
+    that time it, all queued behind a sleep kernel."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e6 * 50))
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for i, (a, b) in enumerate(ev):
+        flush.fill_(i & 0xFF)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def rounds(calls: dict, n_rounds: int, what: str, timer=card_ms) -> dict:
     """{name: [card ms of each round]}, the order alternating by round."""
     names = list(calls)
     times = {k: [] for k in names}
     for r in range(n_rounds):
         for k in (names if r % 2 == 0 else names[::-1]):
-            times[k].append(card_ms(calls[k]))
+            times[k].append(timer(calls[k]))
             print(f"{what} round {r} {k}: {times[k][-1]:.5f} ms", flush=True)
     return times
+
+
+def codec_input(kernel: str, shape, seed: int):
+    """The input of ``kernel`` at ``shape`` on the card: random bytes, or
+    for K4 the planes of end offsets uniform below 2^31 (the signed
+    deltas fill all four low planes)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    if kernel != "decode_offset_pages":
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                             generator=g)
+    n_pages, _, per = shape
+    ends = torch.randint(0, 2**31, (n_pages, per), dtype=torch.int64,
+                         device="cuda", generator=g)
+    d = ends.diff(dim=1, prepend=torch.zeros_like(ends[:, :1]))
+    zz = (d << 1) ^ (d >> 63)
+    return zz.view(torch.uint8).reshape(n_pages, per, 8).transpose(1, 2).contiguous()
+
+
+def codec_plain(kernel: str, x):
+    return {"byteshuffle_pages": ref.byteshuffle_pages_ref,
+            "unsplit_pages": ref.unsplit_pages_ref,
+            "decode_offset_pages": ref.decode_offset_pages_ref,
+            "byteshuffle": ref.byteshuffle_ref}[kernel](x)
+
+
+def codec_call(lib, kernel: str, x, stream):
+    """-> (call, output) of ``lib``'s C entry of ``kernel`` on ``x``."""
+    from repro_torch.kernels.decode_pages import launch_shape
+
+    want = codec_plain(kernel, x)
+    out = torch.empty_like(want)
+    a, b = x.data_ptr(), out.data_ptr()
+    if kernel == "byteshuffle_pages":
+        p, per, nb = x.shape
+        return (lambda: lib.repro_byteshuffle_pages(a, b, p, per, nb, stream)), out
+    if kernel == "unsplit_pages":
+        p, nb, per = x.shape
+        return (lambda: lib.repro_unsplit_pages(a, b, p, per, nb, stream)), out
+    if kernel == "byteshuffle":
+        n, nb = x.shape
+        return (lambda: lib.repro_byteshuffle(a, b, n, nb, stream)), out
+    p, _, per = x.shape
+    f = lib.repro_decode_offset_pages
+    if len(f.argtypes) == len(K4_ARGS_BEFORE_CLUSTERS):
+        return (lambda: f(a, b, p, per, stream)), out
+    c, tile = launch_shape(per)
+    return (lambda: f(a, b, p, per, c, tile, stream)), out
+
+
+def time_codec(libs, trees, n_rounds: int, stream) -> dict:
+    """Every codec kernel at ``CODEC_SHAPES`` on every tree, each output
+    checked bit for bit; K2 and K4 also L2-cold and beside each tree's
+    launch floor.  -> {kernel: {shape: {"ms", "cold_ms", "bound_ms"}},
+    "floor": {kernel: {tree: [ms]}}}."""
+    lib_of = {"decode_offset_pages": "scans"}
+    out = {"floor": {}}
+    for kernel, shapes in CODEC_SHAPES.items():
+        lib = lib_of.get(kernel, "byteplanes")
+        out[kernel] = {}
+        for i, shape in enumerate(shapes):
+            x = codec_input(kernel, shape, seed=100 + i)
+            want = codec_plain(kernel, x)
+            calls = {}
+            for tree in trees:
+                call, got = codec_call(libs[(tree, lib)], kernel, x, stream)
+                if call() != 0:
+                    sys.exit(f"{tree}: {kernel} at {shape} failed to launch")
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    sys.exit(f"{tree}: {kernel} at {shape} differs from its "
+                             "plain version")
+                calls[tree] = call
+            nbytes = (8 * shape[0] * shape[2] if kernel == "decode_offset_pages"
+                      else 2 * x.numel())
+            row = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "ms": rounds(calls, n_rounds, f"{kernel} {shape}")}
+            if kernel in FLOOR_SHAPES:
+                row["cold_ms"] = rounds(calls, n_rounds,
+                                        f"{kernel} {shape} L2-cold", cold_ms)
+            print(f"{kernel} {shape}: bound {row['bound_ms']:.5f} ms (bytes)",
+                  flush=True)
+            out[kernel][str(shape)] = row
+            del x, want, calls
+        if kernel in FLOOR_SHAPES:
+            shape = FLOOR_SHAPES[kernel]
+            x = codec_input(kernel, shape, seed=7)
+            calls = {}
+            for tree in trees:
+                call, got = codec_call(libs[(tree, lib)], kernel, x, stream)
+                if call() != 0:
+                    sys.exit(f"{tree}: {kernel} at {shape} failed to launch")
+                calls[tree] = call
+            out["floor"][kernel] = rounds(calls, n_rounds,
+                                          f"{kernel} floor {shape}")
+    return out
+
+
+def time_ssm(libs, trees, n_rounds: int, stream, result: dict) -> None:
+    """K7 and K8 at their serve shapes on every tree, with each tree's
+    share of the tolerances."""
+    k7, shares = k7_calls(libs, trees, stream)
+    for tree, sh in shares.items():
+        print(f"K7 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
+              f"state {sh['state']:.4f}")
+    result["rwkv6_scan"] = {"shape": list(K7_SHAPE), "tol_share": shares,
+                            "ms": rounds(k7, n_rounds, "K7")}
+    del k7
+    k8, shares = k8_calls(libs, trees, stream)
+    for tree, sh in shares.items():
+        print(f"K8 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
+              f"state {sh['state']:.4f}")
+    result["mamba2_ssd"] = {"shape": list(K8_SHAPE), "tol_share": shares,
+                            "ms": rounds(k8, n_rounds, "K8")}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", metavar="NAME=CSRC_DIR")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", nargs="+", choices=sorted(GROUP_LIBS),
+                    default=sorted(GROUP_LIBS), help="groups of timings")
     ap.add_argument("--out", default="build/scan_builds",
                     help="directory of the built libraries")
     args = ap.parse_args(argv)
@@ -217,26 +399,19 @@ def main(argv=None) -> int:
     for item in args.trees:
         name, _, path = item.partition("=")
         trees[name] = Path(path)
-    libs = build(trees, Path(args.out))
+    lib_names = sorted({lib for g in args.only for lib in GROUP_LIBS[g]})
+    libs = build(trees, Path(args.out), lib_names)
     stream = torch.cuda.current_stream().cuda_stream
     result = {"device": torch.cuda.get_device_name(0)}
-    k7, shares = k7_calls(libs, trees, stream)
-    for tree, sh in shares.items():
-        print(f"K7 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
-              f"state {sh['state']:.4f}")
-    result["rwkv6_scan"] = {"shape": list(K7_SHAPE), "tol_share": shares,
-                            "ms": rounds(k7, args.rounds, "K7")}
-    del k7
-    k8, shares = k8_calls(libs, trees, stream)
-    for tree, sh in shares.items():
-        print(f"K8 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
-              f"state {sh['state']:.4f}")
-    result["mamba2_ssd"] = {"shape": list(K8_SHAPE), "tol_share": shares,
-                            "ms": rounds(k8, args.rounds, "K8")}
-    result["offsets_scan"] = {}
-    for n in K1_SIZES:
-        result["offsets_scan"][n] = rounds(k1_calls(libs, trees, n, stream),
-                                           args.rounds, f"K1 ({n},)")
+    if "codec" in args.only:
+        result["codec"] = time_codec(libs, trees, args.rounds, stream)
+    if "ssm" in args.only:
+        time_ssm(libs, trees, args.rounds, stream, result)
+    if "k1" in args.only:
+        result["offsets_scan"] = {}
+        for n in K1_SIZES:
+            result["offsets_scan"][n] = rounds(k1_calls(libs, trees, n, stream),
+                                               args.rounds, f"K1 ({n},)")
     print(json.dumps(result), flush=True)
     return 0
 

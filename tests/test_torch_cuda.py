@@ -131,6 +131,115 @@ def test_decode_offset_pages_on_the_card(card, n_pages, per):
     np.testing.assert_array_equal(got.cpu().numpy(), ends)
 
 
+# K2's register form and K4's cluster form: every case
+# bit for bit against the plain version, and one launch each.
+
+#: the write path's K2 page counts and widths (64 KiB pages of 8- and
+#: 4-byte columns)
+WRITE_PAGES = [(36, 8192), (91, 16384), (12, 8192), (30, 16384)]
+
+
+def _shuffle_case(card, n_pages, per, nb, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (n_pages, per, nb), dtype=np.uint8)).to(card)
+    before = ops.launch_counts()["byteshuffle_pages"]
+    got = byteshuffle_pages(x)
+    assert ops.launch_counts()["byteshuffle_pages"] == before + 1
+    want = ref.byteshuffle_pages_ref(x)
+    assert torch.equal(got, want)
+    return x, want
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_pages,per", WRITE_PAGES)
+def test_byteshuffle_pages_register_form_on_the_card(card, n_pages, per, nb):
+    x, want = _shuffle_case(card, n_pages, per, nb, n_pages * per + nb)
+    # the same pages through an unaligned view take the scalar kernel
+    assert torch.equal(byteshuffle_pages(_unaligned(x)), want)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("per", [16 * 5 + 1, 16 * 64 + 8, 16 * 512 + 15, 4])
+def test_byteshuffle_pages_ragged_and_unaligned_on_the_card(card, per, nb):
+    """A per that is no multiple of 16 and unaligned views take the
+    scalar kernel; both agree bit for bit."""
+    x, want = _shuffle_case(card, 3, per, nb, per + nb)
+    assert torch.equal(byteshuffle_pages(_unaligned(x)), want)
+
+
+def _decode_planes(card, n_pages, per, seed):
+    """(P, 8, per) planes of end offsets uniform below 2**31 (the signed
+    deltas fill all four low bytes), with the ends."""
+    ends = np.random.default_rng(seed).integers(0, 2**31, (n_pages, per),
+                                                dtype=np.int64)
+    d = np.diff(ends, axis=1, prepend=0)
+    zz = (d << 1) ^ (d >> 63)
+    planes = np.ascontiguousarray(
+        zz.view(np.uint8).reshape(n_pages, per, 8).transpose(0, 2, 1))
+    return torch.from_numpy(planes).to(card), ends
+
+
+@pytest.mark.parametrize("n_pages,per", [(36, 8192), (12, 8192), (1, 8192),
+                                         (3, 1000), (1, 5), (2, 9000),
+                                         (3, 8 * 1024 + 4), (1, 1 << 20)])
+def test_decode_offset_pages_cluster_form_on_the_card(card, n_pages, per):
+    """The read path's shapes, small pages (one block), a per that is no
+    multiple of C x tile (a ragged second round), and one page of 2^20
+    (128 rounds of the carry loop)."""
+    from repro_torch.kernels.decode_pages import launch_shape
+
+    x, ends = _decode_planes(card, n_pages, per, per + n_pages)
+    before = ops.launch_counts()["decode_offset_pages"]
+    got = decode_offset_pages(x)
+    assert ops.launch_counts()["decode_offset_pages"] == before + 1
+    assert torch.equal(got, ref.decode_offset_pages_ref(x))
+    np.testing.assert_array_equal(got.cpu().numpy(), ends)
+    c, tile = launch_shape(per)
+    assert c <= 8
+    assert torch.equal(decode_offset_pages(_unaligned(x)), got)
+
+
+def test_decode_offset_pages_zigzag_extremes_on_the_card(card):
+    """uint32 zigzag values over the whole range with the extremes: the
+    sums wrap as the CPU plain version's int32 cumsum does."""
+    rng = np.random.default_rng(18)
+    z = rng.integers(0, 2**32, (3, 8192), dtype=np.uint64)
+    z[:, ::5] = np.resize(np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2,
+                                    2**32 - 1], dtype=np.uint64),
+                          z[:, ::5].shape)
+    planes = np.ascontiguousarray(
+        z.view(np.uint8).reshape(3, 8192, 8).transpose(0, 2, 1))
+    x = torch.from_numpy(planes)
+    assert torch.equal(decode_offset_pages(x.to(card)).cpu(),
+                       ref.decode_offset_pages_ref(x))
+
+
+@pytest.mark.parametrize("shape", [(16, 1024), (8, 512)])
+def test_decode_offset_pages_refused_launch_raises(card, monkeypatch, shape):
+    """A cluster or tile the kernel does not take is refused, and the
+    wrapper raises with the CUDA error string: no fallback."""
+    from repro_torch.kernels import decode_pages
+
+    monkeypatch.setattr(decode_pages, "launch_shape", lambda per: shape)
+    x, _ = _decode_planes(card, 2, 8192, 3)
+    with pytest.raises(RuntimeError, match="decode_offset_pages failed: "):
+        decode_pages.decode_offset_pages(x)
+
+
+#: K9's shapes in chip_smoke's phases 5 and 6 (it runs K2's code)
+K9_SHAPES = [(n, nb) for nb in (2, 4, 8) for n in (1, 100, 2048, 6000)]
+K9_SHAPES += [(250_000, 8), (1 << 24, 8)]
+
+
+@pytest.mark.parametrize("n,nb", K9_SHAPES)
+def test_byteshuffle_at_the_op_and_timed_shapes_on_the_card(card, n, nb):
+    from repro_torch.kernels.byteshuffle import byteshuffle
+
+    x = torch.randint(0, 256, (n, nb), dtype=torch.uint8, device=card,
+                      generator=torch.Generator(device=card).manual_seed(n))
+    assert torch.equal(byteshuffle(x), ref.byteshuffle_ref(x))
+
+
 def test_write_and_read_back_on_the_card(card, tmp_path):
     from repro_torch.configs.rntj_writer import (
         PAPER_WRITE_OPTIONS as O, SYNTH_EVENT_SCHEMA as S,
