@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's write -> read and serve paths and its
-kernel API on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's write -> read, serve and train paths and
+its kernel API on one NVIDIA card.
 
     python3 chip_smoke.py [--entries 1000000] [--producers 4] [--seed 0]
                           [--requests 16] [--prompt-len 1000] [--max-new 64]
@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
    ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
-   of K2's register form, of K4's cluster kernel and of the chunked
-   routes of K7 and K8;
+   of K2's register form, of K4's cluster kernel, of the chunked
+   routes of K7 and K8 and of K5's backward;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
    (K1 up to 2^24 values; K2 at the write path's four page shapes in
@@ -81,10 +81,33 @@ Phases, in order; any failure exits non-zero:
    K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``; K2 also
    at (91, 16384, 4) and K4 at (12, 8, 8192), the other shape each path
    gives it, and both at a near-empty shape, their launch floor;
-   the host entries of K1, K2 and K9 with their PCIe copies; one JSON
-   ``kernels`` line of the ten kernels (K1's, K5's, K6's and K8's rows
-   name the ``design`` they timed, as do K2's, K4's and K9's);
-7. the last line: ``{"ok": true, "device": {...}}``.
+   the host entries of K1, K2 and K9 with their PCIe copies;
+7. the train path: ``synth_corpus(8000, mean_len=512, vocab=49152)``
+   (about 4.9 M tokens) ingested by 4 workers on the card; one epoch and
+   a wrap of ``PackedLoader(8, 1024)``'s device engine held token for
+   token against its host engine, and again after a mid-cluster
+   ``load_state``; K5's forward (within its K5 tolerance) and its
+   backward against their plain versions in fp32
+   (within 2e-5) and bf16 (within 1e-2, against the plain version in
+   fp32 from the same bf16 inputs), each as ``|got - want| <= tol (1 +
+   |want|)``, at the training shape (8, 15, 5, 1024, 1024, 64), with a
+   window, at a ragged Sq and at head dims 32, 80 and 128; then
+   smollm-360m at its full width and depth (fp32 parameters, bf16
+   compute, remat) from ``--seed`` trained 6 AdamW steps
+   (``make_optimizer(peak_lr=3e-4, warmup=1, total=20)``) on the device
+   loader's batches: every parameter gets a finite, non-zero gradient on
+   a first batch (outside the counted run), the counted run's launches
+   must be K5 twice per layer and step (remat runs each forward again),
+   K5's backward once per layer and step, K3 and K4 at least once (the
+   loader's read), and no other kernel; every loss finite and the last
+   below the first; step ms (the metric: the 6 steps' total / 6),
+   tokens/s, peak memory, and one more step under torch.profiler (card
+   busy ms, against the unprofiled mean step; kernel time by name); K5's
+   backward timed at the training shape in bf16 beside its bound, its
+   plain version and SDPA's backward; one JSON ``kernels`` line of the
+   ten kernels and K5's backward (K1's, K5's, K6's and K8's rows name the
+   ``design`` they timed, as do K2's, K4's and K9's);
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
 and each served batch's prefill and 8 of its decode steps with
@@ -98,6 +121,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,6 +140,10 @@ BF16_TENSOR_OPS_PER_S = 989e12
 BATCH = 100_000
 
 KERNEL_INFO = {
+    # no pallas_call: the reference differentiates the op entry (on the
+    # CPU the jnp oracle at src/repro/kernels/ref.py:77)
+    "flash_attention_bwd": ("src/repro_torch/csrc/attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:82"),
     "offsets_scan": ("src/repro_torch/csrc/scans.cu",
                      "src/repro/kernels/offsets_scan.py:42"),
     "byteshuffle_pages": ("src/repro_torch/csrc/byteplanes.cu",
@@ -138,8 +166,8 @@ KERNEL_INFO = {
                      "src/repro/kernels/delta_zigzag.py:38"),
 }
 
-#: which kernel design each phase-6 row times (K5, K7 and K8 pick by
-#: dtype: their phase-6 rows are bf16)
+#: which kernel design each phase-6 row times (K5, its backward, K7 and
+#: K8 pick by dtype: their timed rows are bf16)
 KERNEL_DESIGN = {
     "offsets_scan": {"int64": "single-pass look-back"},
     "byteshuffle_pages": {"uint8": "16 elements a thread, warp-staged loads, "
@@ -147,6 +175,10 @@ KERNEL_DESIGN = {
     "decode_offset_pages": {"uint8": "one thread-block cluster per page"},
     "byteshuffle": {"uint8": "K2's register form, one page"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
+    "flash_attention_bwd": {"bfloat16": "two launches (dQ; dK and dV), "
+                                        "mma.sync with P and dS in two bf16 "
+                                        "pieces",
+                            "float32": "two launches, simt fp32"},
     "decode_attention": {"bfloat16": "cp.async ring",
                          "float32": "cp.async ring"},
     "rwkv6_scan": {"bfloat16": "chunked split-bf16 mma, state every 16 steps",
@@ -409,7 +441,8 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 #: the kernels whose registers and spills phase 1 prints (name fragments
 #: of their mangled names)
 PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
-                 "wkv_chunked", "shuffle_reg", "decode_offsets_cluster")
+                 "wkv_chunked", "shuffle_reg", "decode_offsets_cluster",
+                 "bwd_dq", "bwd_dkv")
 
 
 def ptxas_report(path) -> list:
@@ -977,10 +1010,11 @@ def write_single(core, schema, opts, path, item, backend: str) -> float:
             os.environ["REPRO_TORCH_KERNEL_BACKEND"] = old
 
 
-def trace_card(torch, name: str, fn, out_dir) -> None:
+def trace_card(torch, name: str, fn, out_dir, top: int = 10) -> float:
     """Trace ``fn`` with torch.profiler: the card's busy time (the union of
     its kernels' and copies' intervals) against the wall clock, and the
-    device work that took it."""
+    ``top`` device works that took most of it; -> the busy ms.  The wall
+    includes the profiler's own cost on every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1008,9 +1042,10 @@ def trace_card(torch, name: str, fn, out_dir) -> None:
         if e.device_type == DeviceType.CUDA:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+    for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {key[:60]}: {t / 1e3:.3f} ms over {c} calls")
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return busy_ms
 
 
 def profile_write_read(torch, core, schema, opts, path, item, out_dir) -> None:
@@ -1604,6 +1639,358 @@ def time_codec(torch, kernels, counts) -> list:
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# phase 7: the train path
+
+
+#: K5's backward against its plain version, as |got - want| <= tol (1 +
+#: |want|): fp32 within 2e-5 (the same sums in another order, over up to
+#: 1,024 keys); bf16 gradients (rounded once to bf16 at the store, 2^-9
+#: relative) against the plain version in fp32 on the same bf16 inputs and
+#: output, within 1e-2
+BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+#: the train path's model and batch: smollm-360m at full width and depth,
+#: (8, 1024) token batches
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 8, 1024
+#: the train path's corpus (documents of ``synth_corpus``) and AdamW steps
+TRAIN_DOCS, TRAIN_STEPS = 8000, 6
+
+
+def bwd_cases():
+    """K5 backward cases (b, h, g, sq, sk, d, causal, window): the
+    training shape, a window, a ragged Sq, and the other built head dims
+    (32 non-causal with a padded kv tile, 80 MQA, 128 windowed)."""
+    return [
+        (8, 15, 5, 1024, 1024, 64, True, None),    # smollm-360m training
+        (2, 15, 5, 1024, 1024, 64, True, 256),     # window
+        (2, 15, 5, 300, 1024, 64, True, None),     # ragged Sq
+        (1, 6, 2, 77, 130, 32, False, None),
+        (1, 4, 1, 200, 200, 80, True, None),
+        (1, 4, 2, 150, 150, 128, True, 40),
+    ]
+
+
+def k5_out(torch, q, k, v, causal=True, window=None):
+    """K5's forward on the card, held against its plain version within
+    ``ATTN_TOL``; -> (out, max abs err)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    dname = str(q.dtype).split(".")[-1]
+    err = _attention_err(torch, out, want, ATTN_TOL[dname], (
+        f"flash_attention {dname} at {tuple(q.shape)} over "
+        f"{tuple(k.shape)} causal={causal} window={window}"))
+    return out, err
+
+
+def check_attention_bwd(torch) -> dict:
+    """K5's forward, then its backward on the forward's output, against
+    ``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref`` in fp32
+    and bf16; -> the worst error per (kernel, dtype)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    worst = {}
+    for dname, tol in BWD_TOL.items():
+        dtype = getattr(torch, dname)
+        for b, h, g, sq, sk, d, causal, window in bwd_cases():
+            q, k, v, do = _attention_inputs(torch, gen, dtype, (b, h, sq, d),
+                                            (b, g, sk, d), (b, g, sk, d),
+                                            (b, h, sq, d))
+            out, f_err = k5_out(torch, q, k, v, causal, window)
+            key = ("flash_attention", dname)
+            worst[key] = max(worst.get(key, 0.0), f_err)
+            got = flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                      window=window)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), out.float(), do.float(),
+                causal=causal, window=window)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                err = _attention_err(torch, a, w, tol, (
+                    f"flash_attention_bwd {name} {dname} at "
+                    f"{(b, h, g, sq, sk, d)} causal={causal} window={window}"))
+                key = ("flash_attention_bwd", dname)
+                worst[key] = max(worst.get(key, 0.0), err)
+            del q, k, v, do, out, got, want
+    for (name, dname), err in sorted(worst.items()):
+        tol = (ATTN_TOL if name == "flash_attention" else BWD_TOL)[dname]
+        log(f"kernel {name} {dname}: within {tol} of its plain version at "
+            f"the {len(bwd_cases())} backward shapes (max abs err {err:.3e}"
+            f"{'; dq, dk, dv on the forward output' if 'bwd' in name else ''})")
+    return worst
+
+
+def attention_bwd_bound(shape, itemsize: int):
+    """(bound_ms, bound_by, bytes) of one K5 backward call on this run's
+    inputs: q, k, v, o and dO read once and dq, dk, dv written once over
+    the memory rate; five products of ``2 D`` operations per visible
+    (query, key) pair (QK^T again, dO V^T, P^T dO, dS K, dS^T Q) over the
+    bf16 tensor-core rate; causal pairs with ``q_offset = Sk - Sq``."""
+    b, h, g, sq, sk, d = shape
+    off = sk - sq
+    pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
+    ops = 10 * b * h * d * pairs
+    nbytes = itemsize * (4 * b * h * sq * d + 4 * b * g * sk * d)
+    return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+
+
+def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
+    """K5's backward at the training shape in bf16: card time, plain
+    version, SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    a kept graph), bound; -> its ``kernels`` row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    shape = (TRAIN_BATCH, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64)
+    b, h, g, sq, sk, d = shape
+    q, k, v, do = _attention_inputs(torch, gen, torch.bfloat16, (b, h, sq, d),
+                                    (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
+    out, _f_err = k5_out(torch, q, k, v)
+    kern = lambda _: flash_attention_bwd(q, k, v, out, do)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, do)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+    lib = lambda _: torch.autograd.grad(sdpa_out, leaves, do,
+                                        retain_graph=True)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), do.float())
+    got = kern(None)
+    torch.cuda.synchronize()
+    err = max(_attention_err(torch, a, w, BWD_TOL["bfloat16"],
+                             f"flash_attention_bwd at {shape}")
+              for a, w in zip(got, want))
+    lib_err = max(float((a.float() - w).abs().max())
+                  for a, w in zip(lib(None), want))
+    timed = {}
+    for key, fn in (("", kern), ("library_", lib)):
+        c_ms = call_ms(torch, fn, None, reps=10, warmup=2)
+        timed[key + "call_ms"] = c_ms
+        timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
+    plain_ms = events_ms(torch, plain)
+    b_ms, b_by, nbytes = attention_bwd_bound(shape, 2)
+    source, replaces = KERNEL_INFO["flash_attention_bwd"]
+    log(f"flash_attention_bwd at {shape} bf16: card {timed['ms']:.5f} ms "
+        f"(bound {b_ms:.5f} ms by {b_by}, plain {plain_ms:.5f} ms, SDPA "
+        f"backward {timed['library_ms']:.5f} ms); per call with host "
+        f"overhead {timed['call_ms']:.5f} ms (SDPA {timed['library_call_ms']:.5f}"
+        f" ms); max abs err {err:.3e} (SDPA {lib_err:.3e}) against the fp32 "
+        "plain version")
+    return {"name": "flash_attention_bwd", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "replaces_note": "no pallas_call: the reference differentiates "
+                             "the op entry",
+            "launches": launches, "max_abs_err": err, "ms": timed["ms"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed["library_ms"],
+            "library": "torch.autograd.grad through torch.nn.functional."
+                       "scaled_dot_product_attention",
+            "design": KERNEL_DESIGN["flash_attention_bwd"]["bfloat16"],
+            "design_by_dtype": KERNEL_DESIGN["flash_attention_bwd"],
+            "path": f"train {TRAIN_ARCH}",
+            "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
+            "call_ms": timed["call_ms"],
+            "library_call_ms": timed["library_call_ms"],
+            "library_max_abs_err": lib_err,
+            "max_abs_err_fp32_checks": worst["flash_attention_bwd", "float32"],
+            "max_abs_err_bf16_checks": worst["flash_attention_bwd", "bfloat16"]}
+
+
+def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
+    """One epoch and a wrap of the device engine against the host engine,
+    token for token, then the same after a mid-cluster ``load_state``; ->
+    (batches, device-engine seconds, launches of that stream)."""
+    need = TRAIN_BATCH * (TRAIN_SEQ + 1)
+    n_batches = n_tokens // need + 40  # the epoch, and a wrap
+    ops.reset_launch_counts()
+    dev = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    host = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, engine="host",
+                        device="cuda")
+    gd, gh = dev.batches(), host.batches()
+    for i in range(n_batches):
+        bd, bh = next(gd), next(gh)
+        for key in ("tokens", "labels"):
+            if not np.array_equal(bd[key].cpu().numpy(), bh[key]):
+                fail(f"device loader batch {i} {key} differs from the host "
+                     "engine's")
+    counts = ops.launch_counts()
+    if counts["decode_offset_pages"] <= 0 or counts["unsplit_pages"] <= 0:
+        fail(f"the device loader launched no K3/K4: {counts}")
+    # mid-cluster resume: the host engine's state 3 batches into the first
+    # 4 MiB cluster (the device engine's cursor moves a cluster at a time)
+    fresh = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, engine="host",
+                         device="cuda")
+    it = fresh.batches()
+    for _ in range(3):
+        next(it)
+    state = fresh.state()
+    if state["entry_cursor"] >= fresh.reader.cluster_entry_range(0)[1]:
+        fail("the resume state is not inside the first cluster")
+    r_dev = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, state=state,
+                         device="cuda")
+    r_host = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, state=state,
+                          engine="host", device="cuda")
+    gd, gh = r_dev.batches(), r_host.batches()
+    for i in range(200):  # past the first cluster's end
+        if not np.array_equal(next(gd)["tokens"].cpu().numpy(),
+                              next(gh)["tokens"]):
+            fail(f"resumed device loader batch {i} differs from the host "
+                 "engine's")
+    # the device engine alone, one epoch, synchronized at the end
+    timed = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    it = timed.batches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        b = next(it)
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    for ld in (dev, host, fresh, r_dev, r_host, timed):
+        ld.close()
+    return n_batches, loader_s, counts
+
+
+def train_path(np, torch, ops, args):
+    """Phase 7; -> (the ``kernels`` row of K5's backward, the launch counts
+    of the train path's counted run, the worst K5 errors by (kernel,
+    dtype) at the backward's shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
+    from repro_torch.train import (
+        init_train_state, loss_and_grads, make_optimizer, make_train_step,
+    )
+
+    worst = check_attention_bwd(torch)
+    cfg = get_arch(TRAIN_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    path = os.path.join(tmp, "corpus.rntj")
+    t0 = time.perf_counter()
+    stats = ingest_corpus(synth_corpus(TRAIN_DOCS, seed=args.seed, mean_len=512,
+                                       vocab=cfg.vocab_size), path,
+                          n_workers=4, device="cuda")
+    ingest_s = time.perf_counter() - t0
+    from repro_torch.core import RNTJReader
+    with RNTJReader(path, device="cuda") as r:
+        n_clusters, n_docs = r.n_clusters, r.n_entries
+        n_tokens = int(r.read_column("tokens._0").shape[0]) + n_docs
+    if n_docs != TRAIN_DOCS or n_clusters < 2:
+        fail(f"the corpus holds {n_docs} documents in {n_clusters} clusters")
+    log(f"train corpus: {n_docs} documents, {n_tokens} tokens with EOS, "
+        f"{n_clusters} clusters, {os.path.getsize(path) / 1e6:.3f} MB; "
+        f"ingest (generation included) {ingest_s:.3f} s, write "
+        f"{stats['entries']} entries")
+    n_batches, loader_s, l_counts = check_loader(np, torch, ops, PackedLoader,
+                                                 path, n_tokens)
+    log(f"loader: {n_batches} batches of ({TRAIN_BATCH}, {TRAIN_SEQ}) (one "
+        "epoch and a wrap): device engine equal to the host engine token for "
+        "token, and again after a mid-cluster load_state; device engine "
+        f"alone {loader_s:.4f} s = {loader_s / n_batches * 1e3:.4f} ms a "
+        f"batch = {n_batches * TRAIN_BATCH * TRAIN_SEQ / loader_s:.1f} "
+        f"tokens/s; K4 {l_counts['decode_offset_pages']} and K3 "
+        f"{l_counts['unsplit_pages']} launches over the checked stream")
+
+    bundle = build(cfg)
+    opt = make_optimizer(peak_lr=3e-4, warmup=1, total=20)
+    params, opt_state, err = init_train_state(bundle, seed=args.seed,
+                                              device="cuda", optimizer=opt)
+    # every parameter gets a gradient, on a host-engine batch outside the
+    # counted run (this also warms cuBLAS up at the training shapes)
+    host = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, engine="host",
+                        device="cuda")
+    first = {k: torch.from_numpy(v).cuda() for k, v in
+             next(host.batches()).items()}
+    host.close()
+    _loss, _m, grads = loss_and_grads(bundle, params, first)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in leaves(v, f"{path}/{k}")]
+        return [(path, tree)]
+
+    for name, g in leaves(grads):
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+            fail(f"parameter {name} got no finite, non-zero gradient")
+    log(f"gradients: all {len(leaves(grads))} parameter tensors got a finite, "
+        "non-zero gradient")
+    del grads, _loss, _m
+
+    step = make_train_step(bundle, optimizer=opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loader = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = loader.batches()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, err, m = step(params, opt_state, err, next(batches))
+        losses.append(float(m["loss"]))  # syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = TRAIN_STEPS * cfg.n_layers
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(flash_attention=2 * n_attn if cfg.remat else n_attn,
+                flash_attention_bwd=n_attn)
+    log(f"launches on the train path: {json.dumps(counts)}")
+    for name in ops.KERNELS:
+        if name in ("decode_offset_pages", "unsplit_pages"):
+            if counts[name] < 1:
+                fail(f"{name} not launched by the train path's loader")
+        elif counts[name] != want[name]:
+            fail(f"{name} launched {counts[name]} times on the train path, "
+                 f"expected {want[name]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train losses {losses}: not finite, or the last not below "
+             "the first")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mean_ms = sum(step_ms) / len(step_ms)  # the train metric: all timed steps
+    log(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count():,} parameters, {cfg.param_dtype} parameters, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}; {TRAIN_STEPS} "
+        f"AdamW steps on ({TRAIN_BATCH}, {TRAIN_SEQ}) device-loader batches")
+    log(f"train losses: {json.dumps(losses)}")
+    log(f"train step ms: {json.dumps(step_ms)}; total over {TRAIN_STEPS} "
+        f"steps / {TRAIN_STEPS} = {mean_ms:.3f} ms = "
+        f"{tokens / mean_ms * 1e3:.1f} tokens/s; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    # one more step under the profiler: card busy share, time by kernel
+    batch = next(batches)
+    state = [params, opt_state, err]
+
+    def one_step():
+        state[:3] = step(*state, batch)[:3]
+
+    busy_ms = trace_card(torch, "train_step", one_step, args.profile or tmp,
+                         top=30)
+    log(f"train step: card busy {busy_ms:.3f} ms (profiled step) against the "
+        f"unprofiled mean step {mean_ms:.3f} ms = {100 * busy_ms / mean_ms:.3f}"
+        f" % busy, {100 - 100 * busy_ms / mean_ms:.3f} % idle")
+    loader.close()
+    params, opt_state, err = state
+    del params, opt_state, err, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return (time_attention_bwd(torch, counts["flash_attention_bwd"], worst),
+            counts, worst)
+
 # ---------------------------------------------------------------------------
 
 
@@ -1663,7 +2050,7 @@ def main() -> int:
         _build.library(lib)
     log(f"build and load: {time.perf_counter() - t0:.3f} s into "
         f"{_build.build_dir()}")
-    for lib in ("attention", "byteplanes", "scans", "ssm"):
+    for lib in ("attention", "attention_bwd", "byteplanes", "scans", "ssm"):
         for line in ptxas_report(_build.build_log(lib)):
             log(line)
 
@@ -1848,6 +2235,18 @@ def main() -> int:
             f"{med:.5f} ms median of 20")
     for row in rows:
         row["launches_by_op_entries"] = o_counts[row["name"]]
+
+    # -- phase 7: the train path ---------------------------------------------
+    bwd_row, t_counts, t_worst = train_path(np, torch, ops, args)
+    for row in rows:  # K5's forward runs on the train path too
+        if row["name"] == "flash_attention":
+            row["launches_by_path"][f"train {TRAIN_ARCH}"] = (
+                t_counts["flash_attention"])
+            row["launches"] = sum(row["launches_by_path"].values())
+            for key, dname in (("max_abs_err_fp32_checks", "float32"),
+                               ("max_abs_err_bf16_checks", "bfloat16")):
+                row[key] = max(row[key], t_worst["flash_attention", dname])
+    rows.append(bwd_row)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ the plain version on the CPU), plus the write path's dispatch and the
 launch counts.  ``offsets_scan`` (K1) and ``byteshuffle`` (K2) serve the
 writer's fill and seal; ``decode_pages`` (K3, K4 and the drivers) serves
 the reader's device read-back; ``flash_attention`` (K5) and
-``decode_attention`` (K6) serve the models' prefill and decode;
+``decode_attention`` (K6) serve the models' prefill and decode, and
+``flash_attention`` also holds K5's backward for the train step;
 ``rwkv6_scan`` (K7) and ``mamba2_ssd`` (K8) the recurrent families'
 prefill; ``byteshuffle`` (K9, the single-buffer split) and
 ``delta_zigzag`` (K10) serve the op entries of the same names.  ``ref``

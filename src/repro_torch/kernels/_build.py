@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 #: registers and spills (``ptxas -v``, kept in the build log), and the
 #: attention library takes ``dlopen`` for libcuda's tensor-map encoder
 EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"],
+                                     "attention_bwd": ["-Xptxas", "-v"],
                                      "byteplanes": ["-Xptxas", "-v"],
                                      "scans": ["-Xptxas", "-v"],
                                      "ssm": ["-Xptxas", "-v"]}
@@ -72,6 +73,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                    _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                                    _INT, _INT, _F32, _P],
+    },
+    "attention_bwd": {
+        # (q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, Sq, Sk, D,
+        #  dtype, causal, window, scale, stream)
+        "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I64, _I64, _I64, _I64, _I64, _INT,
+                                      _INT, _INT, _INT, _F32, _P],
     },
     "ssm": {
         # (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream)

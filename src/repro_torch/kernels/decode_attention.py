@@ -30,7 +30,7 @@ import torch
 
 from . import _build, ref
 from .flash_attention import DTYPE_CODES, aligned16, check_kernel_args
-from .ops import count_launch
+from .ops import count_launch, refuse_grad
 
 #: cache rows a block of 4 warps stages per step: 4 x ``da_warp_rows`` of
 #: the kernel (about 2 KB of K and of V per warp in bf16); chunks are whole
@@ -107,6 +107,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, length=length, window=window,
                                         scale=scale)
+    refuse_grad("decode_attention", q, k, v)
     check_kernel_args("decode_attention", q, k, v, window=window)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))

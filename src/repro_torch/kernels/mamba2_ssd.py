@@ -34,7 +34,7 @@ import torch
 
 from . import _build, ref
 from .flash_attention import DTYPE_CODES
-from .ops import count_launch
+from .ops import count_launch, refuse_grad
 from .rwkv6_scan import MAX_COLS, STATE_DIMS
 
 
@@ -51,6 +51,7 @@ def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"mamba2_ssd: Bm and Cm must be ({b}, {t}, N)")
     if x.device.type == "cpu":
         return ref.mamba2_ref(x, log_a, Bm, Cm)
+    refuse_grad("mamba2_ssd", x, log_a, Bm, Cm)
     n = Bm.shape[2]
     if any(a.device != x.device for a in (log_a, Bm, Cm)):
         raise ValueError("mamba2_ssd: x, log_a, Bm and Cm must share a device")

@@ -42,6 +42,10 @@ Every kernel wrapper counts its launches here (:func:`count_launch`), one
 per launch of its CUDA kernel and nowhere else, with the shape it was
 given, so a run can show which kernels its path went through and at
 which shapes.
+K5's backward (``flash_attention_bwd``) counts one launch per call of
+its C entry, which runs its two kernels.  The card routes of K6, K7 and
+K8 have no backward and refuse inputs that require grad
+(:func:`refuse_grad`).
 """
 
 from __future__ import annotations
@@ -68,7 +72,11 @@ SERVE_KERNELS = ("flash_attention", "decode_attention", "rwkv6_scan",
 #: the single-buffer codec kernels, K9 and K10: no path of the writer or
 #: the models runs them, only the op entries below
 CODEC_KERNELS = ("byteshuffle", "delta_zigzag")
-KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS + CODEC_KERNELS
+#: the kernels of the train step (dense family): K5's forward and its
+#: backward, one ``flash_attention_bwd`` launch per attention layer
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS + CODEC_KERNELS + tuple(
+    k for k in TRAIN_KERNELS if k not in SERVE_KERNELS)
 
 _count_lock = threading.Lock()
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -81,6 +89,16 @@ def count_launch(name: str, shape: Tuple[int, ...]) -> None:
     with _count_lock:
         _launches[name] += 1
         _shapes[name][tuple(shape)] += 1
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when a kernel without a backward is asked for a gradient:
+    grad mode on and an input that requires grad.  Its wrapper writes
+    through ``data_ptr`` and would return an output detached from them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the port has no backward kernel for it yet; call it "
+            "under torch.no_grad() or with inputs that do not require grad")
 
 
 def launch_counts() -> Dict[str, int]:

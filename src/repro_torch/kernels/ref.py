@@ -8,7 +8,10 @@ lies on.  The wrappers run them for tensors on the CPU; ``chip_smoke.py``
 holds every kernel against them on the card.  They are oracles, not
 yardsticks of speed.  ``flash_attention_chunked`` and the one-token
 ``*_decode_ref`` steps have no kernel of their own: they are the twins of
-the reference's oracles of the same names.
+the reference's oracles of the same names.  ``flash_attention_bwd_ref``
+is K5's backward written out: the reference has no backward kernel (its
+training differentiates the jnp oracle), and the tests hold it against
+``jax.vjp`` of that oracle.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def decode_offset_pages_ref(planes: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (the serve path's K5 and K6): twins of the jnp oracles, with
+# attention (K5, its backward, and K6): twins of the jnp oracles, with
 # the same GQA expansion, masks and fp32 softmax; the products run in the
 # inputs' dtype, as there
 
@@ -94,6 +97,20 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     if g == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // g, dim=1)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window,
+                   device) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys query row ``i`` (at position
+    ``i + Sk - Sq``) sees."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,16 +127,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kk, vv = _expand_kv(k, h), _expand_kv(v, h)
     logits = torch.einsum("bhqd,bhkd->bhqk", q * scale, kk)
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = attention_mask(sq, sk, causal, window, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits.float(), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True,
+                            window=None, scale=None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` at
+    ``dout``, written out (no autograd), in fp32 from the inputs' values;
+    results in the inputs' dtype.  ``out`` is the forward's output: as in
+    the kernel, ``Delta = rowsum(dout * out)`` is formed from it (after its
+    rounding, for bf16).  dk and dv sum the ``H // G`` query heads of each
+    kv group.  A row with no visible key is NaN, as in the forward."""
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    do = dout.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device),
+                      float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    delta = (do * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, g, h // g, sk, d).sum(dim=2)
+    dv = dv.reshape(b, g, h // g, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,

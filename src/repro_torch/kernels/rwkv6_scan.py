@@ -35,7 +35,7 @@ import torch
 
 from . import _build, ref
 from .flash_attention import DTYPE_CODES
-from .ops import count_launch
+from .ops import count_launch, refuse_grad
 
 #: state widths (Dk) the CUDA kernel is built for
 STATE_DIMS = (16, 32, 48, 64, 128)
@@ -56,6 +56,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rwkv6_scan: u must be ({h}, {dk})")
     if r.device.type == "cpu":
         return ref.rwkv6_ref(r, k, v, w, u)
+    refuse_grad("rwkv6_scan", r, k, v, w, u)
     dv = v.shape[3]
     if any(x.device != r.device or x.dtype != r.dtype for x in (k, v, w, u)):
         raise ValueError("rwkv6_scan: r, k, v, w and u must share device "

@@ -11,11 +11,19 @@ axis (``params["layers"][name]`` is ``(n_layers, ...)``; zamba2's shared
 block is ``params["shared_attn"]``), so weights carry across as they are
 (``repro_torch.models.weights``).  The reference's ``jax.lax.scan`` over
 the stacked layers, and zamba2's unrolled groups, are one Python loop
-over views of layer ``i`` with the shared block after every
-``shared_attn_every``-th layer.
+over views of layer ``i`` (``forward`` takes them with one ``unbind`` of
+each stacked leaf: indexing layer by layer would give each index a
+backward that writes a zero-filled copy of the whole stack; ``prefill``
+and ``decode_step`` index, since they write the cache's views in place)
+with the shared block after every
+``shared_attn_every``-th layer.  ``cfg.remat`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``, non-reentrant), as
+``jax.checkpoint`` does over the reference's scan body.
 
 Entry points (see ``registry.ModelBundle``):
 
+* ``loss_fn``     — next-token cross-entropy of ``forward`` (dense family
+  only: K7 and K8 have no backward yet, ``check_trainable``);
 * ``forward``     — full-sequence logits (teacher forcing);
 * ``prefill``     — forward over the prompt that fills the decode cache,
   -> (last-token logits, cache);
@@ -33,9 +41,10 @@ Queue 1).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -44,8 +53,8 @@ from . import attention as A
 from . import mamba2 as M2
 from . import rwkv6 as R6
 from .layers import (
-    cdtype, embed_tokens, embedding_init, lm_logits, mlp_apply, mlp_init,
-    ones, pdtype, rms_norm,
+    cdtype, cross_entropy_loss, embed_tokens, embedding_init, lm_logits,
+    mlp_apply, mlp_init, ones, pdtype, rms_norm,
 )
 
 
@@ -65,6 +74,17 @@ def check_ported(cfg: ArchConfig) -> None:
             f"{cfg.name}: family {cfg.family!r} with {cfg.attention!r} "
             "attention is not ported yet; the port has the dense family "
             "with GQA attention, rwkv6 and the zamba2 hybrid")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port can train this model:
+    the dense family only, until K7 and K8 have backward kernels."""
+    check_ported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training family {cfg.family!r} needs backward "
+            "kernels for K7/K8 that the port does not have yet; the port "
+            "trains the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +230,16 @@ def _layer_slice(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree) -> List:
+    """A stacked tree -> one tree of views per layer (``unbind`` of every
+    leaf once)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 
@@ -225,13 +255,28 @@ def forward(params: Dict, tokens: torch.Tensor,
     b, s = tokens.shape[:2]
     positions = _positions(b, s, tokens.device)
     sc = _shared_attn_cfg(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = embed_tokens(params["embedding"], tokens, cfg)
-    for i in range(cfg.n_layers):
-        x = block_apply(_layer_slice(params["layers"], i), x, cfg, positions)
+    for i, p in enumerate(_unstack(params["layers"])):
+        if remat:
+            x = checkpoint(block_apply, p, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = block_apply(p, x, cfg, positions)
         if _shared_after(cfg, i) is not None:
             x = block_apply(params["shared_attn"], x, sc, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(params["embedding"], x, cfg), aux
+
+
+def loss_fn(params: Dict, batch: Dict,
+            cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """-> (ce + 0.01 aux, {"ce", "aux"}) over ``batch["tokens"]`` and
+    ``batch["labels"]`` (B, S)."""
+    check_trainable(cfg)
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = cross_entropy_loss(logits, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def _kv_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, dtype,

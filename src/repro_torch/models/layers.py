@@ -6,8 +6,8 @@ with the reference's names and its ``(in, out)`` matrix layout, applied as
 ``meta`` device) and a device; their numbers differ from ``jax.random``'s,
 so parity tests carry the reference's weights over
 (``repro_torch.models.weights``).  The reference's ``shard(...)``
-annotations are no-ops on one card and are dropped.  ``cross_entropy_loss``
-and ``layer_norm`` wait for the training slice.
+annotations are no-ops on one card and are dropped.  ``layer_norm``
+waits for the family that uses it.
 """
 
 from __future__ import annotations
@@ -135,3 +135,18 @@ def lm_logits(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean token NLL in fp32.  logits (..., V), labels (...); labels equal
+    to ``ignore_index`` count for nothing."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels != ignore_index).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -2,8 +2,9 @@
 
 The twin of ``repro.models.registry`` for the families the port has (the
 dense family, rwkv6 and the zamba2 hybrid, see ``backbone.check_ported``);
-``build`` raises ``NotImplementedError`` for the others.  The reference's dry-run pieces
-(``param_shapes``, ``input_specs``, ``runnable``) and ``loss`` wait for
+``build`` raises ``NotImplementedError`` for the others, and ``loss`` for
+all but the dense family (``backbone.check_trainable``).  The reference's
+dry-run pieces (``param_shapes``, ``input_specs``, ``runnable``) wait for
 their slices.
 """
 
@@ -38,6 +39,10 @@ class ModelBundle:
         """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
         ``device``; ``None`` on ``meta``)."""
         return B.init_params(gen, self.cfg, model_device(device))
+
+    def loss(self, params, batch):
+        """-> (loss, {"ce", "aux"}): ``backbone.loss_fn``."""
+        return B.loss_fn(params, batch, self.cfg)
 
     def forward(self, params, tokens):
         return B.forward(params, tokens, self.cfg)

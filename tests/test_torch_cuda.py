@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (bit for bit for K1-K4, K9 and K10, within stated tolerances for
-K5-K8), the op entries of ``repro_torch.kernels.ops``, and the write ->
-read path with ``device="cuda"``.
+K5-K8 and K5's backward), the op entries of ``repro_torch.kernels.ops``,
+the write -> read path with ``device="cuda"``, the packing loader's
+device engine, and one train step.
 
 Marked ``cuda``: without a card every test skips.  On the card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -583,4 +584,171 @@ def test_op_entries_on_the_card(card):
     counts = ops.launch_counts()
     assert counts["byteshuffle_pages"] == 0
     assert all(counts[k] >= 1 for k in ops.KERNELS
-               if k != "byteshuffle_pages"), counts
+               if k not in ("byteshuffle_pages", "flash_attention_bwd")), counts
+
+
+# ---------------------------------------------------------------------------
+# K5's backward, the loader and the train step
+
+#: K5's backward against its plain version, as |got - want| <= tol (1 +
+#: |want|): fp32 within 2e-5 (the same sums in another order, over up to
+#: 1,024 keys); bf16 gradients (rounded once to bf16 at the store: 2^-9
+#: relative) against the plain version in fp32 on the same bf16 inputs
+#: and output, within 1e-2
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _bwd_close(got, want, dtype):
+    diff = (got.float() - want.float()).abs()
+    bound = BWD_TOL[dtype] * (1 + want.float().abs())
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+    (2, 15, 5, 1024, 1024, 64, True, None),   # smollm-360m's training heads
+    (1, 6, 2, 300, 300, 64, True, 33),        # window
+    (2, 6, 2, 129, 1000, 64, True, None),     # ragged Sq
+    (1, 4, 4, 77, 130, 32, False, None),      # non-causal, padded kv tile
+    (1, 4, 1, 200, 200, 80, True, None),      # D=80, MQA
+    (1, 4, 2, 150, 150, 128, True, 40),       # D=128 with a window
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_on_the_card(card, b, h, g, sq, sk, d, causal,
+                                         window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do = _attn_inputs(card, sq + sk + d + 1, dtype, (b, h, sq, d),
+                               (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
+    out = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal, window=window).to(dtype)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), do.float(), causal=causal,
+                                       window=window)
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+        _bwd_close(a, w, dtype)
+
+
+def test_flash_attention_bwd_refuses_d256_on_the_card(card):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q = torch.zeros((1, 1, 4, 256), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, q, q, q, q)
+
+
+def test_kernels_without_backward_refuse_grad_on_the_card(card):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    q = torch.zeros((1, 2, 64), device=card, requires_grad=True)
+    kv = torch.zeros((1, 2, 8, 64), device=card)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        decode_attention(q, kv, kv)
+    r = torch.zeros((1, 2, 8, 16), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        rwkv6_scan(r, r, r, r, torch.zeros((2, 16), device=card))
+    x = torch.zeros((1, 2, 8, 16), device=card, requires_grad=True)
+    log_a = torch.zeros((1, 2, 8), device=card)
+    bm = torch.zeros((1, 8, 16), device=card)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        mamba2_ssd(x, log_a, bm, bm)
+
+
+def test_flash_attention_autograd_on_the_card(card):
+    """``backward`` through K5 launches the backward kernel and gives the
+    plain version's gradients (fp32)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, do = _attn_inputs(card, 3, torch.float32, (2, 6, 200, 64),
+                               (2, 2, 200, 64), (2, 2, 200, 64),
+                               (2, 6, 200, 64))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(ops.launch_counts())
+    flash_attention(*leaves, window=50).backward(do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == before["flash_attention"] + 1
+    assert counts["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd_ref(
+        q, k, v, ref.flash_attention_ref(q, k, v, window=50), do, window=50)
+    for t, w in zip(leaves, want):
+        _bwd_close(t.grad, w, torch.float32)
+
+
+def test_loader_device_engine_on_the_card(card, tmp_path):
+    """The device engine on the card (K3/K4 decode, torch packing) emits
+    the host engine's stream over two epochs and across a resume."""
+    from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
+
+    p = str(tmp_path / "c.rntj")
+    ingest_corpus(synth_corpus(400, seed=9, mean_len=60), p, n_workers=2,
+                  options=T.WriteOptions(codec="zlib", level=1,
+                                         cluster_bytes=64 * 1024),
+                  device=card)
+    ops.reset_launch_counts()
+    ld = PackedLoader(p, batch=4, seq_len=96, device=card)
+    lh = PackedLoader(p, batch=4, seq_len=96, engine="host", device=card)
+    gd, gh = ld.batches(), lh.batches()
+    for i in range(160):
+        bd, bh = next(gd), next(gh)
+        assert bd["tokens"].device.type == "cuda"
+        np.testing.assert_array_equal(bd["tokens"].cpu().numpy(),
+                                      bh["tokens"], err_msg=str(i))
+        np.testing.assert_array_equal(bd["labels"].cpu().numpy(),
+                                      bh["labels"], err_msg=str(i))
+    counts = ops.launch_counts()
+    assert counts["decode_offset_pages"] > 0 and counts["unsplit_pages"] > 0
+    state = ld.state()
+    cont = [next(gd)["tokens"].cpu().numpy() for _ in range(10)]
+    l2 = PackedLoader(p, batch=4, seq_len=96, state=state, device=card)
+    g2 = l2.batches()
+    for want in cont:
+        np.testing.assert_array_equal(next(g2)["tokens"].cpu().numpy(), want)
+    ld.close(), lh.close(), l2.close()
+
+
+def test_train_step_on_the_card(card, monkeypatch):
+    """One train step of the smollm-360m smoke config in fp32 compute on
+    the card against the same step with the plain attention forward and
+    backward: losses within 1e-5, parameters within 2e-4 absolute (Adam's
+    first step moves a weight by about lr whatever its gradient's size)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention as TA
+    from repro_torch.models import build
+    from repro_torch.train import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = smoke_config("smollm-360m").with_(compute_dtype="float32",
+                                            remat=True)
+    bundle = build(cfg)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+    def run():
+        opt = make_optimizer(peak_lr=3e-3, warmup=1, total=20)
+        params, opt_state, err = init_train_state(bundle, seed=0, device=card,
+                                                  optimizer=opt)
+        step = make_train_step(bundle, optimizer=opt)
+        params, _o, _e, m = step(params, opt_state, err, batch)
+        return float(m["loss"]), params
+
+    ops.reset_launch_counts()
+    loss, params = run()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers  # remat: twice
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    monkeypatch.setattr(TA, "flash_attention", ref.flash_attention_ref)
+    loss2, params2 = run()
+    assert abs(loss - loss2) <= 1e-5
+    for k in params["layers"]["attn"]:
+        torch.testing.assert_close(params["layers"]["attn"][k],
+                                   params2["layers"]["attn"][k], atol=2e-4,
+                                   rtol=0)

@@ -475,7 +475,8 @@ def test_op_entries_on_the_cpu_count_no_launch():
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     assert ops.CODEC_KERNELS == ("byteshuffle", "delta_zigzag")
     assert set(ops.KERNELS) == set(ops.WRITE_READ_KERNELS
-                                   + ops.SERVE_KERNELS + ops.CODEC_KERNELS)
+                                   + ops.SERVE_KERNELS + ops.CODEC_KERNELS
+                                   + ops.TRAIN_KERNELS)
 
 
 @pytest.mark.parametrize("call", [
