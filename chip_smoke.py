@@ -86,8 +86,9 @@ Phases, in order; any failure exits non-zero:
    (about 4.9 M tokens) ingested by 4 workers on the card; one epoch and
    a wrap of ``PackedLoader(8, 1024)``'s device engine held token for
    token against its host engine, and again after a mid-cluster
-   ``load_state``; K5's forward (within its K5 tolerance) and its
-   backward against their plain versions in fp32
+   ``load_state``; K5's forward with its rows' LSE (the output within
+   its K5 tolerance, the LSE within 2e-5) and its backward on that output
+   and LSE against their plain versions in fp32
    (within 2e-5) and bf16 (within 1e-2, against the plain version in
    fp32 from the same bf16 inputs), each as ``|got - want| <= tol (1 +
    |want|)``, at the training shape (8, 15, 5, 1024, 1024, 64), with a
@@ -104,7 +105,9 @@ Phases, in order; any failure exits non-zero:
    tokens/s, peak memory, and one more step under torch.profiler (card
    busy ms, against the unprofiled mean step; kernel time by name); K5's
    backward timed at the training shape in bf16 beside its bound, its
-   plain version and SDPA's backward; one JSON ``kernels`` line of the
+   plain version and SDPA's backward, each of its two launches from a
+   trace, and K5's forward there with and without its LSE beside SDPA's
+   forward; one JSON ``kernels`` line of the
    ten kernels and K5's backward (K1's, K5's, K6's and K8's rows name the
    ``design`` they timed, as do K2's, K4's and K9's);
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -176,9 +179,12 @@ KERNEL_DESIGN = {
     "byteshuffle": {"uint8": "K2's register form, one page"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
     "flash_attention_bwd": {"bfloat16": "two launches (dQ; dK and dV), "
-                                        "mma.sync with P and dS in two bf16 "
-                                        "pieces",
-                            "float32": "two launches, simt fp32"},
+                                        "wgmma + TMA, a consumer warpgroup "
+                                        "and a producer warp a block, P from "
+                                        "the forward's LSE, P and dS in two "
+                                        "bf16 pieces",
+                            "float32": "two launches, simt fp32, P from the "
+                                       "forward's LSE"},
     "decode_attention": {"bfloat16": "cp.async ring",
                          "float32": "cp.async ring"},
     "rwkv6_scan": {"bfloat16": "chunked split-bf16 mma, state every 16 steps",
@@ -447,13 +453,16 @@ PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
 
 def ptxas_report(path) -> list:
     """``ptxas -v``'s registers and spills of the tensor-core and
-    cp.async kernels (K5, K6, the chunked routes of K7 and K8), of K1, of
-    K2's register form and of K4's cluster kernel, one line each."""
+    cp.async kernels (K5 and its backward, K6, the chunked routes of K7
+    and K8), of K1, of K2's register form and of K4's cluster kernel, one
+    line each, and every warning that ``wgmma`` runs serialized."""
     out, name = [], None
     for line in open(path, errors="replace").read().splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
             name = fn if any(k in fn for k in PTXAS_KERNELS) else None
+        elif "Performance Loss" in line:
+            out.append(f"ptxas {line.split(':', 1)[-1].strip()}")
         elif name and ("spill" in line or "Used" in line):
             out.append(f"ptxas {name[:72]}: {line.split(':')[-1].strip()}")
     return out
@@ -688,8 +697,13 @@ def _attention_inputs(torch, gen, dtype, *shapes):
 
 
 def _attention_err(torch, got, want, tol: float, what: str) -> float:
-    """Max abs error; fails unless |got - want| <= tol (1 + |want|)."""
-    diff = (got.float() - want).abs()
+    """Max abs error; fails unless |got - want| <= tol (1 + |want|) where
+    ``want`` is finite and ``got`` is -inf exactly where ``want`` is (an
+    LSE's row that sees no key)."""
+    got, empty = got.float(), torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), empty):
+        fail(f"{what}: -inf where its plain version is finite, or the reverse")
+    diff = (got - want).masked_fill(empty, 0.0).abs()
     if not bool((diff <= tol * (1 + want.abs())).all()):
         fail(f"{what} differs from its plain version (max abs err "
              f"{float(diff.max()):.3e}, tol {tol})")
@@ -1010,15 +1024,16 @@ def write_single(core, schema, opts, path, item, backend: str) -> float:
             os.environ["REPRO_TORCH_KERNEL_BACKEND"] = old
 
 
-def trace_card(torch, name: str, fn, out_dir, top: int = 10) -> float:
+def trace_card(torch, name: str, fn, out_dir, top: int = 10) -> tuple:
     """Trace ``fn`` with torch.profiler: the card's busy time (the union of
     its kernels' and copies' intervals) against the wall clock, and the
-    ``top`` device works that took most of it; -> the busy ms.  The wall
-    includes the profiler's own cost on every launch."""
+    ``top`` device works that took most of it; the trace goes to
+    ``out_dir`` unless it is None; -> (the busy ms, {device work's name:
+    (card us, launches)}).  The wall includes the profiler's own cost on
+    every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    os.makedirs(out_dir, exist_ok=True)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1044,8 +1059,10 @@ def trace_card(torch, name: str, fn, out_dir, top: int = 10) -> float:
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {key[:60]}: {t / 1e3:.3f} ms over {c} calls")
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
-    return busy_ms
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return busy_ms, by_name
 
 
 def profile_write_read(torch, core, schema, opts, path, item, out_dir) -> None:
@@ -1650,6 +1667,11 @@ def time_codec(torch, kernels, counts) -> list:
 #: relative) against the plain version in fp32 on the same bf16 inputs and
 #: output, within 1e-2
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+#: K5's LSE (the rows' log-sum-exp its forward hands to the backward)
+#: against ``ref.flash_attention_lse_ref`` in fp32 on the same values, as
+#: |got - want| <= tol (1 + |want|): the same sums in another order, and
+#: the bf16 route's ``exp2`` / ``log2`` in place of ``exp`` / ``log``
+LSE_TOL = 2e-5
 #: the train path's model and batch: smollm-360m at full width and depth,
 #: (8, 1024) token batches
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 8, 1024
@@ -1659,8 +1681,10 @@ TRAIN_DOCS, TRAIN_STEPS = 8000, 6
 
 def bwd_cases():
     """K5 backward cases (b, h, g, sq, sk, d, causal, window): the
-    training shape, a window, a ragged Sq, and the other built head dims
-    (32 non-causal with a padded kv tile, 80 MQA, 128 windowed)."""
+    training shape, a window, a ragged Sq, the other built head dims (32
+    non-causal with a padded kv tile, 80 MQA, 128 windowed), and Sq > Sk
+    under the causal mask, whose first Sq - Sk rows see no key (a q tile
+    of them wholly)."""
     return [
         (8, 15, 5, 1024, 1024, 64, True, None),    # smollm-360m training
         (2, 15, 5, 1024, 1024, 64, True, 256),     # window
@@ -1668,30 +1692,48 @@ def bwd_cases():
         (1, 6, 2, 77, 130, 32, False, None),
         (1, 4, 1, 200, 200, 80, True, None),
         (1, 4, 2, 150, 150, 128, True, 40),
+        (1, 4, 2, 203, 130, 64, True, None),       # 73 rows see no key
     ]
 
 
-def k5_out(torch, q, k, v, causal=True, window=None):
-    """K5's forward on the card, held against its plain version within
-    ``ATTN_TOL``; -> (out, max abs err)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+def empty_rows(sq: int, sk: int, causal: bool) -> int:
+    """How many first query rows see no key: row i sits at position i +
+    Sk - Sq, and under the causal mask sees no key below position 0."""
+    return max(0, sq - sk) if causal else 0
 
-    out = flash_attention(q, k, v, causal=causal, window=window)
+
+def k5_out(torch, q, k, v, causal=True, window=None):
+    """K5's forward with its LSE on the card, the output held against its
+    plain version within ``ATTN_TOL`` (0 in a row that sees no key, where
+    the plain version is NaN) and the LSE within ``LSE_TOL``; -> (out,
+    lse, max abs err of out, of lse)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+    e = empty_rows(q.shape[2], k.shape[2], causal)
+    want = ref.flash_attention_ref(q[:, :, e:].float(), k.float(), v.float(),
                                    causal=causal, window=window)
     dname = str(q.dtype).split(".")[-1]
-    err = _attention_err(torch, out, want, ATTN_TOL[dname], (
-        f"flash_attention {dname} at {tuple(q.shape)} over "
-        f"{tuple(k.shape)} causal={causal} window={window}"))
-    return out, err
+    what = (f"{dname} at {tuple(q.shape)} over {tuple(k.shape)} "
+            f"causal={causal} window={window}")
+    if bool(out[:, :, :e].any()):
+        fail(f"flash_attention {what}: a row that sees no key is not 0")
+    err = _attention_err(torch, out[:, :, e:], want, ATTN_TOL[dname],
+                         f"flash_attention {what}")
+    want_lse = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
+    lse_err = _attention_err(torch, lse, want_lse, LSE_TOL,
+                             f"flash_attention's LSE {what}")
+    return out, lse, err, lse_err
 
 
 def check_attention_bwd(torch) -> dict:
-    """K5's forward, then its backward on the forward's output, against
-    ``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref`` in fp32
-    and bf16; -> the worst error per (kernel, dtype)."""
+    """K5's forward with its LSE, then its backward on the forward's output
+    and LSE, against ``ref.flash_attention_ref``,
+    ``ref.flash_attention_lse_ref`` and ``ref.flash_attention_bwd_ref`` in
+    fp32 and bf16; -> the worst error per (kernel, dtype), the LSE's under
+    ``flash_attention_lse``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
@@ -1704,28 +1746,42 @@ def check_attention_bwd(torch) -> dict:
             q, k, v, do = _attention_inputs(torch, gen, dtype, (b, h, sq, d),
                                             (b, g, sk, d), (b, g, sk, d),
                                             (b, h, sq, d))
-            out, f_err = k5_out(torch, q, k, v, causal, window)
-            key = ("flash_attention", dname)
-            worst[key] = max(worst.get(key, 0.0), f_err)
-            got = flash_attention_bwd(q, k, v, out, do, causal=causal,
+            out, lse, f_err, l_err = k5_out(torch, q, k, v, causal, window)
+            for key, err in ((("flash_attention", dname), f_err),
+                             (("flash_attention_lse", dname), l_err)):
+                worst[key] = max(worst.get(key, 0.0), err)
+            got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                       window=window)
             torch.cuda.synchronize()
+            # the rows that see no key: dq 0, nothing to dk or dv; the
+            # plain version (NaN there) takes the others
+            e = empty_rows(sq, sk, causal)
+            if bool(got[0][:, :, :e].any()):
+                fail(f"flash_attention_bwd {dname} at {(b, h, g, sq, sk, d)}:"
+                     " dq of a row that sees no key is not 0")
             want = ref.flash_attention_bwd_ref(
-                q.float(), k.float(), v.float(), out.float(), do.float(),
+                q[:, :, e:].float(), k.float(), v.float(),
+                out[:, :, e:].float(), lse[:, :, e:], do[:, :, e:].float(),
                 causal=causal, window=window)
+            got = (got[0][:, :, e:], *got[1:])
             for name, a, w in zip(("dq", "dk", "dv"), got, want):
                 err = _attention_err(torch, a, w, tol, (
                     f"flash_attention_bwd {name} {dname} at "
                     f"{(b, h, g, sq, sk, d)} causal={causal} window={window}"))
                 key = ("flash_attention_bwd", dname)
                 worst[key] = max(worst.get(key, 0.0), err)
-            del q, k, v, do, out, got, want
+            del q, k, v, do, out, lse, got, want
     for (name, dname), err in sorted(worst.items()):
-        tol = (ATTN_TOL if name == "flash_attention" else BWD_TOL)[dname]
+        tol = {"flash_attention": ATTN_TOL[dname], "flash_attention_lse":
+               LSE_TOL, "flash_attention_bwd": BWD_TOL[dname]}[name]
         log(f"kernel {name} {dname}: within {tol} of its plain version at "
             f"the {len(bwd_cases())} backward shapes (max abs err {err:.3e}"
-            f"{'; dq, dk, dv on the forward output' if 'bwd' in name else ''})")
+            f"{'; dq, dk, dv on the forward output and LSE' if 'bwd' in name else ''})")
     return worst
+
+
+#: K5's backward's two launches, as their names appear in a trace
+BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma")
 
 
 def attention_bwd_bound(shape, itemsize: int):
@@ -1743,14 +1799,18 @@ def attention_bwd_bound(shape, itemsize: int):
 
 
 def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
-    """K5's backward at the training shape in bf16: card time, plain
-    version, SDPA's backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    a kept graph), bound; -> its ``kernels`` row."""
+    """K5's backward at the training shape in bf16: card time (and each of
+    its two launches' from a trace), plain version, SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True)`` on a kept graph), bound; K5's
+    forward there with and without its LSE, and SDPA's forward; -> its
+    ``kernels`` row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse,
+    )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
@@ -1758,16 +1818,16 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
     b, h, g, sq, sk, d = shape
     q, k, v, do = _attention_inputs(torch, gen, torch.bfloat16, (b, h, sq, d),
                                     (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
-    out, _f_err = k5_out(torch, q, k, v)
-    kern = lambda _: flash_attention_bwd(q, k, v, out, do)
-    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, do)
+    out, lse, _f_err, _l_err = k5_out(torch, q, k, v)
+    kern = lambda _: flash_attention_bwd(q, k, v, out, lse, do)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               enable_gqa=True)
     lib = lambda _: torch.autograd.grad(sdpa_out, leaves, do,
                                         retain_graph=True)
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       out.float(), do.float())
+                                       out.float(), lse, do.float())
     got = kern(None)
     torch.cuda.synchronize()
     err = max(_attention_err(torch, a, w, BWD_TOL["bfloat16"],
@@ -1776,10 +1836,25 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
     lib_err = max(float((a.float() - w).abs().max())
                   for a, w in zip(lib(None), want))
     timed = {}
-    for key, fn in (("", kern), ("library_", lib)):
+    fwd = {"fwd_": lambda _: flash_attention(q, k, v),  # no graph: no LSE
+           "fwd_lse_": lambda _: flash_attention_lse(q, k, v),
+           "library_fwd_": lambda _: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)}
+    for key, fn in (("", kern), ("library_", lib), *fwd.items()):
         c_ms = call_ms(torch, fn, None, reps=10, warmup=2)
         timed[key + "call_ms"] = c_ms
         timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
+    reps = 10
+    _busy, by_name = trace_card(
+        torch, f"flash_attention_bwd_{reps}_calls",
+        lambda: [kern(None) for _ in range(reps)], None, top=0)
+    by_launch = {}  # card ms a launch (a trace may miss the first launch)
+    for n in BWD_LAUNCHES:
+        hits = [tc for key, tc in by_name.items() if n in key]
+        if not hits:
+            fail(f"the trace of {reps} calls holds no launch of {n}")
+        by_launch[n] = (sum(t for t, _ in hits) / sum(c for _, c in hits)
+                        / 1e3)
     plain_ms = events_ms(torch, plain)
     b_ms, b_by, nbytes = attention_bwd_bound(shape, 2)
     source, replaces = KERNEL_INFO["flash_attention_bwd"]
@@ -1789,6 +1864,11 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
         f"overhead {timed['call_ms']:.5f} ms (SDPA {timed['library_call_ms']:.5f}"
         f" ms); max abs err {err:.3e} (SDPA {lib_err:.3e}) against the fp32 "
         "plain version")
+    log("flash_attention_bwd launches (trace, ms a launch): " + ", ".join(
+        f"{n} {ms:.5f}" for n, ms in by_launch.items()))
+    log(f"flash_attention at {shape} bf16 (the training shape): card "
+        f"{timed['fwd_ms']:.5f} ms without its LSE, {timed['fwd_lse_ms']:.5f}"
+        f" ms with it; SDPA forward {timed['library_fwd_ms']:.5f} ms")
     return {"name": "flash_attention_bwd", "route": "cuda", "source": source,
             "replaces": replaces,
             "replaces_note": "no pallas_call: the reference differentiates "
@@ -1798,6 +1878,10 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
             "library_ms": timed["library_ms"],
             "library": "torch.autograd.grad through torch.nn.functional."
                        "scaled_dot_product_attention",
+            "launch_ms": by_launch,
+            "forward_ms": {"no_lse": timed["fwd_ms"],
+                           "lse": timed["fwd_lse_ms"],
+                           "library": timed["library_fwd_ms"]},
             "design": KERNEL_DESIGN["flash_attention_bwd"]["bfloat16"],
             "design_by_dtype": KERNEL_DESIGN["flash_attention_bwd"],
             "path": f"train {TRAIN_ARCH}",
@@ -1806,7 +1890,9 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
             "library_call_ms": timed["library_call_ms"],
             "library_max_abs_err": lib_err,
             "max_abs_err_fp32_checks": worst["flash_attention_bwd", "float32"],
-            "max_abs_err_bf16_checks": worst["flash_attention_bwd", "bfloat16"]}
+            "max_abs_err_bf16_checks": worst["flash_attention_bwd", "bfloat16"],
+            "lse_max_abs_err": max(worst["flash_attention_lse", d]
+                                   for d in ("float32", "bfloat16"))}
 
 
 def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
@@ -1977,8 +2063,8 @@ def train_path(np, torch, ops, args):
     def one_step():
         state[:3] = step(*state, batch)[:3]
 
-    busy_ms = trace_card(torch, "train_step", one_step, args.profile or tmp,
-                         top=30)
+    busy_ms, _ = trace_card(torch, "train_step", one_step,
+                            args.profile or tmp, top=30)
     log(f"train step: card busy {busy_ms:.3f} ms (profiled step) against the "
         f"unprofiled mean step {mean_ms:.3f} ms = {100 * busy_ms / mean_ms:.3f}"
         f" % busy, {100 - 100 * busy_ms / mean_ms:.3f} % idle")

@@ -11,7 +11,11 @@
 // skips the kv tiles that lie wholly above the causal diagonal or wholly
 // outside the window (the TPU masks them), and masks k_pos < Sk explicitly
 // (the Pallas kernel leaves padded kv columns unmasked when causal is off).
-// A query row that sees no key gives 0.  Bound on the card at the prefill
+// A query row that sees no key gives 0.  Where the caller asks for it (the
+// train path's calls, whose backward takes it), each query row's
+// log-sum-exp of its scaled, masked scores goes out too, in natural log
+// (-inf for a row that sees no key), from the (m, l) the epilogue holds.
+// Bound on the card at the prefill
 // shapes: operations at D = 64 (4 B H Sq Sk_eff D on the bf16 tensor
 // cores), bytes at D = 80 (q, k, v and o of 32 kv heads).  Each dtype has
 // exactly one kernel, picked by the C dispatcher:
@@ -66,19 +70,21 @@
 // returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when
 // a tensor map cannot be made.
 
-#include <cuda.h>  // CUtensorMap and its enums (libcuda's API): types only
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <math_constants.h>
 
 #include <cstring>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace repro;  // hopper.cuh: mbarriers, TMA, wgmma, tensor maps
+
 constexpr float NEG = -1e30f;  // the running max before any key, as on the TPU
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -126,8 +132,9 @@ constexpr size_t fa_smem() {
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int H, int G, int sq,
-          int sk, int causal, int window, float scale) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int H, int G, int sq, int sk, int causal,
+          int window, float scale) {
   constexpr int BK = fa_bk<D>();
   constexpr int NC = BK / 32;  // score columns per lane
   constexpr int ND = (D + 31) / 32;  // output dims per lane (the last guarded)
@@ -250,15 +257,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < ND; ++e)
         if (D % 32 == 0 || lane + 32 * e < D)
           ob[(size_t)row * D + lane + 32 * e] = acc[r][e] * inv;
+      if (lse != nullptr && lane == 0)  // natural log; no visible key: -inf
+        lse[((size_t)b * H + h) * sq + row] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : -CUDART_INF_F;
     }
   }
 }
 
-
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 int64_t B, int64_t H, int64_t G, int64_t sq, int64_t sk,
-                 int causal, int window, float scale, cudaStream_t stream) {
+                 float* lse, int64_t B, int64_t H, int64_t G, int64_t sq,
+                 int64_t sk, int causal, int window, float scale,
+                 cudaStream_t stream) {
   constexpr size_t smem = fa_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -267,121 +277,13 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
                   (unsigned)B);
   flash_fwd<D><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), (int)H, (int)G, (int)sq,
-      (int)sk, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, (int)H, (int)G,
+      (int)sq, (int)sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K5, bf16: tensor cores (wgmma), TMA, mbarriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the barrier's phase `parity` has completed; a wait of more
-// than 4 s (a broken handoff) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0)
-      t0 = now;
-    else if (now - t0 > 4000000000ull)
-      __trap();
-  }
-}
-
-// one TMA box of a 3-D map into shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups are pending (the oldest finish first)
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor of a swizzled tile block whose rows
-// are `rb` bytes (the swizzle span: 128, 64 or 32).  8-row groups lie 8 rb
-// apart (the stride byte offset).  K-major blocks never step along the
-// leading dimension (their k-steps stay inside one swizzled row); an
-// MN-major block here is one swizzle atom wide (N = its width), so its
-// leading offset is unused too and carries the same stride.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int rb,
-                                              bool mn_major) {
-  const uint64_t sbo = (uint64_t)(8 * rb) >> 4;
-  const uint64_t lbo = mn_major ? sbo : 1;
-  const uint64_t layout = rb == 128 ? 1 : rb == 64 ? 2 : 3;
-  return ((uint64_t)(addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) |
-         (layout << 62);
-}
-
-// D = sum of column blocks: 64-wide with the 128-byte swizzle, except D = 32
-// (one 32-wide block, 64-byte swizzle) and D = 80's second block (16 wide,
-// 32-byte swizzle).  Block c starts at column 64 c.
-template <int D>
-struct Cols {
-  static constexpr int NB = D == 80 ? 2 : (D >= 64 ? D / 64 : 1);
-  __host__ __device__ static constexpr int width(int c) {
-    return D == 32 ? 32 : (D == 80 && c == 1) ? 16 : 64;
-  }
-};
+// K5, bf16: tensor cores (wgmma), TMA, mbarriers (helpers in hopper.cuh)
 
 constexpr int WG_BQ = 128;       // query rows per block: two warpgroups of 64
 constexpr int WG_THREADS = 384;  // two consumer warpgroups + the producer's
@@ -404,112 +306,6 @@ struct WgTile {
                 "swizzled blocks must stay 1024-byte aligned");
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int accumulate);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// O (64 x D of this warpgroup) += P[:, 16 kk : 16 kk + 16] V[16 kk : 16 kk
-// + 16, :]: one wgmma per column block of V
-template <int D, int BK>
-__device__ __forceinline__ void pv_step(float* o, const uint32_t* a,
-                                        uint32_t vtile, int kk) {
-  if constexpr (D == 32) {
-    wgmma_rs<32>(o, a, gmma_desc(vtile + kk * 16 * 64, 64, true));
-  } else if constexpr (D == 80) {
-    wgmma_rs<64>(o, a, gmma_desc(vtile + kk * 16 * 128, 128, true));
-    wgmma_rs<16>(o + 32, a,
-                 gmma_desc(vtile + BK * 128 + kk * 16 * 32, 32, true));
-  } else {
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      wgmma_rs<64>(o + 32 * c, a,
-                   gmma_desc(vtile + c * BK * 128 + kk * 16 * 128, 128, true));
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
@@ -518,8 +314,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
                 const __grid_constant__ CUtensorMap tk1,
                 const __grid_constant__ CUtensorMap tv0,
                 const __grid_constant__ CUtensorMap tv1,
-                __nv_bfloat16* __restrict__ o, int B, int H, int G, int sq,
-                int sk, int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+                int H, int G, int sq, int sk, int causal, int window,
+                float scale_log2) {
   using L = WgTile<D>;
   using C = Cols<D>;
   constexpr int BK = L::BK, NS = L::NS;
@@ -627,16 +424,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       mbar_wait(full(s), ((kv0 + i) / NS) & 1);
       const uint32_t kt = sbase + L::K_OFF + s * 2 * L::KV_BYTES;
       wg_fence();
-#pragma unroll
-      for (int c = 0; c < C::NB; ++c) {
-        const int rb = 2 * C::width(c);
-        const uint32_t qa = q_smem(t) + WG_BQ * 128 * c + wg * 64 * rb;
-        const uint32_t ka = kt + BK * 128 * c;
-#pragma unroll
-        for (int kk = 0; kk < C::width(c) / 16; ++kk)
-          wgmma_ss<BK>(sc, gmma_desc(qa + 32 * kk, rb, false),
-                       gmma_desc(ka + 32 * kk, rb, false), c > 0 || kk > 0);
-      }
+      ss_tile<D, BK>(sc, q_smem(t), WG_BQ, wg * 64, kt);
       wg_commit();
     };
     // O = O * alpha + P V_i, V the MN-major operand; committed, not waited
@@ -652,7 +440,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
           sbase + L::K_OFF + ((kv0 + i) % NS) * 2 * L::KV_BYTES + L::KV_BYTES;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) pv_step<D, BK>(oacc, p[kk], vt, kk);
+      for (int kk = 0; kk < BK / 16; ++kk) rs_tile<D, BK>(oacc, p[kk], vt, kk);
       wg_commit();
     };
     // the online softmax of tile i's scores: rows r0 (e = 0, 1) and r0 + 8
@@ -768,6 +556,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
       const int row0 = q0 + r0, row1 = row0 + 8;
       __nv_bfloat16* ob = o + (size_t)(b * H + h) * sq * D;
+      if (lse != nullptr && quad == 0) {  // natural log; no visible key: -inf
+        float* lb = lse + (size_t)(b * H + h) * sq;
+        if (row0 < sq) lb[row0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : -CUDART_INF_F;
+        if (row1 < sq) lb[row1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : -CUDART_INF_F;
+      }
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         const int col = 8 * jj + 2 * quad;
@@ -784,50 +577,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, already loaded in the process (the
-// runtime API has no tensor maps)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 map over (heads, rows, D) with boxes of `width` columns x
-// `box_rows` rows, swizzled by the box's row bytes; rows past `rows` read 0
-int make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t heads,
-             int D, int width, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
-                       int64_t B, int64_t H, int64_t G, int64_t sq,
+                       float* lse, int64_t B, int64_t H, int64_t G, int64_t sq,
                        int64_t sk, int causal, int window, float scale,
                        cudaStream_t stream) {
   using L = WgTile<D>;
@@ -859,7 +611,7 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   const int64_t n_work = (sq + WG_BQ - 1) / WG_BQ * B * H;
   const unsigned grid = (unsigned)(n_work < sms ? n_work : sms);
   flash_fwd_wgmma<D><<<grid, WG_THREADS, L::SMEM, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o),
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o), lse,
       (int)B, (int)H, (int)G, (int)sq, (int)sk, causal, window,
       scale * LOG2E);
   return cudaGetLastError();
@@ -867,26 +619,26 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
 
 // each dtype has one kernel: fp32 the SIMT one, bf16 the wgmma one
 int flash_by_dim(int D, int dtype, const void* q, const void* k,
-                 const void* v, void* o, int64_t B, int64_t H, int64_t G,
+                 const void* v, void* o, float* lse, int64_t B, int64_t H, int64_t G,
                  int64_t sq, int64_t sk, int causal, int window, float scale,
                  cudaStream_t st) {
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch_flash<32>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 64: return launch_flash<64>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 80: return launch_flash<80>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 128: return launch_flash<128>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 256: return launch_flash<256>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
+      case 32: return launch_flash<32>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_flash<64>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_flash<80>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_flash<128>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_flash<256>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_flash_wgmma<32>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 64: return launch_flash_wgmma<64>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 80: return launch_flash_wgmma<80>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 128: return launch_flash_wgmma<128>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
-      case 256: return launch_flash_wgmma<256>(q, k, v, o, B, H, G, sq, sk, causal, window, scale, st);
+      case 32: return launch_flash_wgmma<32>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_flash_wgmma<64>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_flash_wgmma<80>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_flash_wgmma<128>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_flash_wgmma<256>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1328,15 +1080,19 @@ int decode_by_dim(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// (q, k, v, o, B, H, G, Sq, Sk, D, dtype, causal, window, scale, stream);
+// (q, k, v, o, lse, B, H, G, Sq, Sk, D, dtype, causal, window, scale,
+// stream); lse is null or (B, H, Sq) fp32, each query row's natural-log
+// log-sum-exp of its scaled, masked scores (-inf where it sees no key);
 // window <= 0 disables the window
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int64_t B,
-                                     int64_t H, int64_t G, int64_t sq,
-                                     int64_t sk, int D, int dtype, int causal,
-                                     int window, float scale, void* stream) {
-  return flash_by_dim(D, dtype, q, k, v, o, B, H, G, sq, sk, causal, window,
-                      scale, static_cast<cudaStream_t>(stream));
+                                     const void* v, void* o, void* lse,
+                                     int64_t B, int64_t H, int64_t G,
+                                     int64_t sq, int64_t sk, int D, int dtype,
+                                     int causal, int window, float scale,
+                                     void* stream) {
+  return flash_by_dim(D, dtype, q, k, v, o, static_cast<float*>(lse), B, H, G,
+                      sq, sk, causal, window, scale,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // (q, k, v, length, o, part_m, part_l, part_acc, counters, B, H, G, S, D,

@@ -10,39 +10,45 @@
 //
 // with q, o, dO (B, H, Sq, D), k, v (B, G, Sk, D), GQA heads h -> h / (H / G),
 // query row i at position i + Sk - Sq and padded kv columns masked, as the
-// forward does.  With P = softmax(...), Delta_i = sum_d dO[i][d] O[i][d]:
+// forward does.  K5's forward hands over each row's log-sum-exp (natural
+// log, -inf for a row that sees no key), so P = exp(scale * Q K^T - LSE)
+// needs no pass of its own.  With Delta_i = sum_d dO[i][d] O[i][d]:
 //
 //     dV = P^T dO,   dP = dO V^T,   dS = P o (dP - Delta),
 //     dQ = scale * dS K,   dK = scale * dS^T Q,
 //
 // dK and dV summed over the H / G query heads of a kv group.  The design is
 // FlashAttention-2's split into two launches with no atomics, so the result
-// is deterministic:
+// is bit-deterministic from run to run:
 //
-//  - bwd_dq, one block per (q tile of 64 rows, h, b): a first pass over the
-//    visible kv tiles recomputes each row's log-sum-exp (the forward keeps
-//    none yet), a second recomputes P from it, forms dP and dS and
-//    accumulates dQ in registers.  It writes dQ, and the rows' LSE and
-//    Delta into an fp32 workspace.  The longest causal tiles start first.
-//  - bwd_dkv, one block per (kv tile of 64 rows, g, b): K and V stay in
-//    shared memory while the block loops over the group's heads and the q
-//    tiles that can see the tile, recomputes P from the workspace's LSE,
-//    and accumulates dV += P^T dO and dK += dS^T Q in registers.
+//  - launch A, one block per (q tile, h, b), the longest causal tiles
+//    first: Delta of its rows into an fp32 workspace, then P, dP and dS per
+//    visible kv tile and dQ accumulated in registers.
+//  - launch B, one block per (kv tile, g, b): K and V stay in shared
+//    memory while the block loops over the group's heads and the q tiles
+//    that can see the tile, and accumulates dV += P^T dO and dK += dS^T Q
+//    in registers.
 //
 // Each dtype has its own pair of kernels, picked by the C dispatcher:
 //
-//  - bf16 (the train path): bwd_dq_tc / bwd_dkv_tc, every product on the
-//    tensor cores as mma.sync m16n8k16 bf16 with fp32 accumulators.  A
-//    block is 4 warps, each owning 16 rows of the block's 64 (q rows in
-//    bwd_dq_tc, kv rows in bwd_dkv_tc); the other side's 64-row tiles
-//    stream through a 2-stage cp.async ring in shared memory as bf16 rows
-//    of pitch D + 8 (ldmatrix reads 8 rows at once without a bank
-//    conflict).  Scores and dP come out as accumulator fragments; P and dS
-//    are split in registers into two bf16 pieces (the rounding and the
-//    rounding of the rest) and fed back as the A operand of the next
-//    product (dQ += dS K; dV += P^T dO and dK += dS^T Q, bwd_dkv_tc
-//    computing S^T = K Q^T so that its fragments are already P^T's rows):
-//    the gradients then carry only their own bf16 rounding.
+//  - bf16 (the train path): bwd_dq_wgmma / bwd_dkv_wgmma, every product
+//    on the tensor cores as wgmma with fp32 accumulators (helpers in
+//    hopper.cuh).  A block is one consumer warpgroup of 64 rows (q rows in
+//    A, kv rows in B) and a producer warp; two blocks share an SM up to
+//    D = 80, so one block's softmax-like pass runs under the other's
+//    products.  The resident pair of 64-row tiles (A: Q, dO; B: K, V)
+//    arrives by TMA once; the producer streams the other pair (A: K, V; B:
+//    Q, dO, with the rows' LSE and Delta, which its 32 lanes copy) through a
+//    3-stage ring, mbarriers handing stages over.  A computes S = Q K^T and
+//    dP = dO V^T, B S^T = K Q^T and dP^T = V dO^T (wgmma SS, K-major
+//    operands), so that P (P^T) and dS (dS^T) come out as accumulator
+//    fragments whose rows are the next product's M: split in registers into
+//    two bf16 pieces (the rounding and the rounding of the rest), they are
+//    the A operand of dQ += dS K, dV += P^T dO and dK += dS^T Q (wgmma RS,
+//    the tile the MN-major B operand).  The gradients then carry only their
+//    own bf16 rounding.  Masks apply only to the tiles that straddle the
+//    diagonal, the window edge or Sk.  D = 80 runs a 64-wide and a 16-wide
+//    column block, as the forward does.
 //  - fp32: bwd_dq / bwd_dkv, fp32 FMAs on the CUDA cores (a tensor-core
 //    route would be TF32, too coarse for the fp32 tolerance).  A block of
 //    256 threads is a 16 x 16 grid, each thread owning a 4 x 4 piece of a
@@ -53,19 +59,26 @@
 //
 // Bound on the card at the training shape: operations (five products of
 // 2 D FLOP per visible (query, key) pair, 989 TFLOP/s on the bf16 tensor
-// cores).  A wgmma/TMA form, and an LSE output from the forward that drops
-// the dQ kernels' first pass, are later work.  Head dims 32, 64, 80 and
-// 128 (D = 256 does not fit the fp32 route's four tiles in shared
-// memory).  A query row that sees no key gets zero gradients (the plain
-// version gives NaN there, as the forward's does).  The launcher returns
-// cudaGetLastError() (0 = success).
+// cores); the bf16 route runs ten (the second pieces, S again in B).  Of
+// the forms timed (PERF.md §6), two one-warpgroup blocks an SM beat one
+// block of two warpgroups that share each stage.  Head
+// dims 32, 64, 80 and 128 (D = 256 does not fit the fp32 route's four tiles
+// in shared memory).  A query row that sees no key gets zero gradients
+// (the plain version gives NaN there, as the forward's does).  The launcher
+// returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when a
+// tensor map cannot be made.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include <cstring>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace repro;  // hopper.cuh: mbarriers, TMA, wgmma, tensor maps
 
 constexpr int BT = 64;           // rows of every tile: q rows, kv rows
 constexpr int NT = 256;          // threads: a 16 x 16 grid
@@ -143,23 +156,23 @@ __device__ __forceinline__ void mm_atb(float (&acc)[4][D / 16], const float* S,
   }
 }
 
-// shared memory of either kernel: four [BT][D + 1] tiles, one [BT][BT + 1]
-// score tile and two rows of BT statistics
+// shared memory of either fp32 kernel: four [BT][D + 1] tiles, one
+// [BT][BT + 1] score tile and two rows of BT statistics
 template <int D>
 constexpr size_t bwd_smem() {
   return sizeof(float) * (4 * BT * (D + 1) + BT * SP + 2 * BT);
 }
 
 // ---------------------------------------------------------------------------
-// launch A: dQ, and each row's LSE and Delta
+// fp32, launch A: dQ, and each row's Delta
 
 template <int D>
 __global__ void __launch_bounds__(NT)
 bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, const float* __restrict__ o,
-       const float* __restrict__ dout, float* __restrict__ dq,
-       float* __restrict__ lse_out, float* __restrict__ delta_out, int H,
-       int G, int sq, int sk, int causal, int window, float scale) {
+       const float* __restrict__ dout, const float* __restrict__ lse,
+       float* __restrict__ dq, float* __restrict__ delta_out, int H, int G,
+       int sq, int sk, int causal, int window, float scale) {
   constexpr int P = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -167,8 +180,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = dOs + BT * P;  // O first, for Delta
   float* Vs = Ks + BT * P;
   float* Ss = Vs + BT * P;   // dS
-  float* lse_s = Ss + BT * SP;
-  float* delta_s = lse_s + BT;
+  float* delta_s = Ss + BT * SP;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -188,6 +200,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 8
     for (int d = 0; d < D; ++d) s = fmaf(dOs[tid * P + d], Ks[tid * P + d], s);
     delta_s[tid] = s;
+    if (q0 + tid < sq) delta_out[bh * sq + q0 + tid] = s;
   }
 
   // the kv tiles any row of this tile can see
@@ -196,58 +209,15 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = causal ? min(sk, qhi + 1) : sk;
   const int k_begin = window > 0 ? max(0, qlo - window + 1) / BT * BT : 0;
 
-  // pass 1: each row's log-sum-exp, per thread over its columns, then
-  // merged across the 16 threads of the row
-  float m[4], l[4];
+  // each row's log-sum-exp, from the forward (-inf: no row, no visible key)
+  float L[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-  }
-  for (int k0 = k_begin; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the last reads of Ks are done
-    load_tile<D>(Ks, kb, k0, sk);
-    __syncthreads();
-    float s[4][4] = {};
-    mm_abt<D>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty + 16 * r + off;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = visible(qpos, k0 + tx + 16 * c, sk, causal, window)
-                      ? s[r][c] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      if (mx > -CUDART_INF_F) {
-        const float mn = fmaxf(m[r], mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sum += expf(s[r][c] - mn);  // masked: 0
-        l[r] = l[r] * expf(m[r] - mn) + sum;  // m = -inf: l = 0 anyway
-        m[r] = mn;
-      }
-    }
-  }
-  float lse[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float mr = m[r], lr = l[r];
-#pragma unroll
-    for (int w = 1; w < 16; w <<= 1) {  // the row's threads: lanes tx ^ w
-      const float m2 = __shfl_xor_sync(FULL, mr, w);
-      const float l2 = __shfl_xor_sync(FULL, lr, w);
-      const float mn = fmaxf(mr, m2);
-      lr = (mr == -CUDART_INF_F ? 0.f : lr * expf(mr - mn)) +
-           (m2 == -CUDART_INF_F ? 0.f : l2 * expf(m2 - mn));
-      mr = mn;
-    }
-    lse[r] = mr == -CUDART_INF_F ? -CUDART_INF_F : mr + logf(lr);
-    if (tx == 0) lse_s[ty + 16 * r] = lse[r];
+    const int row = q0 + ty + 16 * r;
+    L[r] = row < sq ? lse[bh * sq + row] : -CUDART_INF_F;
   }
 
-  // pass 2: P from the LSE, dS = P o (dP - Delta), dQ += dS K
+  // P from the LSE, dS = P o (dP - Delta), dQ += dS K
   float acc[4][D / 16] = {};
   for (int k0 = k_begin; k0 < k_end; k0 += BT) {
     __syncthreads();  // the last reads of Ks, Vs and Ss are done
@@ -263,9 +233,9 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
       const float dl = delta_s[ty + 16 * r];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const bool ok = lse[r] > -CUDART_INF_F &&
+        const bool ok = L[r] > -CUDART_INF_F &&
                         visible(qpos, k0 + tx + 16 * c, sk, causal, window);
-        const float p = ok ? expf(s[r][c] * scale - lse[r]) : 0.f;
+        const float p = ok ? expf(s[r][c] * scale - L[r]) : 0.f;
         Ss[(ty + 16 * r) * SP + tx + 16 * c] = p * (dp[r][c] - dl);
       }
     }
@@ -283,15 +253,10 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         dqb[(size_t)row * D + tx + 16 * c] = acc[r][c] * scale;
     }
   }
-  __syncthreads();  // lse_s is written
-  if (tid < BT && q0 + tid < sq) {
-    lse_out[bh * sq + q0 + tid] = lse_s[tid];
-    delta_out[bh * sq + q0 + tid] = delta_s[tid];
-  }
 }
 
 // ---------------------------------------------------------------------------
-// launch B: dK and dV of one kv tile over the group's heads
+// fp32, launch B: dK and dV of one kv tile over the group's heads
 
 template <int D>
 __global__ void __launch_bounds__(NT)
@@ -384,478 +349,448 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core route
-
-// -- PTX helpers
-
-// bf16x2 of (lo, hi), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// wait until at most N of this thread's groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-// Four 8x8 bf16 tiles: r[m] holds tile m's elements (g, 2q) and (g, 2q + 1)
-// (q = lane % 4, g = lane / 4); lane i gives the address of row i % 8 of
-// tile i / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// the same, transposed: r[m] holds tile m's elements (2q, g), (2q + 1, g)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// d += a b: m16n8k16, a row-major 16 x 16, b col-major 16 x 8, bf16 in,
-// fp32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// -- end of PTX helpers
+// bf16: wgmma + TMA
 
 typedef __nv_bfloat16 bf16;
-constexpr int TC_NT = 128;  // 4 warps, 16 rows of the block's 64 each
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int WT = 64;           // rows of every tile: one warpgroup's 64
+constexpr int BW_THREADS = 160;  // a consumer warpgroup, then the producer warp
+constexpr int BW_NS = 3;         // stages of the TMA ring
 
+// Shared memory of either bf16 kernel, from a 1024-byte aligned base: the
+// resident pair of 64-row tiles (dQ: Q, dO; dK/dV: K, V), BW_NS stages of
+// the streamed pair (dQ: K, V; dK/dV: Q, dO), fp32 rows (dQ: the tile's
+// Delta; dK/dV: each stage's base-2 LSE and Delta), then the barriers.
 template <int D>
-constexpr size_t tc_smem() {  // six [64][D + 8] bf16 tiles, 4 x 64 floats
-  return sizeof(bf16) * 6 * BT * (D + 8) + sizeof(float) * 4 * BT;
+struct BwTile {
+  static constexpr int TILE = WT * D * 2;
+  static constexpr int STAGE_OFF = 2 * TILE;
+  static constexpr int ROWS_OFF = STAGE_OFF + BW_NS * 2 * TILE;
+  static constexpr int BAR_OFF = ROWS_OFF + BW_NS * 2 * WT * 4;
+  // barriers: resident full, full[BW_NS], empty[BW_NS]; 1024 bytes to
+  // align the base
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * BW_NS) + 1024;
+  // two blocks an SM up to D = 80: ptxas then holds a thread to 168
+  // registers (two blocks' ten warps put three on one SM sub-partition, of
+  // 16,384 registers); D = 128's dK/dV kernel holds 128 accumulators a
+  // thread and takes one block (254 registers)
+  static constexpr int MIN_BLOCKS = D <= 80 ? 2 : 1;
+  static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
+};
+
+// one 64-row tile (rows [row, row + 64) of head `head`, zeros past the
+// map's rows) into shared memory at `dst`, completion on `bar`; m1 is the
+// map of D = 80's 16-wide block
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* m0,
+                                         const CUtensorMap* m1, uint32_t bar,
+                                         int row, int head) {
+#pragma unroll
+  for (int c = 0; c < Cols<D>::NB; ++c)
+    tma_load_3d(dst + WT * 128 * c, c == 1 && D == 80 ? m1 : m0, bar, 64 * c,
+                row, head);
 }
 
-// rows [r0, r0 + 64) of a (n, D) bf16 matrix -> shared [64][D + 8]: 16
-// bytes a thread by cp.async, zeros past row n
-template <int D>
-__device__ __forceinline__ void tc_load(bf16* s, const bf16* __restrict__ g,
-                                        int r0, int n) {
-  constexpr int CH = D / 8, P = D + 8;
-  for (int c = threadIdx.x; c < BT * CH; c += TC_NT) {
-    const int r = c / CH, k = c - r * CH;
-    bf16* dst = s + r * P + 8 * k;
-    if (r0 + r < n) {
-      cp_async16(dst, g + (size_t)(r0 + r) * D + 8 * k);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+// x (a 64 x 64 accumulator fragment) -> the A fragments of its four
+// 16-column blocks in two bf16 pieces: hi, the rounding, and lo, the
+// rounding of what hi leaves (~16 bits of each value; one piece,
+// FlashAttention's rounding, drifted past the card check's 1e-2 (1 + |g|)
+// at the training shape)
+__device__ __forceinline__ void split_pieces(uint32_t (*hi)[4], uint32_t (*lo)[4],
+                                             const float* x) {
+#pragma unroll
+  for (int kk = 0; kk < WT / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const uint32_t h = pack_bf16(a, b);
+      hi[kk][r] = h;
+      lo[kk][r] = pack_bf16(a - __uint_as_float(h << 16),
+                            b - __uint_as_float(h & 0xffff0000u));
     }
-  }
 }
 
-// A fragments of rows [row0, row0 + 16), columns [16 kk, 16 kk + 16) of a
-// shared [rows][P] tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int P,
-                                       int row0, int kk, int lane) {
-  ldmatrix_x4(a, s + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
-                     16 * kk + 8 * (lane >> 4));
-}
-// B fragments of two n-tiles (rows [n0, n0 + 16) of a shared [n][k] tile)
-// over k [16 kk, 16 kk + 16): b[0], b[1] of the first, b[2], b[3] of the
-// second
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* s,
-                                          int P, int n0, int kk, int lane) {
-  ldmatrix_x4(b, s + (n0 + (lane & 7) + 8 * (lane >> 4)) * P + 16 * kk +
-                     8 * ((lane >> 3) & 1));
-}
-// B fragments of two n-tiles (columns [n0, n0 + 16) of a shared [k][n]
-// tile) over k rows [k0, k0 + 16)
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* s,
-                                          int P, int k0, int n0, int lane) {
-  ldmatrix_x4_trans(b, s + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
-                           n0 + 8 * (lane >> 4));
-}
-
-// acc (16 x 64, 8 n-tiles) = A B^T over D: A's rows [16 warp, +16) of a
-// [64][P] tile, B a [64][P] tile of the 64 columns
+// acc += A X over the 64 k rows of X, A in two pieces (hi, then lo)
 template <int D>
-__device__ __forceinline__ void tc_abt(float (&acc)[8][4], const bf16* A,
-                                       const bf16* B, int warp, int lane) {
-  constexpr int P = D + 8;
+__device__ __forceinline__ void rs_pieces(float* acc, uint32_t (*hi)[4],
+                                          uint32_t (*lo)[4], uint32_t x) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, A, P, 16 * warp, kk, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      frag_b_nk(b, B, P, 16 * np, kk, lane);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int kk = 0; kk < WT / 16; ++kk) {
+    rs_tile<D, WT>(acc, hi[kk], x, kk);
+    rs_tile<D, WT>(acc, lo[kk], x, kk);
   }
 }
 
-// the A fragments of x's columns [16 kj, 16 kj + 16) (accumulator
-// fragments of n-tiles 2 kj, 2 kj + 1) in two bf16 pieces: hi, the
-// rounding, and lo, the rounding of what it leaves (~16 bits of each value)
-__device__ __forceinline__ void split_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                           const float (&x)[8][4], int kj) {
-  const float* e[4][2] = {{&x[2 * kj][0], &x[2 * kj][1]},
-                          {&x[2 * kj][2], &x[2 * kj][3]},
-                          {&x[2 * kj + 1][0], &x[2 * kj + 1][1]},
-                          {&x[2 * kj + 1][2], &x[2 * kj + 1][3]}};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = *e[i][0], b = *e[i][1];
-    hi[i] = pack_bf16(a, b);
-    lo[i] = pack_bf16(a - __uint_as_float(hi[i] << 16),
-                      b - __uint_as_float(hi[i] & 0xffff0000u));
-  }
+__device__ __forceinline__ void consumers_sync() {  // the warpgroup's 128 threads
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
-// acc (16 x D) += X Y: X (16 x 64, P or dS) in accumulator fragments (8
-// n-tiles), fed as A fragments in two bf16 pieces (with one piece,
-// FlashAttention-2's rounding, bf16 gradients at the training shape drifted
-// past the card check's 1e-2 (1 + |g|) of the fp32 ones); Y a [64][P] tile
-// of bf16 inputs, exact
-template <int D>
-__device__ __forceinline__ void tc_xy(float (&acc)[D / 8][4],
-                                      const float (&x)[8][4], const bf16* Y,
-                                      int lane) {
-  constexpr int P = D + 8;
-#pragma unroll
-  for (int kj = 0; kj < 4; ++kj) {
-    uint32_t hi[4], lo[4];
-    split_frag(hi, lo, x, kj);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      frag_b_kn(b, Y, P, 16 * kj, 16 * np, lane);
-      mma_bf16(acc[2 * np], hi, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-      mma_bf16(acc[2 * np], lo, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-    }
-  }
+// this warp is done with a buffer
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
-// a row of 16 x D accumulator fragments (rows g and g + 8) -> bf16 in
+// a row's log-sum-exp in base 2; +inf where P must be 0 (a padded row, a
+// row that sees no key), so that exp2(s - L) is 0 without a mask
+__device__ __forceinline__ float lse2(const float* lse, size_t row0, int i, int sq) {
+  if (i >= sq) return CUDART_INF_F;
+  const float x = lse[row0 + i];
+  return x > -CUDART_INF_F ? x * LOG2E : CUDART_INF_F;
+}
+
+// a row of 64 x D accumulator fragments (rows `row`, `row` + 8) -> bf16 in
 // global memory, times `mul`
 template <int D>
-__device__ __forceinline__ void tc_store(bf16* out, const float (&acc)[D / 8][4],
-                                         int row, int n, int tq, float mul) {
+__device__ __forceinline__ void store_rows(bf16* out, const float* acc, int row,
+                                           int n, int quad, float mul) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row + 8 * r < n) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)(row + 8 * r) * D);
-#pragma unroll
-      for (int t = 0; t < D / 8; ++t)
-        dst[4 * t + tq] = pack_bf16(acc[t][2 * r] * mul, acc[t][2 * r + 1] * mul);
-    }
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * quad;
+    if (row < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + col) =
+          __floats2bfloat162_rn(acc[4 * jj] * mul, acc[4 * jj + 1] * mul);
+    if (row + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * D + col) =
+          __floats2bfloat162_rn(acc[4 * jj + 2] * mul, acc[4 * jj + 3] * mul);
   }
 }
 
+// launch A: dQ of one q tile, and its rows' Delta.  Q and dO stay in shared
+// memory; the producer warp streams the visible K/V tiles.
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
-bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ o,
-          const bf16* __restrict__ dout, bf16* __restrict__ dq,
-          float* __restrict__ lse_out, float* __restrict__ delta_out, int H,
-          int G, int sq, int sk, int causal, int window, float scale) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem_raw);
-  bf16* dOs = Qs + BT * P;
-  bf16* Ks = dOs + BT * P;  // two stages
-  bf16* Vs = Ks + 2 * BT * P;
-  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BT * P);
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
+             const __grid_constant__ CUtensorMap tq1,
+             const __grid_constant__ CUtensorMap tdo0,
+             const __grid_constant__ CUtensorMap tdo1,
+             const __grid_constant__ CUtensorMap tk0,
+             const __grid_constant__ CUtensorMap tk1,
+             const __grid_constant__ CUtensorMap tv0,
+             const __grid_constant__ CUtensorMap tv1,
+             const bf16* __restrict__ o, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, bf16* __restrict__ dq,
+             float* __restrict__ delta, int B, int H, int G, int sq, int sk,
+             int causal, int window, float scale) {
+  using L = BwTile<D>;
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t raw = smem_u32(bw_smem);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* delta_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
+  const uint32_t res_full = sbase + L::BAR_OFF;
+  auto full = [&](int s) { return res_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return res_full + 8u * (1 + BW_NS + s); };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
+  // block -> (q tile, b, h): the last q tiles (the longest causal rows) first
+  const int n_qt = (sq + WT - 1) / WT;
+  const int bh = blockIdx.x % (B * H);
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / (B * H)) * WT;
+  const int b = bh / H, g = (bh % H) / (H / G);
   const int off = sk - sq;
-  const size_t bh = (size_t)b * H + h;
-  const bf16* kb = k + ((size_t)b * G + g) * sk * D;
-  const bf16* vb = v + ((size_t)b * G + g) * sk * D;
-
-  tc_load<D>(Qs, q + bh * sq * D, q0, sq);
-  tc_load<D>(dOs, dout + bh * sq * D, q0, sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (tid < BT) {  // Delta_i = dO_i . O_i, O rounded as stored
-    float s = 0.f;
-    if (q0 + tid < sq) {
-      const bf16* orow = o + (bh * sq + q0 + tid) * D;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        s = fmaf(__bfloat162float(dOs[tid * P + d]), __bfloat162float(orow[d]), s);
-    }
-    delta_s[tid] = s;
-  }
-
-  const int rows = min(BT, sq - q0);
+  const int rows = min(WT, sq - q0);
   const int qlo = q0 + off, qhi = q0 + rows - 1 + off;
   const int k_end = causal ? min(sk, qhi + 1) : sk;
-  const int k_begin = window > 0 ? max(0, qlo - window + 1) / BT * BT : 0;
-  const int row = 16 * warp + gq;  // this thread's rows: row, row + 8
+  const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int t_begin = k_begin / WT;
+  const int n_tiles =
+      k_end > t_begin * WT ? (k_end - t_begin * WT + WT - 1) / WT : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < BW_NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(res_full, 2 * L::TILE);
+      tma_tile<D>(sbase, &tq0, &tq1, res_full, q0, bh);
+      tma_tile<D>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % BW_NS;
+        mbar_wait(empty(s), ((i / BW_NS) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(full(s), 2 * L::TILE);
+        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+        const int k0 = (t_begin + i) * WT;
+        tma_tile<D>(dst, &tk0, &tk1, full(s), k0, b * G + g);
+        tma_tile<D>(dst + L::TILE, &tv0, &tv1, full(s), k0, b * G + g);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+
+  // Delta_i = dO_i . O_i from O and dO as stored, two threads a row, while
+  // the producer's first copies are in flight
+  {
+    const int r = tid / 2, half = tid % 2;
+    float s = 0.f;
+    if (q0 + r < sq) {
+      const size_t at = ((size_t)bh * sq + q0 + r) * D + half * (D / 2);
+      const uint4* op = reinterpret_cast<const uint4*>(o + at);
+      const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const uint4 x = op[j], y = dp[j];
+        const bf16* xe = reinterpret_cast<const bf16*>(&x);
+        const bf16* ye = reinterpret_cast<const bf16*>(&y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          s = fmaf(__bfloat162float(ye[e]), __bfloat162float(xe[e]), s);
+      }
+    }
+    s += __shfl_xor_sync(FULL, s, 1);
+    if (half == 0) {
+      delta_s[r] = s;
+      if (q0 + r < sq) delta[(size_t)bh * sq + q0 + r] = s;
+    }
+  }
+  consumers_sync();
+  const float dl0 = delta_s[r0], dl1 = delta_s[r0 + 8];
+  const float L0 = lse2(lse, (size_t)bh * sq, q0 + r0, sq);
+  const float L1 = lse2(lse, (size_t)bh * sq, q0 + r0 + 8, sq);
   const float sl2 = scale * LOG2E;
+  const int qp0 = q0 + r0 + off, qp1 = qp0 + 8;
 
-  // pass 1: each row's log-sum-exp (base 2, of the scaled scores)
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  if (k_begin < k_end) {
-    tc_load<D>(Ks, kb, k_begin, sk);
-    cp_async_commit();
-  }
-  int st = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BT, st ^= 1) {
-    if (k0 + BT < k_end) {
-      tc_load<D>(Ks + (st ^ 1) * BT * P, kb, k0 + BT, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[8][4] = {};
-    tc_abt<D>(s, Qs, Ks + st * BT * P, warp, lane);
+  float acc[D / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qpos = q0 + row + 8 * r + off;
-      float mx = -CUDART_INF_F;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[WT / 2], dp[WT / 2];
+  uint32_t hi[WT / 16][4], lo[WT / 16][4];
+  mbar_wait(res_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % BW_NS;
+    mbar_wait(full(s), (i / BW_NS) & 1);
+    const uint32_t kt = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+    wg_fence();
+    ss_tile<D, WT>(sc, sbase, WT, 0, kt);                   // S = Q K^T
+    ss_tile<D, WT>(dp, sbase + L::TILE, WT, 0, kt + L::TILE);  // dP = dO V^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<WT / 2>(sc);
+    reg_fence<WT / 2>(dp);
+    // P = exp2(S scale log2 e - L), dS = P o (dP - Delta); masks only
+    // where the tile straddles the diagonal, the window edge or Sk
+    const int k0 = (t_begin + i) * WT;
+    const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > qlo) ||
+                      (window > 0 && k0 <= qhi - window);
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
+    for (int j = 0; j < WT / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + 8 * t + 2 * tq + e;
-          float& x = s[t][2 * r + e];
-          x = visible(qpos, kpos, sk, causal, window) ? x * sl2 : -CUDART_INF_F;
-          mx = fmaxf(mx, x);
-        }
-      if (mx > -CUDART_INF_F) {
-        const float mn = fmaxf(m[r], mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          sum += exp2f(s[t][2 * r] - mn) + exp2f(s[t][2 * r + 1] - mn);
-        l[r] = l[r] * exp2f(m[r] - mn) + sum;
-        m[r] = mn;
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        float p = ex2(sc[x] * sl2 - (e < 2 ? L0 : L1));
+        if (edge && !visible(e < 2 ? qp0 : qp1, k0 + 8 * j + 2 * quad + (e & 1),
+                             sk, causal, window))
+          p = 0.f;
+        dp[x] = p * (dp[x] - (e < 2 ? dl0 : dl1));
       }
-    }
-    __syncthreads();  // the stage is read before the next load overwrites it
+    split_pieces(hi, lo, dp);
+    wg_fence();
+    rs_pieces<D>(acc, hi, lo, kt);  // dQ += dS K
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<D / 2>(acc);
+    release(empty(s), lane);
   }
-  float L[2];  // base-2 LSE of the scaled scores
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mr = m[r], lr = l[r];
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {  // the row's 4 threads of the quad
-      const float m2 = __shfl_xor_sync(FULL, mr, w);
-      const float l2 = __shfl_xor_sync(FULL, lr, w);
-      const float mn = fmaxf(mr, m2);
-      lr = (mr == -CUDART_INF_F ? 0.f : lr * exp2f(mr - mn)) +
-           (m2 == -CUDART_INF_F ? 0.f : l2 * exp2f(m2 - mn));
-      mr = mn;
-    }
-    L[r] = mr == -CUDART_INF_F ? -CUDART_INF_F : mr + log2f(lr);
-  }
-  const float dl[2] = {delta_s[row], delta_s[row + 8]};
-
-  // pass 2: P from the LSE, dS = P o (dP - Delta), dQ += dS K
-  float acc[D / 8][4] = {};
-  if (k_begin < k_end) {
-    tc_load<D>(Ks, kb, k_begin, sk);
-    tc_load<D>(Vs, vb, k_begin, sk);
-    cp_async_commit();
-  }
-  st = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BT, st ^= 1) {
-    if (k0 + BT < k_end) {
-      tc_load<D>(Ks + (st ^ 1) * BT * P, kb, k0 + BT, sk);
-      tc_load<D>(Vs + (st ^ 1) * BT * P, vb, k0 + BT, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kst = Ks + st * BT * P;
-    float s[8][4] = {}, dp[8][4] = {};
-    tc_abt<D>(s, Qs, Kst, warp, lane);
-    tc_abt<D>(dp, dOs, Vs + st * BT * P, warp, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qpos = q0 + row + 8 * r + off;
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + 8 * t + 2 * tq + e;
-          const bool ok = L[r] > -CUDART_INF_F &&
-                          visible(qpos, kpos, sk, causal, window);
-          const float p = ok ? exp2f(s[t][2 * r + e] * sl2 - L[r]) : 0.f;
-          s[t][2 * r + e] = p * (dp[t][2 * r + e] - dl[r]);  // dS
-        }
-    }
-    tc_xy<D>(acc, s, Kst, lane);
-    __syncthreads();
-  }
-
-  tc_store<D>(dq + bh * sq * D, acc, q0 + row, sq, tq, scale);
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + row + 8 * r;
-      if (i < sq) {
-        lse_out[bh * sq + i] = L[r] == -CUDART_INF_F ? -CUDART_INF_F : L[r] / LOG2E;
-        delta_out[bh * sq + i] = dl[r];
-      }
-    }
-  }
+  store_rows<D>(dq + (size_t)bh * sq * D, acc, q0 + r0, sq, quad, scale);
 }
 
+// launch B: dK and dV of one kv tile over its group's heads.  K and V stay
+// in shared memory; the producer warp streams the Q and dO tiles that can
+// see the kv tile, with their rows' LSE and Delta.
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
-bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int G, int sq,
-           int sk, int causal, int window, float scale) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem_raw);
-  bf16* Vs = Ks + BT * P;
-  bf16* Qs = Vs + BT * P;     // two stages
-  bf16* dOs = Qs + 2 * BT * P;  // two stages
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BT * P);  // [2][BT], base 2
-  float* delta_s = lse_s + 2 * BT;                           // [2][BT]
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
+bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
+              const __grid_constant__ CUtensorMap tq1,
+              const __grid_constant__ CUtensorMap tdo0,
+              const __grid_constant__ CUtensorMap tdo1,
+              const __grid_constant__ CUtensorMap tk0,
+              const __grid_constant__ CUtensorMap tk1,
+              const __grid_constant__ CUtensorMap tv0,
+              const __grid_constant__ CUtensorMap tv1,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int G,
+              int sq, int sk, int causal, int window, float scale) {
+  using L = BwTile<D>;
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t raw = smem_u32(bw_smem);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* rows_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
+  const uint32_t res_full = sbase + L::BAR_OFF;
+  auto full = [&](int s) { return res_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return res_full + 8u * (1 + BW_NS + s); };
 
-  const int k0 = blockIdx.x * BT;
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int hg = H / G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int off = sk - sq;
-  const size_t bg = (size_t)b * G + g;
-  const float sl2 = scale * LOG2E;
-
+  // block -> (kv tile, b, g): the first kv tiles (seen by the most causal
+  // rows) first
+  const int bg = blockIdx.x % (B * G);
+  const int k0 = (int)blockIdx.x / (B * G) * WT;
+  const int b = bg / G, g = bg % G;
+  const int hg = H / G, off = sk - sq;
   // the q rows that can see a key of this tile, in tiles of 64, per head
-  const int kmax = min(sk, k0 + BT) - 1;
+  const int kmax = min(sk, k0 + WT) - 1;
   const int i_begin = causal ? max(0, k0 - off) : 0;
   const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
-  const int n_qt = i_end > i_begin ? (i_end - i_begin + BT - 1) / BT : 0;
+  const int n_qt = i_end > i_begin ? (i_end - i_begin + WT - 1) / WT : 0;
   const int n_it = hg * n_qt;
 
-  // stage `st` <- the Q and dO tiles, LSE and Delta of iteration `it`
-  auto load_stage = [&](int st, int it) {
-    const size_t bh = (size_t)b * H + g * hg + it / n_qt;
-    const int i0 = i_begin + (it % n_qt) * BT;
-    tc_load<D>(Qs + st * BT * P, q + bh * sq * D, i0, sq);
-    tc_load<D>(dOs + st * BT * P, dout + bh * sq * D, i0, sq);
-    if (tid < BT) {
-      const int i = i0 + tid;
-      lse_s[st * BT + tid] = i < sq ? lse[bh * sq + i] * LOG2E : -CUDART_INF_F;
-      delta_s[st * BT + tid] = i < sq ? delta[bh * sq + i] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < BW_NS; ++s) {
+      mbar_init(full(s), 33);  // the copies' byte count, then every
+                               // producer lane (LSE and Delta rows)
+      mbar_init(empty(s), 4);  // lane 0 of each consumer warp
     }
-  };
-
-  tc_load<D>(Ks, k + bg * sk * D, k0, sk);
-  tc_load<D>(Vs, v + bg * sk * D, k0, sk);
-  if (n_it > 0) load_stage(0, 0);
-  cp_async_commit();
-
-  const int row = 16 * warp + gq;  // this thread's kv rows: row, row + 8
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  int st = 0;
-  for (int it = 0; it < n_it; ++it, st ^= 1) {
-    if (it + 1 < n_it) {
-      load_stage(st ^ 1, it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int i0 = i_begin + (it % n_qt) * BT;
-    const bf16* Qst = Qs + st * BT * P;
-    const bf16* dOst = dOs + st * BT * P;
-    const float* Ls = lse_s + st * BT;
-    const float* Ds = delta_s + st * BT;
-    float s[8][4] = {}, dp[8][4] = {};
-    tc_abt<D>(s, Ks, Qst, warp, lane);   // S^T: rows kv, columns q
-    tc_abt<D>(dp, Vs, dOst, warp, lane); // dP^T
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kpos = k0 + row + 8 * r;
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * t + 2 * tq + e, i = i0 + c;
-          const float Lc = Ls[c];
-          const bool ok = i < sq && Lc > -CUDART_INF_F &&
-                          visible(i + off, kpos, sk, causal, window);
-          const float p = ok ? exp2f(s[t][2 * r + e] * sl2 - Lc) : 0.f;
-          s[t][2 * r + e] = p;                              // P^T
-          dp[t][2 * r + e] = p * (dp[t][2 * r + e] - Ds[c]);  // dS^T
-        }
-    }
-    tc_xy<D>(dv_acc, s, dOst, lane);   // dV += P^T dO
-    tc_xy<D>(dk_acc, dp, Qst, lane);   // dK += dS^T Q
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  tc_store<D>(dk + bg * sk * D, dk_acc, k0 + row, sk, tq, scale);
-  tc_store<D>(dv + bg * sk * D, dv_acc, k0 + row, sk, tq, 1.f);
+  if (threadIdx.x >= 128) {  // the producer warp
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(res_full, 2 * L::TILE);
+      tma_tile<D>(sbase, &tk0, &tk1, res_full, k0, bg);
+      tma_tile<D>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % BW_NS;
+      const int bh = b * H + g * hg + it / n_qt;
+      const int i0 = i_begin + (it % n_qt) * WT;
+      // the stage's LSE and Delta rows, loaded while the slot drains
+      float l_rows[WT / 32], d_rows[WT / 32];
+#pragma unroll
+      for (int u = 0; u < WT / 32; ++u) {
+        const int i = i0 + lane + 32 * u;
+        l_rows[u] = lse2(lse, (size_t)bh * sq, i, sq);
+        d_rows[u] = i < sq ? delta[(size_t)bh * sq + i] : 0.f;
+      }
+      mbar_wait(empty(s), ((it / BW_NS) & 1) ^ 1);  // round 0 passes at once
+      if (lane == 0) {  // the copies first: they take longest
+        mbar_expect_tx(full(s), 2 * L::TILE);
+        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+        tma_tile<D>(dst, &tq0, &tq1, full(s), i0, bh);
+        tma_tile<D>(dst + L::TILE, &tdo0, &tdo1, full(s), i0, bh);
+      }
+      float* Ls = rows_s + s * 2 * WT;
+#pragma unroll
+      for (int u = 0; u < WT / 32; ++u) {
+        Ls[lane + 32 * u] = l_rows[u];
+        Ls[WT + lane + 32 * u] = d_rows[u];
+      }
+      mbar_arrive(full(s));  // releases this lane's rows
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's kv rows: r0, r0 + 8
+  const int kp0 = k0 + r0, kp1 = kp0 + 8;
+  const float sl2 = scale * LOG2E;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float st[WT / 2], dpt[WT / 2];
+  uint32_t ph[WT / 16][4], pl[WT / 16][4], dh[WT / 16][4], dl[WT / 16][4];
+  mbar_wait(res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % BW_NS;
+    mbar_wait(full(s), (it / BW_NS) & 1);
+    const int i0 = i_begin + (it % n_qt) * WT;
+    const uint32_t qt = sbase + L::STAGE_OFF + s * 2 * L::TILE, dot = qt + L::TILE;
+    const float* Ls = rows_s + s * 2 * WT;
+    const float* Ds = Ls + WT;
+    wg_fence();
+    ss_tile<D, WT>(st, sbase, WT, 0, qt);            // S^T = K Q^T
+    ss_tile<D, WT>(dpt, sbase + L::TILE, WT, 0, dot);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<WT / 2>(st);
+    reg_fence<WT / 2>(dpt);
+    // P^T and dS^T on the fragments: rows kv, columns q rows i0 + c
+    const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > i0 + off) ||
+                      (window > 0 && k0 <= i0 + WT - 1 + off - window);
+#pragma unroll
+    for (int j = 0; j < WT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e, c = 8 * j + 2 * quad + (e & 1);
+        float p = ex2(st[x] * sl2 - Ls[c]);
+        if (edge && !visible(i0 + c + off, e < 2 ? kp0 : kp1, sk, causal, window))
+          p = 0.f;
+        dpt[x] = p * (dpt[x] - Ds[c]);
+        st[x] = p;
+      }
+    split_pieces(ph, pl, st);
+    split_pieces(dh, dl, dpt);
+    wg_fence();
+    rs_pieces<D>(dva, ph, pl, dot);  // dV += P^T dO
+    rs_pieces<D>(dka, dh, dl, qt);   // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<D / 2>(dka);
+    reg_fence<D / 2>(dva);
+    release(empty(s), lane);
+  }
+  store_rows<D>(dk + (size_t)bg * sk * D, dka, kp0, sk, quad, scale);
+  store_rows<D>(dv + (size_t)bg * sk * D, dva, kp0, sk, quad, 1.f);
 }
 
 template <int D>
-int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, void* dq, void* dk, void* dv, float* lse,
-                  float* delta, int64_t B, int64_t H, int64_t G, int64_t sq,
-                  int64_t sk, int causal, int window, float scale,
-                  cudaStream_t stream) {
-  const size_t smem = tc_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_dkv_tc<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  bwd_dq_tc<D><<<dim3((unsigned)((sq + BT - 1) / BT), (unsigned)H, (unsigned)B),
-                 TC_NT, smem, stream>>>(
-      qt, kt, vt, static_cast<const bf16*>(o), dot, static_cast<bf16*>(dq),
-      lse, delta, (int)H, (int)G, (int)sq, (int)sk, causal, window, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_dkv_tc<D><<<dim3((unsigned)((sk + BT - 1) / BT), (unsigned)G, (unsigned)B),
-                  TC_NT, smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), (int)H, (int)G, (int)sq, (int)sk, causal, window,
-      scale);
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const float* lse, void* dq, void* dk,
+                     void* dv, float* delta, int64_t B, int64_t H, int64_t G,
+                     int64_t sq, int64_t sk, int causal, int window,
+                     float scale, cudaStream_t stream) {
+  using L = BwTile<D>;
+  constexpr int w0 = Cols<D>::width(0);
+  // q, dO over (B H, Sq, D); k, v over (B G, Sk, D); boxes of 64 rows; the
+  // odd ones are D = 80's 16-wide block
+  CUtensorMap m[8];
+  std::memset(m, 0, sizeof(m));
+  const void* base[4] = {q, dout, k, v};
+  for (int t = 0; t < 4; ++t) {
+    const int64_t rows = t < 2 ? sq : sk, heads = t < 2 ? B * H : B * G;
+    int e = make_map(&m[2 * t], base[t], rows, heads, D, w0, WT);
+    if (e) return e;
+    if (D == 80) {
+      if ((e = make_map(&m[2 * t + 1], base[t], rows, heads, D, 16, WT))) return e;
+    } else {
+      m[2 * t + 1] = m[2 * t];
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned n_dq = (unsigned)((sq + WT - 1) / WT * B * H);
+  bwd_dq_wgmma<D><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+      static_cast<bf16*>(dq), delta, (int)B, (int)H, (int)G, (int)sq, (int)sk,
+      causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned n_dkv = (unsigned)((sk + WT - 1) / WT * B * G);
+  bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
+      (int)sq, (int)sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, void* dq, void* dk, void* dv, float* lse,
+               const void* dout, const float* lse, void* dq, void* dk, void* dv,
                float* delta, int64_t B, int64_t H, int64_t G, int64_t sq,
                int64_t sk, int causal, int window, float scale,
                cudaStream_t stream) {
@@ -871,62 +806,57 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
   bwd_dq<D><<<dim3((unsigned)((sq + BT - 1) / BT), (unsigned)H, (unsigned)B),
-                 NT, smem, stream>>>(
-      qt, kt, vt, static_cast<const float*>(o), dot, static_cast<float*>(dq), lse,
+              NT, smem, stream>>>(
+      qt, kt, vt, static_cast<const float*>(o), dot, lse, static_cast<float*>(dq),
       delta, (int)H, (int)G, (int)sq, (int)sk, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   bwd_dkv<D><<<dim3((unsigned)((sk + BT - 1) / BT), (unsigned)G, (unsigned)B),
-                  NT, smem, stream>>>(
+               NT, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
       (int)H, (int)G, (int)sq, (int)sk, causal, window, scale);
   return cudaGetLastError();
 }
 
-int bwd_by_dim(int D, const void* q, const void* k, const void* v,
-               const void* o, const void* dout, void* dq, void* dk, void* dv,
-               float* lse, float* delta, int64_t B, int64_t H, int64_t G,
-               int64_t sq, int64_t sk, int causal, int window, float scale,
-               cudaStream_t st) {
-  switch (D) {
-    case 32: return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 64: return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 80: return launch_bwd<80>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 128: return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    default: return cudaErrorInvalidValue;
+// each dtype has one pair of kernels: fp32 the SIMT pair, bf16 the wgmma pair
+int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, const float* lse, void* dq,
+               void* dk, void* dv, float* delta, int64_t B, int64_t H,
+               int64_t G, int64_t sq, int64_t sk, int causal, int window,
+               float scale, cudaStream_t st) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_bwd<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_bwd<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
-}
-
-int bwd_tc_by_dim(int D, const void* q, const void* k, const void* v,
-                  const void* o, const void* dout, void* dq, void* dk,
-                  void* dv, float* lse, float* delta, int64_t B, int64_t H,
-                  int64_t G, int64_t sq, int64_t sk, int causal, int window,
-                  float scale, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch_bwd_tc<32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 64: return launch_bwd_tc<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 80: return launch_bwd_tc<80>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    case 128: return launch_bwd_tc<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, sq, sk, causal, window, scale, st);
-    default: return cudaErrorInvalidValue;
+  if (dtype == 1) {
+    switch (D) {
+      case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_bwd_wgmma<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// (q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, Sq, Sk, D, dtype,
-//  causal, window, scale, stream); lse and delta are (B, H, Sq) fp32
-// workspace; window <= 0 disables the window
+// (q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, Sq, Sk, D, dtype,
+//  causal, window, scale, stream); lse is the forward's (B, H, Sq) fp32
+// natural-log log-sum-exp of each row's scaled, masked scores, delta (B, H,
+// Sq) fp32 workspace; window <= 0 disables the window
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int64_t B, int64_t H, int64_t G, int64_t sq, int64_t sk, int D, int dtype,
-    int causal, int window, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 0)
-    return bwd_by_dim(D, q, k, v, o, dout, dq, dk, dv, l, dl, B, H, G, sq, sk, causal, window, scale, st);
-  if (dtype == 1)
-    return bwd_tc_by_dim(D, q, k, v, o, dout, dq, dk, dv, l, dl, B, H, G, sq, sk, causal, window, scale, st);
-  return cudaErrorInvalidValue;
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, int64_t B, int64_t H, int64_t G, int64_t sq, int64_t sk,
+    int D, int dtype, int causal, int window, float scale, void* stream) {
+  return bwd_by_dim(D, dtype, q, k, v, o, dout, static_cast<const float*>(lse),
+                    dq, dk, dv, static_cast<float*>(delta), B, H, G, sq, sk,
+                    causal, window, scale, static_cast<cudaStream_t>(stream));
 }

@@ -32,9 +32,10 @@ NVCC_FLAGS = [
 
 #: extra flags per library: every library reports each kernel's
 #: registers and spills (``ptxas -v``, kept in the build log), and the
-#: attention library takes ``dlopen`` for libcuda's tensor-map encoder
+#: attention libraries take ``dlopen`` for libcuda's tensor-map encoder
 EXTRA_FLAGS: Dict[str, List[str]] = {"attention": ["-Xptxas", "-v", "-ldl"],
-                                     "attention_bwd": ["-Xptxas", "-v"],
+                                     "attention_bwd": ["-Xptxas", "-v",
+                                                       "-ldl"],
                                      "byteplanes": ["-Xptxas", "-v"],
                                      "scans": ["-Xptxas", "-v"],
                                      "ssm": ["-Xptxas", "-v"]}
@@ -64,10 +65,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_byteshuffle": [_P, _P, _I64, _INT, _P],
     },
     "attention": {
-        # (q, k, v, o, B, H, G, Sq, Sk, D, dtype, causal, window, scale,
-        #  stream)
-        "repro_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                  _I64, _INT, _INT, _INT, _INT, _F32, _P],
+        # (q, k, v, o, lse (or null), B, H, G, Sq, Sk, D, dtype, causal,
+        #  window, scale, stream)
+        "repro_flash_attention": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                  _I64, _I64, _INT, _INT, _INT, _INT, _F32,
+                                  _P],
         # (q, k, v, length, o, part_m, part_l, part_acc, counters, B, H, G,
         #  S, D, dtype, chunk, n_chunks, warps, window, scale, stream)
         "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
@@ -75,7 +77,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                    _INT, _INT, _F32, _P],
     },
     "attention_bwd": {
-        # (q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, G, Sq, Sk, D,
+        # (q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, Sq, Sk, D,
         #  dtype, causal, window, scale, stream)
         "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I64, _I64, _I64, _I64, _I64, _INT,

@@ -25,9 +25,16 @@ no input requires grad) whose forward is the launch above and whose backward is
 :func:`flash_attention_bwd`: on a CPU tensor ``ref.flash_attention_bwd_ref``,
 on a CUDA tensor K5's backward (``csrc/attention_bwd.cu``, its own
 library), two kernels a call counted as one launch of
-``flash_attention_bwd``: dQ with each row's LSE and Delta, then dK and dV
-per kv tile over the group's heads.  bf16 runs them on the tensor cores
-(``mma.sync``, P and dS in two bf16 pieces), fp32 on the CUDA cores.  The
+``flash_attention_bwd``: dQ with each row's Delta, then dK and dV per kv
+tile over the group's heads.  bf16 runs them on the tensor cores
+(``wgmma`` fed by TMA, P and dS in two bf16 pieces), fp32 on the CUDA
+cores.  When a graph will be recorded (grad mode on and an input that
+requires grad) the forward launch also writes each query row's
+log-sum-exp, LSE: ``(B, H, Sq)`` fp32, the natural log of the sum of
+``exp(scale * q k^T)`` over the row's visible keys, ``-inf`` for a row that
+sees none (``ref.flash_attention_lse_ref`` on the CPU).  It is saved with
+q, k, v and the output, and the backward forms ``P = exp(scale * q k^T -
+LSE)`` from it.  The serve path's calls (no graph) write no LSE.  The
 reference has no backward kernel: its training differentiates whatever
 its op entry runs.
 """
@@ -86,52 +93,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, Sq, D), k/v (B, G, Sk, D) -> (B, H, Sq, D); differentiable
     in q, k and v (see the module docstring)."""
     _check_shapes("flash_attention", q, k, v)
-    return FlashAttention.apply(q, k, v, causal, window, scale)
+    # decided here: inside ``forward`` grad mode is off
+    graph = torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, scale, graph)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """K5's forward with its rows' log-sum-exp and no graph: ``(out,
+    lse)``, ``lse`` ``(B, H, Sq)`` fp32 in natural log, ``-inf`` for a row
+    that sees no key (what :func:`flash_attention_bwd` takes)."""
+    _check_shapes("flash_attention", q, k, v)
+    return _forward(q, k, v, causal, window, scale, with_lse=True)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K5 under autograd: the forward launch, saved q/k/v/out, and
-    :func:`flash_attention_bwd` for the gradients."""
+    """K5 under autograd: the forward launch, saved q/k/v/out and the rows'
+    LSE when a graph is recorded, and :func:`flash_attention_bwd` for the
+    gradients."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.args = (causal, window, scale)
+    def forward(ctx, q, k, v, causal, window, scale, graph):
+        out, lse = _forward(q, k, v, causal, window, scale, with_lse=graph)
+        if graph:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.args)
-        return dq, dk, dv, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-             window: Optional[int], scale: Optional[float]) -> torch.Tensor:
+             window: Optional[int], scale: Optional[float], with_lse: bool):
+    """-> (out, the rows' LSE or None)."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale)
+        out = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+        lse = (ref.flash_attention_lse_ref(q, k, causal=causal,
+                                           window=window, scale=scale)
+               if with_lse else None)
+        return out, lse
     check_kernel_args("flash_attention", q, k, v, window=window)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     if sk == 0:
-        return out.zero_()
+        return out.zero_(), None if lse is None else lse.fill_(float("-inf"))
     lib = _build.library("attention")
     guard, stream = _build.launch_args(q)
     with guard:
         rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, g,
-            sq, sk, d, DTYPE_CODES[q.dtype], int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, g, sq, sk, d,
+            DTYPE_CODES[q.dtype], int(causal),
             0 if window is None else int(window), float(scale), stream)
     _build.check(lib, rc, "flash_attention")
     count_launch("flash_attention", (b, h, g, sq, sk, d))
-    return out
+    return out, lse
 
 
 #: head dims K5's backward is built for (four fp32 tiles of 64 rows at
@@ -140,20 +170,29 @@ BWD_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor,
-                        causal: bool = True, window: Optional[int] = None,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None,
                         scale: Optional[float] = None):
     """K5's backward: ``(dq, dk, dv)`` of :func:`flash_attention` at
-    ``dout``, given its output ``out``; each in its input's dtype (fp32
-    accumulation).  On a CPU tensor ``ref.flash_attention_bwd_ref``; on a
-    CUDA tensor the kernel of ``csrc/attention_bwd.cu`` or a raise."""
+    ``dout``, given its output ``out`` and rows' log-sum-exp ``lse``
+    (``(B, H, Sq)`` fp32, natural log, as :func:`flash_attention_lse`
+    returns it); each in its input's dtype (fp32 accumulation).  On a CPU
+    tensor ``ref.flash_attention_bwd_ref``; on a CUDA tensor the kernel of
+    ``csrc/attention_bwd.cu`` or a raise."""
     _check_shapes("flash_attention_bwd", q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("flash_attention_bwd: out and dout must be shaped "
                          f"like q {tuple(q.shape)}")
+    if (lse is None or lse.shape != q.shape[:3]
+            or lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse must be the forward's "
+                         f"(B, H, Sq) = {tuple(q.shape[:3])} float32 rows on "
+                         f"{q.device}")
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                                           window=window, scale=scale)
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window,
+                                           scale=scale)
     check_kernel_args("flash_attention_bwd", q, k, v, out, dout,
                       window=window)
     b, h, sq, d = q.shape
@@ -162,19 +201,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: head dim {d} not in "
                          f"{BWD_HEAD_DIMS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    q, k, v, out, dout = (aligned16(t.contiguous())
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0 or sk == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)  # rowsum(dout * out), written by launch A
     lib = _build.library("attention_bwd")
     guard, stream = _build.launch_args(q)
     with guard:
         rc = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), b, h, g, sq, sk, d,
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, h, g, sq, sk, d,
             DTYPE_CODES[q.dtype], int(causal),
             0 if window is None else int(window), float(scale), stream)
     _build.check(lib, rc, "flash_attention_bwd")

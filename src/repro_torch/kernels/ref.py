@@ -8,10 +8,11 @@ lies on.  The wrappers run them for tensors on the CPU; ``chip_smoke.py``
 holds every kernel against them on the card.  They are oracles, not
 yardsticks of speed.  ``flash_attention_chunked`` and the one-token
 ``*_decode_ref`` steps have no kernel of their own: they are the twins of
-the reference's oracles of the same names.  ``flash_attention_bwd_ref``
-is K5's backward written out: the reference has no backward kernel (its
-training differentiates the jnp oracle), and the tests hold it against
-``jax.vjp`` of that oracle.
+the reference's oracles of the same names.  ``flash_attention_lse_ref``
+is the rows' log-sum-exp K5's forward hands to its backward, and
+``flash_attention_bwd_ref`` is K5's backward written out: the reference
+has no backward kernel (its training differentiates the jnp oracle), and
+the tests hold it against ``jax.vjp`` of that oracle.
 """
 
 from __future__ import annotations
@@ -133,16 +134,35 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True, window=None,
+                            scale=None) -> torch.Tensor:
+    """(B, H, Sq) fp32: each query row's log-sum-exp (natural log) of its
+    scaled, masked scores ``scale * q k^T``, in fp32 from the inputs'
+    values; ``-inf`` for a row that sees no key.  K5's forward writes this
+    for its backward."""
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     _expand_kv(k, h).float()) * scale
+    s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device),
+                      float("-inf"))
+    return torch.logsumexp(s, dim=-1)
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
-                            dout: torch.Tensor, causal: bool = True,
-                            window=None, scale=None):
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window=None, scale=None):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` at
     ``dout``, written out (no autograd), in fp32 from the inputs' values;
-    results in the inputs' dtype.  ``out`` is the forward's output: as in
-    the kernel, ``Delta = rowsum(dout * out)`` is formed from it (after its
-    rounding, for bf16).  dk and dv sum the ``H // G`` query heads of each
-    kv group.  A row with no visible key is NaN, as in the forward."""
+    results in the inputs' dtype.  ``out`` and ``lse`` are the forward's
+    output and rows' log-sum-exp (:func:`flash_attention_lse_ref`): as in
+    the kernel, ``P = exp(scale * q k^T - lse)`` and ``Delta =
+    rowsum(dout * out)`` (after ``out``'s rounding, for bf16).  dk and dv
+    sum the ``H // G`` query heads of each kv group.  A row with no
+    visible key is NaN, as in the forward."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -151,7 +171,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device),
                       float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    p = torch.exp(s - lse.float()[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
     delta = (do * out.float()).sum(dim=-1, keepdim=True)

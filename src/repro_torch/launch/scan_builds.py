@@ -1,6 +1,7 @@
 """Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs), K8 (Mamba-2
-SSD, bf16 x) and the codec kernels K2, K3, K4 and K9 as built from several
-source trees against each other on one card, in one process.
+SSD, bf16 x), the codec kernels K2, K3, K4 and K9 and K5's backward (bf16)
+as built from several source trees against each other on one card, in one
+process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
         [NAME=CSRC_DIR ...] [--rounds 3] [--only GROUP ...] [--out DIR]
@@ -8,18 +9,20 @@ source trees against each other on one card, in one process.
 Each ``NAME=CSRC_DIR`` is a copy of ``src/repro_torch/csrc`` (a parent
 commit's, from ``git archive``, or an edited variant); the checkout's own
 sources are always built as ``tree``.  Every tree's ``byteplanes.cu``,
-``scans.cu`` and ``ssm.cu`` compile together (nvcc, one process each);
-the lines give the registers and spills of ``scan_lookback``, of
-``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk = 64 and of the codec
-kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's ``unsplit_vec``,
-K4's ``decode_offsets``).  The C entry points are called directly, so a
+``scans.cu``, ``ssm.cu`` and ``attention_bwd.cu`` compile together (nvcc,
+one process each); the lines give the registers and spills of
+``scan_lookback``, of ``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk
+= 64, of the codec kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's
+``unsplit_vec``, K4's ``decode_offsets``) and of K5's backward launches at
+D = 64, and ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
+entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
 geometry; a tree whose source declares the entry without it, the first
 design's, is called without it); K1's workspace is zeroed and sized for slots of up to 32 bytes
 a tile.  A variant of a kernel (one bf16 piece per operand instead of
 two, a part taken out) is timed as an edited copy of the checkout's
 ``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8),
-``k1``, ``codec``; all by default.
+``k1``, ``codec``, ``bwd`` (K5's backward); all by default.
 
 K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
 inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
@@ -35,7 +38,13 @@ bit against the plain version; beside K2 and K4 each tree's launch floor
 (the same entry at (1, 16, 8) and (1, 8, 16)), and K2 and K4 once more
 with the L2 cache flushed before every launch (a 128 MB buffer written
 outside the timed events), as the write path's freshly uploaded pages
-find it.  Times are card times (CUDA events between launches queued
+find it.  K5's backward runs causal at smollm-360m's training shape
+``BWD_SHAPE`` on the output and rows' LSE of the checkout's K5 forward: a
+tree whose entry takes the LSE as an input (``const void* lse`` after
+``dout``) gets the forward's, an older one (the LSE a workspace after
+``dv``) recomputes it; each tree's gradients are printed as the largest
+share of the card's bf16 tolerance 1e-2 they use against
+``ref.flash_attention_bwd_ref`` in fp32.  Times are card times (CUDA events between launches queued
 behind a sleep kernel, median), the trees interleaved in ``--rounds``
 rounds whose order alternates.  The last line is one JSON object of every
 number.  Needs a CUDA card.
@@ -59,10 +68,14 @@ from repro_torch.kernels import _build, ref
 K7_SHAPE = (16, 64, 1000, 64, 64)  # (B, H, T, Dk, Dv)
 K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
+#: K5's backward: smollm-360m's training shape (B, H, G, S, D), causal
+BWD_SHAPE = (8, 15, 5, 1024, 64)
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
-                 "shuffle_reg", "shuffle_vec", "unsplit_vec", "decode_offsets")
+                 "shuffle_reg", "shuffle_vec", "unsplit_vec", "decode_offsets",
+                 "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64")
 #: which libraries each group of timings needs
-GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans")}
+GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
+              "bwd": ("attention_bwd",)}
 
 #: the codec kernels' timed shapes: K2's four on the write path (most
 #: launches first), K4's two and K3's most frequent on the read path, K9's
@@ -101,12 +114,12 @@ def card_ms(fn, reps: int = 20) -> float:
     return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
 
 
-def c_params(csrc, lib: str, fn: str) -> int:
-    """The number of parameters of ``fn``'s ``extern "C"`` definition in
-    the tree's ``lib.cu``."""
+def c_params(csrc, lib: str, fn: str) -> list:
+    """The parameters of ``fn``'s ``extern "C"`` definition in the tree's
+    ``lib.cu``."""
     src = (Path(csrc) / f"{lib}.cu").read_text()
     m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
-    return len(m.group(1).split(","))
+    return [a.strip() for a in m.group(1).split(",")]
 
 
 def build(trees: dict, out_dir: Path, lib_names) -> dict:
@@ -116,8 +129,9 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
     for tree, csrc in trees.items():
         for lib in lib_names:
             target = out_dir / f"lib{lib}_{tree}.so"
-            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-                   str(csrc), "-o", str(target), str(Path(csrc) / f"{lib}.cu")]
+            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *_build.EXTRA_FLAGS[lib],
+                   "-I", str(csrc), "-o", str(target),
+                   str(Path(csrc) / f"{lib}.cu")]
             procs[(tree, lib)] = (target, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     libs = {}
@@ -125,18 +139,22 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"nvcc {tree} {lib}.cu failed:\n{log.decode()[-4000:]}")
-        current = False
+        current = None
         for line in log.decode().splitlines():
             if "Compiling entry" in line:
-                current = any(k in line for k in PTXAS_KERNELS)
+                current = next((k for k in PTXAS_KERNELS if k in line), None)
+            elif "Performance Loss" in line:  # name the kernel, not its hash
+                fn = re.search(r"[A-Za-z_]+ILi\d+", line)
+                print(f"{tree} {fn.group(0) if fn else lib}: "
+                      f"{line.split(':', 1)[-1].split(' for the function')[0].strip()}")
             elif current and ("Used" in line or "spill" in line):
-                print(f"{tree} {lib}: {line.strip()}")
+                print(f"{tree} {current}: {line.split(':')[-1].strip()}")
         cdll = ctypes.CDLL(str(target))
         for fn, argtypes in _build.SIGNATURES[lib].items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
-        if lib == "scans" and c_params(trees[tree], lib,
-                                       "repro_decode_offset_pages") == 5:
+        if lib == "scans" and len(c_params(trees[tree], lib,
+                                           "repro_decode_offset_pages")) == 5:
             cdll.repro_decode_offset_pages.argtypes = K4_ARGS_BEFORE_CLUSTERS
         libs[(tree, lib)] = cdll
     return libs
@@ -238,6 +256,47 @@ def k1_calls(libs, trees, n, stream) -> dict:
             sys.exit(f"{tree}: K1 at ({n},) differs from torch.cumsum")
         calls[tree] = call
     return calls
+
+
+def bwd_calls(libs, trees, stream) -> tuple:
+    """({tree: call}, {tree: share of the bf16 tolerance}) of K5's backward
+    at ``BWD_SHAPE`` on the checkout's K5 forward output and LSE."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    b, h, g, s, d = BWD_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    q, do = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((b, g, s, d), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    out, lse = flash_attention_lse(q, k, v)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float())
+    delta, work = torch.empty_like(lse), torch.empty_like(lse)
+    calls, shares = {}, {}
+    for tree in trees:
+        f = libs[(tree, "attention_bwd")].repro_flash_attention_bwd
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        dq, dk, dv = (t.data_ptr() for t in grads)
+        if "const void* lse" in c_params(trees[tree], "attention_bwd",
+                                         "repro_flash_attention_bwd"):
+            # the forward's LSE, after dout
+            mid = (lse.data_ptr(), dq, dk, dv, delta.data_ptr())
+        else:  # an LSE workspace after dv
+            mid = (dq, dk, dv, work.data_ptr(), delta.data_ptr())
+
+        def call(f=f, mid=mid):
+            return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     do.data_ptr(), *mid, b, h, g, s, s, d, 1, 1, 0,
+                     d ** -0.5, stream)
+
+        if call() != 0:
+            sys.exit(f"{tree}: repro_flash_attention_bwd failed")
+        torch.cuda.synchronize()
+        shares[tree] = max(tol_share(a, w, 1e-2) for a, w in zip(grads, want))
+        calls[tree] = call
+    return calls, shares
 
 
 def cold_ms(fn, reps: int = 20) -> float:
@@ -407,6 +466,14 @@ def main(argv=None) -> int:
         result["codec"] = time_codec(libs, trees, args.rounds, stream)
     if "ssm" in args.only:
         time_ssm(libs, trees, args.rounds, stream, result)
+    if "bwd" in args.only:
+        calls, shares = bwd_calls(libs, trees, stream)
+        for tree, share in shares.items():
+            print(f"K5 bwd {tree}: share of the bf16 tolerance used {share:.4f}")
+        result["flash_attention_bwd"] = {
+            "shape": list(BWD_SHAPE), "tol_share": shares,
+            "ms": rounds(calls, args.rounds, "K5 bwd")}
+        del calls
     if "k1" in args.only:
         result["offsets_scan"] = {}
         for n in K1_SIZES:

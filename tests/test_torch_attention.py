@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
@@ -137,17 +138,22 @@ def test_kernel_argument_checks():
 # K5's bf16 numerics on the card, emulated tile by tile
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 #: the card's bf16 tolerance against the plain version in fp32 (chip_smoke
 #: ``ATTN_TOL``), as ``|got - want| <= tol (1 + |want|)``
 CARD_BF16_TOL = 1.6e-2
+#: the same for K5's bf16 backward (chip_smoke ``BWD_TOL``)
+CARD_BWD_TOL = 1e-2
 
 
-def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128):
+def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128,
+                       with_lse=False):
     """K5's bf16 kernel in plain PyTorch, one (query tile, kv tile) at a
     time: fp32 scores of the bf16 inputs, ``scale * log2(e)`` folded and
     ``exp2``, fp32 ``(m, l, acc)``, P rounded to bf16 per kv tile before
     ``P V``, the kv tiles a query tile cannot see skipped, a row that sees
-    no key 0, the output rounded to bf16."""
+    no key 0, the output rounded to bf16; with ``with_lse`` also the rows'
+    LSE it writes, ``(m + log2 l) ln 2`` (``-inf`` where ``l`` is 0)."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // g, dim=1)
@@ -155,6 +161,7 @@ def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128):
     qf = q.float()
     c = LOG2E / np.sqrt(d)
     out = torch.zeros(b, h, sq, d)
+    lse = torch.full((b, h, sq), float("-inf"))
     for q0 in range(0, sq, bq):
         rows = min(bq, sq - q0)
         qpos = torch.arange(q0, q0 + rows) + sk - sq
@@ -181,7 +188,10 @@ def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128):
         out[:, :, q0:q0 + rows] = torch.where(
             l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
             torch.zeros(()))
-    return out.bfloat16()
+        lse[:, :, q0:q0 + rows] = torch.where(
+            l > 0, (m + torch.log2(l.clamp_min(1e-30))) * LN2,
+            torch.tensor(float("-inf")))
+    return (out.bfloat16(), lse) if with_lse else out.bfloat16()
 
 
 @pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
@@ -205,6 +215,148 @@ def test_k5_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d, causal,
     want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal,
                                         window=window))
     assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
+
+
+def _pieces(x):
+    """x in two bf16 pieces: the rounding, and the rounding of the rest."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
+    """K5's bf16 backward (``bwd_dq_wgmma``, then ``bwd_dkv_wgmma``) in
+    plain PyTorch, one (query tile, kv tile) of 64 rows at a time in the
+    kernels' order: fp32 products of the bf16 values, ``P = exp2(S scale
+    log2(e) - LSE log2(e))`` from the forward's LSE, Delta from the stored
+    output, P and dS in two bf16 pieces as the A operand of the products
+    that accumulate dQ, dV and dK in fp32, the tiles a tile cannot see
+    skipped, the gradients rounded to bf16."""
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    hg, off = h // g, sk - sq
+    scale = 1.0 / np.sqrt(d)
+    c = LOG2E * scale
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    kx, vx = kf.repeat_interleave(hg, 1), vf.repeat_interleave(hg, 1)
+    l2 = torch.where(lse > float("-inf"), lse * LOG2E,
+                     torch.tensor(float("inf")))
+    delta = (dof * out.float()).sum(-1)
+
+    def p_ds(rows, cols, s, dp, lr, dr):  # s, dp (..., rows, cols)
+        qpos, kpos = rows[:, None] + off, cols[None, :]
+        ok = kpos < sk
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window:
+            ok = ok & (kpos > qpos - window)
+        p = torch.where(ok, torch.exp2(s * c - lr[..., None]), torch.zeros(()))
+        return p, p * (dp - dr[..., None])
+
+    dq = torch.zeros(b, h, sq, d)
+    for q0 in range(0, sq, t):  # launch A: a q tile over its kv tiles
+        rows = torch.arange(q0, min(q0 + t, sq))
+        k_end = min(sk, int(rows[-1]) + off + 1) if causal else sk
+        k_begin = max(0, q0 + off - window + 1) if window else 0
+        acc = torch.zeros(b, h, len(rows), d)
+        for k0 in range(k_begin // t * t, k_end, t):
+            cols = torch.arange(k0, min(k0 + t, sk))
+            s = qf[:, :, rows] @ kx[:, :, cols].transpose(-1, -2)
+            dp = dof[:, :, rows] @ vx[:, :, cols].transpose(-1, -2)
+            _p, ds = p_ds(rows, cols, s, dp, l2[:, :, rows], delta[:, :, rows])
+            for piece in _pieces(ds):
+                acc = acc + piece @ kx[:, :, cols]
+        dq[:, :, rows] = acc * scale
+    dk, dv = torch.zeros(b, g, sk, d), torch.zeros(b, g, sk, d)
+    qg, dog = (x.reshape(b, g, hg, sq, d) for x in (qf, dof))
+    lg, dg = (x.reshape(b, g, hg, sq) for x in (l2, delta))
+    for k0 in range(0, sk, t):  # launch B: a kv tile over heads, q tiles
+        cols = torch.arange(k0, min(k0 + t, sk))
+        i_begin = max(0, k0 - off) if causal else 0
+        i_end = min(sq, int(cols[-1]) + window - off) if window else sq
+        dka = torch.zeros(b, g, len(cols), d)
+        dva = torch.zeros(b, g, len(cols), d)
+        for hh in range(hg):
+            for i0 in range(i_begin, i_end, t):
+                rows = torch.arange(i0, min(i0 + t, sq))
+                qt, dot = qg[:, :, hh, rows], dog[:, :, hh, rows]
+                st = kf[:, :, cols] @ qt.transpose(-1, -2)  # S^T
+                dpt = vf[:, :, cols] @ dot.transpose(-1, -2)
+                p, ds = p_ds(rows, cols, st.transpose(-1, -2),
+                             dpt.transpose(-1, -2), lg[:, :, hh, rows],
+                             dg[:, :, hh, rows])
+                for piece in _pieces(p.transpose(-1, -2)):
+                    dva = dva + piece @ dot
+                for piece in _pieces(ds.transpose(-1, -2)):
+                    dka = dka + piece @ qt
+        dk[:, :, cols] = dka * scale
+        dv[:, :, cols] = dva
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+    (1, 6, 2, 130, 130, 64, True, None),   # GQA 3:1, a ragged third tile
+    (1, 4, 2, 100, 160, 64, True, 40),     # window, Sq < Sk
+    (2, 3, 1, 77, 200, 32, True, None),    # MQA, D=32, ragged Sq
+    (1, 4, 4, 90, 90, 80, True, None),     # D=80
+    (1, 2, 1, 60, 140, 80, False, None),   # non-causal, padded kv tile
+])
+def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
+                                                     causal, window):
+    """K5's bf16 backward route (P from the forward's LSE, P and dS in two
+    bf16 pieces, fp32 accumulation, a bf16 store) on the bf16 forward's
+    output and LSE stays within the card's backward tolerance, 1e-2 (1 +
+    |g|), of ``jax.vjp`` of the JAX oracle in fp32 on the same bf16
+    inputs."""
+    arrs = _inputs(7 * sq + sk + d, (b, h, sq, d), (b, g, sk, d),
+                   (b, g, sk, d), (b, h, sq, d))
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
+    out, lse = _k5_bf16_emulation(q, k, v, causal, window, with_lse=True)
+    np.testing.assert_allclose(
+        lse.numpy(), ref.flash_attention_lse_ref(q, k, causal=causal,
+                                                 window=window).numpy(),
+        atol=1e-5, rtol=1e-5)
+    got = _k5_bwd_bf16_emulation(q, k, v, out, lse, do, causal, window)
+    jq, jk, jv, jdo = (jnp.asarray(_np(t)) for t in (q, k, v, do))
+    _out, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(
+        a, b_, c, causal=causal, window=window), jq, jk, jv)
+    for name, a, w in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        a, w = _np(a), _np(w)
+        assert a.shape == w.shape, name
+        err = np.abs(a - w) - CARD_BWD_TOL * (1 + np.abs(w))
+        assert np.all(err <= 0), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,window", [
+    (1, 4, 2, 203, 130, 64, None),   # a q tile wholly empty, one in part
+    (1, 2, 1, 150, 40, 32, 16),      # window, Sq > Sk
+])
+def test_k5_bwd_bf16_numerics_zero_the_rows_that_see_no_key(b, h, g, sq, sk,
+                                                            d, window):
+    """Causal with Sq > Sk: the first Sq - Sk query rows see no key.  K5's
+    bf16 route writes their LSE -inf and output 0; its backward gives them
+    dq 0 and takes nothing from them into dk and dv, so its gradients
+    equal, within 1e-2 (1 + |g|), ``jax.vjp`` of the oracle over the other
+    rows alone (the oracle is NaN in an empty row)."""
+    e = sq - sk
+    arrs = _inputs(5 * sq + sk + d, (b, h, sq, d), (b, g, sk, d),
+                   (b, g, sk, d), (b, h, sq, d))
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
+    out, lse = _k5_bf16_emulation(q, k, v, True, window, with_lse=True)
+    assert bool(torch.isneginf(lse[:, :, :e]).all())
+    assert not bool(torch.isneginf(lse[:, :, e:]).any())
+    assert not bool(out[:, :, :e].any())
+    got = _k5_bwd_bf16_emulation(q, k, v, out, lse, do, True, window)
+    assert not bool(got[0][:, :, :e].any())
+    jq, jk, jv, jdo = (jnp.asarray(_np(t)) for t in (q[:, :, e:], k, v,
+                                                       do[:, :, e:]))
+    _out, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(
+        a, b_, c, causal=True, window=window), jq, jk, jv)
+    for name, a, w in zip(("dq", "dk", "dv"),
+                          (got[0][:, :, e:], *got[1:]), vjp(jdo)):
+        a, w = _np(a), _np(w)
+        assert a.shape == w.shape, name
+        err = np.abs(a - w) - CARD_BWD_TOL * (1 + np.abs(w))
+        assert np.all(err <= 0), (name, float(err.max()))
 
 
 # ---------------------------------------------------------------------------

@@ -596,6 +596,10 @@ def test_op_entries_on_the_card(card):
 #: relative) against the plain version in fp32 on the same bf16 inputs
 #: and output, within 1e-2
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+#: K5's LSE against ``ref.flash_attention_lse_ref`` (fp32 scores of the same
+#: values), as |got - want| <= tol (1 + |want|): the same sums in another
+#: order and ``exp2`` / ``log2`` in place of ``exp`` / ``log``
+LSE_TOL = 2e-5
 
 
 def _bwd_close(got, want, dtype):
@@ -604,41 +608,104 @@ def _bwd_close(got, want, dtype):
     assert bool((diff <= bound).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+BWD_CARD_CASES = [  # b, h, g, sq, sk, d, causal, window
     (2, 15, 5, 1024, 1024, 64, True, None),   # smollm-360m's training heads
     (1, 6, 2, 300, 300, 64, True, 33),        # window
     (2, 6, 2, 129, 1000, 64, True, None),     # ragged Sq
     (1, 4, 4, 77, 130, 32, False, None),      # non-causal, padded kv tile
     (1, 4, 1, 200, 200, 80, True, None),      # D=80, MQA
     (1, 4, 2, 150, 150, 128, True, 40),       # D=128 with a window
-])
+    (1, 4, 2, 203, 130, 64, True, None),      # Sq > Sk: 73 rows see no key
+]
+
+
+def _empty_rows(sq, sk, causal):
+    """How many first query rows see no key (row i sits at position i + Sk
+    - Sq; the causal mask shows it no key below position 0)."""
+    return max(0, sq - sk) if causal else 0
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", BWD_CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_on_the_card(card, b, h, g, sq, sk, d, causal,
+                                         window, dtype):
+    """K5's forward with its LSE: the output as without it, the LSE within
+    ``LSE_TOL`` of the plain version and -inf exactly where the plain
+    version's is (a row that sees no key)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_lse,
+    )
+
+    q, k, v = _attn_inputs(card, sq + sk + d + 2, dtype, (b, h, sq, d),
+                           (b, g, sk, d), (b, g, sk, d))
+    before = ops.launch_counts()["flash_attention"]
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    want = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
+    empty = torch.isneginf(want)
+    assert int(empty.sum()) == b * h * _empty_rows(sq, sk, causal)
+    assert torch.equal(torch.isneginf(lse), empty)
+    diff = (lse[~empty] - want[~empty]).abs()
+    assert bool((diff <= LSE_TOL * (1 + want[~empty].abs())).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", BWD_CARD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_on_the_card(card, b, h, g, sq, sk, d, causal,
                                          window, dtype):
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_lse,
+    )
 
     q, k, v, do = _attn_inputs(card, sq + sk + d + 1, dtype, (b, h, sq, d),
                                (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
-    out = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                  causal=causal, window=window).to(dtype)
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
     before = ops.launch_counts()["flash_attention_bwd"]
-    got = flash_attention_bwd(q, k, v, out, do, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                              window=window)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
-    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       out.float(), do.float(), causal=causal,
-                                       window=window)
-    for a, w, x in zip(got, want, (q, k, v)):
+    for a, x in zip(got, (q, k, v)):
         assert a.dtype == dtype and a.shape == x.shape
+    # a row that sees no key: dq 0, nothing to dk or dv; the plain version
+    # (NaN there) takes the other rows
+    e = _empty_rows(sq, sk, causal)
+    assert not bool(got[0][:, :, :e].any())
+    want = ref.flash_attention_bwd_ref(q[:, :, e:].float(), k.float(),
+                                       v.float(), out[:, :, e:].float(),
+                                       lse[:, :, e:], do[:, :, e:].float(),
+                                       causal=causal, window=window)
+    for a, w in zip((got[0][:, :, e:], *got[1:]), want):
         _bwd_close(a, w, dtype)
+
+
+def test_flash_attention_bwd_is_deterministic_on_the_card(card):
+    """Two launches, no atomics: the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_lse,
+    )
+
+    q, k, v, do = _attn_inputs(card, 11, torch.bfloat16, (2, 15, 1024, 64),
+                               (2, 5, 1024, 64), (2, 5, 1024, 64),
+                               (2, 15, 1024, 64))
+    out, lse = flash_attention_lse(q, k, v)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bwd_refuses_d256_on_the_card(card):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     q = torch.zeros((1, 1, 4, 256), device=card)
+    lse = torch.zeros((1, 1, 4), device=card)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q, q, q, q, q)
+        flash_attention_bwd(q, q, q, q, lse, q)
 
 
 def test_kernels_without_backward_refuse_grad_on_the_card(card):
@@ -676,7 +743,8 @@ def test_flash_attention_autograd_on_the_card(card):
     assert counts["flash_attention"] == before["flash_attention"] + 1
     assert counts["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     want = ref.flash_attention_bwd_ref(
-        q, k, v, ref.flash_attention_ref(q, k, v, window=50), do, window=50)
+        q, k, v, ref.flash_attention_ref(q, k, v, window=50),
+        ref.flash_attention_lse_ref(q, k, window=50), do, window=50)
     for t, w in zip(leaves, want):
         _bwd_close(t.grad, w, torch.float32)
 

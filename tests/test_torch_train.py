@@ -1,10 +1,14 @@
 """The port's training pieces against the JAX package's, on the CPU.
 
-* K5's backward: ``ref.flash_attention_bwd_ref`` (the gradients written
-  out) against ``jax.vjp`` of ``repro.kernels.ref.flash_attention_ref`` in
-  fp32, within 1e-5 (absolute and relative: the same sums in another
-  order); the autograd Function around K5 against autograd through the
-  plain forward (1e-5);
+* K5's LSE and backward: ``ref.flash_attention_lse_ref`` (the rows'
+  log-sum-exp K5's forward hands to its backward) against
+  ``jax.scipy.special.logsumexp`` of the oracle's masked, scaled scores,
+  ``-inf`` for a row that sees no key; ``ref.flash_attention_bwd_ref`` (the
+  gradients written out, P from that LSE) against ``jax.vjp`` of
+  ``repro.kernels.ref.flash_attention_ref`` in fp32, within 1e-5
+  (absolute and relative: the same sums in another order); the autograd
+  Function around K5 against autograd through the plain forward (1e-5),
+  and the LSE it saves only under a recorded graph;
 * a model's gradients: ``loss.backward()`` through ``forward`` reaches
   K5's Function and gives every parameter the gradient of the plain
   attention (1e-5 relative to the largest gradient of each tensor);
@@ -27,6 +31,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.special as jsp
 import numpy as np
 import pytest
 import torch
@@ -41,6 +46,7 @@ from repro.train import make_train_step as j_make_train_step
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import build
 from repro_torch.models import attention as TA
@@ -80,6 +86,46 @@ def _bwd_inputs(case, seed):
             ((b, h, sq, d), (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))]
 
 
+#: cases with rows that see no key: Sq > Sk under the causal mask (rows
+#: before the first key), and a window
+EMPTY_ROW_CASES = [
+    (1, 4, 2, 12, 8, 16, True, None),
+    (2, 2, 1, 20, 9, 8, True, 3),
+]
+
+
+def _jax_scores(q, k, causal, window):
+    """The oracle's masked, scaled scores (``-inf`` where masked), as
+    ``repro.kernels.ref.flash_attention_ref`` forms them."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    kk = jnp.repeat(jnp.asarray(k), h // k.shape[1], axis=1)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q) / np.sqrt(d), kk)
+    q_pos = jnp.arange(sq)[:, None] + (sk - sq)
+    k_pos = jnp.arange(sk)[None, :]
+    mask = jnp.ones((sq, sk), dtype=bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return jnp.where(mask, logits, -jnp.inf)
+
+
+@pytest.mark.parametrize("case", BWD_CASES + EMPTY_ROW_CASES)
+def test_lse_ref_matches_jax_logsumexp(case):
+    causal, window = case[6], case[7]
+    q, k, _v, _do = _bwd_inputs(case, 3 + sum(case[:6]))
+    want = np.asarray(jsp.logsumexp(_jax_scores(q, k, causal, window),
+                                    axis=-1))
+    got = ref.flash_attention_lse_ref(_t(q), _t(k), causal=causal,
+                                      window=window).numpy()
+    assert got.dtype == np.float32 and got.shape == q.shape[:3]
+    empty = np.isneginf(want)
+    assert empty.any() == (case in EMPTY_ROW_CASES)
+    np.testing.assert_array_equal(np.isneginf(got), empty)
+    np.testing.assert_allclose(got[~empty], want[~empty], atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_bwd_ref_matches_jax_vjp_of_the_oracle(case):
     causal, window = case[6], case[7]
@@ -87,8 +133,11 @@ def test_bwd_ref_matches_jax_vjp_of_the_oracle(case):
     out, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(
         a, b_, c, causal=causal, window=window), q, k, v)
     want = vjp(jnp.asarray(do))
+    lse = ref.flash_attention_lse_ref(_t(q), _t(k), causal=causal,
+                                      window=window)
     got = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), _t(np.asarray(out)),
-                                      _t(do), causal=causal, window=window)
+                                      lse, _t(do), causal=causal,
+                                      window=window)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=TOL,
                                    rtol=TOL, err_msg=name)
@@ -120,6 +169,38 @@ def test_no_grad_call_skips_the_function():
     with torch.no_grad():
         y = flash_attention(q, k, v)
     assert y.grad_fn is None
+
+
+def test_function_saves_the_lse_only_under_a_recorded_graph(monkeypatch):
+    """K5's forward forms the rows' LSE (on the CPU: the plain
+    ``flash_attention_lse_ref``) and saves it with q, k, v and the output
+    when a graph is recorded; under ``no_grad``, or when no input requires
+    grad, it forms none (the serve path's prefill)."""
+    calls = []
+    plain = ref.flash_attention_lse_ref
+    monkeypatch.setattr(ref, "flash_attention_lse_ref",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    q, k, v = (torch.from_numpy(a) for a in _bwd_inputs(BWD_CASES[0], 5)[:3])
+    with torch.no_grad():
+        flash_attention(q.requires_grad_(), k, v)
+    q.requires_grad_(False)
+    assert flash_attention(q, k, v).grad_fn is None
+    assert calls == []
+    y = flash_attention(q, k.requires_grad_(), v, window=9)
+    assert calls == [1]
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 5
+    for a, w in zip(saved, (q, k, v, y)):
+        assert torch.equal(a, w)
+    torch.testing.assert_close(saved[4], plain(q, k, window=9), rtol=0, atol=0)
+
+
+def test_bwd_refuses_a_missing_or_misshapen_lse():
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(BWD_CASES[0], 6))
+    lse = ref.flash_attention_lse_ref(q, k)
+    for bad in (None, lse[:, :, :-1], lse.double(), lse[..., None]):
+        with pytest.raises(ValueError, match="lse"):
+            FA.flash_attention_bwd(q, k, v, q, bad, do)
 
 
 def test_refuse_grad_raises_only_when_a_gradient_is_asked_for():
