@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
    ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
-   of K2's register form, of K4's cluster kernel, of the chunked
-   routes of K7 and K8 and of K5's backward;
+   of K2's and K3's register forms, of K4's cluster kernel, of the chunked
+   routes of K7 and K8 and of K5's backward (head dims 32 to 256);
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
    (K1 up to 2^24 values; K2 at the write path's four page shapes in
@@ -91,8 +91,9 @@ Phases, in order; any failure exits non-zero:
    and LSE against their plain versions in fp32
    (within 2e-5) and bf16 (within 1e-2, against the plain version in
    fp32 from the same bf16 inputs), each as ``|got - want| <= tol (1 +
-   |want|)``, at the training shape (8, 15, 5, 1024, 1024, 64), with a
-   window, at a ragged Sq and at head dims 32, 80 and 128; then
+   |want|)``, at the training shapes (8, 15, 5, 1024, 1024, 64) and (8,
+   8, 1, 1024, 1024, 256), with a window, at a ragged Sq and at head dims
+   32, 80, 128 and 256 (ragged and windowed); then
    smollm-360m at its full width and depth (fp32 parameters, bf16
    compute, remat) from ``--seed`` trained 6 AdamW steps
    (``make_optimizer(peak_lr=3e-4, warmup=1, total=20)``) on the device
@@ -103,9 +104,15 @@ Phases, in order; any failure exits non-zero:
    loader's read), and no other kernel; every loss finite and the last
    below the first; step ms (the metric: the 6 steps' total / 6),
    tokens/s, peak memory, and one more step under torch.profiler (card
-   busy ms, against the unprofiled mean step; kernel time by name); K5's
-   backward timed at the training shape in bf16 beside its bound, its
-   plain version and SDPA's backward, each of its two launches from a
+   busy ms, against the unprofiled mean step; kernel time by name); then,
+   smollm freed, gemma-2b at its full width and depth (18 layers, 8 query
+   heads over 1 kv head of 256, vocab 256,000) on the same loader at the
+   largest batch of 8, 4, 2, 1 that fits: one untimed and 5 timed AdamW
+   steps, K5 exactly 36 and its backward 18 times a step at gemma's
+   shape, losses finite and falling, step ms, tokens/s, peak memory and a
+   profiled step's busy share; K5's backward timed at both training
+   shapes in bf16 beside its bound, its plain version and SDPA's backward
+   (the backend it ran), each of its two launches and SDPA's from a
    trace, and K5's forward there with and without its LSE beside SDPA's
    forward; one JSON ``kernels`` line of the
    ten kernels and K5's backward (K1's, K5's, K6's and K8's rows name the
@@ -182,7 +189,11 @@ KERNEL_DESIGN = {
                                         "wgmma + TMA, a consumer warpgroup "
                                         "and a producer warp a block, P from "
                                         "the forward's LSE, P and dS in two "
-                                        "bf16 pieces",
+                                        "bf16 pieces; at D = 256 dK/dV in "
+                                        "two consumer warpgroups by column "
+                                        "halves, a group's heads over two "
+                                        "blocks and a third launch adding "
+                                        "their fp32 sums",
                             "float32": "two launches, simt fp32, P from the "
                                        "forward's LSE"},
     "decode_attention": {"bfloat16": "cp.async ring",
@@ -447,8 +458,8 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 #: the kernels whose registers and spills phase 1 prints (name fragments
 #: of their mangled names)
 PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
-                 "wkv_chunked", "shuffle_reg", "decode_offsets_cluster",
-                 "bwd_dq", "bwd_dkv")
+                 "wkv_chunked", "shuffle_reg", "unsplit_reg",
+                 "decode_offsets_cluster", "bwd_dq", "bwd_dkv")
 
 
 def ptxas_report(path) -> list:
@@ -1677,14 +1688,24 @@ LSE_TOL = 2e-5
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 8, 1024
 #: the train path's corpus (documents of ``synth_corpus``) and AdamW steps
 TRAIN_DOCS, TRAIN_STEPS = 8000, 6
+#: the second train path: gemma-2b at full width and depth (18 layers,
+#: d_model 2048, 8 query heads over 1 kv head of 256, GeGLU, vocab
+#: 256,000, tied and scaled embeddings) on the same corpus (its token ids
+#: lie below 49,152) and loader, at the largest batch of ``GEMMA_BATCHES``
+#: that fits the card: one untimed step, then ``GEMMA_STEPS`` timed
+GEMMA_ARCH, GEMMA_BATCHES, GEMMA_STEPS = "gemma-2b", (8, 4, 2, 1), 5
+#: K5's backward's timed shapes (b, h, g, sq, sk, d): smollm-360m's and
+#: gemma-2b's training heads, causal
+BWD_TIMED = {TRAIN_ARCH: (TRAIN_BATCH, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64),
+             GEMMA_ARCH: (8, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256)}
 
 
 def bwd_cases():
     """K5 backward cases (b, h, g, sq, sk, d, causal, window): the
-    training shape, a window, a ragged Sq, the other built head dims (32
-    non-causal with a padded kv tile, 80 MQA, 128 windowed), and Sq > Sk
-    under the causal mask, whose first Sq - Sk rows see no key (a q tile
-    of them wholly)."""
+    training shapes, a window, a ragged Sq, the other built head dims (32
+    non-causal with a padded kv tile, 80 MQA, 128 windowed, 256 ragged and
+    windowed), and Sq > Sk under the causal mask, whose first Sq - Sk rows
+    see no key (a q tile of them wholly)."""
     return [
         (8, 15, 5, 1024, 1024, 64, True, None),    # smollm-360m training
         (2, 15, 5, 1024, 1024, 64, True, 256),     # window
@@ -1693,6 +1714,8 @@ def bwd_cases():
         (1, 4, 1, 200, 200, 80, True, None),
         (1, 4, 2, 150, 150, 128, True, 40),
         (1, 4, 2, 203, 130, 64, True, None),       # 73 rows see no key
+        (8, 8, 1, 1024, 1024, 256, True, None),    # gemma-2b training
+        (1, 8, 1, 300, 517, 256, True, 100),       # D=256 ragged, window
     ]
 
 
@@ -1780,8 +1803,9 @@ def check_attention_bwd(torch) -> dict:
     return worst
 
 
-#: K5's backward's two launches, as their names appear in a trace
-BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma")
+#: K5's backward's launches, as their names appear in a trace: dQ and
+#: dK/dV, and at head dim 256 the sum of the two head halves' dK and dV
+BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dkv_sum")
 
 
 def attention_bwd_bound(shape, itemsize: int):
@@ -1798,13 +1822,13 @@ def attention_bwd_bound(shape, itemsize: int):
     return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
 
 
-def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
-    """K5's backward at the training shape in bf16: card time (and each of
-    its two launches' from a trace), plain version, SDPA's backward
-    (``torch.autograd.grad`` through ``scaled_dot_product_attention(
-    is_causal=True, enable_gqa=True)`` on a kept graph), bound; K5's
-    forward there with and without its LSE, and SDPA's forward; -> its
-    ``kernels`` row."""
+def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
+    """K5's backward at ``arch``'s training shape (``BWD_TIMED``) in bf16:
+    card time (and each of its two launches' from a trace), plain version,
+    SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on a
+    kept graph, with the backend it ran), bound; K5's forward there with
+    and without its LSE, and SDPA's forward; -> its ``kernels`` row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1814,7 +1838,7 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
-    shape = (TRAIN_BATCH, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64)
+    shape = BWD_TIMED[arch]
     b, h, g, sq, sk, d = shape
     q, k, v, do = _attention_inputs(torch, gen, torch.bfloat16, (b, h, sq, d),
                                     (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
@@ -1826,6 +1850,7 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
                                               enable_gqa=True)
     lib = lambda _: torch.autograd.grad(sdpa_out, leaves, do,
                                         retain_graph=True)
+    backend = type(sdpa_out.grad_fn).__name__  # the SDPA route it ran
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        out.float(), lse, do.float())
     got = kern(None)
@@ -1845,16 +1870,21 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
         timed[key + "call_ms"] = c_ms
         timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
     reps = 10
-    _busy, by_name = trace_card(
-        torch, f"flash_attention_bwd_{reps}_calls",
-        lambda: [kern(None) for _ in range(reps)], None, top=0)
     by_launch = {}  # card ms a launch (a trace may miss the first launch)
-    for n in BWD_LAUNCHES:
-        hits = [tc for key, tc in by_name.items() if n in key]
-        if not hits:
-            fail(f"the trace of {reps} calls holds no launch of {n}")
-        by_launch[n] = (sum(t for t, _ in hits) / sum(c for _, c in hits)
-                        / 1e3)
+    for what, fn in (("", kern), ("sdpa ", lib)):
+        _busy, by_name = trace_card(
+            torch, f"flash_attention_bwd_{reps}_calls",
+            lambda: [fn(None) for _ in range(reps)], None, top=0)
+        if what:  # every kernel of SDPA's backward, by name
+            by_launch["sdpa"] = {key[:80]: t / c / 1e3 for key, (t, c) in
+                                 by_name.items()}
+            continue
+        for n in BWD_LAUNCHES[:2 if d < 256 else 3]:
+            hits = [tc for key, tc in by_name.items() if n in key]
+            if not hits:
+                fail(f"the trace of {reps} calls holds no launch of {n}")
+            by_launch[n] = (sum(t for t, _ in hits) / sum(c for _, c in hits)
+                            / 1e3)
     plain_ms = events_ms(torch, plain)
     b_ms, b_by, nbytes = attention_bwd_bound(shape, 2)
     source, replaces = KERNEL_INFO["flash_attention_bwd"]
@@ -1863,9 +1893,11 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
         f"backward {timed['library_ms']:.5f} ms); per call with host "
         f"overhead {timed['call_ms']:.5f} ms (SDPA {timed['library_call_ms']:.5f}"
         f" ms); max abs err {err:.3e} (SDPA {lib_err:.3e}) against the fp32 "
-        "plain version")
+        f"plain version; SDPA ran {backend}")
     log("flash_attention_bwd launches (trace, ms a launch): " + ", ".join(
-        f"{n} {ms:.5f}" for n, ms in by_launch.items()))
+        f"{n} {ms:.5f}" for n, ms in by_launch.items() if n != "sdpa")
+        + "; SDPA's: " + ", ".join(f"{n} {ms:.5f}" for n, ms in
+                                   by_launch["sdpa"].items()))
     log(f"flash_attention at {shape} bf16 (the training shape): card "
         f"{timed['fwd_ms']:.5f} ms without its LSE, {timed['fwd_lse_ms']:.5f}"
         f" ms with it; SDPA forward {timed['library_fwd_ms']:.5f} ms")
@@ -1878,13 +1910,14 @@ def time_attention_bwd(torch, launches: int, worst: dict) -> dict:
             "library_ms": timed["library_ms"],
             "library": "torch.autograd.grad through torch.nn.functional."
                        "scaled_dot_product_attention",
+            "library_backend": backend,
             "launch_ms": by_launch,
             "forward_ms": {"no_lse": timed["fwd_ms"],
                            "lse": timed["fwd_lse_ms"],
                            "library": timed["library_fwd_ms"]},
             "design": KERNEL_DESIGN["flash_attention_bwd"]["bfloat16"],
             "design_by_dtype": KERNEL_DESIGN["flash_attention_bwd"],
-            "path": f"train {TRAIN_ARCH}",
+            "path": f"train {arch}",
             "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
             "call_ms": timed["call_ms"],
             "library_call_ms": timed["library_call_ms"],
@@ -1949,10 +1982,120 @@ def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
     return n_batches, loader_s, counts
 
 
+def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
+    """gemma-2b at full width and depth (fp32 parameters, bf16 compute,
+    remat), from ``--seed``, on the device loader's (B, 1024) batches of
+    the ingested corpus: B the largest of ``GEMMA_BATCHES`` whose steps
+    fit the card (a batch that runs out of memory is dropped, the state
+    made anew); one untimed step and ``GEMMA_STEPS`` timed AdamW
+    steps, counted from the first; then one more step under the profiler.
+    -> (batch, launch counts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.pipeline import PackedLoader
+    from repro_torch.train import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = get_arch(GEMMA_ARCH)
+    bundle = build(cfg)
+    opt = make_optimizer(peak_lr=3e-4, warmup=1, total=20)
+    step = make_train_step(bundle, optimizer=opt)
+    too_big = []
+    for batch in GEMMA_BATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = list(init_train_state(bundle, seed=args.seed, device="cuda",
+                                      optimizer=opt))
+        ops.reset_launch_counts()
+        loader = PackedLoader(path, batch, TRAIN_SEQ, device="cuda")
+        batches = loader.batches()
+        losses, step_ms = [], []
+        before = torch.cuda.memory_stats()
+        try:
+            for _ in range(1 + GEMMA_STEPS):
+                t0 = time.perf_counter()
+                state[0], state[1], state[2], m = step(*state, next(batches))
+                losses.append(float(m["loss"]))  # syncs
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        except torch.cuda.OutOfMemoryError as e:
+            too_big.append(batch)
+            log(f"train {cfg.name}: batch ({batch}, {TRAIN_SEQ}) does not fit "
+                f"the card: {str(e).splitlines()[0]}")
+            loader.close()
+            del state, batches, loader, e
+            continue
+        break
+    else:
+        fail(f"{cfg.name} does not train on the card at any batch of "
+             f"{GEMMA_BATCHES}")
+    counts = ops.launch_counts()
+    shapes = ops.launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_stats()
+    alloc = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "num_alloc_retries", "num_device_alloc", "num_device_free")}
+    steps = 1 + GEMMA_STEPS
+    n_attn = steps * cfg.n_layers
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(flash_attention=2 * n_attn, flash_attention_bwd=n_attn)
+    log(f"launches on the {cfg.name} train path: {json.dumps(counts)}")
+    for name in ops.KERNELS:
+        if name in ("decode_offset_pages", "unsplit_pages"):
+            if counts[name] < 1:
+                fail(f"{name} not launched by the {cfg.name} train loader")
+        elif counts[name] != want[name]:
+            fail(f"{name} launched {counts[name]} times on the {cfg.name} "
+                 f"train path, expected {want[name]}")
+    k5_shape = (batch, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                cfg.resolved_head_dim)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if set(shapes[name]) != {k5_shape}:
+            fail(f"{name} ran at {dict(shapes[name])} on the {cfg.name} "
+                 f"train path, expected {k5_shape}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{cfg.name} train losses {losses}: not finite, or the last "
+             "not below the first")
+    tokens = batch * TRAIN_SEQ
+    mean_ms = sum(step_ms[1:]) / GEMMA_STEPS  # the timed steps
+    log(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count():,} parameters, "
+        f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute, remat "
+        f"{cfg.remat}; 1 untimed and {GEMMA_STEPS} timed AdamW steps on "
+        f"({batch}, {TRAIN_SEQ}) device-loader batches"
+        + (f" (batches {too_big} did not fit)" if too_big else ""))
+    log(f"{cfg.name} train losses: {json.dumps(losses)}")
+    log(f"{cfg.name} train step ms: {json.dumps(step_ms)} (the first "
+        f"untimed); total over {GEMMA_STEPS} timed steps / {GEMMA_STEPS} = "
+        f"{mean_ms:.3f} ms = {tokens / mean_ms * 1e3:.1f} tokens/s; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; the allocator over "
+        f"those steps: {json.dumps(alloc)}")
+    b_next = next(batches)
+
+    def one_step():
+        state[:3] = step(*state, b_next)[:3]
+
+    busy_ms, _ = trace_card(torch, "train_step_gemma", one_step, out_dir,
+                            top=30)
+    log(f"{cfg.name} train step: card busy {busy_ms:.3f} ms (profiled step) "
+        f"against the unprofiled mean step {mean_ms:.3f} ms = "
+        f"{100 * busy_ms / mean_ms:.3f} % busy, "
+        f"{100 - 100 * busy_ms / mean_ms:.3f} % idle")
+    loader.close()
+    del state, b_next, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return batch, counts
+
+
 def train_path(np, torch, ops, args):
-    """Phase 7; -> (the ``kernels`` row of K5's backward, the launch counts
-    of the train path's counted run, the worst K5 errors by (kernel,
-    dtype) at the backward's shapes)."""
+    """Phase 7; -> (the ``kernels`` row of K5's backward, {arch: the launch
+    counts of its train run}, the worst K5 errors by (kernel, dtype) at the
+    backward's shapes)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build
     from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
@@ -2073,9 +2216,24 @@ def train_path(np, torch, ops, args):
     del params, opt_state, err, state
     gc.collect()
     torch.cuda.empty_cache()
+    g_batch, g_counts = train_gemma(np, torch, ops, args, path,
+                                    args.profile or tmp)
     shutil.rmtree(tmp)
-    return (time_attention_bwd(torch, counts["flash_attention_bwd"], worst),
-            counts, worst)
+    by_path = {TRAIN_ARCH: counts, GEMMA_ARCH: g_counts}
+    row = time_attention_bwd(torch, TRAIN_ARCH, counts["flash_attention_bwd"],
+                             worst)
+    at_g = time_attention_bwd(torch, GEMMA_ARCH,
+                              g_counts["flash_attention_bwd"], worst)
+    row["launches_by_path"] = {f"train {a}": c["flash_attention_bwd"]
+                               for a, c in by_path.items()}
+    row["launches"] = sum(row["launches_by_path"].values())
+    row[f"at_{GEMMA_ARCH}"] = {k: at_g[k] for k in (
+        "launches", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_backend", "max_abs_err", "launch_ms",
+        "forward_ms", "bytes", "call_ms", "library_call_ms",
+        "library_max_abs_err")}
+    row[f"at_{GEMMA_ARCH}"]["train_batch"] = g_batch
+    return row, by_path, worst
 
 # ---------------------------------------------------------------------------
 
@@ -2097,6 +2255,12 @@ def main() -> int:
                          "go to DIR")
     args = ap.parse_args()
 
+    # gemma-2b's AdamW step holds its old and new fp32 state (60 GB) beside
+    # the gradients: in the caching allocator's fixed segments 9-12 GiB
+    # stayed reserved but unusable at that peak and no batch above 2 fit;
+    # growable segments leave no such holes (read when the card is first
+    # used)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -2324,11 +2488,14 @@ def main() -> int:
 
     # -- phase 7: the train path ---------------------------------------------
     bwd_row, t_counts, t_worst = train_path(np, torch, ops, args)
-    for row in rows:  # K5's forward runs on the train path too
+    for row in rows:  # K5's forward runs on the train paths too
         if row["name"] == "flash_attention":
-            row["launches_by_path"][f"train {TRAIN_ARCH}"] = (
-                t_counts["flash_attention"])
+            for arch, c in t_counts.items():
+                row["launches_by_path"][f"train {arch}"] = c["flash_attention"]
             row["launches"] = sum(row["launches_by_path"].values())
+            row[f"at_{GEMMA_ARCH}_train"] = {
+                "shape": bwd_row[f"at_{GEMMA_ARCH}"]["shape"],
+                **bwd_row[f"at_{GEMMA_ARCH}"]["forward_ms"]}
             for key, dname in (("max_abs_err_fp32_checks", "float32"),
                                ("max_abs_err_bf16_checks", "bfloat16")):
                 row[key] = max(row[key], t_worst["flash_attention", dname])

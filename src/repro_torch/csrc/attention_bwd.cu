@@ -48,22 +48,28 @@
 //    the tile the MN-major B operand).  The gradients then carry only their
 //    own bf16 rounding.  Masks apply only to the tiles that straddle the
 //    diagonal, the window edge or Sk.  D = 80 runs a 64-wide and a 16-wide
-//    column block, as the forward does.
+//    column block, as the forward does.  At D = 256 the ring has two
+//    stages (64 KB each), dQ takes one block an SM (its 128 accumulators
+//    beside S and dP), and dK/dV is bwd_dkv_wgmma2: two consumer
+//    warpgroups own a 128-column half of dK and dV each and share S^T and
+//    dP^T through shared memory, and an even group's heads split over two
+//    blocks a kv tile whose fp32 sums a third launch, bwd_dkv_sum, adds
+//    (see there).
 //  - fp32: bwd_dq / bwd_dkv, fp32 FMAs on the CUDA cores (a tensor-core
 //    route would be TF32, too coarse for the fp32 tolerance).  A block of
 //    256 threads is a 16 x 16 grid, each thread owning a 4 x 4 piece of a
 //    64 x 64 score tile (rows ty + 16 r, columns tx + 16 c) or 4 rows x
 //    D / 16 columns of an output tile; tiles sit in shared memory as fp32
 //    rows with an odd pitch (D + 1), so the 16 lanes that read 16 rows
-//    hit 16 banks.
+//    hit 16 banks.  At D = 256 the tiles are 32 rows (2 x 2 pieces), so
+//    that the four [32][257] tiles fit (136 KB).
 //
 // Bound on the card at the training shape: operations (five products of
 // 2 D FLOP per visible (query, key) pair, 989 TFLOP/s on the bf16 tensor
 // cores); the bf16 route runs ten (the second pieces, S again in B).  Of
 // the forms timed (PERF.md §6), two one-warpgroup blocks an SM beat one
-// block of two warpgroups that share each stage.  Head
-// dims 32, 64, 80 and 128 (D = 256 does not fit the fp32 route's four tiles
-// in shared memory).  A query row that sees no key gets zero gradients
+// block of two warpgroups that share each stage.  Head dims 32, 64, 80,
+// 128 and 256.  A query row that sees no key gets zero gradients
 // (the plain version gives NaN there, as the forward's does).  The launcher
 // returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when a
 // tensor map cannot be made.
@@ -80,10 +86,13 @@ namespace {
 
 using namespace repro;  // hopper.cuh: mbarriers, TMA, wgmma, tensor maps
 
-constexpr int BT = 64;           // rows of every tile: q rows, kv rows
 constexpr int NT = 256;          // threads: a 16 x 16 grid
-constexpr int SP = BT + 1;       // pitch of a score tile in shared memory
 constexpr unsigned FULL = 0xffffffffu;
+
+// rows of every fp32 tile (q rows, kv rows): 64, or 32 at D = 256, where
+// four [64][257] fp32 tiles (263 KB) would not fit in shared memory
+template <int D>
+__host__ __device__ constexpr int fp_bt() { return D <= 128 ? 64 : 32; }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int causal,
                                         int window) {
@@ -93,7 +102,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int causal,
 
 // rows [r0, r0 + BT) of a (n, D) matrix -> shared [BT][D + 1], zeros past
 // row n
-template <int D>
+template <int D, int BT>
 __device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g,
                                           int r0, int n) {
   for (int i = threadIdx.x; i < BT * D; i += NT) {
@@ -102,65 +111,69 @@ __device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g,
   }
 }
 
-// acc[r][c] += sum_d A[ty + 16 r][d] B[tx + 16 c][d]   (A B^T, 64 x 64)
-template <int D>
-__device__ __forceinline__ void mm_abt(float (&acc)[4][4], const float* A,
+// acc[r][c] += sum_d A[ty + 16 r][d] B[tx + 16 c][d]   (A B^T, BT x BT;
+// R = BT / 16 rows and columns a thread)
+template <int D, int R>
+__device__ __forceinline__ void mm_abt(float (&acc)[R][R], const float* A,
                                        const float* B, int ty, int tx) {
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty + 16 * r) * (D + 1) + d];
+    for (int r = 0; r < R; ++r) a[r] = A[(ty + 16 * r) * (D + 1) + d];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = B[(tx + 16 * c) * (D + 1) + d];
+    for (int c = 0; c < R; ++c) b[c] = B[(tx + 16 * c) * (D + 1) + d];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+      for (int c = 0; c < R; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
   }
 }
 
-// acc[r][c] += sum_j S[ty + 16 r][j] X[j][tx + 16 c]   (S X, 64 x D)
-template <int D>
-__device__ __forceinline__ void mm_ab(float (&acc)[4][D / 16], const float* S,
+// acc[r][c] += sum_j S[ty + 16 r][j] X[j][tx + 16 c]   (S X, BT x D)
+template <int D, int R>
+__device__ __forceinline__ void mm_ab(float (&acc)[R][D / 16], const float* S,
                                       const float* X, int ty, int tx) {
+  constexpr int BT = 16 * R, SP = BT + 1;
 #pragma unroll 4
   for (int j = 0; j < BT; ++j) {
-    float s[4], x[D / 16];
+    float s[R], x[D / 16];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) s[r] = S[(ty + 16 * r) * SP + j];
+    for (int r = 0; r < R; ++r) s[r] = S[(ty + 16 * r) * SP + j];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) x[c] = X[j * (D + 1) + tx + 16 * c];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(s[r], x[c], acc[r][c]);
   }
 }
 
-// acc[r][c] += sum_i S[i][ty + 16 r] X[i][tx + 16 c]   (S^T X, 64 x D)
-template <int D>
-__device__ __forceinline__ void mm_atb(float (&acc)[4][D / 16], const float* S,
+// acc[r][c] += sum_i S[i][ty + 16 r] X[i][tx + 16 c]   (S^T X, BT x D)
+template <int D, int R>
+__device__ __forceinline__ void mm_atb(float (&acc)[R][D / 16], const float* S,
                                        const float* X, int ty, int tx) {
+  constexpr int BT = 16 * R, SP = BT + 1;
 #pragma unroll 4
   for (int i = 0; i < BT; ++i) {
-    float s[4], x[D / 16];
+    float s[R], x[D / 16];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) s[r] = S[i * SP + ty + 16 * r];
+    for (int r = 0; r < R; ++r) s[r] = S[i * SP + ty + 16 * r];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) x[c] = X[i * (D + 1) + tx + 16 * c];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(s[r], x[c], acc[r][c]);
   }
 }
 
 // shared memory of either fp32 kernel: four [BT][D + 1] tiles, one
-// [BT][BT + 1] score tile and two rows of BT statistics
+// [BT][BT + 1] score tile and two rows of BT statistics (D = 256: 136 KB)
 template <int D>
 constexpr size_t bwd_smem() {
-  return sizeof(float) * (4 * BT * (D + 1) + BT * SP + 2 * BT);
+  constexpr int BT = fp_bt<D>();
+  return sizeof(float) * (4 * BT * (D + 1) + BT * (BT + 1) + 2 * BT);
 }
 
 // ---------------------------------------------------------------------------
@@ -173,7 +186,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ dout, const float* __restrict__ lse,
        float* __restrict__ dq, float* __restrict__ delta_out, int H, int G,
        int sq, int sk, int causal, int window, float scale) {
-  constexpr int P = D + 1;
+  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BT * P;
@@ -191,9 +204,9 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + ((size_t)b * G + g) * sk * D;
   const float* vb = v + ((size_t)b * G + g) * sk * D;
 
-  load_tile<D>(Qs, q + bh * sq * D, q0, sq);
-  load_tile<D>(dOs, dout + bh * sq * D, q0, sq);
-  load_tile<D>(Ks, o + bh * sq * D, q0, sq);
+  load_tile<D, BT>(Qs, q + bh * sq * D, q0, sq);
+  load_tile<D, BT>(dOs, dout + bh * sq * D, q0, sq);
+  load_tile<D, BT>(Ks, o + bh * sq * D, q0, sq);
   __syncthreads();
   if (tid < BT) {
     float s = 0.f;
@@ -210,29 +223,29 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int k_begin = window > 0 ? max(0, qlo - window + 1) / BT * BT : 0;
 
   // each row's log-sum-exp, from the forward (-inf: no row, no visible key)
-  float L[4];
+  float L[R];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = q0 + ty + 16 * r;
     L[r] = row < sq ? lse[bh * sq + row] : -CUDART_INF_F;
   }
 
   // P from the LSE, dS = P o (dP - Delta), dQ += dS K
-  float acc[4][D / 16] = {};
+  float acc[R][D / 16] = {};
   for (int k0 = k_begin; k0 < k_end; k0 += BT) {
     __syncthreads();  // the last reads of Ks, Vs and Ss are done
-    load_tile<D>(Ks, kb, k0, sk);
-    load_tile<D>(Vs, vb, k0, sk);
+    load_tile<D, BT>(Ks, kb, k0, sk);
+    load_tile<D, BT>(Vs, vb, k0, sk);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_abt<D>(s, Qs, Ks, ty, tx);
-    mm_abt<D>(dp, dOs, Vs, ty, tx);
+    float s[R][R] = {}, dp[R][R] = {};
+    mm_abt<D, R>(s, Qs, Ks, ty, tx);
+    mm_abt<D, R>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int qpos = q0 + ty + 16 * r + off;
       const float dl = delta_s[ty + 16 * r];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < R; ++c) {
         const bool ok = L[r] > -CUDART_INF_F &&
                         visible(qpos, k0 + tx + 16 * c, sk, causal, window);
         const float p = ok ? expf(s[r][c] * scale - L[r]) : 0.f;
@@ -240,12 +253,12 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    mm_ab<D>(acc, Ss, Ks, ty, tx);
+    mm_ab<D, R>(acc, Ss, Ks, ty, tx);
   }
 
   float* dqb = dq + bh * sq * D;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = q0 + ty + 16 * r;
     if (row < sq) {
 #pragma unroll
@@ -265,7 +278,7 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dk, float* __restrict__ dv, int H, int G, int sq, int sk,
         int causal, int window, float scale) {
-  constexpr int P = D + 1;
+  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BT * P;
@@ -282,37 +295,41 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const int off = sk - sq;
   const size_t bg = (size_t)b * G + g;
 
-  load_tile<D>(Ks, k + bg * sk * D, k0, sk);
-  load_tile<D>(Vs, v + bg * sk * D, k0, sk);
+  load_tile<D, BT>(Ks, k + bg * sk * D, k0, sk);
+  load_tile<D, BT>(Vs, v + bg * sk * D, k0, sk);
 
   // the q rows that can see a key of this tile
   const int kmax = min(sk, k0 + BT) - 1;
   const int i_begin = causal ? max(0, k0 - off) : 0;
   const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
 
-  float dk_acc[4][D / 16] = {}, dv_acc[4][D / 16] = {};
+  // each (head, q tile)'s products accumulate apart and are then added to
+  // the totals: a sum over the group's H / G heads of up to Sq rows would
+  // otherwise be one FMA chain of (H / G) Sq terms (8,192 at gemma-2b's
+  // 8:1 MQA), whose rounding reached 1.03x the 2e-5 tolerance of dv
+  float dk_acc[R][D / 16] = {}, dv_acc[R][D / 16] = {};
   for (int hh = 0; hh < hg; ++hh) {
     const size_t bh = (size_t)b * H + g * hg + hh;
     for (int i0 = i_begin; i0 < i_end; i0 += BT) {
       __syncthreads();  // the last reads of Qs, dOs and Ps are done
-      load_tile<D>(Qs, q + bh * sq * D, i0, sq);
-      load_tile<D>(dOs, dout + bh * sq * D, i0, sq);
+      load_tile<D, BT>(Qs, q + bh * sq * D, i0, sq);
+      load_tile<D, BT>(dOs, dout + bh * sq * D, i0, sq);
       if (tid < BT) {
         const int row = i0 + tid;
         lse_s[tid] = row < sq ? lse[bh * sq + row] : -CUDART_INF_F;
         delta_s[tid] = row < sq ? delta[bh * sq + row] : 0.f;
       }
       __syncthreads();
-      float s[4][4] = {}, dp[4][4] = {};
-      mm_abt<D>(s, Qs, Ks, ty, tx);   // rows: queries, columns: keys
-      mm_abt<D>(dp, dOs, Vs, ty, tx);
-      float p[4][4];
+      float s[R][R] = {}, dp[R][R] = {};
+      mm_abt<D, R>(s, Qs, Ks, ty, tx);   // rows: queries, columns: keys
+      mm_abt<D, R>(dp, dOs, Vs, ty, tx);
+      float p[R][R];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int row = i0 + ty + 16 * r;
         const float L = lse_s[ty + 16 * r];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < R; ++c) {
           const bool ok = row < sq && L > -CUDART_INF_F &&
                           visible(row + off, k0 + tx + 16 * c, sk, causal, window);
           p[r][c] = ok ? expf(s[r][c] * scale - L) : 0.f;
@@ -320,24 +337,32 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      mm_atb<D>(dv_acc, Ps, dOs, ty, tx);  // dV += P^T dO
-      __syncthreads();                     // the reads of P are done
+      float dk_t[R][D / 16] = {}, dv_t[R][D / 16] = {};
+      mm_atb<D, R>(dv_t, Ps, dOs, ty, tx);  // dV += P^T dO
+      __syncthreads();                      // the reads of P are done
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float dl = delta_s[ty + 16 * r];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < R; ++c)
           Ps[(ty + 16 * r) * SP + tx + 16 * c] = p[r][c] * (dp[r][c] - dl);
       }
       __syncthreads();
-      mm_atb<D>(dk_acc, Ps, Qs, ty, tx);   // dK += dS^T Q
+      mm_atb<D, R>(dk_t, Ps, Qs, ty, tx);   // dK += dS^T Q
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          dk_acc[r][c] += dk_t[r][c];
+          dv_acc[r][c] += dv_t[r][c];
+        }
     }
   }
 
   float* dkb = dk + bg * sk * D;
   float* dvb = dv + bg * sk * D;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = k0 + ty + 16 * r;
     if (row < sk) {
 #pragma unroll
@@ -356,25 +381,27 @@ typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WT = 64;           // rows of every tile: one warpgroup's 64
 constexpr int BW_THREADS = 160;  // a consumer warpgroup, then the producer warp
-constexpr int BW_NS = 3;         // stages of the TMA ring
 
 // Shared memory of either bf16 kernel, from a 1024-byte aligned base: the
-// resident pair of 64-row tiles (dQ: Q, dO; dK/dV: K, V), BW_NS stages of
-// the streamed pair (dQ: K, V; dK/dV: Q, dO), fp32 rows (dQ: the tile's
-// Delta; dK/dV: each stage's base-2 LSE and Delta), then the barriers.
+// resident pair of 64-row tiles (dQ: Q, dO; dK/dV: K, V), NS stages of the
+// streamed pair (dQ: K, V; dK/dV: Q, dO), fp32 rows (dQ: the tile's Delta;
+// dK/dV: each stage's base-2 LSE and Delta), then the barriers.
 template <int D>
 struct BwTile {
   static constexpr int TILE = WT * D * 2;
+  // stages of the TMA ring: three, two at D = 256 (64 KB a stage)
+  static constexpr int NS = D <= 128 ? 3 : 2;
   static constexpr int STAGE_OFF = 2 * TILE;
-  static constexpr int ROWS_OFF = STAGE_OFF + BW_NS * 2 * TILE;
-  static constexpr int BAR_OFF = ROWS_OFF + BW_NS * 2 * WT * 4;
-  // barriers: resident full, full[BW_NS], empty[BW_NS]; 1024 bytes to
-  // align the base
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * BW_NS) + 1024;
+  static constexpr int ROWS_OFF = STAGE_OFF + NS * 2 * TILE;
+  static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
+  // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
+  // base
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
   // two blocks an SM up to D = 80: ptxas then holds a thread to 168
   // registers (two blocks' ten warps put three on one SM sub-partition, of
-  // 16,384 registers); D = 128's dK/dV kernel holds 128 accumulators a
-  // thread and takes one block (254 registers)
+  // 16,384 registers); from D = 128 one block (up to 255 registers: D =
+  // 128's dK/dV kernel holds 128 accumulators a thread, D = 256's dQ
+  // kernel 128 beside S and dP)
   static constexpr int MIN_BLOCKS = D <= 80 ? 2 : 1;
   static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
 };
@@ -440,20 +467,36 @@ __device__ __forceinline__ float lse2(const float* lse, size_t row0, int i, int 
   return x > -CUDART_INF_F ? x * LOG2E : CUDART_INF_F;
 }
 
-// a row of 64 x D accumulator fragments (rows `row`, `row` + 8) -> bf16 in
-// global memory, times `mul`
-template <int D>
+// a row of 64 x N accumulator fragments (rows `row`, `row` + 8) -> bf16 in
+// global memory (rows `stride` elements apart), times `mul`
+template <int N, int STRIDE = N>
 __device__ __forceinline__ void store_rows(bf16* out, const float* acc, int row,
                                            int n, int quad, float mul) {
 #pragma unroll
-  for (int jj = 0; jj < D / 8; ++jj) {
+  for (int jj = 0; jj < N / 8; ++jj) {
     const int col = 8 * jj + 2 * quad;
     if (row < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * STRIDE + col) =
           __floats2bfloat162_rn(acc[4 * jj] * mul, acc[4 * jj + 1] * mul);
     if (row + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * STRIDE + col) =
           __floats2bfloat162_rn(acc[4 * jj + 2] * mul, acc[4 * jj + 3] * mul);
+  }
+}
+
+// the same rows in fp32
+template <int N, int STRIDE>
+__device__ __forceinline__ void store_rows_f32(float* out, const float* acc,
+                                               int row, int n, int quad) {
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const int col = 8 * jj + 2 * quad;
+    if (row < n)
+      *reinterpret_cast<float2*>(out + (size_t)row * STRIDE + col) =
+          make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    if (row + 8 < n)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * STRIDE + col) =
+          make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
   }
 }
 
@@ -479,8 +522,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   float* delta_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
   const uint32_t res_full = sbase + L::BAR_OFF;
+  constexpr int NS = L::NS;
   auto full = [&](int s) { return res_full + 8u * (1 + s); };
-  auto empty = [&](int s) { return res_full + 8u * (1 + BW_NS + s); };
+  auto empty = [&](int s) { return res_full + 8u * (1 + NS + s); };
 
   // block -> (q tile, b, h): the last q tiles (the longest causal rows) first
   const int n_qt = (sq + WT - 1) / WT;
@@ -498,7 +542,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
-    for (int s = 0; s < BW_NS; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4);  // lane 0 of each consumer warp
     }
@@ -512,8 +556,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
       tma_tile<D>(sbase, &tq0, &tq1, res_full, q0, bh);
       tma_tile<D>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % BW_NS;
-        mbar_wait(empty(s), ((i / BW_NS) & 1) ^ 1);  // round 0 passes at once
+        const int s = i % NS;
+        mbar_wait(empty(s), ((i / NS) & 1) ^ 1);  // round 0 passes at once
         mbar_expect_tx(full(s), 2 * L::TILE);
         const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
         const int k0 = (t_begin + i) * WT;
@@ -566,8 +610,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
   uint32_t hi[WT / 16][4], lo[WT / 16][4];
   mbar_wait(res_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % BW_NS;
-    mbar_wait(full(s), (i / BW_NS) & 1);
+    const int s = i % NS;
+    mbar_wait(full(s), (i / NS) & 1);
     const uint32_t kt = sbase + L::STAGE_OFF + s * 2 * L::TILE;
     wg_fence();
     ss_tile<D, WT>(sc, sbase, WT, 0, kt);                   // S = Q K^T
@@ -625,8 +669,9 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   float* rows_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
   const uint32_t res_full = sbase + L::BAR_OFF;
+  constexpr int NS = L::NS;
   auto full = [&](int s) { return res_full + 8u * (1 + s); };
-  auto empty = [&](int s) { return res_full + 8u * (1 + BW_NS + s); };
+  auto empty = [&](int s) { return res_full + 8u * (1 + NS + s); };
 
   // block -> (kv tile, b, g): the first kv tiles (seen by the most causal
   // rows) first
@@ -643,7 +688,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
-    for (int s = 0; s < BW_NS; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full(s), 33);  // the copies' byte count, then every
                                // producer lane (LSE and Delta rows)
       mbar_init(empty(s), 4);  // lane 0 of each consumer warp
@@ -660,7 +705,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
       tma_tile<D>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
     }
     for (int it = 0; it < n_it; ++it) {
-      const int s = it % BW_NS;
+      const int s = it % NS;
       const int bh = b * H + g * hg + it / n_qt;
       const int i0 = i_begin + (it % n_qt) * WT;
       // the stage's LSE and Delta rows, loaded while the slot drains
@@ -671,7 +716,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
         l_rows[u] = lse2(lse, (size_t)bh * sq, i, sq);
         d_rows[u] = i < sq ? delta[(size_t)bh * sq + i] : 0.f;
       }
-      mbar_wait(empty(s), ((it / BW_NS) & 1) ^ 1);  // round 0 passes at once
+      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);  // round 0 passes at once
       if (lane == 0) {  // the copies first: they take longest
         mbar_expect_tx(full(s), 2 * L::TILE);
         const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
@@ -701,8 +746,8 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   uint32_t ph[WT / 16][4], pl[WT / 16][4], dh[WT / 16][4], dl[WT / 16][4];
   mbar_wait(res_full, 0);
   for (int it = 0; it < n_it; ++it) {
-    const int s = it % BW_NS;
-    mbar_wait(full(s), (it / BW_NS) & 1);
+    const int s = it % NS;
+    mbar_wait(full(s), (it / NS) & 1);
     const int i0 = i_begin + (it % n_qt) * WT;
     const uint32_t qt = sbase + L::STAGE_OFF + s * 2 * L::TILE, dot = qt + L::TILE;
     const float* Ls = rows_s + s * 2 * WT;
@@ -743,11 +788,265 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   store_rows<D>(dv + (size_t)bg * sk * D, dva, kp0, sk, quad, 1.f);
 }
 
+// D = 256's dK and dV: 128 accumulators a thread of each in one warpgroup
+// will not fit, so two consumer warpgroups share a kv tile, each owning a
+// 128-column half of dK and dV (64 + 64 accumulators), and a producer
+// warpgroup streams Q and dO through a 2-stage ring (one thread issues the
+// copies; each of the 128 writes one of the stage's 64 rows' base-2 LSE
+// or Delta into shared memory; setmaxnreg hands its registers to the
+// consumers).  S^T = K Q^T and dP^T = V dO^T (64 x 64, over all of D) are
+// formed once: warpgroup w takes q columns [32 w, 32 w + 32) (wgmma SS, N
+// = 32).  Its P^T and dS^T go to shared memory as two bf16 pieces each,
+// four 64 x 64 tiles in the 128-byte swizzle a K-major operand reads, and
+// both warpgroups then take the whole tiles as the A operand of dV[:,
+// half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] (wgmma SS,
+// the streamed tile MN-major).  The 128 accumulators leave too few of the
+// 240 registers for S^T and dP^T (ptxas serializes their products and
+// spills one while the other forms); the rows in shared memory, in place
+// of 16 loads a thread and tile, took 12 % off the launch.  A kv tile's
+// work grows with the q tiles that see it (causal: 16 down to 1 at Sq =
+// Sk = 1024), and at gemma-2b's shape there are only B G Sk / 64 = 128
+// tiles for 132 SMs, so the first tile's block set the launch's time:
+// when H / G is even each tile takes two blocks, one a half of the group's
+// heads, which store fp32 sums for bwd_dkv_sum to add (two terms add the
+// same in either order, so the result stays deterministic); that took the
+// launch from 0.80 to 0.47 ms (PERF.md §6).
+constexpr int BW2_THREADS = 384;  // two consumer warpgroups, then the producer's
+
+struct Bw256 {
+  static constexpr int D = 256;
+  static constexpr int TILE = WT * D * 2;            // 32 KB
+  static constexpr int NS = 2;                       // stages of Q and dO
+  static constexpr int STAGE_OFF = 2 * TILE;         // after K and V
+  static constexpr int PIECE = WT * WT * 2;          // a 64 x 64 bf16 tile
+  // P^T hi, P^T lo, dS^T hi, dS^T lo
+  static constexpr int PIECE_OFF = STAGE_OFF + NS * 2 * TILE;
+  // each stage's q rows' base-2 LSE and Delta (fp32), written by the
+  // producer warpgroup's 128 threads
+  static constexpr int ROWS_OFF = PIECE_OFF + 4 * PIECE;
+  static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
+  // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
+  // base (231,464 bytes of the 232,448 a block can have)
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
+  static_assert(PIECE_OFF % 1024 == 0, "swizzled tiles must stay 1024-byte aligned");
+};
+
+// byte offset of element (row, col) (col even) in a 64 x 64 bf16 tile laid
+// out as TMA's 128-byte swizzle lays it: 128-byte rows, the 16-byte chunk
+// index XORed with the row's low three bits
+__device__ __forceinline__ uint32_t swz128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// a warpgroup's 64 x 32 fragment x (rows r0, r0 + 8 of each thread,
+// columns cw + 8 j + 2 quad + e) -> two bf16 pieces, hi (the rounding) and
+// lo (the rounding of the rest), into the swizzled tiles at hi_t and lo_t
+__device__ __forceinline__ void put_pieces(uint8_t* hi_t, uint8_t* lo_t,
+                                           const float* x, int r0, int cw,
+                                           int quad) {
+#pragma unroll
+  for (int j = 0; j < WT / 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r0, r0 + 8
+      const uint32_t at = swz128(r0 + 8 * h, cw + 8 * j + 2 * quad);
+      const float a = x[4 * j + 2 * h], b = x[4 * j + 2 * h + 1];
+      const uint32_t hi = pack_bf16(a, b);
+      *reinterpret_cast<uint32_t*>(hi_t + at) = hi;
+      *reinterpret_cast<uint32_t*>(lo_t + at) =
+          pack_bf16(a - __uint_as_float(hi << 16),
+                    b - __uint_as_float(hi & 0xffff0000u));
+    }
+}
+
+__device__ __forceinline__ void pair_sync() {  // both consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(BW2_THREADS, 1)
+bwd_dkv_wgmma2(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ part, int B, int H, int G, int sq, int sk,
+               int causal, int window, float scale) {
+  using L = Bw256;
+  constexpr int D = L::D, NS = L::NS;
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t raw = smem_u32(bw_smem);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* pieces_g = bw_smem + (sbase - raw) + L::PIECE_OFF;
+  float* rows_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
+  const uint32_t pieces = sbase + L::PIECE_OFF;
+  const uint32_t res_full = sbase + L::BAR_OFF;
+  auto full = [&](int s) { return res_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return res_full + 8u * (1 + NS + s); };
+
+  // block -> (kv tile, b, g, half of the group's heads when it splits):
+  // the first kv tiles (seen by the most causal rows) first
+  const int hg = H / G, off = sk - sq;
+  const int split = part != nullptr ? 2 : 1, hs = (int)blockIdx.x % split;
+  const int bg = (int)blockIdx.x / split % (B * G);
+  const int k0 = (int)blockIdx.x / split / (B * G) * WT;
+  const int b = bg / G, g = bg % G;
+  const int h0 = b * H + g * hg + hs * (hg / split);  // this block's first head
+  // the q rows that can see a key of this tile, in tiles of 64, per head
+  const int kmax = min(sk, k0 + WT) - 1;
+  const int i_begin = causal ? max(0, k0 - off) : 0;
+  const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
+  const int n_qt = i_end > i_begin ? (i_end - i_begin + WT - 1) / WT : 0;
+  const int n_it = hg / split * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1 + 128);  // the copies' byte count, then every
+                                    // producer thread (its row value)
+      mbar_init(empty(s), 8);       // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer: thread 0 issues every copy, and thread
+                  // t writes row t's LSE (t < 64) or Delta of each stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int pt = threadIdx.x - 256;
+    if (pt == 0) {
+      mbar_expect_tx(res_full, 2 * L::TILE);
+      tma_tile<D>(sbase, &tk, &tk, res_full, k0, bg);
+      tma_tile<D>(sbase + L::TILE, &tv, &tv, res_full, k0, bg);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % NS;
+      const int bh = h0 + it / n_qt;
+      const int i0 = i_begin + (it % n_qt) * WT;
+      const int i = i0 + pt % WT;
+      const float val = pt < WT ? lse2(lse, (size_t)bh * sq, i, sq)
+                                : (i < sq ? delta[(size_t)bh * sq + i] : 0.f);
+      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);  // round 0 passes at once
+      if (pt == 0) {
+        mbar_expect_tx(full(s), 2 * L::TILE);
+        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+        tma_tile<D>(dst, &tq, &tq, full(s), i0, bh);
+        tma_tile<D>(dst + L::TILE, &tdo, &tdo, full(s), i0, bh);
+      }
+      rows_s[s * 2 * WT + pt] = val;
+      mbar_arrive(full(s));  // releases this thread's row
+    }
+    return;  // no block-wide barrier follows
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's kv rows: r0, r0 + 8
+  const int kp0 = k0 + r0, kp1 = kp0 + 8;
+  const int cw = 32 * wg;               // this warpgroup's q columns of S^T
+  const float sl2 = scale * LOG2E;
+
+  // dK[:, 128 wg + ...] and dV[:, ...]: two 64-wide column blocks each
+  constexpr int NJ = WT / 16;  // 8-column groups of a 32-column half
+  float dka[D / 4], dva[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dka[i] = dva[i] = 0.f;
+  float st[WT / 4], dpt[WT / 4];
+  mbar_wait(res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % NS;
+    const int i0 = i_begin + (it % n_qt) * WT;
+    mbar_wait(full(s), (it / NS) & 1);
+    const uint32_t qt = sbase + L::STAGE_OFF + s * 2 * L::TILE, dot = qt + L::TILE;
+    wg_fence();
+    ss_tile<D, WT / 2>(st, sbase, WT, 0, qt, WT, cw);            // S^T = K Q^T
+    ss_tile<D, WT / 2>(dpt, sbase + L::TILE, WT, 0, dot, WT, cw);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<WT / 4>(st);
+    reg_fence<WT / 4>(dpt);
+    // P^T and dS^T on the fragments: rows kv, columns q rows i0 + c
+    const float* Ls = rows_s + s * 2 * WT;
+    const float* Ds = Ls + WT;
+    const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > i0 + off) ||
+                      (window > 0 && k0 <= i0 + WT - 1 + off - window);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e, c = cw + 8 * j + 2 * quad + (e & 1);
+        float p = ex2(st[x] * sl2 - Ls[c]);
+        if (edge && !visible(i0 + c + off, e < 2 ? kp0 : kp1, sk, causal, window))
+          p = 0.f;
+        dpt[x] = p * (dpt[x] - Ds[c]);
+        st[x] = p;
+      }
+    pair_sync();  // both warpgroups' products of the last tile read the pieces
+    put_pieces(pieces_g, pieces_g + L::PIECE, st, r0, cw, quad);  // P^T
+    put_pieces(pieces_g + 2 * L::PIECE, pieces_g + 3 * L::PIECE, dpt, r0, cw,
+               quad);                                               // dS^T
+    // the pieces, written by the generic proxy, are read by wgmma's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    pair_sync();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WT / 16; ++kk)
+#pragma unroll
+      for (int pc = 0; pc < 2; ++pc) {  // hi, then lo
+        const uint64_t pa = gmma_desc(pieces + pc * L::PIECE + 32 * kk, 128, false);
+        const uint64_t da = gmma_desc(pieces + (2 + pc) * L::PIECE + 32 * kk, 128, false);
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb) {  // this half's two 64-wide blocks
+          const uint32_t blk = (2 * wg + cb) * WT * 128 + kk * 16 * 128;
+          wgmma_ss_mn<64>(dva + 32 * cb, pa, gmma_desc(dot + blk, 128, true));
+          wgmma_ss_mn<64>(dka + 32 * cb, da, gmma_desc(qt + blk, 128, true));
+        }
+      }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<D / 4>(dka);
+    reg_fence<D / 4>(dva);
+    release(empty(s), lane);
+  }
+  const size_t at = (size_t)bg * sk * D + 128 * wg;
+  if (split == 1) {
+    store_rows<D / 2, D>(dk + at, dka, kp0, sk, quad, scale);
+    store_rows<D / 2, D>(dv + at, dva, kp0, sk, quad, 1.f);
+    return;
+  }
+  // this half's sums, unscaled, for bwd_dkv_sum: part[0 or 1] dK of head
+  // half 0 or 1, part[2 or 3] dV
+  const size_t n = (size_t)B * G * sk * D;
+  store_rows_f32<D / 2, D>(part + hs * n + at, dka, kp0, sk, quad);
+  store_rows_f32<D / 2, D>(part + (2 + hs) * n + at, dva, kp0, sk, quad);
+}
+
+// dK = (half 0 + half 1) scale and dV = half 0 + half 1 from
+// bwd_dkv_wgmma2's fp32 sums, four values a thread.  Two terms add the
+// same in either order, so the result does not depend on which block
+// finished first.
+__global__ void __launch_bounds__(256)
+bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
+            bf16* __restrict__ dv, int64_t n4, float scale) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const float4 a = part[i], b = part[n4 + i], c = part[2 * n4 + i],
+               d = part[3 * n4 + i];
+  uint2 k, v;
+  k.x = pack_bf16((a.x + b.x) * scale, (a.y + b.y) * scale);
+  k.y = pack_bf16((a.z + b.z) * scale, (a.w + b.w) * scale);
+  v.x = pack_bf16(c.x + d.x, c.y + d.y);
+  v.y = pack_bf16(c.z + d.z, c.w + d.w);
+  reinterpret_cast<uint2*>(dk)[i] = k;
+  reinterpret_cast<uint2*>(dv)[i] = v;
+}
+
 template <int D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, void* dk,
-                     void* dv, float* delta, int64_t B, int64_t H, int64_t G,
-                     int64_t sq, int64_t sk, int causal, int window,
+                     void* dv, float* delta, float* part, int64_t B, int64_t H,
+                     int64_t G, int64_t sq, int64_t sk, int causal, int window,
                      float scale, cudaStream_t stream) {
   using L = BwTile<D>;
   constexpr int w0 = Cols<D>::width(0);
@@ -769,9 +1068,6 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  if (err != cudaSuccess) return err;
   const unsigned n_dq = (unsigned)((sq + WT - 1) / WT * B * H);
   bwd_dq_wgmma<D><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
@@ -781,10 +1077,36 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned n_dkv = (unsigned)((sk + WT - 1) / WT * B * G);
-  bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
-      (int)sq, (int)sk, causal, window, scale);
+  if constexpr (D == 256) {
+    // an even group splits its heads over two blocks a kv tile, summed by
+    // bwd_dkv_sum from the fp32 workspace `part` (4 B G Sk D values)
+    const bool split = (H / G) % 2 == 0;
+    if (split && part == nullptr) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma2,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Bw256::SMEM);
+    if (err != cudaSuccess) return err;
+    bwd_dkv_wgmma2<<<n_dkv * (split ? 2 : 1), BW2_THREADS, Bw256::SMEM,
+                     stream>>>(
+        m[0], m[2], m[4], m[6], lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), split ? part : nullptr, (int)B, (int)H,
+        (int)G, (int)sq, (int)sk, causal, window, scale);
+    if (split) {
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const int64_t n4 = B * G * sk * D / 4;
+      bwd_dkv_sum<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+          reinterpret_cast<const float4*>(part), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), n4, scale);
+    }
+  } else {
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return err;
+    bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
+        (int)sq, (int)sk, causal, window, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -805,6 +1127,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
+  constexpr int BT = fp_bt<D>();
   bwd_dq<D><<<dim3((unsigned)((sq + BT - 1) / BT), (unsigned)H, (unsigned)B),
               NT, smem, stream>>>(
       qt, kt, vt, static_cast<const float*>(o), dot, lse, static_cast<float*>(dq),
@@ -821,7 +1144,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 // each dtype has one pair of kernels: fp32 the SIMT pair, bf16 the wgmma pair
 int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const float* lse, void* dq,
-               void* dk, void* dv, float* delta, int64_t B, int64_t H,
+               void* dk, void* dv, float* delta, float* part, int64_t B, int64_t H,
                int64_t G, int64_t sq, int64_t sk, int causal, int window,
                float scale, cudaStream_t st) {
   if (dtype == 0) {
@@ -830,15 +1153,17 @@ int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
       case 64: return launch_bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       case 80: return launch_bwd<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       case 128: return launch_bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_bwd<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
-      case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
-      case 80: return launch_bwd_wgmma<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
-      case 128: return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_bwd_wgmma<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_bwd_wgmma<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -847,16 +1172,20 @@ int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// (q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, Sq, Sk, D, dtype,
-//  causal, window, scale, stream); lse is the forward's (B, H, Sq) fp32
-// natural-log log-sum-exp of each row's scaled, masked scores, delta (B, H,
-// Sq) fp32 workspace; window <= 0 disables the window
+// (q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, Sq, Sk, D,
+//  dtype, causal, window, scale, stream); lse is the forward's (B, H, Sq)
+// fp32 natural-log log-sum-exp of each row's scaled, masked scores, delta
+// (B, H, Sq) fp32 workspace, part a 4 B G Sk D fp32 workspace that bf16 at
+// D = 256 needs when H / G is even (else unused, may be null); window <= 0
+// disables the window
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, int64_t B, int64_t H, int64_t G, int64_t sq, int64_t sk,
-    int D, int dtype, int causal, int window, float scale, void* stream) {
+    void* delta, void* part, int64_t B, int64_t H, int64_t G, int64_t sq,
+    int64_t sk, int D, int dtype, int causal, int window, float scale,
+    void* stream) {
   return bwd_by_dim(D, dtype, q, k, v, o, dout, static_cast<const float*>(lse),
-                    dq, dk, dv, static_cast<float*>(delta), B, H, G, sq, sk,
-                    causal, window, scale, static_cast<cudaStream_t>(stream));
+                    dq, dk, dv, static_cast<float*>(delta),
+                    static_cast<float*>(part), B, H, G, sq, sk, causal, window,
+                    scale, static_cast<cudaStream_t>(stream));
 }

@@ -58,28 +58,28 @@
 // from 0.0019 to 0.0013 ms.  Staging through TMA (cp.async.bulk) was not
 // built: at 1.10-1.25x the floor there is little left for it to take.
 //
-// K3, vector path (not redesigned yet): each thread moves one 16-byte
-// vector of the element-major side and 16 / nb bytes of each of the nb
-// planes (one word per plane); consecutive threads take consecutive
-// vectors, so both sides are coalesced.  When `per` is not a multiple of
-// 16 / nb or a pointer is not 16-byte aligned, the scalar kernel.
+// K3, register form: K2's design run backwards.  The first design gave
+// each thread one 16-byte vector of the element-major side and one word of
+// 16 / nb bytes from each plane (4-byte loads at nb = 4, 2-byte at nb =
+// 8).  Now a thread owns 16 consecutive elements of one page and reads nb
+// full 16-byte vectors, one from each plane (neighbouring threads read
+// neighbouring vectors of a plane: coalesced), transposes the 16 x nb
+// bytes in registers with `prmt` (elems_of, the inverse of planes_of), and
+// stages its nb element-major chunks in shared memory under K2's XOR
+// swizzle, from which lane l of its warp stores chunk 32 k + l of the
+// warp's 32 nb (coalesced 16-byte stores).  Blocks of 256 / nb threads, as
+// K2's.  It takes per % 16 == 0 and 16-byte aligned pointers; any other
+// page width or pointer takes the scalar kernel.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kVecsPerBlock = kThreads * 4;    // K3 vector path
 constexpr int64_t kElemsPerBlock = kThreads * 4;   // scalar path
-constexpr int kRegElems = 16;                      // K2: elements a thread
-// K2's threads a block: 256 / nb, so a block moves 4 KB each way at
-// every element width (one warp at nb = 8)
+constexpr int kRegElems = 16;                      // K2, K3: elements a thread
+// K2's and K3's threads a block: 256 / nb, so a block moves 4 KB each way
+// at every element width (one warp at nb = 8)
 template <int NB> constexpr int kRegBlock = 256 / NB;
-
-template <int NB> struct PlaneWord;
-template <> struct PlaneWord<1> { using T = uint4; };
-template <> struct PlaneWord<2> { using T = unsigned long long; };
-template <> struct PlaneWord<4> { using T = unsigned int; };
-template <> struct PlaneWord<8> { using T = unsigned short; };
 
 // The 16 x NB byte matrix of a thread's 16 elements, as 4 NB words in
 // element-major order (`w`: element e's bytes at bytes e NB .. e NB + NB -
@@ -176,29 +176,93 @@ shuffle_reg(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     *reinterpret_cast<uint4*>(dst + j * per) = make_uint4(o[j][0], o[j][1], o[j][2], o[j][3]);
 }
 
-// K3, vector path: one word per plane -> element-major 16-byte vectors.
+// The inverse of planes_of: NB planes of 16 bytes (`o[j]`: byte j of
+// elements 0..15) -> the 16 x NB byte matrix as 4 NB element-major words
+// (`w`: element e's bytes at bytes e NB .. e NB + NB - 1).
 template <int NB>
-__global__ void __launch_bounds__(kThreads)
-unsplit_vec(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-            int64_t per, int64_t chunks) {
-  constexpr int EPV = 16 / NB;
-  using W = typename PlaneWord<NB>::T;
-  const int64_t page = blockIdx.x / chunks;
-  const int64_t v0 = (blockIdx.x % chunks) * kVecsPerBlock;
-  const int64_t nv = per / EPV;
-  const int64_t v1 = v0 + kVecsPerBlock < nv ? v0 + kVecsPerBlock : nv;
-  const uint8_t* src = in + page * per * NB;  // plane j at src + j * per
-  uint4* dst = reinterpret_cast<uint4*>(out + page * per * NB);
-  for (int64_t v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    repro::V16 x;
+__device__ __forceinline__ void elems_of(const uint32_t (&o)[NB][4],
+                                         uint32_t (&w)[4 * NB]) {
+  if constexpr (NB == 1) {
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      repro::Word<W, EPV> w;
-      w.w = reinterpret_cast<const W*>(src + j * per)[v];
+    for (int q = 0; q < 4; ++q) w[q] = o[0][q];
+  } else if constexpr (NB == 2) {
+    // plane word q holds byte j of elements 4q..4q+3; words 2q and 2q + 1
+    // interleave the two planes' bytes
 #pragma unroll
-      for (int k = 0; k < EPV; ++k) x.b[k * NB + j] = w.b[k];
+    for (int q = 0; q < 4; ++q) {
+      w[2 * q] = __byte_perm(o[0][q], o[1][q], 0x5140);
+      w[2 * q + 1] = __byte_perm(o[0][q], o[1][q], 0x7362);
     }
-    dst[v] = x.v;
+  } else if constexpr (NB == 4) {
+    // one 4 x 4 block per 4 elements: rows the planes, columns the elements
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t b[4] = {o[0][q], o[1][q], o[2][q], o[3][q]};
+      repro::transpose4x4(b);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) w[4 * q + m] = b[m];
+    }
+  } else {
+    static_assert(NB == 8, "element widths 1, 2, 4 and 8");
+    // planes 4h..4h+3 of elements 4q..4q+3 -> words 2e + h
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t b[4] = {o[4 * h][q], o[4 * h + 1][q], o[4 * h + 2][q],
+                         o[4 * h + 3][q]};
+        repro::transpose4x4(b);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) w[8 * q + 2 * m + h] = b[m];
+      }
+    }
+  }
+}
+
+// K3, register form: thread g takes elements [16 g, 16 g + 16) of the
+// (P * per) element rows, all in page g / (per / 16).
+template <int NB>
+__global__ void __launch_bounds__(kRegBlock<NB>)
+unsplit_reg(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+            int64_t per, int64_t n_threads) {
+  // the warp's 32 NB output chunks of 16 bytes: each thread stages its own
+  // NB (chunks NB lane + k) with the slot XORed by bits 3-5 of the chunk,
+  // lane l stores chunks 32 k + l
+  __shared__ uint4 stage[kRegBlock<NB> / 32][32 * NB];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t g = int64_t(blockIdx.x) * kRegBlock<NB> + threadIdx.x;
+  if (g < n_threads) {
+    const int64_t groups = per / kRegElems;  // threads a page
+    const int64_t page = g / groups;
+    const int64_t e0 = (g - page * groups) * kRegElems;
+    const uint8_t* src = in + page * per * NB + e0;  // plane j at src + j * per
+    uint32_t o[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {  // every load before any arithmetic
+      const uint4 x = *reinterpret_cast<const uint4*>(src + j * per);
+      o[j][0] = x.x;
+      o[j][1] = x.y;
+      o[j][2] = x.z;
+      o[j][3] = x.w;
+    }
+    uint32_t w[4 * NB];
+    elems_of<NB>(o, w);
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const int c = NB * lane + k;
+      stage[warp][c ^ ((c >> 3) & 7)] =
+          make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+    }
+  }
+  __syncwarp();
+  const int64_t c0 = (g - lane) * NB;  // the warp's first chunk
+  const int64_t n_chunks = n_threads * NB;
+  uint4* dst = reinterpret_cast<uint4*>(out);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const int c = 32 * k + lane;
+    if (c0 + c < n_chunks) dst[c0 + c] = stage[warp][c ^ ((c >> 3) & 7)];
   }
 }
 
@@ -244,12 +308,11 @@ int launch_shuffle(const uint8_t* in, uint8_t* out, int64_t n_pages, int64_t per
 template <int NB>
 int launch_unsplit(const uint8_t* in, uint8_t* out, int64_t n_pages, int64_t per,
                    cudaStream_t stream) {
-  constexpr int EPV = 16 / NB;
-  if (per % EPV != 0 || !repro::aligned(in, 16) || !repro::aligned(out, 16))
+  if (per % kRegElems != 0 || !repro::aligned(in, 16) || !repro::aligned(out, 16))
     return launch_scalar<false>(in, out, n_pages, per, NB, stream);
-  const int64_t chunks = (per / EPV + kVecsPerBlock - 1) / kVecsPerBlock;
-  const dim3 grid(static_cast<unsigned>(n_pages * chunks));
-  unsplit_vec<NB><<<grid, kThreads, 0, stream>>>(in, out, per, chunks);
+  const int64_t threads = n_pages * (per / kRegElems);
+  const dim3 grid(static_cast<unsigned>((threads + kRegBlock<NB> - 1) / kRegBlock<NB>));
+  unsplit_reg<NB><<<grid, kRegBlock<NB>, 0, stream>>>(in, out, per, threads);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Shared pieces of the port's CUDA kernels: the C error-string export
-// every library carries, a block-wide inclusive scan, and 16-byte vector
-// helpers.  Each library compiles exactly one .cu that includes this.
+// every library carries, a block-wide inclusive scan, and the 4 x 4
+// byte-block transpose.  Each library compiles exactly one .cu that includes this.
 #pragma once
 
 #include <cstdint>
@@ -64,19 +64,5 @@ __device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
   w[2] = __byte_perm(t1, t3, 0x5410);                   // a2 b2 c2 d2
   w[3] = __byte_perm(t1, t3, 0x7632);                   // a3 b3 c3 d3
 }
-
-// 16 bytes as one vector or as bytes (constant indices keep it in
-// registers).
-union V16 {
-  uint4 v;
-  uint8_t b[16];
-};
-
-// N bytes as one machine word W or as bytes.
-template <typename W, int N>
-union Word {
-  W w;
-  uint8_t b[N];
-};
 
 }  // namespace repro

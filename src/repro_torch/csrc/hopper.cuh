@@ -134,8 +134,22 @@ template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int accumulate);
 template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float* d, uint64_t da, uint64_t db);
+template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int accumulate) {
@@ -171,6 +185,22 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, A a K-major tile and B an MN-major one, both in shared memory
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 template <>
@@ -240,20 +270,24 @@ __device__ __forceinline__ void rs_tile(float* acc, const uint32_t* a,
 
 // acc (64 x N) = A B^T over D, both K-major tiles of Cols<D> column blocks:
 // A rows [row0, row0 + 64) of the tile at `a`, whose blocks hold `a_rows`
-// rows each, B a tile of N rows; the first product overwrites acc
+// rows each, B rows [b_row0, b_row0 + N) of the tile at `b`, whose blocks
+// hold `b_rows` rows (by default a tile of N rows); the first product
+// overwrites acc.  A row offset keeps the swizzle's phase when it is a
+// multiple of 8.
 template <int D, int N>
 __device__ __forceinline__ void ss_tile(float* acc, uint32_t a, int a_rows,
-                                        int row0, uint32_t b) {
+                                        int row0, uint32_t b, int b_rows = N,
+                                        int b_row0 = 0) {
   using C = Cols<D>;
 #pragma unroll
   for (int c = 0; c < C::NB; ++c) {
     const int rb = 2 * C::width(c);
     const uint32_t ac = a + a_rows * 128 * c + row0 * rb;
+    const uint32_t bc = b + b_rows * 128 * c + b_row0 * rb;
 #pragma unroll
     for (int kk = 0; kk < C::width(c) / 16; ++kk)
       wgmma_ss<N>(acc, gmma_desc(ac + 32 * kk, rb, false),
-                  gmma_desc(b + N * 128 * c + 32 * kk, rb, false),
-                  c > 0 || kk > 0);
+                  gmma_desc(bc + 32 * kk, rb, false), c > 0 || kk > 0);
   }
 }
 

@@ -77,10 +77,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                    _INT, _INT, _F32, _P],
     },
     "attention_bwd": {
-        # (q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, Sq, Sk, D,
-        #  dtype, causal, window, scale, stream)
+        # (q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, Sq, Sk,
+        #  D, dtype, causal, window, scale, stream)
         "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I64, _I64, _I64, _I64, _I64, _INT,
+                                      _P, _I64, _I64, _I64, _I64, _I64, _INT,
                                       _INT, _INT, _INT, _F32, _P],
     },
     "ssm": {

@@ -27,8 +27,11 @@ on a CUDA tensor K5's backward (``csrc/attention_bwd.cu``, its own
 library), two kernels a call counted as one launch of
 ``flash_attention_bwd``: dQ with each row's Delta, then dK and dV per kv
 tile over the group's heads.  bf16 runs them on the tensor cores
-(``wgmma`` fed by TMA, P and dS in two bf16 pieces), fp32 on the CUDA
-cores.  When a graph will be recorded (grad mode on and an input that
+(``wgmma`` fed by TMA, P and dS in two bf16 pieces; at head dim 256 the
+dK/dV kernel splits the head dim over two warpgroups and an even group's
+heads over two blocks, whose fp32 sums a third kernel adds), fp32 on the
+CUDA cores (tiles of 32 rows at head dim 256).  Both take every head dim of
+``HEAD_DIMS``.  When a graph will be recorded (grad mode on and an input that
 requires grad) the forward launch also writes each query row's
 log-sum-exp, LSE: ``(B, H, Sq)`` fp32, the natural log of the sum of
 ``exp(scale * q k^T)`` over the row's visible keys, ``-inf`` for a row that
@@ -164,11 +167,6 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out, lse
 
 
-#: head dims K5's backward is built for (four fp32 tiles of 64 rows at
-#: D = 256 do not fit in shared memory)
-BWD_HEAD_DIMS = (32, 64, 80, 128)
-
-
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True,
@@ -197,9 +195,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window=window)
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
-                         f"{BWD_HEAD_DIMS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v, out, dout = (aligned16(t.contiguous())
                           for t in (q, k, v, out, dout))
@@ -208,13 +203,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 0 or sk == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty_like(lse)  # rowsum(dout * out), written by launch A
+    # bf16 at D = 256: the fp32 sums of the two halves of a group's heads,
+    # which the dK/dV launch adds up (it splits an even group's heads)
+    part = (torch.empty(4 * k.numel(), dtype=torch.float32, device=q.device)
+            if d == 256 and q.dtype == torch.bfloat16 else None)
     lib = _build.library("attention_bwd")
     guard, stream = _build.launch_args(q)
     with guard:
         rc = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, h, g, sq, sk, d,
+            dv.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, g, sq, sk, d,
             DTYPE_CODES[q.dtype], int(causal),
             0 if window is None else int(window), float(scale), stream)
     _build.check(lib, rc, "flash_attention_bwd")

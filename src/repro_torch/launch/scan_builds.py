@@ -13,8 +13,8 @@ sources are always built as ``tree``.  Every tree's ``byteplanes.cu``,
 one process each); the lines give the registers and spills of
 ``scan_lookback``, of ``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk
 = 64, of the codec kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's
-``unsplit_vec``, K4's ``decode_offsets``) and of K5's backward launches at
-D = 64, and ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
+``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``) and of K5's
+backward launches at D = 64 and 256, and ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
 entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
 geometry; a tree whose source declares the entry without it, the first
@@ -38,8 +38,8 @@ bit against the plain version; beside K2 and K4 each tree's launch floor
 (the same entry at (1, 16, 8) and (1, 8, 16)), and K2 and K4 once more
 with the L2 cache flushed before every launch (a 128 MB buffer written
 outside the timed events), as the write path's freshly uploaded pages
-find it.  K5's backward runs causal at smollm-360m's training shape
-``BWD_SHAPE`` on the output and rows' LSE of the checkout's K5 forward: a
+find it.  K5's backward runs causal at smollm-360m's and gemma-2b's
+training shapes ``BWD_SHAPES`` on the output and rows' LSE of the checkout's K5 forward: a
 tree whose entry takes the LSE as an input (``const void* lse`` after
 ``dout``) gets the forward's, an older one (the LSE a workspace after
 ``dv``) recomputes it; each tree's gradients are printed as the largest
@@ -68,11 +68,14 @@ from repro_torch.kernels import _build, ref
 K7_SHAPE = (16, 64, 1000, 64, 64)  # (B, H, T, Dk, Dv)
 K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
-#: K5's backward: smollm-360m's training shape (B, H, G, S, D), causal
-BWD_SHAPE = (8, 15, 5, 1024, 64)
+#: K5's backward: smollm-360m's and gemma-2b's training shapes (B, H, G,
+#: S, D), causal
+BWD_SHAPES = ((8, 15, 5, 1024, 64), (8, 8, 1, 1024, 256))
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
-                 "shuffle_reg", "shuffle_vec", "unsplit_vec", "decode_offsets",
-                 "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64")
+                 "shuffle_reg", "shuffle_vec", "unsplit_reg", "unsplit_vec",
+                 "decode_offsets",
+                 "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64",
+                 "bwd_dq_wgmmaILi256", "bwd_dkv_wgmma2")
 #: which libraries each group of timings needs
 GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
               "bwd": ("attention_bwd",)}
@@ -156,8 +159,18 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
         if lib == "scans" and len(c_params(trees[tree], lib,
                                            "repro_decode_offset_pages")) == 5:
             cdll.repro_decode_offset_pages.argtypes = K4_ARGS_BEFORE_CLUSTERS
+        if lib == "attention_bwd" and not has_part(trees[tree]):
+            f = cdll.repro_flash_attention_bwd
+            f.argtypes = f.argtypes[:10] + f.argtypes[11:]
         libs[(tree, lib)] = cdll
     return libs
+
+
+def has_part(csrc) -> bool:
+    """Whether the tree's K5 backward entry takes the D = 256 partial-sum
+    workspace ``part`` after ``delta`` (PR 21 on)."""
+    return "void* part" in c_params(csrc, "attention_bwd",
+                                    "repro_flash_attention_bwd")
 
 
 def tol_share(got, want, tol: float) -> float:
@@ -258,12 +271,12 @@ def k1_calls(libs, trees, n, stream) -> dict:
     return calls
 
 
-def bwd_calls(libs, trees, stream) -> tuple:
+def bwd_calls(libs, trees, stream, shape) -> tuple:
     """({tree: call}, {tree: share of the bf16 tolerance}) of K5's backward
-    at ``BWD_SHAPE`` on the checkout's K5 forward output and LSE."""
+    at ``shape`` on the checkout's K5 forward output and LSE."""
     from repro_torch.kernels.flash_attention import flash_attention_lse
 
-    b, h, g, s, d = BWD_SHAPE
+    b, h, g, s, d = shape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
     q, do = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
@@ -274,6 +287,7 @@ def bwd_calls(libs, trees, stream) -> tuple:
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        out.float(), lse, do.float())
     delta, work = torch.empty_like(lse), torch.empty_like(lse)
+    part = torch.empty(4 * k.numel(), dtype=torch.float32, device="cuda")
     calls, shares = {}, {}
     for tree in trees:
         f = libs[(tree, "attention_bwd")].repro_flash_attention_bwd
@@ -285,14 +299,17 @@ def bwd_calls(libs, trees, stream) -> tuple:
             mid = (lse.data_ptr(), dq, dk, dv, delta.data_ptr())
         else:  # an LSE workspace after dv
             mid = (dq, dk, dv, work.data_ptr(), delta.data_ptr())
+        if has_part(trees[tree]):
+            mid += (part.data_ptr(),)
 
         def call(f=f, mid=mid):
             return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      do.data_ptr(), *mid, b, h, g, s, s, d, 1, 1, 0,
                      d ** -0.5, stream)
 
-        if call() != 0:
-            sys.exit(f"{tree}: repro_flash_attention_bwd failed")
+        if call() != 0:  # a tree built without this head dim
+            print(f"{tree}: repro_flash_attention_bwd refuses {shape}")
+            continue
         torch.cuda.synchronize()
         shares[tree] = max(tol_share(a, w, 1e-2) for a, w in zip(grads, want))
         calls[tree] = call
@@ -467,13 +484,16 @@ def main(argv=None) -> int:
     if "ssm" in args.only:
         time_ssm(libs, trees, args.rounds, stream, result)
     if "bwd" in args.only:
-        calls, shares = bwd_calls(libs, trees, stream)
-        for tree, share in shares.items():
-            print(f"K5 bwd {tree}: share of the bf16 tolerance used {share:.4f}")
-        result["flash_attention_bwd"] = {
-            "shape": list(BWD_SHAPE), "tol_share": shares,
-            "ms": rounds(calls, args.rounds, "K5 bwd")}
-        del calls
+        result["flash_attention_bwd"] = []
+        for shape in BWD_SHAPES:
+            calls, shares = bwd_calls(libs, trees, stream, shape)
+            for tree, share in shares.items():
+                print(f"K5 bwd {shape} {tree}: share of the bf16 tolerance "
+                      f"used {share:.4f}")
+            result["flash_attention_bwd"].append({
+                "shape": list(shape), "tol_share": shares,
+                "ms": rounds(calls, args.rounds, f"K5 bwd {shape}")})
+            del calls
     if "k1" in args.only:
         result["offsets_scan"] = {}
         for n in K1_SIZES:

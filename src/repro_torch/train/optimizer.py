@@ -66,14 +66,10 @@ class AdamW:
                params) -> Tuple[Dict, AdamWState]:
         step = state.step + 1
         gf = tree_map(lambda g: g.float(), grads)
+        scale = None
         if self.clip_norm is not None:
             gnorm = global_norm(gf)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-            gf = tree_map(lambda g: g * scale, gf)
-        m = tree_map(lambda mm, g: self.b1 * mm + (1 - self.b1) * g,
-                     state.m, gf)
-        v = tree_map(lambda vv, g: self.b2 * vv + (1 - self.b2) * g * g,
-                     state.v, gf)
         s = step.float()
         bc1 = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
                                          device=s.device), s)
@@ -81,13 +77,24 @@ class AdamW:
                                          device=s.device), s)
         lr = self.schedule(step)
 
-        def upd(p, mm, vv):
+        # one leaf at a time, so that a clipped gradient and the update's
+        # temporaries exist for one tensor at once: the step's peak is the
+        # old and new state beside the gradients (gemma-2b: 70 of the
+        # card's 80 GB), as under the reference's fused, donated update
+        def leaf(p, g, mm, vv):
+            if scale is not None:
+                g = g * scale
+            mm = self.b1 * mm + (1 - self.b1) * g
+            vv = self.b2 * vv + (1 - self.b2) * g * g
             u = (mm / bc1) / (torch.sqrt(vv / bc2) + self.eps)
             if self.weight_decay and p.dim() >= 2:
                 u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype)
+            return (p.float() - lr * u).to(p.dtype), mm, vv
 
-        return tree_map(upd, params, m, v), AdamWState(step, m, v)
+        out = tree_map(leaf, params, gf, state.m, state.v)
+        new_params, m, v = (tree_map(lambda _p, t: t[i], params, out)
+                            for i in range(3))
+        return new_params, AdamWState(step, m, v)
 
 
 def global_norm(tree) -> torch.Tensor:

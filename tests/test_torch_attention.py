@@ -230,7 +230,12 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     log2(e) - LSE log2(e))`` from the forward's LSE, Delta from the stored
     output, P and dS in two bf16 pieces as the A operand of the products
     that accumulate dQ, dV and dK in fp32, the tiles a tile cannot see
-    skipped, the gradients rounded to bf16."""
+    skipped, the gradients rounded to bf16.  At D = 256 the dK/dV kernel
+    (``bwd_dkv_wgmma2``) is two warpgroups: warpgroup w forms S^T and dP^T
+    for q columns [32 w, 32 w + 32) of the tile over all of D, and owns
+    columns [128 w, 128 w + 128) of dK and dV, which it sums from the whole
+    tile's pieces; an even group's heads split over two blocks, whose fp32
+    sums are added at the end."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     hg, off = h // g, sk - sq
@@ -269,27 +274,35 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     dk, dv = torch.zeros(b, g, sk, d), torch.zeros(b, g, sk, d)
     qg, dog = (x.reshape(b, g, hg, sq, d) for x in (qf, dof))
     lg, dg = (x.reshape(b, g, hg, sq) for x in (l2, delta))
+    wgs = 2 if d == 256 else 1  # warpgroups sharing a kv tile
+    halves = 2 if d == 256 and hg % 2 == 0 else 1  # blocks sharing it
     for k0 in range(0, sk, t):  # launch B: a kv tile over heads, q tiles
         cols = torch.arange(k0, min(k0 + t, sk))
         i_begin = max(0, k0 - off) if causal else 0
         i_end = min(sq, int(cols[-1]) + window - off) if window else sq
-        dka = torch.zeros(b, g, len(cols), d)
-        dva = torch.zeros(b, g, len(cols), d)
+        dka = torch.zeros(halves, b, g, len(cols), d)
+        dva = torch.zeros(halves, b, g, len(cols), d)
         for hh in range(hg):
+            hs = hh // (hg // halves)
             for i0 in range(i_begin, i_end, t):
                 rows = torch.arange(i0, min(i0 + t, sq))
                 qt, dot = qg[:, :, hh, rows], dog[:, :, hh, rows]
-                st = kf[:, :, cols] @ qt.transpose(-1, -2)  # S^T
-                dpt = vf[:, :, cols] @ dot.transpose(-1, -2)
+                # S^T and dP^T by q-column groups of t / wgs
+                st = torch.cat([kf[:, :, cols] @ x.transpose(-1, -2) for x in
+                                qt.split(t // wgs, dim=2)], -1)
+                dpt = torch.cat([vf[:, :, cols] @ x.transpose(-1, -2) for x in
+                                 dot.split(t // wgs, dim=2)], -1)
                 p, ds = p_ds(rows, cols, st.transpose(-1, -2),
                              dpt.transpose(-1, -2), lg[:, :, hh, rows],
                              dg[:, :, hh, rows])
-                for piece in _pieces(p.transpose(-1, -2)):
-                    dva = dva + piece @ dot
-                for piece in _pieces(ds.transpose(-1, -2)):
-                    dka = dka + piece @ qt
-        dk[:, :, cols] = dka * scale
-        dv[:, :, cols] = dva
+                for w in range(wgs):  # each warpgroup's columns of dK, dV
+                    dc = slice(w * d // wgs, (w + 1) * d // wgs)
+                    for piece in _pieces(p.transpose(-1, -2)):
+                        dva[hs, ..., dc] += piece @ dot[..., dc]
+                    for piece in _pieces(ds.transpose(-1, -2)):
+                        dka[hs, ..., dc] += piece @ qt[..., dc]
+        dk[:, :, cols] = dka.sum(0) * scale
+        dv[:, :, cols] = dva.sum(0)
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
@@ -299,6 +312,8 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     (2, 3, 1, 77, 200, 32, True, None),    # MQA, D=32, ragged Sq
     (1, 4, 4, 90, 90, 80, True, None),     # D=80
     (1, 2, 1, 60, 140, 80, False, None),   # non-causal, padded kv tile
+    (1, 8, 1, 130, 130, 256, True, None),  # gemma-2b's MQA 8:1, D=256
+    (1, 8, 1, 100, 160, 256, True, 40),    # D=256, window, Sq < Sk
 ])
 def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
                                                      causal, window):
@@ -310,7 +325,8 @@ def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
     arrs = _inputs(7 * sq + sk + d, (b, h, sq, d), (b, g, sk, d),
                    (b, g, sk, d), (b, h, sq, d))
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
-    out, lse = _k5_bf16_emulation(q, k, v, causal, window, with_lse=True)
+    out, lse = _k5_bf16_emulation(q, k, v, causal, window,
+                                  bk=128 if d <= 128 else 64, with_lse=True)
     np.testing.assert_allclose(
         lse.numpy(), ref.flash_attention_lse_ref(q, k, causal=causal,
                                                  window=window).numpy(),

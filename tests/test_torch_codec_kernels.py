@@ -1,4 +1,5 @@
-"""The arithmetic of K2's and K4's Hopper designs, emulated on the CPU.
+"""The arithmetic of K2's, K3's and K4's Hopper designs, emulated on the
+CPU.
 
 Neither kernel runs here, so each design's algorithm is written out in
 numpy as the kernel runs it and held against the JAX package's Pallas
@@ -10,6 +11,11 @@ kernel in interpret mode and against the plain versions:
   back its 16 x nb bytes as 4 nb words and transposes them with
   ``__byte_perm`` in the kernel's selector schedule into nb plane vectors
   of 16 bytes;
+* K3 (``csrc/byteplanes.cu::unsplit_reg``), K2 run backwards: a thread
+  owns 16 consecutive elements of one page, loads one 16-byte vector from
+  each of the nb planes, transposes them with ``__byte_perm``
+  (``elems_of``) into nb element-major chunks, stages them under K2's XOR
+  swizzle, and its warp's lanes store the warp's 32 nb chunks coalesced;
 * K4 (``csrc/scans.cu::decode_offsets_cluster``): a page is one cluster
   of C blocks (``decode_pages.launch_shape``); each round rank r scans
   its tile (the thread's 8 elements from two 4 x 4 byte transposes,
@@ -33,6 +39,7 @@ from repro.kernels import ref as jref
 from repro.kernels.byteshuffle import byteshuffle_pages as j_byteshuffle_pages
 from repro.kernels.decode_pages import (
     decode_offset_pages as j_decode_offset_pages,
+    unsplit_pages as j_unsplit_pages,
 )
 
 from repro_torch.kernels import ref
@@ -110,6 +117,62 @@ def shuffle_reg_emulation(pages: np.ndarray) -> np.ndarray:
         np.add.at(hits, at.reshape(-1), 1)
     assert (hits == 1).all(), "K2's threads must cover each byte once"
     return out.reshape(n_pages, nb, per)
+
+
+def elems_of(o, nb: int):
+    """``elems_of<NB>`` (csrc/byteplanes.cu), the inverse of ``planes_of``:
+    nb planes of 4 words -> 4 nb element-major words of 16 elements."""
+    if nb == 1:
+        return [o[0][q] for q in range(4)]
+    w = [None] * (4 * nb)
+    for q in range(4):
+        if nb == 2:
+            w[2 * q] = byte_perm(o[0][q], o[1][q], 0x5140)
+            w[2 * q + 1] = byte_perm(o[0][q], o[1][q], 0x7362)
+            continue
+        for h in range(nb // 4):  # nb 4: one block; nb 8: two halves
+            cols = transpose4x4([o[4 * h + k][q] for k in range(4)])
+            for m, word in enumerate(cols):
+                w[4 * q + m if nb == 4 else 8 * q + 2 * m + h] = word
+    return w
+
+
+def unsplit_reg_emulation(planes: np.ndarray) -> np.ndarray:
+    """K3's register form on (P, nb, per) uint8 planes, per % 16 == 0:
+    thread g loads plane j's 16 bytes at page * per * nb + j * per + e0,
+    turns them into nb element-major chunks, which its warp stages (slot
+    ``stage_slot(nb lane + k)``) and stores as chunk 32 k + lane of the
+    warp's.  Every output byte must be written exactly once."""
+    n_pages, nb, per = planes.shape
+    assert per % 16 == 0
+    n_threads = n_pages * per // 16
+    flat = np.ascontiguousarray(planes).reshape(-1)
+    g = np.arange(n_threads)
+    page = g // (per // 16)
+    e0 = (g - page * (per // 16)) * 16
+    o = []
+    for j in range(nb):
+        at = (page * per * nb + j * per + e0)[:, None] + np.arange(16)
+        vec = flat[at].view("<u4")  # (T, 4)
+        o.append([vec[:, q] for q in range(4)])
+    w = np.stack(elems_of(o, nb), axis=1).astype("<u4")  # (T, 4 nb)
+    chunks = w.reshape(n_threads, nb, 4)  # thread g's chunk k
+    n_warps = -(-n_threads // 32)
+    stage = np.zeros((n_warps, 32 * nb, 4), np.uint32)
+    lane = g % 32
+    for k in range(nb):
+        stage[g // 32, stage_slot(nb * lane + k)] = chunks[:, k]
+    out = np.zeros((n_threads * nb, 4), np.uint32)
+    hits = np.zeros(n_threads * nb, np.int64)
+    for warp in range(n_warps):
+        for k in range(nb):
+            c = 32 * k + np.arange(32)
+            dst = warp * 32 * nb + c
+            ok = dst < n_threads * nb
+            out[dst[ok]] = stage[warp, stage_slot(c[ok])]
+            hits[dst[ok]] += 1
+    assert (hits == 1).all(), "K3's lanes must store each chunk once"
+    return out.astype("<u4").view(np.uint8).reshape(n_pages, per, nb)
 
 
 def stage_slot(c):
@@ -221,9 +284,27 @@ def test_byteshuffle_register_form_as_one_page_matches_k9_plain(nb):
 
 
 @pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_pages,per", [(1, 16), (3, 64), (2, 1024),
+                                         (5, 48)])
+def test_unsplit_pages_register_form_matches_pallas(nb, n_pages, per):
+    """K3's register form (ragged last warp at (1, 16) and (5, 48)) against
+    the Pallas kernel in interpret mode, the plain version, and K2's
+    register form run forwards."""
+    rng = np.random.default_rng(2000 * nb + per + n_pages)
+    planes = rng.integers(0, 256, (n_pages, nb, per), dtype=np.uint8)
+    got = unsplit_reg_emulation(planes)
+    pal = np.asarray(j_unsplit_pages(jnp.asarray(planes), interpret=True))
+    np.testing.assert_array_equal(got, pal)
+    np.testing.assert_array_equal(
+        got, ref.unsplit_pages_ref(torch.from_numpy(planes)).numpy())
+    np.testing.assert_array_equal(shuffle_reg_emulation(got), planes)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
 def test_byteshuffle_pages_staging_is_exact_and_conflict_free(nb):
     """K2's warp staging: lane l stores chunk 32 k + l (coalesced loads)
-    and reads back chunk nb l + k, its own.  The slots are a permutation
+    and reads back chunk nb l + k, its own (K3 the other way round: its
+    own chunks in, chunk 32 k + l out to a coalesced store).  The slots are a permutation
     of the warp's 32 nb (no chunk overwrites another), and in every
     16-byte access of a quarter-warp (8 lanes) the 8 lanes hit 8
     different 16-byte bank groups, storing and loading."""

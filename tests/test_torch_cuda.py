@@ -168,6 +168,38 @@ def test_byteshuffle_pages_ragged_and_unaligned_on_the_card(card, per, nb):
     assert torch.equal(byteshuffle_pages(_unaligned(x)), want)
 
 
+#: K3's read-path shapes (the float32 and int64 columns' 64 KiB pages)
+READ_PAGES = [(91, 16384), (36, 8192), (3, 1024), (1, 16)]
+
+
+def _unsplit_case(card, n_pages, per, nb, seed):
+    planes = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (n_pages, nb, per), dtype=np.uint8)).to(card)
+    before = ops.launch_counts()["unsplit_pages"]
+    got = unsplit_pages(planes)
+    assert ops.launch_counts()["unsplit_pages"] == before + 1
+    want = ref.unsplit_pages_ref(planes)
+    assert torch.equal(got, want)
+    return planes, want
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_pages,per", READ_PAGES)
+def test_unsplit_pages_register_form_on_the_card(card, n_pages, per, nb):
+    planes, want = _unsplit_case(card, n_pages, per, nb, n_pages * per + nb)
+    # the same planes through an unaligned view take the scalar kernel
+    assert torch.equal(unsplit_pages(_unaligned(planes)), want)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("per", [16 * 5 + 1, 16 * 64 + 8, 16 * 512 + 15, 4])
+def test_unsplit_pages_ragged_and_unaligned_on_the_card(card, per, nb):
+    """A per that is no multiple of 16 and unaligned views take the
+    scalar kernel; both agree bit for bit."""
+    planes, want = _unsplit_case(card, 3, per, nb, per + 3 * nb)
+    assert torch.equal(unsplit_pages(_unaligned(planes)), want)
+
+
 def _decode_planes(card, n_pages, per, seed):
     """(P, 8, per) planes of end offsets uniform below 2**31 (the signed
     deltas fill all four low bytes), with the ends."""
@@ -616,6 +648,10 @@ BWD_CARD_CASES = [  # b, h, g, sq, sk, d, causal, window
     (1, 4, 1, 200, 200, 80, True, None),      # D=80, MQA
     (1, 4, 2, 150, 150, 128, True, 40),       # D=128 with a window
     (1, 4, 2, 203, 130, 64, True, None),      # Sq > Sk: 73 rows see no key
+    (8, 8, 1, 1024, 1024, 256, True, None),   # gemma-2b's training shape
+    (1, 8, 1, 300, 517, 256, True, 100),      # D=256: ragged, window
+    (1, 8, 1, 203, 130, 256, True, None),     # D=256: 73 rows see no key
+    (1, 4, 2, 77, 130, 256, False, None),     # D=256: non-causal, GQA
 ]
 
 
@@ -699,10 +735,48 @@ def test_flash_attention_bwd_is_deterministic_on_the_card(card):
         assert torch.equal(a, b)
 
 
-def test_flash_attention_bwd_refuses_d256_on_the_card(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_head_dim_256_is_deterministic_on_the_card(
+        card, dtype):
+    """gemma-2b's training shape, both routes (bf16: two warpgroups split
+    dK and dV by columns; fp32: 32-row tiles): the same inputs give the
+    same bits, run to run."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_lse,
+    )
+
+    q, k, v, do = _attn_inputs(card, 256, dtype, (8, 8, 1024, 256),
+                               (8, 1, 1024, 256), (8, 1, 1024, 256),
+                               (8, 8, 1024, 256))
+    out, lse = flash_attention_lse(q, k, v)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_flash_attention_bwd_fp32_at_gemma_shape_on_the_card(card, seed):
+    """The fp32 route at gemma-2b's training shape, where dk and dv sum
+    8 heads x 1,024 rows, within ``BWD_TOL`` on more than one draw of
+    inputs (one draw once took dv to 1.03x the tolerance)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_lse,
+    )
+
+    q, k, v, do = _attn_inputs(card, seed, torch.float32, (8, 8, 1024, 256),
+                               (8, 1, 1024, 256), (8, 1, 1024, 256),
+                               (8, 8, 1024, 256))
+    out, lse = flash_attention_lse(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for a, w in zip(got, want):
+        _bwd_close(a, w, torch.float32)
+
+
+def test_flash_attention_bwd_refuses_an_unbuilt_head_dim_on_the_card(card):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
-    q = torch.zeros((1, 1, 4, 256), device=card)
+    q = torch.zeros((1, 1, 4, 96), device=card)
     lse = torch.zeros((1, 1, 4), device=card)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_bwd(q, q, q, q, lse, q)

@@ -16,14 +16,18 @@
   reference's on identical numpy inputs (1e-6 relative for the update:
   ``pow`` and ``sqrt`` may round differently; the schedule within 1e-7
   of peak; compression bit for bit);
-* three train steps of the smollm-360m smoke config in fp32 compute from
-  carried weights on the same batches against ``repro.train``'s step
+* three train steps of the smollm-360m smoke config, and of the gemma-2b
+  smoke config at gemma's head dim 256 (GeGLU, tied and scaled embeddings,
+  MQA), in fp32 compute from carried weights on the same batches against
+  ``repro.train``'s step
   (losses within 1e-5, final parameters within 2e-4 absolute: Adam's
   first steps move each weight by about ``lr`` whatever the gradient's
   size, so sum-order noise in a tiny gradient can flip a weight's move;
   with int8 compression an element on a quantizer rounding edge may move
   by up to ``lr`` a step: within 3 ``lr``, and at most 0.1 % of the
-  elements beyond 2e-4);
+  elements beyond 2e-4; gemma-2b: a weight whose first gradient is within
+  fp32 sum-order noise of 0 within 2 ``lr`` a step, and under compression
+  the 3 ``lr`` bound alone, see ``EDGE_SHARE``);
 * microbatch accumulation against the plain step.
 """
 
@@ -76,6 +80,8 @@ BWD_CASES = [
     (2, 4, 2, 13, 40, 16, True, None),      # ragged Sq < Sk
     (1, 4, 2, 13, 40, 16, True, 9),         # ragged Sq with a window
     (1, 4, 4, 24, 31, 8, False, None),      # non-causal, MHA
+    (1, 8, 1, 40, 40, 256, True, None),     # gemma-2b's MQA 8:1, D=256
+    (1, 8, 1, 30, 70, 256, True, 25),       # D=256, window, ragged Sq
 ]
 
 
@@ -411,31 +417,84 @@ def _port_run(cfg, params_np, batches, **kw):
     return losses, to_numpy_tree(params)
 
 
-@pytest.mark.parametrize("variant", [
-    {"remat": True},
-    {"remat": False, "grad_compression": True},
-])
-def test_three_steps_match_the_reference(variant):
+#: the archs whose smoke configs train against the reference, with what
+#: each changes in both packages' configs: gemma-2b at its own head dim
+TRAIN_ARCHS = {"smollm-360m": {}, "gemma-2b": {"head_dim": 256}}
+#: archs some of whose weights get a first gradient within fp32 sum-order
+#: noise of 0 (gemma-2b's single kv head and tied embedding: |g| down to
+#: 1e-9 where the tensor's largest is 6e-3, and the two frameworks' sums
+#: differ by 1.4e-8): Adam's first steps move such a weight by about lr
+#: whichever sign the noise gives it, so it is held to the 2 lr a step
+#: that two runs can differ by, and the others to the test's bounds
+NOISE_FLOOR_ARCHS = ("gemma-2b",)
+#: a first gradient within this share of its tensor's largest is noise
+NOISE_FLOOR = 1e-5
+#: the share of a tensor's weights that may sit on a rounding edge of the
+#: int8 quantizer under grad compression (see below), for the archs where
+#: it is a bound: smollm-360m 0.1 %.  For gemma-2b it is not one: a weight
+#: crosses an edge where sum-order noise of up to 1.4e-8 in its gradient
+#: spans the rest of a quantum (6.2e-3 / 127 in the embedding), which
+#: over 3 steps may reach 3 x 2 x 1.4e-8 / 4.9e-5 = 0.17 % of a tensor
+#: and more where the quantum is smaller (0.10-0.30 % seen); its weights
+#: are held to the 3 lr bound alone
+EDGE_SHARE = {"smollm-360m": 1e-3}
+
+
+def _gradient_noise(jcfg, params_np, batch):
+    """{path: mask of the weights whose first gradient in the reference is
+    within ``NOISE_FLOOR`` of its tensor's largest}, for the tensors that
+    have any."""
+    bundle = j_build(jcfg)
+    grads = jax.grad(lambda p: bundle.loss(p, jax.tree_util.tree_map(
+        jnp.asarray, batch))[0])(jax.tree_util.tree_map(jnp.asarray, params_np))
+    out = {}
+    for n, g in _flat(jax.tree_util.tree_map(np.asarray, grads)):
+        tiny = np.abs(g) <= NOISE_FLOOR * np.abs(g).max()
+        if tiny.any():
+            out[n] = tiny
+    return out
+
+
+#: the step's variants; smollm-360m's cases keep their ids of before
+#: the arch was a parameter
+VARIANTS = [{"remat": True}, {"remat": False, "grad_compression": True}]
+
+
+@pytest.mark.parametrize("arch,variant", [
+    pytest.param(a, v, id=("" if a == "smollm-360m" else f"{a}-")
+                 + f"variant{i}")
+    for a in TRAIN_ARCHS for i, v in enumerate(VARIANTS)])
+def test_three_steps_match_the_reference(arch, variant):
     variant = dict(variant)
     remat = variant.pop("remat")
-    jcfg = j_smoke_config("smollm-360m").with_(compute_dtype="float32",
-                                               remat=remat)
-    cfg = _cfg(remat=remat)
+    over = dict(TRAIN_ARCHS[arch], compute_dtype="float32", remat=remat)
+    jcfg = j_smoke_config(arch).with_(**over)
+    cfg = smoke_config(arch).with_(**over)
     params_np = jax.tree_util.tree_map(
         np.asarray, j_build(jcfg).init(jax.random.PRNGKey(3)))
     batches = [_batch(cfg, 4, 32, 100 + i) for i in range(3)]
     jl, jp = _reference_run(jcfg, params_np, batches, **variant)
     tl, tp = _port_run(cfg, params_np, batches, **variant)
     np.testing.assert_allclose(tl, jl, rtol=TOL, atol=TOL)
+    noise = (_gradient_noise(jcfg, params_np, batches[0])
+             if arch in NOISE_FLOOR_ARCHS else {})
     for (n, a), (_n, w) in zip(_flat(tp), _flat(jp)):
+        if n in noise:
+            # gradients within fp32 sum-order noise of 0: the two runs' Adam
+            # steps may move such a weight either way, up to 2 lr a step
+            tiny = noise[n]
+            np.testing.assert_allclose(a[tiny], w[tiny], atol=3 * 2 * 3e-3,
+                                       rtol=0, err_msg=n)
+            a, w = a[~tiny], w[~tiny]
         if not variant.get("grad_compression"):
             np.testing.assert_allclose(a, w, atol=2e-4, rtol=0, err_msg=n)
             continue
         # an element on a rounding edge of the int8 quantizer may round the
         # other way (one quantum), which Adam turns into a move of up to
-        # lr a step: all within 3 lr, at most 0.1 % beyond 2e-4
+        # lr a step: all within 3 lr, at most EDGE_SHARE beyond 2e-4
         np.testing.assert_allclose(a, w, atol=3 * 3e-3, rtol=0, err_msg=n)
-        assert np.mean(np.abs(a - w) > 2e-4) <= 1e-3, n
+        if arch in EDGE_SHARE:
+            assert np.mean(np.abs(a - w) > 2e-4) <= EDGE_SHARE[arch], n
 
 
 def test_microbatches_match_the_plain_step():
