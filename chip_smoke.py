@@ -117,7 +117,34 @@ Phases, in order; any failure exits non-zero:
    forward; one JSON ``kernels`` line of the
    ten kernels and K5's backward (K1's, K5's, K6's and K8's rows name the
    ``design`` they timed, as do K2's, K4's and K9's);
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. multi-process writing and the checkpoint: (a) a
+   ``MultiWriterCoordinator`` and ``--producers`` participant processes
+   (started with ``spawn``), each joining the file on the card with
+   ``--entries`` of phase 3's data in fill batches of 100,000 and reporting
+   its own K1 and K2 launch counts (both must be > 0 in every child): a
+   clean seal (nothing fenced, the side-car log unlinked), every child's
+   exit code 0, the device read-back equal to the generated data as a
+   multiset with K3 and K4 > 0, and the write's MB/s beside phase 3's
+   threads; (b) two participants of 300,000 entries, one of which calls
+   ``os._exit`` after its first batch and ``flush_cluster``: one writer fenced, the live
+   writer's entries complete, the dead one's a prefix of its commit
+   order; then a copy of a file whose coordinator was dropped before its
+   seal, opened by a tolerant reader and rebuilt by ``recover_container``
+   with the same entries; (c) ``merge_files`` of two one-producer files on
+   the card, verbatim and with ``recompress=True`` (K1 and K2 > 0), each
+   byte-identical to the same merge on the numpy backend; (d) one producer
+   to ``mem-s3://``: the object equal to the same write to a file, read
+   back equal (K1-K4 > 0); (e) inside phase 7, right after smollm-360m's
+   steps: its train state (``params``, ``opt {step, m, v}``, ``err``,
+   ``loader {entry_cursor, leftover}``, about 4.3 GB) saved by
+   ``CheckpointManager`` with 4 writer threads and with 2 spawned
+   processes, each restored onto the card equal to the live state bit for
+   bit (dtype, shape, device), the resumed loader's next batch equal to
+   the live one's, and one step from each restored state equal to the
+   live state's step (loss, parameters and moments bit for bit); save
+   and restore seconds, MB/s and file size with the card's name and
+   power limit;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
 and each served batch's prefill and 8 of its decode steps with
@@ -128,6 +155,7 @@ CUDA card and the repository's ``src/`` beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -148,6 +176,10 @@ SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
 BATCH = 100_000
+
+#: the card's name and power limit as ``nvidia-smi`` gives them (set in
+#: phase 1), written beside the checkpoint's timings
+CARD = "not read"
 
 KERNEL_INFO = {
     # no pallas_call: the reference differentiates the op entry (on the
@@ -916,16 +948,19 @@ def check_scans(torch, rwkv6_cases, mamba2_cases) -> dict:
 # phase 3: the write -> read path
 
 
+def make_item(np, seed: int, p: int, entries: int):
+    """Producer ``p``'s ids, collection sizes, float32 values and size
+    running sums (bulk, from the seed)."""
+    rng = np.random.default_rng([seed, p])
+    sizes = rng.poisson(5, entries).astype(np.int64)
+    vals = rng.standard_normal(int(sizes.sum()), dtype=np.float32)
+    ids = np.arange(p * entries, (p + 1) * entries, dtype=np.int64)
+    return ids, sizes, vals, np.cumsum(sizes)
+
+
 def make_data(np, seed: int, producers: int, entries: int):
-    """Per producer: ids, collection sizes and float32 values (bulk)."""
-    data = []
-    for p in range(producers):
-        rng = np.random.default_rng([seed, p])
-        sizes = rng.poisson(5, entries).astype(np.int64)
-        vals = rng.standard_normal(int(sizes.sum()), dtype=np.float32)
-        ids = np.arange(p * entries, (p + 1) * entries, dtype=np.int64)
-        data.append((ids, sizes, vals, np.cumsum(sizes)))
-    return data
+    """Per producer: :func:`make_item`."""
+    return [make_item(np, seed, p, entries) for p in range(producers)]
 
 
 def batches(core, schema, item):
@@ -964,14 +999,18 @@ def write_parallel(core, schema, opts, path, data):
     return dt, w.stats
 
 
-def check_read_back(np, torch, core, path, data, entries: int):
-    """Read back through the device decode chain; every column must equal
-    the generated data."""
+def check_read_back(np, torch, core, path, data, entries: int,
+                    live=None, tolerant: bool = False):
+    """Read back through the device decode chain; every column of every
+    cluster must equal the generated data at its place, and the entries,
+    as a multiset, must be the generated ones: the whole share of each
+    producer in ``live`` (all by default) and a prefix of each other's.
+    -> (seconds, reader stats, clusters, entries read per producer)."""
     schema = None
-    n_seen = 0
+    spans = {p: [] for p in range(len(data))}
     t0 = time.perf_counter()
     with core.RNTJReader(path, device="cuda", options=core.ReadOptions(
-            prefetch_clusters=2)) as r:
+            prefetch_clusters=2, tolerant=tolerant)) as r:
         schema = r.schema
         i_id = schema.column_of_path["id"]
         i_off = schema.column_of_path["vals"]
@@ -997,13 +1036,21 @@ def check_read_back(np, torch, core, path, data, entries: int):
             got_val = cols[i_val].cpu().numpy()
             if not np.array_equal(got_val, g_vals[base:int(g_ends[s + n - 1])]):
                 fail(f"cluster {i}: values differ")
-            n_seen += n
+            spans[p].append((s, n))
         dt = time.perf_counter() - t0
         stats = r.stats
         n_clusters = r.n_clusters
-    if n_seen != len(data) * entries:
-        fail(f"read back {n_seen} entries of {len(data) * entries}")
-    return dt, stats, n_clusters
+    read = {}
+    for p, got in spans.items():
+        pos = 0
+        for s, n in sorted(got):
+            if s != pos:  # a gap or an entry read twice
+                fail(f"producer {p}: entries {s}.. read after {pos}")
+            pos += n
+        read[p] = pos
+        if (live is None or p in live) and pos != entries:
+            fail(f"producer {p}: read back {pos} entries of {entries}")
+    return dt, stats, n_clusters, read
 
 
 def check_host_decode(np, torch, core, path) -> None:
@@ -1019,20 +1066,28 @@ def check_host_decode(np, torch, core, path) -> None:
                     fail(f"cluster {i} column {ci}: device != host decode")
 
 
-def write_single(core, schema, opts, path, item, backend: str) -> float:
+@contextlib.contextmanager
+def kernel_backend(backend: str):
+    """``REPRO_TORCH_KERNEL_BACKEND`` set to ``backend`` (``auto``: the
+    kernels; ``numpy``) for the writers made inside."""
     old = os.environ.get("REPRO_TORCH_KERNEL_BACKEND")
     os.environ["REPRO_TORCH_KERNEL_BACKEND"] = backend
     try:
-        t0 = time.perf_counter()
-        with core.SequentialWriter(schema, path, opts, device="cuda") as w:
-            for b in batches(core, schema, item):
-                w.fill_batch(b)
-        return time.perf_counter() - t0
+        yield
     finally:
         if old is None:
             os.environ.pop("REPRO_TORCH_KERNEL_BACKEND", None)
         else:
             os.environ["REPRO_TORCH_KERNEL_BACKEND"] = old
+
+
+def write_single(core, schema, opts, path, item, backend: str) -> float:
+    with kernel_backend(backend):
+        t0 = time.perf_counter()
+        with core.SequentialWriter(schema, path, opts, device="cuda") as w:
+            for b in batches(core, schema, item):
+                w.fill_batch(b)
+        return time.perf_counter() - t0
 
 
 def trace_card(torch, name: str, fn, out_dir, top: int = 10) -> tuple:
@@ -1871,10 +1926,26 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
         timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
     reps = 10
     by_launch = {}  # card ms a launch (a trace may miss the first launch)
+
+    def queued(fn):
+        # the calls queue behind a 20 ms sleep kernel, so that the
+        # profiler's device tracing is on before the first of them runs:
+        # after phase 8 (e) traces of 10 bare calls held none or few of them
+        torch.cuda._sleep(int(2e6 * 20))
+        for _ in range(reps):
+            fn(None)
+
     for what, fn in (("", kern), ("sdpa ", lib)):
-        _busy, by_name = trace_card(
-            torch, f"flash_attention_bwd_{reps}_calls",
-            lambda: [fn(None) for _ in range(reps)], None, top=0)
+        want = () if what else BWD_LAUNCHES[:2 if d < 256 else 3]
+        for _attempt in range(3):
+            _busy, by_name = trace_card(
+                torch, f"flash_attention_bwd_{reps}_calls",
+                lambda: queued(fn), None, top=0)
+            by_name = {k: v for k, v in by_name.items()
+                       if "spin_kernel" not in k}  # the sleep
+            if by_name and all(any(n in k for k in by_name) for n in want):
+                break
+            log("  the trace missed launches; tracing again")
         if what:  # every kernel of SDPA's backward, by name
             by_launch["sdpa"] = {key[:80]: t / c / 1e3 for key, (t, c) in
                                  by_name.items()}
@@ -2211,6 +2282,9 @@ def train_path(np, torch, ops, args):
     log(f"train step: card busy {busy_ms:.3f} ms (profiled step) against the "
         f"unprofiled mean step {mean_ms:.3f} ms = {100 * busy_ms / mean_ms:.3f}"
         f" % busy, {100 - 100 * busy_ms / mean_ms:.3f} % idle")
+    # phase 8 (e): the checkpoint of this train state, before gemma-2b
+    ck_counts, ck_s = checkpoint_path(np, torch, ops, state, loader, batches,
+                                      step, path, tmp)
     loader.close()
     params, opt_state, err = state
     del params, opt_state, err, state
@@ -2219,7 +2293,8 @@ def train_path(np, torch, ops, args):
     g_batch, g_counts = train_gemma(np, torch, ops, args, path,
                                     args.profile or tmp)
     shutil.rmtree(tmp)
-    by_path = {TRAIN_ARCH: counts, GEMMA_ARCH: g_counts}
+    by_path = {TRAIN_ARCH: counts, GEMMA_ARCH: g_counts,
+               f"{TRAIN_ARCH} checkpoint resume": ck_counts}
     row = time_attention_bwd(torch, TRAIN_ARCH, counts["flash_attention_bwd"],
                              worst)
     at_g = time_attention_bwd(torch, GEMMA_ARCH,
@@ -2233,7 +2308,436 @@ def train_path(np, torch, ops, args):
         "forward_ms", "bytes", "call_ms", "library_call_ms",
         "library_max_abs_err")}
     row[f"at_{GEMMA_ARCH}"]["train_batch"] = g_batch
-    return row, by_path, worst
+    return row, by_path, worst, ck_s
+
+
+# ---------------------------------------------------------------------------
+# phase 8: multi-process writing, a writer that dies, recovery, merge, a
+# remote object, and the train state's checkpoint
+
+#: phase 8 (b): entries of each of its two participants, and the fill
+#: batches after which the dying one flushes its cluster and exits
+DEATH_ENTRIES, DEATH_AFTER = 300_000, 1
+#: phase 8 (b): its participants' lease (the dead one is fenced two leases
+#: after its last heartbeat)
+DEATH_LEASE_S = 1.0
+#: seconds a participant process may take, its start included
+CHILD_TIMEOUT_S = 300
+
+
+def mp_participant(path: str, opts, seed: int, producer: int, entries: int,
+                   report: str, die_after=None) -> None:
+    """One participant process of phase 8 (started with ``spawn``: its
+    parent holds a CUDA context, which a forked child cannot use).  Joins
+    the container at ``path`` on the card, writes producer ``producer``'s
+    share of the generated data in fill batches, and writes its own launch
+    counts (they are per process) and seconds to ``report`` as JSON.  With
+    ``die_after`` it flushes its cluster after that many batches, writes
+    the report and ``os._exit``\\ s: no DONE, no close."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA
+    from repro_torch.kernels import ops
+
+    item = make_item(np, seed, producer, entries)
+    t0 = time.perf_counter()
+    w = core.join_container(path, schema=SYNTH_EVENT_SCHEMA, options=opts,
+                            device="cuda")
+    t_join = time.perf_counter()
+    ctx = w.create_fill_context()
+    for k, b in enumerate(batches(core, SYNTH_EVENT_SCHEMA, item)):
+        ctx.fill_batch(b)
+        if die_after is not None and k + 1 == die_after:
+            ctx.flush_cluster()
+            break
+    if die_after is None:
+        ctx.close()
+        w.close()
+    t_end = time.perf_counter()
+    with open(report, "w") as f:
+        json.dump({"counts": ops.launch_counts(), "join_s": t_join - t0,
+                   "write_s": t_end - t_join, "writer_id": w.writer_id}, f)
+    if die_after is not None:
+        os._exit(9)  # a crash: the lease left dangling, no DONE
+
+
+def run_participants(core, path: str, opts, seed: int, entries: int, tmp,
+                     producers, die=()) -> tuple:
+    """Start one spawned participant per producer, wait for them all, then
+    seal.  -> (coordinator report, exit codes, the children's reports,
+    seconds from the first start to the seal's end)."""
+    import multiprocessing
+
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA
+
+    ctx = multiprocessing.get_context("spawn")
+    coord = core.MultiWriterCoordinator(SYNTH_EVENT_SCHEMA, path, opts)
+    t0 = time.perf_counter()
+    procs, reports = [], []
+    for p in producers:
+        rep = os.path.join(tmp, f"participant{p}.json")
+        reports.append(rep)
+        procs.append(ctx.Process(target=mp_participant, args=(
+            path, opts, seed, p, entries, rep,
+            DEATH_AFTER if p in die else None)))
+    for pr in procs:
+        pr.start()
+    for pr in procs:
+        pr.join(CHILD_TIMEOUT_S)
+        if pr.is_alive():
+            for q in procs:
+                q.kill()
+            fail(f"a participant process ran past {CHILD_TIMEOUT_S} s")
+    codes = [pr.exitcode for pr in procs]
+    # every child has exited: DONE is in the log or never will be
+    report = coord.seal(expect_writers=len(procs),
+                        timeout=4 * opts.lease_interval + 5)
+    coord.close()
+    dt = time.perf_counter() - t0
+    children = []
+    for rep in reports:
+        if not os.path.exists(rep):
+            fail(f"a participant wrote no report ({rep}); exit codes {codes}")
+        with open(rep) as f:
+            children.append(json.load(f))
+    return report, codes, children, dt
+
+
+def mp_write(np, torch, core, ops, args, opts, tmp, data, raw_bytes: float,
+             threads_s: float) -> dict:
+    """Phase 8 (a): ``--producers`` participant processes write the paper
+    configuration into one file; -> the launch counts of the children
+    (summed) and of the read-back."""
+    path = os.path.join(tmp, "mp.rntj")
+    report, codes, children, dt = run_participants(
+        core, path, opts, args.seed, args.entries, tmp,
+        range(args.producers))
+    log(f"mp write report: {json.dumps(report)}; exit codes {codes}")
+    if any(c != 0 for c in codes):
+        fail(f"participant exit codes {codes}")
+    if report["fenced"] or report["salvaged"] or report["abandoned"]:
+        fail("the mp seal was not clean")
+    if os.path.exists(path + ".mpwlog"):
+        fail("a clean mp seal left its side-car log")
+    if (report["writers"], report["entries"]) != (
+            args.producers, args.producers * args.entries):
+        fail(f"mp seal: {report['writers']} writers, {report['entries']} "
+             "entries")
+    for i, c in enumerate(children):
+        log(f"  participant {i}: join {c['join_s']:.3f} s, write "
+            f"{c['write_s']:.3f} s, K1 {c['counts']['offsets_scan']}, K2 "
+            f"{c['counts']['byteshuffle_pages']}")
+        if c["counts"]["offsets_scan"] <= 0 or (
+                c["counts"]["byteshuffle_pages"] <= 0):
+            fail(f"participant {i} launched no K1 or no K2: {c['counts']}")
+    write_s = max(c["write_s"] for c in children)
+    ops.reset_launch_counts()
+    r_s, _stats, n_clusters, _read = check_read_back(np, torch, core, path,
+                                                     data, args.entries)
+    r_counts = ops.launch_counts()
+    if r_counts["unsplit_pages"] <= 0 or r_counts["decode_offset_pages"] <= 0:
+        fail(f"the mp read-back launched no K3 or no K4: {r_counts}")
+    mb = raw_bytes / 1e6
+    log(f"mp write: {args.producers} processes x {args.entries} entries into "
+        f"one file, {os.path.getsize(path) / 1e6:.3f} MB, {n_clusters} "
+        f"clusters; start to seal {dt:.4f} s = {mb / dt:.3f} MB/s (process "
+        f"starts included); slowest participant's join to close "
+        f"{write_s:.4f} s = {mb / write_s:.3f} MB/s; phase 3's "
+        f"{args.producers}-thread write of the same bytes {threads_s:.4f} s "
+        f"= {mb / threads_s:.3f} MB/s; read back equal as a multiset "
+        f"({r_s:.4f} s, K3 {r_counts['unsplit_pages']}, K4 "
+        f"{r_counts['decode_offset_pages']})")
+    os.remove(path)
+    summed = dict.fromkeys(ops.KERNELS, 0)
+    for c in children:
+        for k, v in c["counts"].items():
+            summed[k] += v
+    return {"mp write": summed, "mp read-back": r_counts}
+
+
+def mp_death_and_recovery(np, torch, core, ops, args, opts, tmp) -> None:
+    """Phase 8 (b): a participant that dies after ``flush_cluster``, then a
+    coordinator dropped before its seal."""
+    import dataclasses
+
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA as schema
+
+    d_opts = dataclasses.replace(opts, lease_interval=DEATH_LEASE_S)
+    data = make_data(np, args.seed, 2, DEATH_ENTRIES)
+    path = os.path.join(tmp, "death.rntj")
+    report, codes, children, dt = run_participants(
+        core, path, d_opts, args.seed, DEATH_ENTRIES, tmp, (0, 1), die=(1,))
+    if codes[0] != 0 or codes[1] != 9:
+        fail(f"exit codes {codes}: expected 0 and the dead writer's 9")
+    if report["fenced"] != [children[1]["writer_id"]]:
+        fail(f"expected the dead writer fenced: {report}")
+    _r_s, _st, _n, read = check_read_back(np, torch, core, path, data,
+                                          DEATH_ENTRIES, live={0})
+    if not 0 < read[1] < DEATH_ENTRIES:
+        fail(f"the dead writer's salvage holds {read[1]} entries")
+    log(f"a writer that dies: 2 participants x {DEATH_ENTRIES} entries, one "
+        f"os._exit after {DEATH_AFTER} fill batch and flush_cluster; "
+        f"{dt:.3f} s to the degraded seal; fenced {report['fenced']}, "
+        f"{len(report['salvaged'])} clusters salvaged, "
+        f"{len(report['abandoned'])} abandoned; the live writer's "
+        f"{read[0]} entries complete, the dead writer's {read[1]} a prefix "
+        "of its commit order")
+    os.remove(path)
+    if os.path.exists(path + ".mpwlog"):
+        os.remove(path + ".mpwlog")
+
+    # a coordinator dropped before its seal: in-process participants on
+    # the card, then neither seal nor footer
+    path = os.path.join(tmp, "dropped.rntj")
+    coord = core.MultiWriterCoordinator(schema, path, opts)
+    errors = []
+
+    def fill(p):
+        try:
+            w = coord.participant(device="cuda")
+            c = w.create_fill_context()
+            for b in batches(core, schema, data[p]):
+                c.fill_batch(b)
+            c.close()
+            w.close()
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    ts = [threading.Thread(target=fill, args=(p,)) for p in (0, 1)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise errors[0]
+    coord.sink.close()  # dropped: no seal
+    coord.log.close()
+    copy = os.path.join(tmp, "dropped_copy.rntj")
+    shutil.copyfile(path, copy)
+    shutil.copyfile(path + ".mpwlog", copy + ".mpwlog")
+    try:
+        core.RNTJReader(copy, device="cuda").close()
+        fail("a file without its footer opened")
+    except IOError:
+        pass
+    _s, _st, _n, tol = check_read_back(np, torch, core, copy, data,
+                                       DEATH_ENTRIES, tolerant=True)
+    t0 = time.perf_counter()
+    rep = core.recover_container(copy)
+    rec_s = time.perf_counter() - t0
+    _s, _st, n_rec, _read = check_read_back(np, torch, core, copy, data,
+                                            DEATH_ENTRIES)
+    log(f"a dropped coordinator: recover_container rebuilt {n_rec} clusters "
+        f"({rep.entries_salvaged} entries, {len(rep.clusters_dropped)} "
+        f"dropped) in {rec_s:.4f} s, equal to the generated data; a "
+        f"tolerant reader of the torn copy read {sum(tol.values())} entries")
+    for f in (path, path + ".mpwlog", copy, copy + ".mpwlog"):
+        if os.path.exists(f):
+            os.remove(f)
+
+
+def merge_path(np, core, ops, opts, tmp, data) -> tuple:
+    """Phase 8 (c): ``merge_files`` of two one-producer paper files on the
+    card, verbatim and re-encoded (``recompress=True``); each output
+    byte-identical to the same merge on the numpy backend.  -> (the
+    re-encode's launch counts, the path of the first input, written with
+    the kernels)."""
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA as schema
+
+    ins = [os.path.join(tmp, f"one{p}.rntj") for p in (0, 1)]
+    for f, item in zip(ins, data):
+        write_single(core, schema, opts, f, item, "auto")
+    counts = {}
+    for route, recompress in (("verbatim", None), ("re-encode", True)):
+        outs, secs = {}, {}
+        for backend in ("auto", "numpy"):
+            out = os.path.join(tmp, f"merged_{backend}.rntj")
+            ops.reset_launch_counts()
+            with kernel_backend(backend):
+                t0 = time.perf_counter()
+                core.merge_files(ins, out, opts, recompress=recompress,
+                                 device="cuda")
+                secs[backend] = time.perf_counter() - t0
+            c = ops.launch_counts()
+            ran = c["offsets_scan"] > 0 and c["byteshuffle_pages"] > 0
+            if ran != (route == "re-encode" and backend == "auto"):
+                fail(f"merge {route} on {backend}: K1 {c['offsets_scan']}, "
+                     f"K2 {c['byteshuffle_pages']}")
+            if backend == "auto":
+                counts[route] = c
+            with open(out, "rb") as f:
+                outs[backend] = f.read()
+            os.remove(out)
+        if outs["auto"] != outs["numpy"]:
+            fail(f"merge {route}: the card's output differs from numpy's")
+        log(f"merge {route} of 2 one-producer files ({len(outs['auto']) / 1e6:.3f}"
+            f" MB): kernels {secs['auto']:.4f} s, numpy {secs['numpy']:.4f} s;"
+            f" byte-identical; K1 {counts[route]['offsets_scan']}, K2 "
+            f"{counts[route]['byteshuffle_pages']}")
+    os.remove(ins[1])
+    return counts["re-encode"], ins[0]
+
+
+def remote_path(np, torch, core, ops, args, opts, data, file_path) -> dict:
+    """Phase 8 (d): one producer writes the paper data to ``mem-s3://``
+    with the kernels; the object's bytes equal the same write to a file,
+    and it reads back equal on the card.  -> {path: launch counts}."""
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA as schema
+
+    url = "mem-s3://chip-smoke/paper.rntj"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with core.SequentialWriter(schema, url, opts, device="cuda") as w:
+        for b in batches(core, schema, data[0]):
+            w.fill_batch(b)
+    dt = time.perf_counter() - t0
+    w_counts = ops.launch_counts()
+    obj = core.mem_bucket("chip-smoke").objects["paper.rntj"]
+    with open(file_path, "rb") as f:
+        if bytes(obj) != f.read():
+            fail("the mem-s3 object differs from the same write to a file")
+    ops.reset_launch_counts()
+    r_s, _st, _n, _read = check_read_back(np, torch, core, url, data[:1],
+                                          args.entries)
+    r_counts = ops.launch_counts()
+    for name, c in (("write", w_counts), ("read-back", r_counts)):
+        got = ([c["offsets_scan"], c["byteshuffle_pages"]] if name == "write"
+               else [c["unsplit_pages"], c["decode_offset_pages"]])
+        if min(got) <= 0:
+            fail(f"the remote {name} launched no kernel of its pair: {c}")
+    log(f"remote: one producer to {url}, {len(obj) / 1e6:.3f} MB in "
+        f"{dt:.4f} s; the object equals the file write byte for byte; read "
+        f"back equal ({r_s:.4f} s); K1 {w_counts['offsets_scan']}, K2 "
+        f"{w_counts['byteshuffle_pages']}, K3 {r_counts['unsplit_pages']}, "
+        f"K4 {r_counts['decode_offset_pages']}")
+    core.mem_bucket("chip-smoke").objects.clear()
+    return {"remote write": w_counts, "remote read-back": r_counts}
+
+
+def same_bits(torch, a, b) -> bool:
+    """``b`` (a tensor) holds ``a``'s bytes, dtype and shape."""
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(a)
+    if (a.dtype, a.shape) != (b.dtype, b.shape):
+        return False
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    if a.device != b.device:
+        a = a.to(b.device)
+    return a.numel() == 0 or torch.equal(a.view(torch.uint8),
+                                         b.view(torch.uint8))
+
+
+def checkpoint_path(np, torch, ops, state, loader, live_batches, step,
+                    corpus: str, tmp) -> dict:
+    """Phase 8 (e), right after the smollm-360m steps: the train state tree
+    (the reference loop's shape) saved by ``CheckpointManager`` with 4
+    writer threads and with 2 spawned processes, each restored onto the
+    card and held against the live state bit for bit; then one step from
+    each restored state and from the live state on the same next batch,
+    equal bit for bit (K5 and its backward are deterministic).  -> (the
+    launch counts of those three steps, the phase's seconds)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.checkpoint import _flatten_with_names
+    from repro_torch.pipeline import PackedLoader
+    from repro_torch.train.optimizer import AdamWState
+
+    t_phase = time.perf_counter()
+    params, opt_state, err = state
+    ld = loader.state()
+    tree = {
+        "params": params,
+        "opt": {"step": opt_state.step, "m": opt_state.m, "v": opt_state.v},
+        "err": err,
+        "loader": {"entry_cursor": np.asarray(ld["entry_cursor"]),
+                   "leftover": np.asarray(ld["leftover"], np.int32)},
+    }
+    leaves, _rebuild = _flatten_with_names(tree)
+    n_bytes = sum(np.asarray(x).nbytes if not torch.is_tensor(x)
+                  else x.numel() * x.element_size() for _n, x in leaves)
+    restored = {}
+    for route, kw in (("4 threads", {"n_writers": 4}),
+                      ("2 processes", {"processes": 2})):
+        d = os.path.join(tmp, "ckpt_" + route.replace(" ", "_"))
+        mgr = CheckpointManager(d, keep=1, **kw)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = mgr.save(TRAIN_STEPS + 1, tree, {"train_step": TRAIN_STEPS + 1})
+        save_s = time.perf_counter() - t0
+        save_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if stats.get("degraded") or any(stats.get("worker_exitcodes", [])):
+            fail(f"checkpoint save ({route}) degraded: {stats}")
+        size = os.path.getsize(mgr.path_for(TRAIN_STEPS + 1))
+        t0 = time.perf_counter()
+        back, meta = mgr.restore(target_tree=tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if meta.get("train_step") != TRAIN_STEPS + 1:
+            fail(f"checkpoint ({route}) metadata {meta}")
+        got, _r = _flatten_with_names(back)
+        if [n for n, _ in got] != [n for n, _ in leaves]:
+            fail(f"checkpoint ({route}) restored other leaves")
+        for (name, want), (_n, have) in zip(leaves, got):
+            if not (torch.is_tensor(have) and have.is_cuda
+                    and same_bits(torch, want, have)):
+                fail(f"checkpoint ({route}): leaf {name} differs")
+        zlib = ""
+        if "compress_ms" in stats:
+            zlib = (f"; zlib {stats['compress_ms'] / 1e3:.3f} s summed over "
+                    f"the writer threads = {stats['compress_ms'] / 1e3 / (save_s * kw['n_writers']) * 100:.1f} "
+                    f"% of {kw['n_writers']} x the save")
+        log(f"checkpoint ({route}), {CARD}: {len(leaves)} leaves, "
+            f"{n_bytes / 1e9:.4f} GB; save {save_s:.3f} s = "
+            f"{n_bytes / 1e6 / save_s:.3f} MB/s, file {size / 1e9:.4f} GB"
+            f"{zlib}; restore onto the card {restore_s:.3f} s = "
+            f"{n_bytes / 1e6 / restore_s:.3f} MB/s; every leaf equal bit for "
+            f"bit (dtype, shape, device); launches in the save "
+            f"{json.dumps(save_counts)}")
+        restored[route] = back
+        shutil.rmtree(d)
+
+    # the loader resumes where the live one stands
+    batch = next(live_batches)
+    for route, back in restored.items():
+        resumed = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+        resumed.load_state({k: v.cpu().numpy()
+                            for k, v in back["loader"].items()})
+        rb = next(resumed.batches())
+        resumed.close()
+        for k in batch:
+            if not torch.equal(torch.as_tensor(rb[k]).cpu(),
+                               torch.as_tensor(batch[k]).cpu()):
+                fail(f"the loader resumed from the checkpoint ({route}) "
+                     f"gives another {k} batch")
+    ops.reset_launch_counts()
+    runs = {"live": (params, opt_state, err)}
+    for route, back in restored.items():
+        runs[route] = (back["params"], AdamWState(
+            back["opt"]["step"], back["opt"]["m"], back["opt"]["v"]),
+            back["err"])
+    outs = {}
+    for route, (p, o, e) in runs.items():
+        new_p, new_o, _e, m = step(p, o, e, batch)
+        outs[route] = (float(m["loss"]), new_p, new_o)
+    counts = ops.launch_counts()
+    live_loss, live_p, live_o = outs.pop("live")
+    want, _r = _flatten_with_names({"p": live_p, "m": live_o.m, "v": live_o.v})
+    for route, (loss, new_p, new_o) in outs.items():
+        got, _r = _flatten_with_names({"p": new_p, "m": new_o.m, "v": new_o.v})
+        diff = [n for (n, x), (_m, y) in zip(want, got)
+                if not same_bits(torch, x, y)]
+        if loss != live_loss or diff:
+            fail(f"the step resumed from the checkpoint ({route}) differs from "
+                 f"the live step: loss {loss!r} against {live_loss!r}, "
+                 f"{len(diff)} tensors, first {diff[:3]}")
+        log(f"resumed step ({route}): loss {loss!r} and every parameter "
+            "and moment equal the live step's bit for bit")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 8 (e): {wall:.3f} s; launches of the three resumed steps "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts, wall
+
 
 # ---------------------------------------------------------------------------
 
@@ -2292,6 +2796,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    global CARD
+    CARD = smi
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device 0: {kind}")
@@ -2321,8 +2827,8 @@ def main() -> int:
     ops.reset_launch_counts()
     w_s, wstats = write_parallel(core, SYNTH_EVENT_SCHEMA,
                                  PAPER_WRITE_OPTIONS, path, data)
-    r_s, rstats, n_clusters = check_read_back(np, torch, core, path, data,
-                                              args.entries)
+    r_s, rstats, n_clusters, _read = check_read_back(np, torch, core, path,
+                                                     data, args.entries)
     # the path's own launches: taken before any check launches more
     counts = ops.launch_counts()
     shapes = ops.launch_shapes()
@@ -2487,7 +2993,7 @@ def main() -> int:
         row["launches_by_op_entries"] = o_counts[row["name"]]
 
     # -- phase 7: the train path ---------------------------------------------
-    bwd_row, t_counts, t_worst = train_path(np, torch, ops, args)
+    bwd_row, t_counts, t_worst, ck_s = train_path(np, torch, ops, args)
     for row in rows:  # K5's forward runs on the train paths too
         if row["name"] == "flash_attention":
             for arch, c in t_counts.items():
@@ -2500,6 +3006,32 @@ def main() -> int:
                                ("max_abs_err_bf16_checks", "bfloat16")):
                 row[key] = max(row[key], t_worst["flash_attention", dname])
     rows.append(bwd_row)
+
+    # -- phase 8: multi-process writing, recovery, merge, remote -------------
+    # ((e), the checkpoint, ran in phase 7 right after smollm-360m's steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    p8 = mp_write(np, torch, core, ops, args, PAPER_WRITE_OPTIONS, tmp, data,
+                  raw_bytes, w_s)
+    mp_death_and_recovery(np, torch, core, ops, args, PAPER_WRITE_OPTIONS, tmp)
+    two = data if len(data) >= 2 else make_data(np, args.seed, 2, args.entries)
+    p8["merge re-encode"], one = merge_path(np, core, ops, PAPER_WRITE_OPTIONS,
+                                            tmp, two[:2])
+    p8.update(remote_path(np, torch, core, ops, args, PAPER_WRITE_OPTIONS,
+                          data, one))
+    shutil.rmtree(tmp)
+    w8 = time.perf_counter() - t8
+    log(f"phase 8: (a)-(d) {w8:.3f} s, (e) {ck_s:.3f} s (in phase 7), "
+        f"{w8 + ck_s:.3f} s in all")
+    for row in rows:
+        name = row["name"]
+        if name in ops.WRITE_READ_KERNELS:
+            by = row.setdefault("launches_by_path",
+                                {"write -> read": row["launches"]})
+            by.update({k: c[name] for k, c in p8.items() if c[name]})
+            row["launches"] = sum(by.values())
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

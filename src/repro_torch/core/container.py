@@ -580,8 +580,10 @@ def open_sink(path, create: bool = True, async_io: bool = False) -> Sink:
     → :class:`MemorySink`; an ``async:`` prefix (or ``async_io=True``)
     → :class:`AsyncFileSink`, which lets the I/O engine use io_uring
     ring submission when available; a ``scheme://bucket/key`` URL (e.g.
-    ``mem-s3://bucket/file.rntj``) is refused: the object-store sink is
-    not part of this package yet; anything else → :class:`FileSink`.
+    ``mem-s3://bucket/file.rntj``, or ``s3://`` once a real transport is
+    registered) → :class:`~repro_torch.core.remote.ObjectStoreSink` over the
+    scheme's registered transport (DESIGN.md §10); anything else →
+    :class:`FileSink`.
     """
     path = os.fspath(path)  # accept str and os.PathLike alike
     if path in ("/dev/null", "devnull", "null:"):
@@ -589,7 +591,8 @@ def open_sink(path, create: bool = True, async_io: bool = False) -> Sink:
     if path == "mem:":
         return MemorySink()
     if "://" in path:
-        raise NotImplementedError("remote sinks: later slice")
+        from .remote import open_remote_sink  # local import: no cycle
+        return open_remote_sink(path, create=create)
     if path.startswith("async:"):
         return AsyncFileSink(path[len("async:"):], create=create)
     if async_io:

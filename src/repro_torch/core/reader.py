@@ -152,10 +152,12 @@ class ReadOptions:
       Off, or on a file without the ``zonemaps`` footer extra, every
       path degrades to the exact unpruned scan — pruning is an
       optimization, never a correctness dependency.
-    * ``tolerant`` — journal-scan salvage of a torn file (DESIGN.md §8.5)
-      is not part of this package yet: a tolerant open of a file whose
-      anchor/footer chain is missing or corrupt raises
-      ``NotImplementedError``; a normal file opens as usual.
+    * ``tolerant`` — when the anchor/footer chain is missing or corrupt
+      (a crashed writer), fall back to the journal scan of
+      :mod:`repro_torch.core.recover` and serve whatever clusters it
+      salvages; :attr:`RNTJReader.salvage` then carries the
+      :class:`~repro_torch.core.recover.RecoveryReport` (``None`` on a
+      normal open).  DESIGN.md §8.5.
 
     The full option table lives in DESIGN.md §7.
     """
@@ -253,7 +255,7 @@ class RNTJReader:
         self._bufpool = make_buffer_pool(self.read_options.buffer_pool_bytes)
         self._closed = False
         self._plan_cache = None  # compiled prune plan (ReadOptions.filter)
-        self.salvage = None  # journal salvage is not part of this package yet
+        self.salvage = None  # RecoveryReport when a tolerant open salvaged
         try:
             if not self.sink.readable():
                 raise IOError("sink is not readable")
@@ -262,9 +264,16 @@ class RNTJReader:
             except (IOError, ValueError, KeyError, struct.error):
                 if not self.read_options.tolerant:
                     raise
-                raise NotImplementedError(
-                    "tolerant open (journal salvage): later slice"
+                # torn or corrupt finalization metadata: fall back to the
+                # journal scan and serve whatever it salvages (§8.5)
+                from .recover import scan_container
+                self.schema, self.options, self.clusters, self.salvage = (
+                    scan_container(self.sink)
                 )
+                self.n_entries = self.salvage.entries_salvaged
+                # the journal never carries zone maps (finalization
+                # metadata): a salvaged open serves no stale bounds
+                self.zonemaps = [None] * len(self.clusters)
             # column ranges: first element index of each column per cluster
             # (paper §3) — the running sums of per-cluster element counts.
             self.column_ranges = np.zeros(

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (bit for bit for K1-K4, K9 and K10, within stated tolerances for
 K5-K8 and K5's backward), the op entries of ``repro_torch.kernels.ops``,
-the write -> read path with ``device="cuda"``, the packing loader's
-device engine, and one train step.
+the write -> read path with ``device="cuda"``, a multi-writer
+participant and merge on the card, a checkpoint round trip, the packing
+loader's device engine, and one train step.
 
 Marked ``cuda``: without a card every test skips.  On the card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -298,6 +299,100 @@ def test_write_and_read_back_on_the_card(card, tmp_path):
         np.concatenate([c[2].cpu().numpy() for c in got]), vals)
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ops.WRITE_READ_KERNELS)
+
+
+def _paper_batches(rng, n, batch=100_000):
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA as S
+
+    sizes = rng.poisson(5, n).astype(np.int64)
+    vals = rng.standard_normal(int(sizes.sum()), dtype=np.float32)
+    ends = np.cumsum(sizes)
+    out = []
+    for s in range(0, n, batch):
+        e = min(n, s + batch)
+        a = 0 if s == 0 else ends[s - 1]
+        out.append(T.ColumnBatch.from_arrays(S, e - s, {
+            "id": np.arange(s, e, dtype=np.int64), "vals": sizes[s:e],
+            "vals._0": vals[a:ends[e - 1]]}))
+    return out, vals
+
+
+def test_participant_writes_on_the_card(card, tmp_path):
+    from repro_torch.configs.rntj_writer import (
+        PAPER_WRITE_OPTIONS as O, SYNTH_EVENT_SCHEMA as S,
+    )
+
+    batches, vals = _paper_batches(np.random.default_rng(1), 300_000)
+    path = str(tmp_path / "mp.rntj")
+    coord = T.MultiWriterCoordinator(S, path, O)
+    ops.reset_launch_counts()
+    w = T.join_container(path)  # device="cuda", the default
+    ctx = w.create_fill_context()
+    for b in batches:
+        ctx.fill_batch(b)
+    ctx.close()
+    w.close()
+    counts = ops.launch_counts()
+    report = coord.seal(expect_writers=1)
+    coord.close()
+    assert counts["offsets_scan"] > 0 and counts["byteshuffle_pages"] > 0
+    assert report["entries"] == 300_000 and not report["fenced"]
+    with T.RNTJReader(path) as r:
+        got = np.concatenate([c[2].cpu().numpy()
+                              for _, c in r.iter_clusters_device()])
+    np.testing.assert_array_equal(got, vals)
+
+
+def test_merge_reencode_on_the_card_equals_numpy(card, tmp_path, monkeypatch):
+    from repro_torch.configs.rntj_writer import (
+        PAPER_WRITE_OPTIONS as O, SYNTH_EVENT_SCHEMA as S,
+    )
+
+    batches, _vals = _paper_batches(np.random.default_rng(2), 200_000)
+    src = str(tmp_path / "in.rntj")
+    with T.SequentialWriter(S, src, O) as w:
+        for b in batches:
+            w.fill_batch(b)
+    outs = []
+    for backend in ("auto", "numpy"):
+        monkeypatch.setenv("REPRO_TORCH_KERNEL_BACKEND", backend)
+        ops.reset_launch_counts()
+        out = str(tmp_path / f"{backend}.rntj")
+        T.merge_files([src], out, O, recompress=True)
+        counts = ops.launch_counts()
+        assert (counts["offsets_scan"] > 0) == (backend == "auto")
+        assert (counts["byteshuffle_pages"] > 0) == (backend == "auto")
+        outs.append(open(out, "rb").read())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("processes", [0, 2])
+def test_checkpoint_round_trip_on_the_card(card, tmp_path, processes):
+    from repro_torch.ckpt import CheckpointManager
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    tree = {
+        "params": {"w": torch.randn(300, 64, device=card, generator=gen),
+                   "b": torch.randn(64, device=card,
+                                    generator=gen).to(torch.bfloat16)},
+        "opt": {"step": torch.tensor(5, dtype=torch.int32, device=card)},
+        "loader": {"entry_cursor": np.asarray(12),
+                   "leftover": np.arange(7, dtype=np.int32)},
+    }
+    mgr = CheckpointManager(str(tmp_path), processes=processes)
+    stats = mgr.save(3, tree, {"loss": 1.5})
+    assert not stats.get("degraded")
+    back, meta = mgr.restore(target_tree=tree)
+    assert meta["step"] == 3 and meta["loss"] == 1.5
+    for k in ("w", "b"):
+        got, want = back["params"][k], tree["params"][k]
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got.view(torch.int16) if k == "b" else got,
+                           want.view(torch.int16) if k == "b" else want)
+    assert back["opt"]["step"].is_cuda and int(back["opt"]["step"]) == 5
+    assert np.array_equal(back["loader"]["leftover"].cpu().numpy(),
+                          tree["loader"]["leftover"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """Rules of the PyTorch/CUDA port, checked on the CPU.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports jax
-  or anything of the ``repro`` package (an AST scan).
-* ``import repro_torch`` and a write -> read round trip work in a process
-  in which neither jax nor ``repro`` can be imported.
-* Without a card, writers, the reader, the models and the serving
-  launcher refuse to run unless the caller asked for ``device="cpu"``;
-  the JAX package's backend variables do not change the port's dispatch.
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports jax,
+  anything of the ``repro`` package, or ``ml_dtypes`` (the card's machine
+  lacks it) (an AST scan).
+* ``import repro_torch``, ``import repro_torch.ckpt``, a write -> read
+  round trip and a multi-process checkpoint save work in a process in
+  which neither jax, ``repro`` nor ``ml_dtypes`` can be imported.
+* Without a card, writers, the reader, multi-process participants, the
+  checkpoint restore, the models and the serving launcher refuse to run
+  unless the caller asked for ``device="cpu"``; the JAX package's backend
+  variables do not change the port's dispatch.
 """
 
 import ast
@@ -29,12 +32,13 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_neither_jax_nor_repro(path):
+    # nor ml_dtypes: bf16 leaves move through integer views
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []
     for node in ast.walk(tree):
@@ -51,26 +55,53 @@ def test_port_runs_where_jax_and_repro_cannot_import(tmp_path):
 import sys
 sys.modules["jax"] = None      # any import of jax now raises ImportError
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 import numpy as np
+import torch
 import repro_torch, repro_torch.core as T, repro_torch.kernels
+import repro_torch.ckpt
+from repro_torch.ckpt import load_checkpoint, save_checkpoint_mp
 from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA, PAPER_WRITE_OPTIONS
-n = 2000
-sizes = np.random.default_rng(0).poisson(5, n)
-vals = np.arange(int(sizes.sum()), dtype=np.float32)
-path = {str(tmp_path / "x.rntj")!r}
-with T.SequentialWriter(SYNTH_EVENT_SCHEMA, path, PAPER_WRITE_OPTIONS,
-                        device="cpu") as w:
-    w.fill_batch(T.ColumnBatch.from_arrays(SYNTH_EVENT_SCHEMA, n, {{
-        "id": np.arange(n, dtype=np.int64), "vals": sizes, "vals._0": vals}}))
-with T.RNTJReader(path, device="cpu") as r:
-    got = np.concatenate([c[2].numpy() for _, c in r.iter_clusters_device()])
-assert np.array_equal(got, vals)
-assert not [m for m, mod in sys.modules.items()
-            if mod is not None and (m == "repro" or m.startswith("repro."))]
-print("ok")
+
+
+def main():
+    n = 2000
+    sizes = np.random.default_rng(0).poisson(5, n)
+    vals = np.arange(int(sizes.sum()), dtype=np.float32)
+    path = {str(tmp_path / "x.rntj")!r}
+    with T.SequentialWriter(SYNTH_EVENT_SCHEMA, path, PAPER_WRITE_OPTIONS,
+                            device="cpu") as w:
+        w.fill_batch(T.ColumnBatch.from_arrays(SYNTH_EVENT_SCHEMA, n, {{
+            "id": np.arange(n, dtype=np.int64), "vals": sizes,
+            "vals._0": vals}}))
+    with T.RNTJReader(path, device="cpu") as r:
+        got = np.concatenate([c[2].numpy()
+                              for _, c in r.iter_clusters_device()])
+    assert np.array_equal(got, vals)
+    # a multi-process save: spawn runs this file's imports, with their
+    # guards, in each child before the worker, which then needs neither
+    # jax nor ml_dtypes (a child that fails degrades the save)
+    tree = {{"w": torch.arange(12.0).reshape(3, 4),
+            "b": torch.ones(4).bfloat16()}}
+    ck = {str(tmp_path / "ck.rntj")!r}
+    rep = save_checkpoint_mp(ck, tree, n_processes=2, device="cpu")
+    assert not rep["degraded"], rep
+    back, _ = load_checkpoint(ck, target_tree=tree, device="cpu")
+    assert all(torch.equal(back[k], tree[k]) for k in tree)
+    assert not [m for m, mod in sys.modules.items()
+                if mod is not None and (m == "repro" or m.startswith("repro.")
+                                        or m in ("jax", "ml_dtypes"))]
+    print("ok")
+
+
+if __name__ == "__main__":
+    main()
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    # spawn re-runs the main script in each child: a file, not ``-c``
+    script = tmp_path / "jax_free.py"
+    script.write_text(code)
+    out = subprocess.run([sys.executable, str(script)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
@@ -142,5 +173,43 @@ def test_reference_backend_variables_do_not_change_the_port(monkeypatch):
 
 
 def test_remote_sinks_are_refused():
-    with pytest.raises(NotImplementedError):
-        T.open_sink("mem-s3://bucket/file.rntj")
+    # a scheme with no registered transport is refused; mem-s3 opens
+    with pytest.raises(ValueError, match="no transport registered"):
+        T.open_sink("s3://bucket/file.rntj")
+    sink = T.open_sink("mem-s3://rules/file.rntj")
+    assert isinstance(sink, T.ObjectStoreSink)
+    sink.close()
+
+
+def test_participants_and_restore_refuse_without_a_card(tmp_path, no_card):
+    from repro_torch.ckpt import (
+        CheckpointManager, load_checkpoint, save_checkpoint,
+        save_checkpoint_mp,
+    )
+    from repro_torch.configs.rntj_writer import SYNTH_EVENT_SCHEMA as S
+
+    path = str(tmp_path / "mp.rntj")
+    coord = T.MultiWriterCoordinator(S, path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.join_container(path)
+    with pytest.raises(RuntimeError):
+        coord.participant()
+    with T.join_container(path, device="cpu"):
+        pass
+    assert coord.seal()["writers"] == 1  # the refusals registered nobody
+    coord.close()
+
+    ck = str(tmp_path / "ck.rntj")
+    tree = {"w": torch.ones(2, 3)}
+    with pytest.raises(RuntimeError):
+        save_checkpoint(ck, tree)
+    with pytest.raises(RuntimeError):
+        save_checkpoint_mp(ck, tree)
+    assert not os.path.exists(ck)
+    save_checkpoint(ck, tree, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint(ck)
+    back, _ = load_checkpoint(ck, device="cpu")
+    assert torch.equal(back["w"], tree["w"])
+    with pytest.raises(RuntimeError):
+        CheckpointManager(str(tmp_path / "mgr"))
