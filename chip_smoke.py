@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's write -> read, serve and train paths and
-its kernel API on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's write -> read, serve and train paths, the
+main path as one program, the skim and its kernel API on one NVIDIA card.
 
     python3 chip_smoke.py [--entries 1000000] [--producers 4] [--seed 0]
                           [--requests 16] [--prompt-len 1000] [--max-new 64]
@@ -136,15 +136,34 @@ Phases, in order; any failure exits non-zero:
    to ``mem-s3://``: the object equal to the same write to a file, read
    back equal (K1-K4 > 0); (e) inside phase 7, right after smollm-360m's
    steps: its train state (``params``, ``opt {step, m, v}``, ``err``,
-   ``loader {entry_cursor, leftover}``, about 4.3 GB) saved by
-   ``CheckpointManager`` with 4 writer threads and with 2 spawned
-   processes, each restored onto the card equal to the live state bit for
-   bit (dtype, shape, device), the resumed loader's next batch equal to
-   the live one's, and one step from each restored state equal to the
-   live state's step (loss, parameters and moments bit for bit); save
-   and restore seconds, MB/s and file size with the card's name and
-   power limit;
-9. the last line: ``{"ok": true, "device": {...}}``.
+   ``loader {entry_cursor, leftover}``, about 4.9 GB) saved by
+   ``CheckpointManager`` with 2 spawned processes (phase 9 (a) saves the
+   same state with 4 writer threads), restored onto the card equal to the
+   live state bit for bit (dtype, shape, device), the resumed loader's
+   next batch equal to the live one's, and one step from the restored
+   state equal to the live state's step (loss, parameters and moments bit
+   for bit); save and restore seconds, MB/s and file size with the card's
+   name and power limit;
+9. the main path as one program and the skim: (a) ``repro_torch.launch.
+   train.main`` trains smollm-360m at full width and depth (fp32
+   parameters, bf16 compute, remat) on phase 7's corpus, (8, 1024)
+   batches, 15 steps with the loop's async checkpoint (4 writer threads)
+   at step 10: launches K5 = 2 x 32 x 15, its backward 32 x 15, K3 and K4
+   > 0 and nothing else; losses finite and falling; a fresh loader and
+   loop restore step 10 and their 5 steps equal the first loop's steps
+   11-15 bit for bit (losses, parameters, moments), reading no cluster
+   where the restored leftover holds their batches; step ms without and
+   with the save in flight, the hand-off ms, the end's wait, the restore
+   seconds, straggler events; (b) ``repro_torch.launch.quickstart`` at
+   its own sizes (gemma-2b's smoke config): exact launches, K5's backward
+   at head dim 32, the restart at step 30, the generations file equal to
+   the tokens; (c) ``make_agc_dataset`` builds 9 partitions x 4 files x
+   250,000 events on the card (K1 3 a file, K2 > 0) and
+   ``skim_partitions`` runs all five strategies with pushdown and ``imt``
+   and ``parallel`` without, 8 threads each: equal ``kept_events``, each
+   partition's sorted events equal across runs, ``imt``'s files (K2 > 0)
+   byte-identical to the numpy backend's; seconds, input and output MB;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
 and each served batch's prefill and 8 of its decode steps with
@@ -2053,6 +2072,38 @@ def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
     return n_batches, loader_s, counts
 
 
+def train_want(ops, cfg, steps: int, prefills: int = 0,
+               decode_steps: int = 0) -> dict:
+    """The launches ``steps`` train steps, ``prefills`` prefills and
+    ``decode_steps`` decode steps of a dense model make (K3/K4: the
+    loader's reads, checked apart)."""
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(
+        flash_attention=cfg.n_layers * (steps * (2 if cfg.remat else 1)
+                                        + prefills),
+        flash_attention_bwd=cfg.n_layers * steps,
+        decode_attention=cfg.n_layers * decode_steps)
+    return want
+
+
+def check_launches(ops, counts: dict, want: dict, what: str,
+                   reads: bool = True) -> None:
+    """``counts`` must equal ``want``; K3/K4, the loader's cluster reads,
+    must be > 0 where ``reads`` and 0 where not (a loader whose restored
+    leftover holds every batch it is asked for reads no cluster)."""
+    log(f"launches on {what}: {json.dumps(counts)}")
+    for name in ops.KERNELS:
+        if name in ("decode_offset_pages", "unsplit_pages"):
+            if reads and counts[name] < 1:
+                fail(f"{name} not launched by the loader on {what}")
+            if not reads and counts[name] != 0:
+                fail(f"{name} launched {counts[name]} times on {what}, whose "
+                     "restored leftover holds all its batches")
+        elif counts[name] != want[name]:
+            fail(f"{name} launched {counts[name]} times on {what}, expected "
+                 f"{want[name]}")
+
+
 def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
     """gemma-2b at full width and depth (fp32 parameters, bf16 compute,
     remat), from ``--seed``, on the device loader's (B, 1024) batches of
@@ -2108,18 +2159,8 @@ def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
     after = torch.cuda.memory_stats()
     alloc = {k: after.get(k, 0) - before.get(k, 0) for k in (
         "num_alloc_retries", "num_device_alloc", "num_device_free")}
-    steps = 1 + GEMMA_STEPS
-    n_attn = steps * cfg.n_layers
-    want = dict.fromkeys(ops.KERNELS, 0)
-    want.update(flash_attention=2 * n_attn, flash_attention_bwd=n_attn)
-    log(f"launches on the {cfg.name} train path: {json.dumps(counts)}")
-    for name in ops.KERNELS:
-        if name in ("decode_offset_pages", "unsplit_pages"):
-            if counts[name] < 1:
-                fail(f"{name} not launched by the {cfg.name} train loader")
-        elif counts[name] != want[name]:
-            fail(f"{name} launched {counts[name]} times on the {cfg.name} "
-                 f"train path, expected {want[name]}")
+    check_launches(ops, counts, train_want(ops, cfg, 1 + GEMMA_STEPS),
+                   f"the {cfg.name} train path")
     k5_shape = (batch, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
                 cfg.resolved_head_dim)
     for name in ("flash_attention", "flash_attention_bwd"):
@@ -2166,7 +2207,8 @@ def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
 def train_path(np, torch, ops, args):
     """Phase 7; -> (the ``kernels`` row of K5's backward, {arch: the launch
     counts of its train run}, the worst K5 errors by (kernel, dtype) at the
-    backward's shapes)."""
+    backward's shapes, phase 8 (e)'s seconds, the corpus file: phase 9
+    trains on it and removes its directory)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build
     from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
@@ -2242,18 +2284,8 @@ def train_path(np, torch, ops, args):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_attn = TRAIN_STEPS * cfg.n_layers
-    want = dict.fromkeys(ops.KERNELS, 0)
-    want.update(flash_attention=2 * n_attn if cfg.remat else n_attn,
-                flash_attention_bwd=n_attn)
-    log(f"launches on the train path: {json.dumps(counts)}")
-    for name in ops.KERNELS:
-        if name in ("decode_offset_pages", "unsplit_pages"):
-            if counts[name] < 1:
-                fail(f"{name} not launched by the train path's loader")
-        elif counts[name] != want[name]:
-            fail(f"{name} launched {counts[name]} times on the train path, "
-                 f"expected {want[name]}")
+    check_launches(ops, counts, train_want(ops, cfg, TRAIN_STEPS),
+                   "the train path")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train losses {losses}: not finite, or the last not below "
              "the first")
@@ -2292,7 +2324,6 @@ def train_path(np, torch, ops, args):
     torch.cuda.empty_cache()
     g_batch, g_counts = train_gemma(np, torch, ops, args, path,
                                     args.profile or tmp)
-    shutil.rmtree(tmp)
     by_path = {TRAIN_ARCH: counts, GEMMA_ARCH: g_counts,
                f"{TRAIN_ARCH} checkpoint resume": ck_counts}
     row = time_attention_bwd(torch, TRAIN_ARCH, counts["flash_attention_bwd"],
@@ -2308,7 +2339,7 @@ def train_path(np, torch, ops, args):
         "forward_ms", "bytes", "call_ms", "library_call_ms",
         "library_max_abs_err")}
     row[f"at_{GEMMA_ARCH}"]["train_batch"] = g_batch
-    return row, by_path, worst, ck_s
+    return row, by_path, worst, ck_s, path
 
 
 # ---------------------------------------------------------------------------
@@ -2631,12 +2662,13 @@ def same_bits(torch, a, b) -> bool:
 def checkpoint_path(np, torch, ops, state, loader, live_batches, step,
                     corpus: str, tmp) -> dict:
     """Phase 8 (e), right after the smollm-360m steps: the train state tree
-    (the reference loop's shape) saved by ``CheckpointManager`` with 4
-    writer threads and with 2 spawned processes, each restored onto the
-    card and held against the live state bit for bit; then one step from
-    each restored state and from the live state on the same next batch,
-    equal bit for bit (K5 and its backward are deterministic).  -> (the
-    launch counts of those three steps, the phase's seconds)."""
+    (the reference loop's shape) saved by ``CheckpointManager`` with 2
+    spawned processes (the 4-thread save of the same state is phase 9
+    (a)'s, through the loop), restored onto the card and held against the
+    live state bit for bit; then one step from the restored state and from
+    the live state on the same next batch, equal bit for bit (K5 and its
+    backward are deterministic).  -> (the launch counts of those two
+    steps, the phase's seconds)."""
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.ckpt.checkpoint import _flatten_with_names
     from repro_torch.pipeline import PackedLoader
@@ -2656,8 +2688,7 @@ def checkpoint_path(np, torch, ops, state, loader, live_batches, step,
     n_bytes = sum(np.asarray(x).nbytes if not torch.is_tensor(x)
                   else x.numel() * x.element_size() for _n, x in leaves)
     restored = {}
-    for route, kw in (("4 threads", {"n_writers": 4}),
-                      ("2 processes", {"processes": 2})):
+    for route, kw in (("2 processes", {"processes": 2}),):
         d = os.path.join(tmp, "ckpt_" + route.replace(" ", "_"))
         mgr = CheckpointManager(d, keep=1, **kw)
         ops.reset_launch_counts()
@@ -2734,9 +2765,342 @@ def checkpoint_path(np, torch, ops, state, loader, live_batches, step,
         log(f"resumed step ({route}): loss {loss!r} and every parameter "
             "and moment equal the live step's bit for bit")
     wall = time.perf_counter() - t_phase
-    log(f"phase 8 (e): {wall:.3f} s; launches of the three resumed steps "
+    log(f"phase 8 (e): {wall:.3f} s; launches of the two resumed steps "
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
     return counts, wall
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the main path as one program, the quickstart, the AGC skim
+
+#: phase 9 (a): ``launch.train`` trains ``TRAIN_ARCH`` on phase 7's corpus
+#: and (TRAIN_BATCH, TRAIN_SEQ) batches for ``LOOP_STEPS`` steps with a
+#: checkpoint every ``LOOP_CKPT_EVERY`` (the loop's default async save);
+#: a fresh loop then restores it and runs the rest
+LOOP_STEPS, LOOP_CKPT_EVERY = 15, 10
+#: phase 9 (c): the reference's AGC layout (``make_agc_dataset``'s 9
+#: partitions x 4 files) at 250,000 events a file, skimmed by 8 threads
+SKIM_PARTS, SKIM_FILES, SKIM_EVENTS, SKIM_THREADS = 9, 4, 250_000, 8
+#: phase 9 (c): the runs, (strategy, pushdown); the first is the base the
+#: others are held equal to
+SKIM_RUNS = (("imt", True), ("separate", True), ("buffermerger", True),
+             ("parallel", True), ("separate-null", True), ("imt", False),
+             ("parallel", False))
+SKIM_COLLECTIONS = ("electrons_pt", "muons_pt", "jets_pt")
+
+
+def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
+    """Phase 9 (a): ``repro_torch.launch.train.main`` trains smollm-360m at
+    full width and depth (fp32 parameters, bf16 compute, remat) from
+    ``--seed`` on phase 7's corpus, (8, 1024) batches, ``LOOP_STEPS`` steps
+    with the loop's async checkpoint (4 writer threads) every
+    ``LOOP_CKPT_EVERY``; its launches must be K5 twice and its backward
+    once a layer and step, K3/K4 > 0 and nothing else (the save launches
+    none: its data column is ``uint8`` and its offsets stay under K1's
+    floor); every loss finite, the last below the first.  Then a fresh
+    loader and loop on the same directory with the same optimizer restore
+    the step-``LOOP_CKPT_EVERY`` checkpoint, and their steps must equal
+    the first loop's last steps bit for bit: losses, parameters, moments
+    and the optimizer's step; their launches K5 and its backward as many
+    as those steps need, K3/K4 > 0 where the restored leftover holds fewer
+    tokens than those steps take and 0 where it holds them all.
+    -> {path: launch counts}."""
+    from repro_torch.ckpt.checkpoint import _flatten_with_names
+    from repro_torch.launch import train as launch_train
+    from repro_torch.pipeline import PackedLoader
+    from repro_torch.train import LoopConfig, TrainLoop
+
+    ckpt = os.path.join(tmp, "loop_ckpt")
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(LOOP_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--data", corpus,
+            "--ckpt-dir", ckpt, "--ckpt-every", str(LOOP_CKPT_EVERY),
+            "--seed", str(args.seed)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = launch_train.main(argv)
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cfg = loop.bundle.cfg
+    check_launches(ops, counts, train_want(ops, cfg, LOOP_STEPS),
+                   f"the loop ({LOOP_STEPS} steps of launch.train)")
+    losses = [h.loss for h in loop.history]
+    if (len(losses) != LOOP_STEPS or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        fail(f"loop losses {losses}: not {LOOP_STEPS} finite ones, or the "
+             "last not below the first")
+    if ([s.step for s in loop.saves] != [LOOP_CKPT_EVERY]
+            or loop.mgr.steps() != [LOOP_CKPT_EVERY]):
+        fail(f"the loop saved {loop.saves}, committed {loop.mgr.steps()}")
+    walls = [h.wall_s * 1e3 for h in loop.history]
+    before, during = walls[:LOOP_CKPT_EVERY], walls[LOOP_CKPT_EVERY:]
+    handoff_s = loop.saves[0].block_s
+    state_bytes = sum(x.numel() * x.element_size() for _n, x in
+                      _flatten_with_names({"p": loop.params,
+                                           "m": loop.opt_state.m,
+                                           "v": loop.opt_state.v})[0])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"loop {cfg.name}, {CARD}: {LOOP_STEPS} steps of ({TRAIN_BATCH}, "
+        f"{TRAIN_SEQ}) in {run_s:.3f} s (model init and the save's wait "
+        f"included); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; losses {json.dumps(losses)}")
+    log(f"loop step ms without a save in flight (steps 1-{LOOP_CKPT_EVERY}): "
+        f"{json.dumps(before)}, mean {statistics.mean(before):.3f} "
+        f"({statistics.mean(before[1:]):.3f} without the first) = "
+        f"{tokens / statistics.mean(before) * 1e3:.1f} tokens/s; with the "
+        f"step-{LOOP_CKPT_EVERY} save in flight (steps "
+        f"{LOOP_CKPT_EVERY + 1}-{LOOP_STEPS}): {json.dumps(during)}, mean "
+        f"{statistics.mean(during):.3f} = "
+        f"{tokens / statistics.mean(during) * 1e3:.1f} tokens/s")
+    log(f"loop save at step {LOOP_CKPT_EVERY}: hand-off (host snapshot of "
+        f"{state_bytes / 1e9:.4f} GB of parameters and moments, pageable "
+        f"D2H) {handoff_s * 1e3:.3f} ms = {state_bytes / 1e9 / handoff_s:.3f}"
+        f" GB/s; wait() at the end of the run {loop.wait_s:.3f} s; "
+        f"straggler events {sum(h.straggler for h in loop.history)}")
+    by_path = {f"train {cfg.name} loop": counts}
+
+    # the restart: a fresh loader and loop on the same directory
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    again = TrainLoop(loop.bundle, loader, ckpt,
+                      config=LoopConfig(steps=LOOP_STEPS - LOOP_CKPT_EVERY,
+                                        ckpt_every=LOOP_CKPT_EVERY),
+                      optimizer=loop.optimizer, device="cuda",
+                      seed=args.seed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if again.step != LOOP_CKPT_EVERY:
+        fail(f"the restarted loop stands at step {again.step}")
+    # its batches come from the restored leftover first: it reads a
+    # cluster only if the leftover holds fewer tokens than its steps take
+    left = len(again.loader.leftover)
+    reads = left < ((LOOP_STEPS - LOOP_CKPT_EVERY) * TRAIN_BATCH
+                    * (TRAIN_SEQ + 1))
+    again.run()
+    r_counts = ops.launch_counts()
+    check_launches(ops, r_counts,
+                   train_want(ops, cfg, LOOP_STEPS - LOOP_CKPT_EVERY),
+                   f"the restarted loop (restored leftover {left} tokens)",
+                   reads=reads)
+    r_losses = [h.loss for h in again.history]
+    if r_losses != losses[LOOP_CKPT_EVERY:]:
+        fail(f"the restarted loop's losses {r_losses} differ from the first "
+             f"loop's {losses[LOOP_CKPT_EVERY:]}")
+    want, _r = _flatten_with_names({"p": loop.params, "m": loop.opt_state.m,
+                                    "v": loop.opt_state.v,
+                                    "step": loop.opt_state.step})
+    got, _r = _flatten_with_names({"p": again.params, "m": again.opt_state.m,
+                                   "v": again.opt_state.v,
+                                   "step": again.opt_state.step})
+    diff = [n for (n, x), (_m, y) in zip(want, got, strict=True)
+            if not same_bits(torch, x, y)]
+    if diff:
+        fail(f"the restarted loop's state differs from the first loop's in "
+             f"{len(diff)} tensors, first {diff[:3]}")
+    log(f"loop restart: restore of step {LOOP_CKPT_EVERY} (a fresh loader and "
+        f"loop) {restore_s:.3f} s; its {LOOP_STEPS - LOOP_CKPT_EVERY} steps "
+        f"equal the first loop's steps {LOOP_CKPT_EVERY + 1}-{LOOP_STEPS} bit "
+        f"for bit (losses, {len(want)} tensors of parameters, moments and "
+        "the step)")
+    by_path[f"train {cfg.name} loop restart"] = r_counts
+    loader.close()
+    loop.loader.close()
+    del loop, again, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def quickstart_path(np, torch, core, ops, tmp) -> dict:
+    """Phase 9 (b): ``repro_torch.launch.quickstart`` on the card at its own
+    sizes (gemma-2b's smoke config, head dim 32: ingest, 30 steps with
+    checkpoints every 10, a restart, serving); its launches must be K5 once
+    a layer and step (no remat) and once a layer in prefill, K5's backward
+    once a layer and step, all at head dim 32, K6 once a layer and decode
+    step, K3/K4 > 0 and nothing else; the restart resumes at step 30 and
+    the generations file reads back equal to the tokens.  -> {path: launch
+    counts}."""
+    from repro_torch.launch import quickstart
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = quickstart.main(["--workdir", os.path.join(tmp, "quickstart")])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    shapes = ops.launch_shapes()
+    served = res["serve"]
+    cfg = served.cfg
+    steps = len(res["history"]) + len(res["resumed"])
+    check_launches(ops, counts, train_want(
+        ops, cfg, steps, prefills=1, decode_steps=served.tokens.shape[1] - 1),
+        "the quickstart")
+    if res["restored_at"] != 30 or res["resumed"][-1].step != 40:
+        fail(f"the quickstart restarted at step {res['restored_at']} and "
+             f"ended at {res['resumed'][-1].step}")
+    dims = {s[5] for s in shapes["flash_attention_bwd"]}
+    if dims != {32}:
+        fail(f"the quickstart's K5 backward ran at head dims {dims}")
+    losses = [h.loss for h in res["history"] + res["resumed"]]
+    if not all(np.isfinite(losses)):
+        fail(f"quickstart losses {losses}")
+    with core.RNTJReader(served.out, device="cuda") as r:
+        ids = np.asarray(r.read_column("request_id"))
+        toks = np.asarray(r.read_column("tokens._0"))
+    if not np.array_equal(toks.reshape(len(ids), -1),
+                          served.tokens[ids]):
+        fail("the quickstart's generations file differs from its tokens")
+    log(f"quickstart ({cfg.name} smoke, head dim {cfg.resolved_head_dim}): "
+        f"{wall:.3f} s; {res['ingest']['entries']} docs ingested; losses "
+        f"{losses[0]:.4f} -> {losses[29]:.4f}, restarted at step "
+        f"{res['restored_at']}, {losses[-1]:.4f} at step 40; K5's backward "
+        f"at {dict(shapes['flash_attention_bwd'])}; the generations file "
+        "equal to the served tokens")
+    return {"quickstart": counts}
+
+
+def skim_events(np, core, path: str) -> dict:
+    """A skim output's events sorted by ``event_id``, as columns: the ids,
+    and each collection's sizes and values in that order."""
+    cols_by = {"event_id": []}
+    for c in SKIM_COLLECTIONS:
+        cols_by[c], cols_by[c + "._0"] = [], []
+    with core.RNTJReader(path, device="cuda") as r:
+        col = r.schema.column_of_path
+        for _i, cols in r.iter_clusters(recycle=False):
+            cols_by["event_id"].append(cols[col["event_id"]])
+            for c in SKIM_COLLECTIONS:
+                cols_by[c].append(np.diff(cols[col[c]].astype(np.int64),
+                                          prepend=0))
+                cols_by[c + "._0"].append(cols[col[c + "._0"]])
+    flat = {k: np.concatenate(v) for k, v in cols_by.items()}
+    order = np.argsort(flat["event_id"], kind="stable")
+    out = {"event_id": flat["event_id"][order]}
+    for c in SKIM_COLLECTIONS:
+        sizes = flat[c]
+        starts = np.cumsum(sizes) - sizes
+        so = sizes[order]
+        shift = np.repeat(starts[order] - (np.cumsum(so) - so), so)
+        out[c] = so
+        out[c + "._0"] = flat[c + "._0"][np.arange(int(so.sum())) + shift]
+    return out
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def skim_path(np, core, ops, args, tmp) -> dict:
+    """Phase 9 (c): the paper's skim application on the card.
+    ``make_agc_dataset`` builds the reference's layout (``SKIM_PARTS``
+    partitions x ``SKIM_FILES`` files, ``SKIM_EVENTS`` events a file, from
+    ``--seed``; the paper's 787 input files cut to 36) with its writers on
+    the card; then ``skim_partitions`` runs every ``SKIM_RUNS`` entry with
+    ``SKIM_THREADS`` threads.  ``kept_events`` must be equal across the
+    runs, and each partition's events, sorted by ``event_id``, equal to the
+    first run's column by column.  ``imt`` (one sequential writer a
+    partition, fed its files in order) is the one strategy whose files do
+    not depend on thread timing: its files with and without pushdown must
+    equal byte for byte the same skim under the numpy backend, as must
+    the first input file rebuilt there.
+
+    The kernels, from the writer: each input file is ONE fill batch of
+    ``SKIM_EVENTS`` >= 65,536 entries, so K1 integrates its three
+    collections' sizes (exactly 3 a file), and its seal's page blocks of
+    at least 256 KiB (the jets' values, 2 MB and more) go through K2
+    (> 0).  A skim fills one batch per surviving input cluster, about
+    4-5 % of 250,000 events, far under K1's floor: K1 0 in every run.
+    ``imt`` fills one writer a partition, whose cluster gathers the
+    partition's ~44,000 kept events and seals page blocks above K2's
+    floor: K2 > 0 there, with and without pushdown.  The other strategies
+    seal one cluster per input file (~11,000 events; the jets' block
+    ~220 KB, under the floor) and ``separate`` merges verbatim: K2 is
+    printed, not required.  The skim reads on the host (the reference's
+    numpy kernel over ``iter_cluster_segments``): K3/K4 0.
+    -> {path: launch counts}."""
+    from repro_torch.skim import make_agc_dataset, skim_partitions
+
+    root = os.path.join(tmp, "skim")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    parts = make_agc_dataset(os.path.join(root, "in"), SKIM_PARTS,
+                             SKIM_FILES, SKIM_EVENTS, seed=args.seed,
+                             device="cuda")
+    build_s = time.perf_counter() - t0
+    b_counts = ops.launch_counts()
+    n_files = SKIM_PARTS * SKIM_FILES
+    in_mb = sum(os.path.getsize(f) for fs in parts.values() for f in fs) / 1e6
+    log(f"skim dataset: {SKIM_PARTS} partitions x {SKIM_FILES} files x "
+        f"{SKIM_EVENTS} events = {n_files * SKIM_EVENTS} events, "
+        f"{in_mb:.3f} MB of files, built in {build_s:.3f} s; K1 "
+        f"{b_counts['offsets_scan']}, K2 {b_counts['byteshuffle_pages']}")
+    if (b_counts["offsets_scan"] != 3 * n_files
+            or b_counts["byteshuffle_pages"] < 1):
+        fail(f"the skim dataset's build launched {b_counts}: K1 must be "
+             f"3 x {n_files}, K2 > 0")
+    with kernel_backend("numpy"):
+        again = make_agc_dataset(os.path.join(root, "in_numpy"), 1, 1,
+                                 SKIM_EVENTS, seed=args.seed, device="cuda")
+    if file_bytes(again[0][0]) != file_bytes(parts[0][0]):
+        fail("the first skim input differs from its numpy-backend build")
+
+    by_path, base, kept = {"skim dataset build": b_counts}, None, set()
+    for strategy, pushdown in SKIM_RUNS:
+        name = f"{strategy}{'' if pushdown else ' (no pushdown)'}"
+        out = os.path.join(root, name.replace(" ", "_"))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = skim_partitions(parts, out, strategy, SKIM_THREADS,
+                              pushdown=pushdown, device="cuda")
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        kept.add(res["kept_events"])
+        outs = ([] if strategy == "separate-null" else
+                [os.path.join(out, f"skim_{p}.rntj") for p in parts])
+        out_mb = sum(os.path.getsize(f) for f in outs) / 1e6
+        log(f"skim {name}: {dt:.3f} s, {res['kept_events']} events kept, "
+            f"input {in_mb:.3f} MB, output {out_mb:.3f} MB; K1 "
+            f"{counts['offsets_scan']}, K2 {counts['byteshuffle_pages']}, "
+            f"K3 {counts['unsplit_pages']}, K4 "
+            f"{counts['decode_offset_pages']}")
+        if counts["unsplit_pages"] or counts["decode_offset_pages"]:
+            fail(f"the skim ({name}) decoded on the card: {counts}")
+        if strategy == "imt" and counts["byteshuffle_pages"] < 1:
+            fail(f"the skim ({name}) launched no K2: {counts}")
+        by_path[f"skim {name}"] = counts
+        if outs:
+            events = [skim_events(np, core, f) for f in outs]
+            if base is None:
+                base = events
+            for p, (a, b) in enumerate(zip(base, events, strict=True)):
+                for k in a:
+                    if not np.array_equal(a[k], b[k]):
+                        fail(f"skim {name}: partition {p}'s {k} differs from "
+                             f"the {SKIM_RUNS[0][0]} run's")
+    if len(kept) != 1:
+        fail(f"the skim runs kept different event counts: {kept}")
+    with kernel_backend("numpy"):
+        ops.reset_launch_counts()
+        skim_partitions(parts, os.path.join(root, "imt_numpy"), "imt",
+                        SKIM_THREADS, device="cuda")
+        if any(ops.launch_counts().values()):
+            fail("the numpy backend launched kernels")
+    for p in parts:
+        want = file_bytes(os.path.join(root, "imt_numpy", f"skim_{p}.rntj"))
+        for name in ("imt", "imt_(no_pushdown)"):
+            if file_bytes(os.path.join(root, name, f"skim_{p}.rntj")) != want:
+                fail(f"skim {name}: partition {p}'s file differs from the "
+                     "numpy backend's")
+    log(f"skim: every run kept {kept.pop()} events; every partition's "
+        "events equal across the strategies; imt's files (pushdown on and "
+        "off) byte-identical to the numpy backend's")
+    shutil.rmtree(root)
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -2993,7 +3357,8 @@ def main() -> int:
         row["launches_by_op_entries"] = o_counts[row["name"]]
 
     # -- phase 7: the train path ---------------------------------------------
-    bwd_row, t_counts, t_worst, ck_s = train_path(np, torch, ops, args)
+    bwd_row, t_counts, t_worst, ck_s, corpus = train_path(np, torch, ops,
+                                                          args)
     for row in rows:  # K5's forward runs on the train paths too
         if row["name"] == "flash_attention":
             for arch, c in t_counts.items():
@@ -3032,6 +3397,26 @@ def main() -> int:
                                 {"write -> read": row["launches"]})
             by.update({k: c[name] for k, c in p8.items() if c[name]})
             row["launches"] = sum(by.values())
+
+    # -- phase 9: the main path as one program, the quickstart, the skim ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    tmp = os.path.dirname(corpus)
+    p9 = loop_path(np, torch, ops, args, corpus, tmp)
+    t9b = time.perf_counter()
+    p9.update(quickstart_path(np, torch, core, ops, tmp))
+    t9c = time.perf_counter()
+    p9.update(skim_path(np, core, ops, args, tmp))
+    shutil.rmtree(tmp)
+    t9d = time.perf_counter()
+    log(f"phase 9: (a) {t9b - t9:.3f} s, (b) {t9c - t9b:.3f} s, (c) "
+        f"{t9d - t9c:.3f} s, {t9d - t9:.3f} s in all")
+    for row in rows:  # K1-K6 and K5's backward: each has its paths' counts
+        extra = {k: c[row["name"]] for k, c in p9.items() if c[row["name"]]}
+        if extra:
+            row["launches_by_path"].update(extra)
+            row["launches"] = sum(row["launches_by_path"].values())
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -387,13 +387,22 @@ def load_checkpoint(path: str, target_tree=None, device="cuda",
             f"checkpoint incomplete: missing or partial params {missing}"
         )
 
-    tensors = [torch.from_numpy(raw).view(torch_dtype(dt)).reshape(shape)
-               .to(dev) for raw, dt, shape in leaves]
+    tensors = [_leaf_tensor(raw, dt, shape).to(dev)
+               for raw, dt, shape in leaves]
     tree = _unflatten_by_names(manifest["names"], tensors, target_tree)
     meta = dict(manifest["metadata"])
     if missing:
         meta["restore_missing"] = missing
     return tree, meta
+
+
+def _leaf_tensor(raw: np.ndarray, dt: str, shape) -> torch.Tensor:
+    """A leaf's assembled bytes as a tensor of its dtype and shape (an
+    empty leaf, such as a loader's leftover at step 0, has no bytes whose
+    stride a dtype view could take)."""
+    if raw.size == 0:
+        return torch.empty(shape, dtype=torch_dtype(dt))
+    return torch.from_numpy(raw).view(torch_dtype(dt)).reshape(shape)
 
 
 def _entries(reader):

@@ -495,3 +495,23 @@ def test_one_writer_save_is_byte_identical_to_the_reference(tmp_path):
     assert open(a, "rb").read() == open(b, "rb").read()
     assert ([(c.path, c.dtype) for c in RC.CKPT_SCHEMA.columns]
             == [(c.path, c.dtype) for c in CKPT_SCHEMA.columns])
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_an_empty_leaf_restores_in_both_packages(tmp_path, writer):
+    """A leaf with no elements (the loader's leftover in a step-0 train
+    state) restores with its dtype and shape, whichever package wrote it."""
+    tree = {"leftover": np.empty(0, np.int32), "cursor": np.asarray(0),
+            "w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    p = str(tmp_path / "empty.rntj")
+    if writer == "port":
+        save_checkpoint(p, tree, n_writers=2, device="cpu")
+    else:
+        RC.save_checkpoint(p, {**tree, "w": tree["w"].numpy()}, n_writers=2)
+    back, _ = load_checkpoint(p, device="cpu")
+    assert back["leftover"].dtype == torch.int32
+    assert back["leftover"].shape == (0,)
+    assert int(back["cursor"]) == 0 and torch.equal(back["w"], tree["w"])
+    ref, _ = RC.load_checkpoint(p)
+    assert np.asarray(ref["leftover"]).dtype == np.int32
+    assert np.asarray(ref["leftover"]).shape == (0,)

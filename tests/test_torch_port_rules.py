@@ -7,9 +7,9 @@
   round trip and a multi-process checkpoint save work in a process in
   which neither jax, ``repro`` nor ``ml_dtypes`` can be imported.
 * Without a card, writers, the reader, multi-process participants, the
-  checkpoint restore, the models and the serving launcher refuse to run
-  unless the caller asked for ``device="cpu"``; the JAX package's backend
-  variables do not change the port's dispatch.
+  checkpoint restore, the models, the training loop, the skim and every
+  launcher refuse to run unless the caller asked for ``device="cpu"``; the
+  JAX package's backend variables do not change the port's dispatch.
 """
 
 import ast
@@ -213,3 +213,63 @@ def test_participants_and_restore_refuse_without_a_card(tmp_path, no_card):
     assert torch.equal(back["w"], tree["w"])
     with pytest.raises(RuntimeError):
         CheckpointManager(str(tmp_path / "mgr"))
+
+
+def test_the_scan_covers_the_skim_and_every_launcher():
+    scanned = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    for mod in ("skim/__init__", "skim/engine", "train/loop", "launch/train",
+                "launch/quickstart", "launch/train_lm", "launch/skim",
+                "launch/parallel_checkpoint", "launch/serve_batch",
+                "launch/recover"):
+        assert f"repro_torch/{mod}.py" in scanned, mod
+
+
+def test_the_loop_and_its_launchers_refuse_without_a_card(tmp_path, no_card):
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import (
+        parallel_checkpoint, quickstart, serve_batch, train, train_lm,
+    )
+    from repro_torch.launch import skim as launch_skim
+    from repro_torch.models import build
+    from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
+    from repro_torch.train import TrainLoop
+
+    data = str(tmp_path / "c.rntj")
+    ingest_corpus(synth_corpus(20, mean_len=40, vocab=512), data,
+                  n_workers=1, device="cpu")
+    bundle = build(smoke_config("smollm-360m"))
+    loader = PackedLoader(data, batch=1, seq_len=16, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainLoop(bundle, loader, str(tmp_path / "never"))
+    assert not (tmp_path / "never").exists()
+    loop = TrainLoop(bundle, loader, str(tmp_path / "ck"), device="cpu")
+    assert loop.step == 0 and loop.mgr.device.type == "cpu"
+    loader.close()
+    argv = ["--smoke", "--steps", "1", "--data", str(tmp_path / "t.rntj"),
+            "--ckpt-dir", str(tmp_path / "tck")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    assert not (tmp_path / "t.rntj").exists()
+    work = ["--workdir", str(tmp_path / "w")]
+    for launcher in (quickstart, train_lm, launch_skim, serve_batch,
+                     parallel_checkpoint):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launcher.main(work)
+    assert not (tmp_path / "w").exists()
+
+
+def test_the_skim_refuses_without_a_card(tmp_path, no_card):
+    from repro_torch.skim import make_agc_dataset, skim_partitions
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_agc_dataset(str(tmp_path / "never"), 1, 1, 10)
+    assert not (tmp_path / "never").exists()
+    parts = make_agc_dataset(str(tmp_path / "in"), 1, 1, 200, device="cpu")
+    for strategy in ("imt", "parallel"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            skim_partitions(parts, str(tmp_path / "out"), strategy, 2)
+        assert not (tmp_path / "out").exists()
+    res = skim_partitions(parts, str(tmp_path / "out"), "parallel", 2,
+                          device="cpu")
+    assert res["kept_events"] >= 0
