@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero:
    both also on unaligned views;
    K5 (flash attention: bf16 on the tensor cores, fp32 on the CUDA cores)
    and K6 (decode attention) at ragged shapes, GQA, MQA and MHA, head
-   dims 32 to 256 (80: zamba2's shared attention), Sk under one kv tile,
+   dims 32 to 256 (80: zamba2's shared attention), K5 also at q/k 96 with
+   v 64 (minicpm3-4b's MLA prefill), Sk under one kv tile,
    Sq of 1 and 129 against 1,000, windows, lengths from 1 to the cache,
    H/G of 1, 3 and 8, in fp32 (within 2e-5) and in
    bf16 (against the plain version computed in fp32 from the same bf16
@@ -50,20 +51,32 @@ Phases, in order; any failure exits non-zero:
    kernels and once with the numpy backend: the files must be
    byte-identical;
 4. the serve path: ``repro_torch.launch.serve`` with smollm-360m,
-   rwkv6-7b and zamba2-2.7b, one after another, each at its full width
-   and depth (``--requests`` prompts of ``--prompt-len`` tokens,
+   rwkv6-7b, zamba2-2.7b, minicpm3-4b (MLA), deepseek-moe-16b (MoE),
+   musicgen-large (4 codebooks), chameleon-34b and mixtral-8x22b (MoE,
+   a window), one after another, each at its full width and, but for the
+   last two (``SERVE_DEPTH``: their parameters do not fit one card), its
+   full depth (``--requests`` prompts of ``--prompt-len`` tokens,
    ``--max-new`` greedy tokens, bf16 compute, random weights from
    ``--seed``), each model freed before the next; the launch counts of
    each run alone must be K5 once per attention block in prefill and K6
-   once per attention block and decode step (smollm: every layer;
-   zamba2: its 9 shared blocks), K7 once per rwkv6 layer and K8 once per
-   Mamba-2 layer in prefill, and 0 for every other serve kernel; the
-   generations file must read back equal to the returned tokens; the
-   decode-step logits are held against teacher-forced ``forward`` logits
-   at the same positions: the served bf16 batch against the fp32 forward
+   once per GQA attention block and decode step (every layer of an
+   attention model, none for MLA's latent decode; zamba2: its 9 shared
+   blocks), K7 once per rwkv6 layer and K8 once per Mamba-2 layer in
+   prefill, and 0 for every other serve kernel; the generations file
+   must read back equal to the returned tokens (musicgen: the first
+   codebook); the decode-step logits are held against teacher-forced
+   ``forward`` logits at the same positions, computed over a few
+   requests at a time: the served bf16 batch against the fp32 forward
    on its tokens (no farther from it than 1.5 times the bf16 forward, plus
    1e-2 of max |logit|), and a fresh fp32 generation of two requests
-   against its own forward (within 1e-3);
+   against its own forward (within 1e-3).  A MoE model routes each
+   call's sequences as its capacity groups, so its one-token decode
+   drops other tokens than ``forward`` over prompt + generated tokens:
+   there the served prefill's last-token logits are held against
+   ``forward`` over the prompts at the published config (within 1e-2 of
+   max |logit|, and as above against the fp32 forward), and the
+   decode-vs-forward checks (bf16 and fp32, two requests) run under a
+   capacity factor at which no bucket fills;
 5. the kernels package's entry points: each of the nine op entries of
    ``repro_torch.kernels.ops`` called on CUDA tensors at the shapes of
    the reference's own sweep (``tests/test_kernels.py``), each result
@@ -75,7 +88,8 @@ Phases, in order; any failure exits non-zero:
    call with its host overhead, beside its bound, its plain version and,
    where one exists, the one PyTorch call computing the same function
    (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's and
-   at zamba2-2.7b's head shapes; none for K7 and K8); K9 and K10 at one
+   at zamba2-2.7b's head shapes, and K5 at minicpm3-4b's q/k 96, v 64 with
+   the SDPA backend it ran; none for K7 and K8); K9 and K10 at one
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
    K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``; K2 also
@@ -236,6 +250,12 @@ KERNEL_DESIGN = {
     "decode_offset_pages": {"uint8": "one thread-block cluster per page"},
     "byteshuffle": {"uint8": "K2's register form, one page"},
     "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
+    # K5's narrow-v form (MLA), timed in its own nested row
+    "flash_attention q/k 96, v 64": {
+        "bfloat16": "wgmma+tma; q/k in a 64-wide 128-byte-swizzled and a "
+                    "32-wide 64-byte-swizzled block, v one 64-wide block, "
+                    "P V 64 wide",
+        "float32": "simt fp32"},
     "flash_attention_bwd": {"bfloat16": "two launches (dQ; dK and dV), "
                                         "wgmma + TMA, a consumer warpgroup "
                                         "and a producer warp a block, P from "
@@ -256,9 +276,17 @@ KERNEL_DESIGN = {
 }
 
 #: the served models, in the order they run: each at its full width and
-#: depth, the dense family (K5, K6), rwkv6 (K7) and the zamba2 hybrid (K8,
-#: and K5/K6 at head dim 80 in its shared attention blocks)
-SERVE_ARCHS = ("smollm-360m", "rwkv6-7b", "zamba2-2.7b")
+#: depth (but for ``SERVE_DEPTH``), the dense family (K5, K6), rwkv6 (K7),
+#: the zamba2 hybrid (K8, and K5/K6 at head dim 80 in its shared attention
+#: blocks), MLA (K5 at q/k 96, v 64; a latent decode without K6), MoE,
+#: 4 codebooks, qk-norm, MoE with a window
+SERVE_ARCHS = ("smollm-360m", "rwkv6-7b", "zamba2-2.7b", "minicpm3-4b",
+               "deepseek-moe-16b", "musicgen-large", "chameleon-34b",
+               "mixtral-8x22b")
+#: depth cuts of the served models whose fp32 parameters do not fit one
+#: card whole: chameleon-34b (48 layers, 127.8 GiB) and mixtral-8x22b (56
+#: layers, 523.9 GiB) at full width and this many layers
+SERVE_DEPTH = {"chameleon-34b": 8, "mixtral-8x22b": 2}
 
 #: K5/K6 tolerances against the plain version (see the docstring)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
@@ -283,6 +311,10 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 #: distance from it, plus 1e-2.
 CONSISTENCY_TOL = {"float32": 1e-3}
 BF16_SPREAD, BF16_SLACK = 1.5, 1e-2
+#: the teacher-forced forwards of the consistency checks run over this
+#: many requests' logits at a time at most (deepseek-moe-16b's 16 x 1,064
+#: x 102,400 fp32 logits are 7 GB beside 62.9 GiB of parameters)
+LOGIT_CHUNK_BYTES = 1 << 31
 
 
 def fail(msg: str) -> "NoReturn":
@@ -395,15 +427,16 @@ def _larger(nbytes: float, ops: float, ops_per_s: float):
 def attention_bound(name: str, shape, itemsize: int, length=None):
     """(bound_ms, bound_by, bytes) of one K5 or K6 launch on this run's
     inputs: q, k, v read once and o written once over the memory rate;
-    ``4 D`` operations per visible (query, key) pair (QK^T and PV) over
-    the bf16 tensor-core rate.  K5 counts the causal pairs
-    (``q_offset = Sk - Sq``), K6 the ``length`` cache rows it reads."""
+    ``2 (D + Dv)`` operations per visible (query, key) pair (QK^T over D,
+    PV over Dv) over the bf16 tensor-core rate.  K5 counts the causal
+    pairs (``q_offset = Sk - Sq``), K6 the ``length`` cache rows it
+    reads."""
     if name == "flash_attention":
-        b, h, g, sq, sk, d = shape
+        b, h, g, sq, sk, d, dv = shape
         off = sk - sq
         pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
-        ops = 4 * b * h * d * pairs
-        nbytes = itemsize * (2 * b * h * sq * d + 2 * b * g * sk * d)
+        ops = 2 * b * h * (d + dv) * pairs
+        nbytes = itemsize * (b * h * sq * (d + dv) + b * g * sk * (d + dv))
     else:
         b, h, g, _s, d = shape
         ops = 4 * b * h * length * d
@@ -708,33 +741,38 @@ def check_codec(torch, kernels) -> None:
 
 
 def attention_cases():
-    """K5 cases (b, h, g, sq, sk, d, causal, window) and K6 cases
+    """K5 cases (b, h, g, sq, sk, d, dv, causal, window) and K6 cases
     (b, h, g, s, d, window): no tile multiples, Sq < Sk, GQA 3:1, MQA and
     MHA, windows, non-causal calls with a padded kv tile, smollm-360m's
-    (D=64, 15 over 5 heads), gemma-2b's (D=256, 8 over 1) and zamba2-2.7b's
+    (D=64, 15 over 5 heads), gemma-2b's (D=256, 8 over 1), zamba2-2.7b's
     shared attention's (D=80, 32 over 32: two swizzled column blocks in
-    K5, ten lanes a row in K6) head shapes; Sk under one kv tile, Sq of 1
-    and 129 against 1,000 (q_offset no tile multiple), K6 at H/G of 1, 3
-    and 8 with lengths from 1 to S."""
+    K5, ten lanes a row in K6) and minicpm3-4b's MLA (q/k 96 in two
+    swizzled blocks, v 64; 40 over 40) head shapes; Sk under one kv tile,
+    Sq of 1 and 129 against 1,000 (q_offset no tile multiple), K6 at H/G
+    of 1, 3 and 8 with lengths from 1 to S."""
     flash = [
-        (1, 15, 5, 1000, 1000, 64, True, None),    # smollm-360m prefill
-        (2, 8, 1, 1000, 1000, 256, True, None),    # gemma-2b prefill
-        (2, 15, 15, 77, 77, 64, True, None),       # MHA
-        (2, 15, 1, 130, 300, 64, True, None),      # MQA, Sq < Sk
-        (2, 8, 8, 65, 129, 256, True, 48),         # window at D=256
-        (1, 6, 2, 100, 100, 64, True, 33),         # window
-        (1, 6, 2, 50, 200, 64, False, None),       # non-causal, padded kv
-        (1, 8, 1, 33, 97, 256, False, 40),         # non-causal window
-        (2, 4, 4, 1, 90, 32, True, None),          # one query row
-        (1, 4, 2, 300, 300, 128, True, None),
-        (1, 32, 32, 1000, 1000, 80, True, None),   # zamba2-2.7b shared attn
-        (2, 6, 6, 77, 130, 80, False, 20),         # D=80, non-causal window
-        (1, 4, 2, 17, 17, 64, True, None),         # Sk under one kv tile
-        (1, 6, 2, 1, 1000, 64, True, None),        # Sq = 1 against 1,000
-        (2, 6, 2, 129, 1000, 64, True, None),      # q_offset no tile multiple
-        (1, 8, 8, 300, 300, 80, True, 100),        # D=80 with a window
-        (1, 4, 1, 1000, 1000, 256, True, None),    # D=256 at the prefill length
-        (2, 8, 1, 200, 300, 128, True, None),      # MQA at D=128
+        (1, 15, 5, 1000, 1000, 64, 64, True, None),     # smollm-360m prefill
+        (2, 8, 1, 1000, 1000, 256, 256, True, None),    # gemma-2b prefill
+        (2, 15, 15, 77, 77, 64, 64, True, None),        # MHA
+        (2, 15, 1, 130, 300, 64, 64, True, None),       # MQA, Sq < Sk
+        (2, 8, 8, 65, 129, 256, 256, True, 48),         # window at D=256
+        (1, 6, 2, 100, 100, 64, 64, True, 33),          # window
+        (1, 6, 2, 50, 200, 64, 64, False, None),        # non-causal, padded kv
+        (1, 8, 1, 33, 97, 256, 256, False, 40),         # non-causal window
+        (2, 4, 4, 1, 90, 32, 32, True, None),           # one query row
+        (1, 4, 2, 300, 300, 128, 128, True, None),
+        (1, 32, 32, 1000, 1000, 80, 80, True, None),    # zamba2-2.7b shared attn
+        (2, 6, 6, 77, 130, 80, 80, False, 20),          # D=80, non-causal window
+        (1, 4, 2, 17, 17, 64, 64, True, None),          # Sk under one kv tile
+        (1, 6, 2, 1, 1000, 64, 64, True, None),         # Sq = 1 against 1,000
+        (2, 6, 2, 129, 1000, 64, 64, True, None),       # q_offset no tile multiple
+        (1, 8, 8, 300, 300, 80, 80, True, 100),         # D=80 with a window
+        (1, 4, 1, 1000, 1000, 256, 256, True, None),    # D=256 at the prefill length
+        (2, 8, 1, 200, 300, 128, 128, True, None),      # MQA at D=128
+        (2, 40, 40, 1000, 1000, 96, 64, True, None),    # minicpm3-4b MLA prefill
+        (1, 4, 4, 129, 129, 96, 64, True, None),        # q/k 96, v 64, ragged
+        (1, 6, 2, 77, 300, 96, 64, True, 50),           # GQA, Sq < Sk, window
+        (1, 4, 4, 50, 200, 96, 64, False, None),        # non-causal, padded kv
     ]
     decode = [
         (16, 15, 5, 1064, 64, None),               # smollm-360m decode
@@ -784,15 +822,15 @@ def check_attention(torch, flash_cases, decode_cases) -> dict:
     worst = {}
     for dname, tol in ATTN_TOL.items():
         dtype = getattr(torch, dname)
-        for b, h, g, sq, sk, d, causal, window in flash_cases:
+        for b, h, g, sq, sk, d, dv, causal, window in flash_cases:
             q, k, v = _attention_inputs(torch, gen, dtype, (b, h, sq, d),
-                                        (b, g, sk, d), (b, g, sk, d))
+                                        (b, g, sk, d), (b, g, sk, dv))
             got = flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                            causal=causal, window=window)
             err = _attention_err(torch, got, want, tol, (
-                f"flash_attention {dname} at {(b, h, g, sq, sk, d)} "
+                f"flash_attention {dname} at {(b, h, g, sq, sk, d, dv)} "
                 f"causal={causal} window={window}"))
             key = ("flash_attention", dname)
             worst[key] = max(worst.get(key, 0.0), err)
@@ -1177,9 +1215,10 @@ def profile_write_read(torch, core, schema, opts, path, item, out_dir) -> None:
 def expected_launches(cfg, kernels, n_new: int) -> dict:
     """Launches of each serve kernel in one served batch (prefill, then
     ``n_new - 1`` decode steps): K5 once per attention block in prefill
-    and K6 once per attention block and step (every layer of a dense
-    model, zamba2's shared blocks); K7 once per rwkv6 layer and K8 once
-    per Mamba-2 layer in prefill (their decode steps are plain PyTorch)."""
+    and K6 once per GQA attention block and step (every layer of an
+    attention model, zamba2's shared blocks; MLA decodes in latent space
+    without K6); K7 once per rwkv6 layer and K8 once per Mamba-2 layer in
+    prefill (their decode steps are plain PyTorch)."""
     want = dict.fromkeys(kernels, 0)
     attn = cfg.n_layers
     if cfg.family == "ssm":
@@ -1188,37 +1227,79 @@ def expected_launches(cfg, kernels, n_new: int) -> dict:
         want["mamba2_ssd"] = cfg.n_layers
         attn = cfg.n_layers // cfg.shared_attn_every
     want["flash_attention"] = attn
-    want["decode_attention"] = attn * (n_new - 1)
+    if cfg.attention != "mla":
+        want["decode_attention"] = attn * (n_new - 1)
     return want
 
 
-def serve_path(np, core, serve, ops, args, tmp, arch: str):
-    """Serve ``arch`` at full width and depth through the launcher; ->
-    (result, launch counts, launch shapes) of that run alone."""
+def describe(cfg) -> str:
+    """The served model's shape, for the log."""
+    if cfg.mla:
+        m = cfg.mla
+        attn = (f"MLA q/k {m.d_nope + m.d_rope} (rope {m.d_rope}), v "
+                f"{m.d_v}, q rank {m.q_rank}, kv rank {m.kv_rank}")
+    else:
+        attn = f"head dim {cfg.resolved_head_dim}"
+        if cfg.window:
+            attn += f", window {cfg.window}"
+        if cfg.qk_norm:
+            attn += ", qk-norm"
+    if cfg.moe:
+        m = cfg.moe
+        attn += (f"; {m.n_experts} experts top-{m.top_k}"
+                 f"{f' + {m.n_shared} shared' if m.n_shared else ''}, "
+                 f"capacity factor {m.capacity_factor}")
+    if cfg.ssm:  # rwkv6's state is head_dim x head_dim, mamba2's N x P
+        n = cfg.ssm.d_state if cfg.ssm.kind == "mamba2" else cfg.ssm.head_dim
+        attn += f"; {cfg.ssm.kind} state {n} x {cfg.ssm.head_dim}"
+    if cfg.n_codebooks > 1:
+        attn += f"; {cfg.n_codebooks} codebooks, {cfg.mlp} MLP"
+    return attn
+
+
+def serve_path(np, torch, core, serve, ops, args, tmp, arch: str):
+    """Serve ``arch`` at full width, and at full depth or the depth of
+    ``SERVE_DEPTH``, through the launcher (a cut config through its
+    ``serve_model``: the command line takes the registry's names only);
+    -> (result, launch counts, launch shapes) of that run alone."""
+    from repro_torch.configs import get_arch
+
     out = os.path.join(tmp, "generations.rntj")
     argv = ["--arch", arch, "--seed", str(args.seed), "--out", out]
+
+    def run(requests, prompt_len, max_new, keep_logits=False):
+        if arch in SERVE_DEPTH:
+            cfg = get_arch(arch).with_(n_layers=SERVE_DEPTH[arch])
+            return serve.serve_model(cfg, requests, prompt_len, max_new,
+                                     args.seed, "cuda", out,
+                                     keep_logits=keep_logits)
+        return serve.main(argv + [
+            "--requests", str(requests), "--prompt-len", str(prompt_len),
+            "--max-new", str(max_new)], keep_logits=keep_logits)
+
     # a warm-up at a tiny size: the CUDA context's lazy module loads and
     # cuBLAS's set-up stay out of the timed run
-    serve.main(argv + ["--requests", "1", "--prompt-len", "16",
-                       "--max-new", "2"])
-    argv += ["--requests", str(args.requests), "--prompt-len",
-             str(args.prompt_len), "--max-new", str(args.max_new)]
+    run(1, 16, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve.main(argv, keep_logits=True)
+    res = run(args.requests, args.prompt_len, args.max_new, keep_logits=True)
     wall = time.perf_counter() - t0
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
     cfg, b, s, n_new = res.cfg, args.requests, args.prompt_len, args.max_new
-    ssm = ""
-    if cfg.ssm:  # rwkv6's state is head_dim x head_dim, mamba2's N x P
-        n = cfg.ssm.d_state if cfg.ssm.kind == "mamba2" else cfg.ssm.head_dim
-        ssm = f"; {cfg.ssm.kind} state {n} x {cfg.ssm.head_dim}"
-    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
-        f"{cfg.resolved_head_dim}{ssm}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count():,} parameters, {cfg.compute_dtype} compute; "
-        f"{b} requests x {s} prompt tokens, {n_new} new tokens; wall "
-        f"{wall:.3f} s (parameter init included)")
+    full = get_arch(arch)
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers (depth cut: "
+             f"{full.param_count():,} parameters at full depth)"
+             if arch in SERVE_DEPTH else f"{cfg.n_layers} layers")
+    log(f"serve {cfg.name}: {depth}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {describe(cfg)}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count():,} parameters, "
+        f"{cfg.compute_dtype} compute; {b} requests x {s} prompt tokens, "
+        f"{n_new} new tokens; wall {wall:.3f} s (parameter init included); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
     want = expected_launches(cfg, ops.SERVE_KERNELS, n_new)
     log(f"launches on the {cfg.name} serve path: {json.dumps(counts)} "
         f"(expected {json.dumps(want)})")
@@ -1229,13 +1310,15 @@ def serve_path(np, core, serve, ops, args, tmp, arch: str):
         if counts[name] != want[name]:
             fail(f"{name} launched {counts[name]} times on the {cfg.name} "
                  f"serve path, expected {want[name]}")
-    if res.tokens.shape != (b, n_new):
-        fail(f"generated {res.tokens.shape}, expected {(b, n_new)}")
+    q = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
+    if res.tokens.shape != (b, n_new) + q:
+        fail(f"generated {res.tokens.shape}, expected {(b, n_new) + q}")
+    logged = res.tokens[..., 0] if q else res.tokens  # the first codebook
     with core.RNTJReader(out, device="cuda") as r:
         got = r.read_column("tokens._0").reshape(b, n_new)
         ids = r.read_column("request_id")
         plen = r.read_column("prompt_len")
-    if not (np.array_equal(got, res.tokens) and np.array_equal(ids, np.arange(b))
+    if not (np.array_equal(got, logged) and np.array_equal(ids, np.arange(b))
             and np.array_equal(plen, np.full(b, s))):
         fail("the generations file does not read back equal to the tokens")
     os.remove(out)
@@ -1247,7 +1330,7 @@ def serve_path(np, core, serve, ops, args, tmp, arch: str):
         f"({b * (n_new - 1) / tm['decode_s']:.1f} tokens/s); end to end "
         f"{b * n_new / (tm['prefill_s'] + tm['decode_s']):.1f} generated "
         f"tokens/s; write {tm['write_s'] * 1e3:.3f} ms; generations file "
-        "read back equal")
+        f"read back equal{' (the first codebook)' if q else ''}")
     return res, counts, shapes
 
 
@@ -1255,7 +1338,7 @@ def profile_serve(torch, res, out_dir, steps: int = 8) -> None:
     """Trace the served batch's prefill, then ``steps`` decode steps on
     its cache (a few steps keep the trace small; each step is alike)."""
     bundle, params, prompts = res.bundle, res.params, res.prompts
-    b, s = prompts.shape
+    b, s = prompts.shape[:2]
     state = {}
 
     def prefill():
@@ -1275,6 +1358,16 @@ def profile_serve(torch, res, out_dir, steps: int = 8) -> None:
     trace_card(torch, f"serve_{name}_decode_{steps}_steps", decode, out_dir)
 
 
+def _forward_chunks(bundle, params, tokens):
+    """``bundle.forward`` logits over a few requests at a time (at most
+    ``LOGIT_CHUNK_BYTES`` of fp32 logits each); yields (rows, logits)."""
+    cfg = bundle.cfg
+    per = tokens.shape[1] * cfg.n_codebooks * cfg.vocab_size * 4
+    step = max(1, LOGIT_CHUNK_BYTES // per)
+    for i in range(0, tokens.shape[0], step):
+        yield slice(i, i + step), bundle.forward(params, tokens[i:i + step])[0]
+
+
 def _teacher_forced(bundle, params, prompts, tokens):
     """``bundle.forward`` logits (fp32) at the positions that chose each
     generated token: prompt + all but the last token."""
@@ -1283,8 +1376,8 @@ def _teacher_forced(bundle, params, prompts, tokens):
     n_prompt = prompts.shape[1]
     full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).to(
         prompts.device)], dim=1)
-    logits, _ = bundle.forward(params, full)
-    return logits[:, n_prompt - 1:].float().clone()
+    return torch.cat([lg[:, n_prompt - 1:].float()
+                      for _rows, lg in _forward_chunks(bundle, params, full)])
 
 
 def _agree(torch, logits, tokens) -> float:
@@ -1292,54 +1385,113 @@ def _agree(torch, logits, tokens) -> float:
                  .float().mean())
 
 
-def check_consistency(torch, res, bundle32, n_req32: int,
-                      n_new32: int) -> None:
-    """Decode-step logits (K6 on the cache, the one-token recurrences)
-    against teacher-forced ``forward`` logits (K5, K7, K8 over prompt +
-    generated tokens) at the same positions: the served bf16 batch against
-    the fp32 forward on its tokens (see ``CONSISTENCY_TOL``), then a fresh
-    fp32 generation of ``n_req32`` requests x ``n_new32`` tokens against
-    its own fp32 forward."""
-    from repro_torch.launch.serve import generate
-
-    name, (b, s) = res.cfg.name, res.prompts.shape
-    dec = res.logits.float()
-    fwd16 = _teacher_forced(res.bundle, res.params, res.prompts, res.tokens)
-    fwd32 = _teacher_forced(bundle32, res.params, res.prompts, res.tokens)
+def _bf16_against_fp32(torch, name, what, dec, fwd16, fwd32, tokens) -> None:
+    """bf16 logits ``dec`` against the fp32 forward's ``fwd32`` at the same
+    positions: no farther than ``BF16_SPREAD`` times the bf16 forward's
+    ``fwd16`` is, plus ``BF16_SLACK`` of max |logit|."""
     scale = float(fwd32.abs().max())
     d_dec = float((dec - fwd32).abs().max()) / scale
     d_fwd = float((fwd16 - fwd32).abs().max()) / scale
     d_pair = float((dec - fwd16).abs().max()) / scale
     mean_rel = float((dec - fwd32).abs().mean() / fwd32.abs().mean())
     tol = BF16_SPREAD * d_fwd + BF16_SLACK
-    log(f"consistency {name} bfloat16 ({b} x {s} + {res.tokens.shape[1]}): "
-        f"decode logits {d_dec:.4e} of max |logit| {scale:.4f} from the fp32 "
-        f"forward's (tol {tol:.4e} = {BF16_SPREAD} x the bf16 forward's "
-        f"{d_fwd:.4e} + {BF16_SLACK}); decode vs bf16 forward {d_pair:.4e}; "
-        f"mean |decode - fp32 forward| {mean_rel:.4e} of mean |logit|; "
-        f"the fp32 forward's argmax equals the generated "
-        f"token at {100 * _agree(torch, fwd32, res.tokens):.2f} % of "
-        f"positions, the bf16 forward's at "
-        f"{100 * _agree(torch, fwd16, res.tokens):.2f} %")
+    log(f"consistency {name} bfloat16 ({what}): {d_dec:.4e} of max |logit| "
+        f"{scale:.4f} from the fp32 forward's (tol {tol:.4e} = {BF16_SPREAD}"
+        f" x the bf16 forward's {d_fwd:.4e} + {BF16_SLACK}); against the "
+        f"bf16 forward {d_pair:.4e}; mean |diff from the fp32 forward| "
+        f"{mean_rel:.4e} of mean |logit|; the fp32 forward's argmax equals "
+        f"the generated token at {100 * _agree(torch, fwd32, tokens):.2f} % "
+        f"of positions, the bf16 forward's at "
+        f"{100 * _agree(torch, fwd16, tokens):.2f} %")
     if not d_dec <= tol:
-        fail(f"{name}: bf16 decode-step logits disagree with forward")
-    del dec, fwd16, fwd32
+        fail(f"{name}: bf16 {what} logits disagree with forward")
 
-    prompts = res.prompts[:n_req32]
-    tokens, dec = generate(bundle32, res.params, prompts, n_new32,
+
+def _fp32_generation(torch, name, bundle32, params, prompts, n_new32,
+                     what="") -> None:
+    """A fresh fp32 generation against its own fp32 forward (within
+    ``CONSISTENCY_TOL``)."""
+    from repro_torch.launch.serve import generate
+
+    tokens, dec = generate(bundle32, params, prompts, n_new32,
                            keep_logits=True)
-    want = _teacher_forced(bundle32, res.params, prompts, tokens)
+    want = _teacher_forced(bundle32, params, prompts, tokens)
     diff = (dec.float() - want).abs()
     rel = float(diff.max() / want.abs().max())
-    log(f"consistency {name} float32 ({n_req32} x {s} + {n_new32}): decode "
-        f"vs teacher-forced logits max abs diff {float(diff.max()):.4e} = "
-        f"{rel:.4e} of max |logit| {float(want.abs().max()):.4f} (tol "
-        f"{CONSISTENCY_TOL['float32']}), mean "
-        f"{float(diff.mean() / want.abs().mean()):.4e} of mean |logit|; "
+    log(f"consistency {name} float32 ({prompts.shape[0]} x {prompts.shape[1]}"
+        f" + {n_new32}{what}): decode vs teacher-forced logits max abs diff "
+        f"{float(diff.max()):.4e} = {rel:.4e} of max |logit| "
+        f"{float(want.abs().max()):.4f} (tol {CONSISTENCY_TOL['float32']}), "
+        f"mean {float(diff.mean() / want.abs().mean()):.4e} of mean |logit|; "
         f"forward's argmax equals the generated token at "
         f"{100 * _agree(torch, want, tokens):.2f} % of positions")
     if not rel <= CONSISTENCY_TOL["float32"]:
         fail(f"{name}: fp32 decode-step logits disagree with forward")
+
+
+def no_drop(cfg):
+    """A MoE config whose capacity holds a whole routing group (capacity
+    factor ``E / k``): no (token, k) place is dropped."""
+    import dataclasses
+
+    m = cfg.moe
+    return cfg.with_(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def check_consistency(torch, res, bundle32, n_req32: int,
+                      n_new32: int) -> None:
+    """Decode-step logits (K6 on the cache, MLA's latent decode, the
+    one-token recurrences) against teacher-forced ``forward`` logits (K5,
+    K7, K8 over prompt + generated tokens) at the same positions: the
+    served bf16 batch against the fp32 forward on its tokens (see
+    ``CONSISTENCY_TOL``), then a fresh fp32 generation of ``n_req32``
+    requests x ``n_new32`` tokens against its own fp32 forward.  MoE (its
+    one-token decode drops other places than ``forward``): the served
+    prefill's last-token logits against ``forward`` over the prompts at
+    the published config, then the two decode checks on ``n_req32``
+    requests under ``no_drop``."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build
+
+    name, prompts = res.cfg.name, res.prompts
+    b, s = prompts.shape[:2]
+    if res.cfg.moe is None:
+        _bf16_against_fp32(
+            torch, name, f"decode, {b} x {s} + {res.tokens.shape[1]}",
+            res.logits.float(),
+            _teacher_forced(res.bundle, res.params, prompts, res.tokens),
+            _teacher_forced(bundle32, res.params, prompts, res.tokens),
+            res.tokens)
+        _fp32_generation(torch, name, bundle32, res.params,
+                         prompts[:n_req32], n_new32)
+        return
+
+    # the prefill's routing groups are forward's over the same prompts
+    pre = res.logits[:, :1].float()
+    fwd16, fwd32 = (torch.cat([lg[:, -1:].float() for _r, lg in
+                               _forward_chunks(bd, res.params, prompts)])
+                    for bd in (res.bundle, bundle32))
+    d_same = float((pre - fwd16).abs().max() / fwd16.abs().max())
+    log(f"consistency {name} bfloat16 prefill vs forward over the {b} x {s} "
+        f"prompts at capacity factor {res.cfg.moe.capacity_factor}: last-"
+        f"token logits {d_same:.4e} of max |logit| apart (tol {BF16_SLACK})")
+    if not d_same <= BF16_SLACK:
+        fail(f"{name}: the prefill's last-token logits differ from forward's")
+    _bf16_against_fp32(torch, name, "prefill's last token", pre, fwd16,
+                       fwd32, res.tokens[:, :1])
+    del pre, fwd16, fwd32
+
+    cfg = no_drop(res.cfg)
+    nd16, nd32 = build(cfg), build(cfg.with_(compute_dtype="float32"))
+    few = prompts[:n_req32]
+    tokens, dec = generate(nd16, res.params, few, n_new32, keep_logits=True)
+    what = f" at capacity factor {cfg.moe.capacity_factor:.4g}, no drops"
+    _bf16_against_fp32(
+        torch, name, f"decode, {n_req32} x {s} + {n_new32}{what}",
+        dec.float(), _teacher_forced(nd16, res.params, few, tokens),
+        _teacher_forced(nd32, res.params, few, tokens), tokens)
+    _fp32_generation(torch, name, nd32, res.params, few, n_new32, what)
 
 
 # ---------------------------------------------------------------------------
@@ -1525,9 +1677,11 @@ def time_wrapper(torch, fns, name: str, shape, gen, dname=None) -> dict:
             "plain_call_ms": timed["plain_call_ms"]}
 
 
-def time_attention(torch, ops, shapes, counts, worst) -> list:
-    """K5 and K6 at the serve path's most frequent shape in bf16: card
-    time, plain version, SDPA, bound; -> their ``kernels`` rows."""
+def time_attention(torch, ops, shapes, counts, worst,
+                   names=("flash_attention", "decode_attention")) -> list:
+    """K5 and K6 (``names``) at the serve path's most frequent shape in
+    bf16: card time, plain version, SDPA (and, for K5, the SDPA backend
+    it ran), bound; -> their ``kernels`` rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1538,18 +1692,25 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
     gen.manual_seed(77)
     bf16 = torch.bfloat16
     rows = []
-    for name in ("flash_attention", "decode_attention"):
+    for name in names:
         shape = shapes[name].most_common(1)[0][0]
+        backend = None
         if name == "flash_attention":
-            b, h, g, sq, sk, d = shape
+            b, h, g, sq, sk, d, dv = shape
             q, k, v = _attention_inputs(torch, gen, bf16, (b, h, sq, d),
-                                        (b, g, sk, d), (b, g, sk, d))
+                                        (b, g, sk, d), (b, g, sk, dv))
             length = None
             kern = lambda _: flash_attention(q, k, v, causal=True)
             plain = lambda _: ref.flash_attention_ref(q, k, v, causal=True)
             lib = lambda _: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
             want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+            # the backend SDPA picks at these widths (flash-attention takes
+            # v as wide as q/k only), read off the graph of one call
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            backend = type(F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True).grad_fn).__name__
+            del leaves
         else:
             b, h, g, s, d = shape
             q, k, v = _attention_inputs(torch, gen, bf16, (b, h, d),
@@ -1586,6 +1747,7 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
             "plain_ms": timed["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": timed["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
+            "library_backend": backend,
             "design": KERNEL_DESIGN[name]["bfloat16"],
             "design_by_dtype": KERNEL_DESIGN[name],
             "shape": list(shape), "dtype": "bfloat16", "length": length,
@@ -1602,7 +1764,8 @@ def time_attention(torch, ops, shapes, counts, worst) -> list:
             f"ms); per call with host overhead {timed['call_ms']:.5f} ms "
             f"(plain {timed['plain_call_ms']:.5f}, SDPA "
             f"{timed['library_call_ms']:.5f} ms); max abs err {err:.3e} "
-            f"(SDPA {lib_err:.3e}) against the fp32 plain version")
+            f"(SDPA {lib_err:.3e}) against the fp32 plain version"
+            + (f"; SDPA ran {backend}" if backend else ""))
         del q, k, v, want
     return rows
 
@@ -2161,12 +2324,13 @@ def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
         "num_alloc_retries", "num_device_alloc", "num_device_free")}
     check_launches(ops, counts, train_want(ops, cfg, 1 + GEMMA_STEPS),
                    f"the {cfg.name} train path")
-    k5_shape = (batch, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
-                cfg.resolved_head_dim)
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if set(shapes[name]) != {k5_shape}:
+    hd = cfg.resolved_head_dim
+    k5_shape = (batch, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ, hd)
+    for name, want in (("flash_attention", k5_shape + (hd,)),
+                       ("flash_attention_bwd", k5_shape)):
+        if set(shapes[name]) != {want}:
             fail(f"{name} ran at {dict(shapes[name])} on the {cfg.name} "
-                 f"train path, expected {k5_shape}")
+                 f"train path, expected {want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"{cfg.name} train losses {losses}: not finite, or the last "
              "not below the first")
@@ -3259,8 +3423,8 @@ def main() -> int:
 
     served = {}
     for arch in SERVE_ARCHS:
-        res, s_counts, s_shapes = serve_path(np, core, serve, ops, args, tmp,
-                                             arch)
+        res, s_counts, s_shapes = serve_path(np, torch, core, serve, ops,
+                                             args, tmp, arch)
         check_consistency(torch, res,
                           build(res.cfg.with_(compute_dtype="float32")),
                           min(2, args.requests), 8)
@@ -3268,7 +3432,8 @@ def main() -> int:
         if args.profile:
             profile_serve(torch, res, args.profile)
         served[arch] = (res.cfg, s_counts, s_shapes)
-        # free the model before the next one (rwkv6-7b: 30 GB in fp32)
+        # free the model before the next one (deepseek-moe-16b: 62.9 GiB
+        # in fp32)
         del res
         gc.collect()
         torch.cuda.empty_cache()
@@ -3314,20 +3479,31 @@ def main() -> int:
             rows[-1]["floor"] = time_wrapper(torch, fns, name,
                                              FLOOR_SHAPES[name], gen)
     # K5/K6 at smollm-360m's shapes (the rows), and at zamba2-2.7b's
-    # head dim 80 (nested); launches summed over the serve paths
+    # head dim 80 (nested); launches summed over the serve paths; K5's
+    # narrow-v form at minicpm3-4b's q/k 96, v 64 (a row of its own, its
+    # launches minicpm3-4b's)
     _cfg, d_counts, d_shapes = served["smollm-360m"]
     attn_rows = time_attention(torch, ops, d_shapes, d_counts, worst)
     at_z = time_attention(torch, ops, z_shapes, z_counts, worst)
+    _cfg, m_counts, m_shapes = served["minicpm3-4b"]
+    at_m = time_attention(torch, ops, m_shapes, m_counts, worst,
+                          names=("flash_attention",))
+    narrow = "flash_attention q/k 96, v 64"
+    at_m[0].update(name=narrow, path="serve minicpm3-4b",
+                   launches_by_path={"minicpm3-4b": at_m[0]["launches"]},
+                   design=KERNEL_DESIGN[narrow]["bfloat16"],
+                   design_by_dtype=KERNEL_DESIGN[narrow])
+    nested = ("launches", "shape", "length", "design", "ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms", "max_abs_err", "bytes",
+              "call_ms")
     for row, rz in zip(attn_rows, at_z):
         name = row["name"]
         row["path"] = "serve smollm-360m"
         row["launches_by_path"] = {a: c[name] for a, (_g, c, _s) in
                                    served.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
-        row["at_zamba2-2.7b"] = {k: rz[k] for k in (
-            "launches", "shape", "length", "design", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "max_abs_err", "bytes", "call_ms")}
-    rows += attn_rows
+        row["at_zamba2-2.7b"] = {k: rz[k] for k in nested}
+    rows += attn_rows + at_m
     rows += time_scans(torch, ops, served, worst)
     rows += time_codec(torch, kernels, o_counts)
     # the host entries (K1, K2: the seal path's; K9): numpy in, numpy
@@ -3354,7 +3530,7 @@ def main() -> int:
         log(f"{name} host entry (H2D + kernel + D2H) at {shape}: "
             f"{med:.5f} ms median of 20")
     for row in rows:
-        row["launches_by_op_entries"] = o_counts[row["name"]]
+        row["launches_by_op_entries"] = o_counts.get(row["name"], 0)
 
     # -- phase 7: the train path ---------------------------------------------
     bwd_row, t_counts, t_worst, ck_s, corpus = train_path(np, torch, ops,
@@ -3413,7 +3589,8 @@ def main() -> int:
     log(f"phase 9: (a) {t9b - t9:.3f} s, (b) {t9c - t9b:.3f} s, (c) "
         f"{t9d - t9c:.3f} s, {t9d - t9:.3f} s in all")
     for row in rows:  # K1-K6 and K5's backward: each has its paths' counts
-        extra = {k: c[row["name"]] for k, c in p9.items() if c[row["name"]]}
+        extra = {k: c[row["name"]] for k, c in p9.items()
+                 if c.get(row["name"])}
         if extra:
             row["launches_by_path"].update(extra)
             row["launches"] = sum(row["launches_by_path"].values())

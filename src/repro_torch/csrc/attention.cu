@@ -41,6 +41,11 @@
 //    tensor cores.
 //    D = 80 takes a 64-wide block with the 128-byte swizzle and a 16-wide
 //    one with the 32-byte swizzle; D = 32 the 64-byte swizzle.
+//    Both kernels are templated on (D, DV), v's and the output's head dim:
+//    DV = D at every head dim, and MLA's prefill (minicpm3-4b) at q/k
+//    D = 96 (a 64-wide block with the 128-byte swizzle, then a 32-wide one
+//    with the 64-byte swizzle) and v DV = 64: a stage holds K at 96 and V
+//    at 64 columns, P V is a 64-wide product and O 64 fp32 columns.
 //  - fp32: flash_fwd, fp32 FMAs on the CUDA cores.  A tensor-core route
 //    would be TF32, which keeps about three decimal digits: the fp32
 //    results are held to 2e-5.
@@ -66,7 +71,8 @@
 // SMs need: each chunk adds a block's start-up and the combine.
 
 // Both take fp32 or bf16 inputs (dtype 0 / 1) with the output in the
-// input's type, and head dims 32, 64, 80, 128 and 256.  Every launcher
+// input's type, and head dims 32, 64, 80, 128 and 256; K5 also q/k 96
+// with v 64.  Every launcher
 // returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when
 // a tensor map cannot be made.
 
@@ -123,13 +129,14 @@ constexpr int FA_ROWS = FA_BQ / FA_WARPS;  // q rows per warp
 template <int D>
 __host__ __device__ constexpr int fa_bk() { return D <= 128 ? 64 : 32; }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t fa_smem() {
-  // Q [BQ][D] (pre-scaled), K [BK][D + 1] (padded: lanes read rows), V [BK][D]
-  return sizeof(float) * (FA_BQ * D + fa_bk<D>() * (D + 1) + fa_bk<D>() * D);
+  // Q [BQ][D] (pre-scaled), K [BK][D + 1] (padded: lanes read rows), V [BK][DV]
+  return sizeof(float) * (FA_BQ * D + fa_bk<D>() * (D + 1) + fa_bk<D>() * DV);
 }
 
-template <int D>
+// q/k head dim D, v and output head dim DV (DV = D but for MLA's 96 / 64)
+template <int D, int DV>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
@@ -137,7 +144,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           int window, float scale) {
   constexpr int BK = fa_bk<D>();
   constexpr int NC = BK / 32;  // score columns per lane
-  constexpr int ND = (D + 31) / 32;  // output dims per lane (the last guarded)
+  constexpr int ND = (DV + 31) / 32;  // output dims per lane (the last guarded)
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + FA_BQ * D;
@@ -150,8 +157,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int q_offset = sk - sq;
   const float* qb = q + ((size_t)b * H + h) * sq * D;
   const float* kb = k + ((size_t)b * G + g) * sk * D;
-  const float* vb = v + ((size_t)b * G + g) * sk * D;
-  float* ob = o + ((size_t)b * H + h) * sq * D;
+  const float* vb = v + ((size_t)b * G + g) * sk * DV;
+  float* ob = o + ((size_t)b * H + h) * sq * DV;
 
   for (int i = threadIdx.x; i < FA_BQ * D; i += FA_THREADS) {
     Qs[i] = q0 + i / D < sq ? qb[(size_t)q0 * D + i] * scale : 0.f;
@@ -179,7 +186,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const bool in = k0 + r < sk;
       const size_t gi = (size_t)(k0 + r) * D + c;
       Ks[r * (D + 1) + c] = in ? kb[gi] : 0.f;
-      Vs[i] = in ? vb[gi] : 0.f;
+      if constexpr (DV == D) Vs[i] = in ? vb[gi] : 0.f;
+    }
+    if constexpr (DV != D) {
+      for (int i = threadIdx.x; i < BK * DV; i += FA_THREADS)
+        Vs[i] = k0 + i / DV < sk ? vb[(size_t)k0 * DV + i] : 0.f;
     }
     __syncthreads();
 
@@ -233,11 +244,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       for (int cc = 0; cc < 32; ++cc) {
-        const float* vrow = Vs + (j * 32 + cc) * D + lane;
+        const float* vrow = Vs + (j * 32 + cc) * DV + lane;
         float vv[ND];
 #pragma unroll
         for (int e = 0; e < ND; ++e)
-          vv[e] = (D % 32 == 0 || lane + 32 * e < D) ? vrow[32 * e] : 0.f;
+          vv[e] = (DV % 32 == 0 || lane + 32 * e < DV) ? vrow[32 * e] : 0.f;
 #pragma unroll
         for (int r = 0; r < FA_ROWS; ++r) {
           const float p = __shfl_sync(FULL, s[r][j], cc);
@@ -255,8 +266,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key -> 0
 #pragma unroll
       for (int e = 0; e < ND; ++e)
-        if (D % 32 == 0 || lane + 32 * e < D)
-          ob[(size_t)row * D + lane + 32 * e] = acc[r][e] * inv;
+        if (DV % 32 == 0 || lane + 32 * e < DV)
+          ob[(size_t)row * DV + lane + 32 * e] = acc[r][e] * inv;
       if (lse != nullptr && lane == 0)  // natural log; no visible key: -inf
         lse[((size_t)b * H + h) * sq + row] =
             l[r] > 0.f ? m[r] + logf(l[r]) : -CUDART_INF_F;
@@ -264,18 +275,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  float* lse, int64_t B, int64_t H, int64_t G, int64_t sq,
                  int64_t sk, int causal, int window, float scale,
                  cudaStream_t stream) {
-  constexpr size_t smem = fa_smem<D>();
+  constexpr size_t smem = fa_smem<D, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)((sq + FA_BQ - 1) / FA_BQ), (unsigned)H,
                   (unsigned)B);
-  flash_fwd<D><<<grid, FA_THREADS, smem, stream>>>(
+  flash_fwd<D, DV><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, (int)H, (int)G,
       (int)sq, (int)sk, causal, window, scale);
@@ -288,25 +299,30 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 constexpr int WG_BQ = 128;       // query rows per block: two warpgroups of 64
 constexpr int WG_THREADS = 384;  // two consumer warpgroups + the producer's
 
-template <int D>
+// q/k head dim D, v and output head dim DV (DV = D but for MLA's 96 / 64)
+template <int D, int DV>
 struct WgTile {
   static constexpr int BK = D <= 128 ? 128 : 64;  // kv rows per stage
   static constexpr int NS = D <= 128 ? 3 : 2;     // stages in the ring
   static constexpr int Q_BYTES = WG_BQ * D * 2;
   // Q buffers: two where they fit, so the next work tile's Q loads while
   // this one's last products run
-  static constexpr int QB = D <= 80 ? 2 : 1;
-  static constexpr int KV_BYTES = BK * D * 2;  // K (or V) of one stage
+  static constexpr int QB = D <= 96 ? 2 : 1;
+  static constexpr int K_BYTES = BK * D * 2;   // K of one stage
+  static constexpr int V_BYTES = BK * DV * 2;  // V of one stage
+  static constexpr int STAGE = K_BYTES + V_BYTES;
   static constexpr int K_OFF = QB * Q_BYTES;   // stage s: K, then V
-  static constexpr int BAR_OFF = K_OFF + NS * 2 * KV_BYTES;
+  static constexpr int BAR_OFF = K_OFF + NS * STAGE;
   // barriers: Q full[QB], Q empty[QB], full[NS], empty[NS]; 1024 bytes to
   // align the base
   static constexpr int SMEM = BAR_OFF + 8 * (2 * QB + 2 * NS) + 1024;
-  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0,
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 &&
+                    V_BYTES % 1024 == 0,
                 "swizzled blocks must stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "over the block's shared memory");
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
                 const __grid_constant__ CUtensorMap tq1,
@@ -317,8 +333,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
                 int H, int G, int sq, int sk, int causal, int window,
                 float scale_log2) {
-  using L = WgTile<D>;
+  using L = WgTile<D, DV>;
   using C = Cols<D>;
+  using CV = Cols<DV>;
+  static_assert(CV::NB <= C::NB, "v no wider than q/k");
   constexpr int BK = L::BK, NS = L::NS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -382,21 +400,23 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
         mbar_expect_tx(q_full(t), L::Q_BYTES);
 #pragma unroll
         for (int c = 0; c < C::NB; ++c)
-          tma_load_3d(q_smem(t) + WG_BQ * 128 * c, c == 1 && D == 80 ? &tq1 : &tq0,
-                      q_full(t), 64 * c, q0, b * H + h);
+          tma_load_3d(q_smem(t) + WG_BQ * 128 * c,
+                      c == 1 && C::TAIL ? &tq1 : &tq0, q_full(t), 64 * c, q0,
+                      b * H + h);
         for (int i = 0; i < n_tiles; ++i, ++kv) {
           const int s = kv % NS;
           mbar_wait(empty(s), ((kv / NS) & 1) ^ 1);  // round 0 passes at once
-          mbar_expect_tx(full(s), 2 * L::KV_BYTES);
-          const uint32_t kdst = sbase + L::K_OFF + s * 2 * L::KV_BYTES;
+          mbar_expect_tx(full(s), L::STAGE);
+          const uint32_t kdst = sbase + L::K_OFF + s * L::STAGE;
           const int k0 = (t_begin + i) * BK;
 #pragma unroll
           for (int c = 0; c < C::NB; ++c) {
-            const bool tail = c == 1 && D == 80;
-            tma_load_3d(kdst + BK * 128 * c, tail ? &tk1 : &tk0, full(s),
-                        64 * c, k0, b * G + g);
-            tma_load_3d(kdst + L::KV_BYTES + BK * 128 * c, tail ? &tv1 : &tv0,
+            tma_load_3d(kdst + BK * 128 * c, c == 1 && C::TAIL ? &tk1 : &tk0,
                         full(s), 64 * c, k0, b * G + g);
+            if (c < CV::NB)
+              tma_load_3d(kdst + L::K_BYTES + BK * 128 * c,
+                          c == 1 && CV::TAIL ? &tv1 : &tv0, full(s), 64 * c,
+                          k0, b * G + g);
           }
         }
       }
@@ -409,7 +429,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
     // this thread's rows of a work tile's accumulators: r0 and r0 + 8
     const int r0 = wg * 64 + warp * 16 + lane / 4;
 
-    float oacc[D / 2];
+    float oacc[DV / 2];
     float sc[BK / 2];                         // scores of the newest tile
     uint32_t pa[BK / 16][4], pb[BK / 16][4];  // P of two tiles, bf16 pairs
     float m0, m1, l0, l1;      // l: this thread's columns
@@ -422,7 +442,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
     auto issue_qk = [&](int i) {
       const int s = (kv0 + i) % NS;
       mbar_wait(full(s), ((kv0 + i) / NS) & 1);
-      const uint32_t kt = sbase + L::K_OFF + s * 2 * L::KV_BYTES;
+      const uint32_t kt = sbase + L::K_OFF + s * L::STAGE;
       wg_fence();
       ss_tile<D, BK>(sc, q_smem(t), WG_BQ, wg * 64, kt);
       wg_commit();
@@ -430,17 +450,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
     // O = O * alpha + P V_i, V the MN-major operand; committed, not waited
     auto issue_pv = [&](uint32_t (*p)[4], int i) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         oacc[4 * j] *= a0;
         oacc[4 * j + 1] *= a0;
         oacc[4 * j + 2] *= a1;
         oacc[4 * j + 3] *= a1;
       }
       const uint32_t vt =
-          sbase + L::K_OFF + ((kv0 + i) % NS) * 2 * L::KV_BYTES + L::KV_BYTES;
+          sbase + L::K_OFF + ((kv0 + i) % NS) * L::STAGE + L::K_BYTES;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) rs_tile<D, BK>(oacc, p[kk], vt, kk);
+      for (int kk = 0; kk < BK / 16; ++kk) rs_tile<DV, BK>(oacc, p[kk], vt, kk);
       wg_commit();
     };
     // the online softmax of tile i's scores: rows r0 (e = 0, 1) and r0 + 8
@@ -514,7 +534,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       reg_fence<BK / 2>(sc);
       softmax(p_new, i);
       wg_wait<0>();  // P_{i-1} V_{i-1} is done
-      reg_fence<D / 2>(oacc);
+      reg_fence<DV / 2>(oacc);
       release(empty((kv0 + i - 1) % NS));
     };
 
@@ -523,7 +543,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       qp0 = q0 + r0 + q_offset;
       qp1 = qp0 + 8;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
       m0 = m1 = NEG;
       l0 = l1 = 0.f;
       mbar_wait(q_full(t), (t / QB) & 1);
@@ -542,7 +562,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
         else
           issue_pv(pa, n_tiles - 1);
         wg_wait<0>();
-        reg_fence<D / 2>(oacc);
+        reg_fence<DV / 2>(oacc);
         release(empty((kv0 + n_tiles - 1) % NS));
       }
       release(q_empty(t));  // the producer may refill this Q buffer
@@ -555,21 +575,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // no visible key -> 0
       const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
       const int row0 = q0 + r0, row1 = row0 + 8;
-      __nv_bfloat16* ob = o + (size_t)(b * H + h) * sq * D;
+      __nv_bfloat16* ob = o + (size_t)(b * H + h) * sq * DV;
       if (lse != nullptr && quad == 0) {  // natural log; no visible key: -inf
         float* lb = lse + (size_t)(b * H + h) * sq;
         if (row0 < sq) lb[row0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : -CUDART_INF_F;
         if (row1 < sq) lb[row1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : -CUDART_INF_F;
       }
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
+      for (int jj = 0; jj < DV / 8; ++jj) {
         const int col = 8 * jj + 2 * quad;
         if (row0 < sq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * D + col) =
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * DV + col) =
               __floats2bfloat162_rn(oacc[4 * jj] * inv0,
                                     oacc[4 * jj + 1] * inv0);
         if (row1 < sq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * D + col) =
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * DV + col) =
               __floats2bfloat162_rn(oacc[4 * jj + 2] * inv1,
                                     oacc[4 * jj + 3] * inv1);
       }
@@ -577,30 +597,32 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                        float* lse, int64_t B, int64_t H, int64_t G, int64_t sq,
                        int64_t sk, int causal, int window, float scale,
                        cudaStream_t stream) {
-  using L = WgTile<D>;
-  constexpr int w0 = Cols<D>::width(0);
+  using L = WgTile<D, DV>;
+  using C = Cols<D>;
+  using CV = Cols<DV>;
   CUtensorMap m[6];
   std::memset(m, 0, sizeof(m));
   int e;
-  if ((e = make_map(&m[0], q, sq, B * H, D, w0, WG_BQ))) return e;
-  if ((e = make_map(&m[2], k, sk, B * G, D, w0, L::BK))) return e;
-  if ((e = make_map(&m[4], v, sk, B * G, D, w0, L::BK))) return e;
-  if (D == 80) {  // the 16-wide second block
-    if ((e = make_map(&m[1], q, sq, B * H, D, 16, WG_BQ))) return e;
-    if ((e = make_map(&m[3], k, sk, B * G, D, 16, L::BK))) return e;
-    if ((e = make_map(&m[5], v, sk, B * G, D, 16, L::BK))) return e;
-  } else {
-    m[1] = m[0];
-    m[3] = m[2];
-    m[5] = m[4];
+  if ((e = make_map(&m[0], q, sq, B * H, D, C::width(0), WG_BQ))) return e;
+  if ((e = make_map(&m[2], k, sk, B * G, D, C::width(0), L::BK))) return e;
+  if ((e = make_map(&m[4], v, sk, B * G, DV, CV::width(0), L::BK))) return e;
+  m[1] = m[0];
+  m[3] = m[2];
+  m[5] = m[4];
+  if (C::TAIL) {  // the narrower second block of q and k (D = 80, 96)
+    if ((e = make_map(&m[1], q, sq, B * H, D, C::width(1), WG_BQ))) return e;
+    if ((e = make_map(&m[3], k, sk, B * G, D, C::width(1), L::BK))) return e;
   }
+  if (CV::TAIL)  // and of v
+    if ((e = make_map(&m[5], v, sk, B * G, DV, CV::width(1), L::BK))) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      flash_fwd_wgmma<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
   if (err != cudaSuccess) return err;
   // one resident block per SM walks the work tiles
   int dev = 0, sms = 0;
@@ -610,18 +632,25 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
     return err;
   const int64_t n_work = (sq + WG_BQ - 1) / WG_BQ * B * H;
   const unsigned grid = (unsigned)(n_work < sms ? n_work : sms);
-  flash_fwd_wgmma<D><<<grid, WG_THREADS, L::SMEM, stream>>>(
+  flash_fwd_wgmma<D, DV><<<grid, WG_THREADS, L::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o), lse,
       (int)B, (int)H, (int)G, (int)sq, (int)sk, causal, window,
       scale * LOG2E);
   return cudaGetLastError();
 }
 
-// each dtype has one kernel: fp32 the SIMT one, bf16 the wgmma one
-int flash_by_dim(int D, int dtype, const void* q, const void* k,
+// each dtype has one kernel: fp32 the SIMT one, bf16 the wgmma one; v as
+// wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
+int flash_by_dim(int D, int DV, int dtype, const void* q, const void* k,
                  const void* v, void* o, float* lse, int64_t B, int64_t H, int64_t G,
                  int64_t sq, int64_t sk, int causal, int window, float scale,
                  cudaStream_t st) {
+  if (DV != D) {
+    if (D != 96 || DV != 64) return cudaErrorInvalidValue;
+    if (dtype == 0) return launch_flash<96, 64>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+    if (dtype == 1) return launch_flash_wgmma<96, 64>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     switch (D) {
       case 32: return launch_flash<32>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
@@ -1080,17 +1109,17 @@ int decode_by_dim(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// (q, k, v, o, lse, B, H, G, Sq, Sk, D, dtype, causal, window, scale,
-// stream); lse is null or (B, H, Sq) fp32, each query row's natural-log
-// log-sum-exp of its scaled, masked scores (-inf where it sees no key);
-// window <= 0 disables the window
+// (q, k, v, o, lse, B, H, G, Sq, Sk, D, Dv, dtype, causal, window, scale,
+// stream); v and o have head dim Dv (= D, or 64 at D = 96); lse is null or
+// (B, H, Sq) fp32, each query row's natural-log log-sum-exp of its scaled,
+// masked scores (-inf where it sees no key); window <= 0 disables the window
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int64_t B, int64_t H, int64_t G,
-                                     int64_t sq, int64_t sk, int D, int dtype,
-                                     int causal, int window, float scale,
-                                     void* stream) {
-  return flash_by_dim(D, dtype, q, k, v, o, static_cast<float*>(lse), B, H, G,
+                                     int64_t sq, int64_t sk, int D, int DV,
+                                     int dtype, int causal, int window,
+                                     float scale, void* stream) {
+  return flash_by_dim(D, DV, dtype, q, k, v, o, static_cast<float*>(lse), B, H, G,
                       sq, sk, causal, window, scale,
                       static_cast<cudaStream_t>(stream));
 }

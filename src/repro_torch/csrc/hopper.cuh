@@ -6,8 +6,9 @@
 //
 // Tiles: a bf16 (rows, D) tile lies in shared memory as column blocks
 // (Cols<D>): 64 columns with the 128-byte swizzle, except D = 32 (one
-// 32-wide block, 64-byte swizzle) and D = 80's second block (16 wide,
-// 32-byte swizzle); block c of a tile of R rows starts R * 128 bytes after
+// 32-wide block, 64-byte swizzle), D = 80's second block (16 wide,
+// 32-byte swizzle) and D = 96's (32 wide, 64-byte swizzle: K5's forward
+// only, MLA's q/k); block c of a tile of R rows starts R * 128 bytes after
 // block c - 1.  One TMA box fills one block (make_map).  The same tile is
 // a K-major operand (its rows are the M or N of a product over D) or an
 // MN-major one (its rows are the k of a product whose N is D).
@@ -120,13 +121,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int rb,
 }
 
 // D = sum of column blocks: 64-wide with the 128-byte swizzle, except D = 32
-// (one 32-wide block, 64-byte swizzle) and D = 80's second block (16 wide,
-// 32-byte swizzle).  Block c starts at column 64 c.
+// (one 32-wide block, 64-byte swizzle), D = 80's second block (16 wide,
+// 32-byte swizzle) and D = 96's (32 wide, 64-byte swizzle).  Block c
+// starts at column 64 c; TAIL: the second block is narrower than 64 (its
+// tensor maps take another box width).
 template <int D>
 struct Cols {
-  static constexpr int NB = D == 80 ? 2 : (D >= 64 ? D / 64 : 1);
+  static constexpr int NB = (D == 80 || D == 96) ? 2 : (D >= 64 ? D / 64 : 1);
+  static constexpr bool TAIL = D == 80 || D == 96;
   __host__ __device__ static constexpr int width(int c) {
-    return D == 32 ? 32 : (D == 80 && c == 1) ? 16 : 64;
+    return D == 32 ? 32 : (D == 80 && c == 1) ? 16 : (D == 96 && c == 1) ? 32 : 64;
   }
 };
 

@@ -65,11 +65,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_byteshuffle": [_P, _P, _I64, _INT, _P],
     },
     "attention": {
-        # (q, k, v, o, lse (or null), B, H, G, Sq, Sk, D, dtype, causal,
+        # (q, k, v, o, lse (or null), B, H, G, Sq, Sk, D, Dv, dtype, causal,
         #  window, scale, stream)
         "repro_flash_attention": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                  _I64, _I64, _INT, _INT, _INT, _INT, _F32,
-                                  _P],
+                                  _I64, _I64, _INT, _INT, _INT, _INT, _INT,
+                                  _F32, _P],
         # (q, k, v, length, o, part_m, part_l, part_acc, counters, B, H, G,
         #  S, D, dtype, chunk, n_chunks, warps, window, scale, stream)
         "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,

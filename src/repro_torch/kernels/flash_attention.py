@@ -2,7 +2,8 @@
 
 Replaces the Pallas ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): q ``(B, H, Sq, D)`` attends to
-k/v ``(B, G, Sk, D)`` with GQA grouping ``H // G``, query row ``i`` at
+k ``(B, G, Sk, D)`` and v ``(B, G, Sk, Dv)`` with GQA grouping ``H // G``
+into an output ``(B, H, Sq, Dv)``, query row ``i`` at
 position ``i + Sk - Sq``, a causal mask and an optional sliding window;
 softmax statistics and the accumulator in fp32, the output in the
 inputs' dtype.  The CUDA kernels live in ``csrc/attention.cu``; on a CPU
@@ -15,6 +16,14 @@ on a CUDA tensor it launches the kernel of its dtype or raises:
   stages.  ``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.
 - float32: ``flash_fwd``, fp32 FMAs on the CUDA cores (a tensor-core
   route would be TF32, too coarse for the fp32 tolerance of 2e-5).
+
+Both kernels take ``Dv = D`` at every head dim of ``HEAD_DIMS`` and the
+narrow-v pairs of ``NARROW_V``: MLA's prefill (minicpm3-4b) runs q/k at
+``d_nope + d_rope = 96`` and v at ``d_v = 64``.  There the bf16 kernel
+reads q/k in a 64-wide block with the 128-byte swizzle and a 32-wide one
+with the 64-byte swizzle, v in one 64-wide block, and its ``P V``
+product and output are 64 wide.  Any other pair raises ``ValueError``
+on the card (the plain version takes any).
 
 Unlike the Pallas kernel, padded kv columns are masked (``k_pos < Sk``)
 whether or not the call is causal, so non-causal calls equal the oracle.
@@ -31,7 +40,10 @@ tile over the group's heads.  bf16 runs them on the tensor cores
 dK/dV kernel splits the head dim over two warpgroups and an even group's
 heads over two blocks, whose fp32 sums a third kernel adds), fp32 on the
 CUDA cores (tiles of 32 rows at head dim 256).  Both take every head dim of
-``HEAD_DIMS``.  When a graph will be recorded (grad mode on and an input that
+``HEAD_DIMS`` with ``Dv = D``; a narrow v (``NARROW_V``) has no backward
+kernel yet, so on the card a call that would record a graph there raises
+``ValueError`` before it launches (the CPU's plain backward takes it).
+When a graph will be recorded (grad mode on and an input that
 requires grad) the forward launch also writes each query row's
 log-sum-exp, LSE: ``(B, H, Sq)`` fp32, the natural log of the sum of
 ``exp(scale * q k^T)`` over the row's visible keys, ``-inf`` for a row that
@@ -54,21 +66,29 @@ from .ops import count_launch
 
 #: head dims the CUDA kernels are built for (80: zamba2's shared attention)
 HEAD_DIMS = (32, 64, 80, 128, 256)
+#: (q/k, v) head dims of the forward kernels' narrow-v form (MLA prefill)
+NARROW_V = ((96, 64),)
 #: the kernels' dtype codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_kernel_args(name: str, q: torch.Tensor, *rest: torch.Tensor,
-                      window: Optional[int]) -> None:
+                      window: Optional[int], dv: Optional[int] = None) -> None:
     """What the CUDA kernels take: one card, one dtype (fp32 or bf16), a
-    built head dim, a window of at least 1 when given."""
+    built head dim (``dv``, v's head dim when it differs from q's: a pair
+    of ``NARROW_V``), a window of at least 1 when given."""
     if any(t.device != q.device or t.dtype != q.dtype for t in rest):
         raise ValueError(f"{name}: q, k and v must share device and dtype")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    d = q.shape[-1]
+    if dv is not None and dv != d:
+        if (d, dv) not in NARROW_V:
+            raise ValueError(f"{name}: head dim {d} with v {dv} is not a "
+                             f"built pair {NARROW_V}")
+    elif d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1, got {window}")
 
@@ -81,8 +101,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: q (B,H,Sq,D), k/v (B,G,Sk,D)")
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3]):
+        raise ValueError(f"{name}: q (B,H,Sq,D), k (B,G,Sk,D), v (B,G,Sk,Dv)")
     b, h, _sq, d = q.shape
     g = k.shape[1]
     if k.shape[0] != b or k.shape[3] != d or g < 1 or h % g:
@@ -93,13 +114,24 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, H, Sq, D), k/v (B, G, Sk, D) -> (B, H, Sq, D); differentiable
-    in q, k and v (see the module docstring)."""
+    """q (B, H, Sq, D), k (B, G, Sk, D), v (B, G, Sk, Dv) -> (B, H, Sq, Dv);
+    differentiable in q, k and v (see the module docstring)."""
     _check_shapes("flash_attention", q, k, v)
     # decided here: inside ``forward`` grad mode is off
     graph = torch.is_grad_enabled() and any(t.requires_grad
                                             for t in (q, k, v))
+    if graph and q.device.type != "cpu":
+        _check_bwd_dims("flash_attention", q, v)
     return FlashAttention.apply(q, k, v, causal, window, scale, graph)
+
+
+def _check_bwd_dims(name: str, q: torch.Tensor, v: torch.Tensor) -> None:
+    """K5's backward kernels take ``Dv = D`` only."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if dv != d:
+        raise ValueError(
+            f"{name}: K5's backward is not built for head dim {d} with v "
+            f"{dv} (v narrower than q/k: MLA's training waits for it)")
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,7 +168,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
              window: Optional[int], scale: Optional[float], with_lse: bool):
     """-> (out, the rows' LSE or None)."""
     b, h, sq, d = q.shape
-    g, sk = k.shape[1], k.shape[2]
+    g, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                       scale=scale)
@@ -144,10 +176,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                                            window=window, scale=scale)
                if with_lse else None)
         return out, lse
-    check_kernel_args("flash_attention", q, k, v, window=window)
+    check_kernel_args("flash_attention", q, k, v, window=window, dv=dv)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, sq, dv))
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
@@ -159,11 +191,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     with guard:
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, g, sq, sk, d,
+            None if lse is None else lse.data_ptr(), b, h, g, sq, sk, d, dv,
             DTYPE_CODES[q.dtype], int(causal),
             0 if window is None else int(window), float(scale), stream)
     _build.check(lib, rc, "flash_attention")
-    count_launch("flash_attention", (b, h, g, sq, sk, d))
+    count_launch("flash_attention", (b, h, g, sq, sk, d, dv))
     return out, lse
 
 
@@ -177,11 +209,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``(B, H, Sq)`` fp32, natural log, as :func:`flash_attention_lse`
     returns it); each in its input's dtype (fp32 accumulation).  On a CPU
     tensor ``ref.flash_attention_bwd_ref``; on a CUDA tensor the kernel of
-    ``csrc/attention_bwd.cu`` or a raise."""
+    ``csrc/attention_bwd.cu`` (``Dv = D`` only) or a raise."""
     _check_shapes("flash_attention_bwd", q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape:
+    o_shape = q.shape[:3] + v.shape[3:]
+    if out.shape != o_shape or dout.shape != o_shape:
         raise ValueError("flash_attention_bwd: out and dout must be shaped "
-                         f"like q {tuple(q.shape)}")
+                         f"(B, H, Sq, Dv) = {tuple(o_shape)}")
     if (lse is None or lse.shape != q.shape[:3]
             or lse.dtype != torch.float32 or lse.device != q.device):
         raise ValueError("flash_attention_bwd: lse must be the forward's "
@@ -191,6 +224,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window,
                                            scale=scale)
+    _check_bwd_dims("flash_attention_bwd", q, v)
     check_kernel_args("flash_attention_bwd", q, k, v, out, dout,
                       window=window)
     b, h, sq, d = q.shape

@@ -117,7 +117,7 @@ def attention_mask(sq: int, sk: int, causal: bool, window,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window=None,
                         scale=None) -> torch.Tensor:
-    """q (B, H, Sq, D), k/v (B, G, Sk, D) -> (B, H, Sq, D).
+    """q (B, H, Sq, D), k (B, G, Sk, D), v (B, G, Sk, Dv) -> (B, H, Sq, Dv).
 
     Query row ``i`` sits at position ``i + Sk - Sq`` (the ends align, as
     in prefill); ``causal`` keeps keys at or before it, ``window`` the
@@ -161,7 +161,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     output and rows' log-sum-exp (:func:`flash_attention_lse_ref`): as in
     the kernel, ``P = exp(scale * q k^T - lse)`` and ``Delta =
     rowsum(dout * out)`` (after ``out``'s rounding, for bf16).  dk and dv
-    sum the ``H // G`` query heads of each kv group.  A row with no
+    sum the ``H // G`` query heads of each kv group.  v (and so out, dout
+    and dv) may be narrower than q/k, as in MLA.  A row with no
     visible key is NaN, as in the forward."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
@@ -179,7 +180,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     dk = dk.reshape(b, g, h // g, sk, d).sum(dim=2)
-    dv = dv.reshape(b, g, h // g, sk, d).sum(dim=2)
+    dv = dv.reshape(b, g, h // g, sk, v.shape[3]).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -5,19 +5,26 @@ The twin of ``repro.launch.serve``.  Generations are variable-length
 nested data ({request_id, prompt_len, tokens[]}) written through
 ``repro_torch.core.ParallelWriter`` on the model's device, the
 inference-side instance of the paper's technique.  Prefill runs K5
-(``flash_attention``) once per attention block (every layer of a dense
-model, each of zamba2's shared blocks), K7 (``rwkv6_scan``) once per
-rwkv6 layer and K8 (``mamba2_ssd``) once per Mamba-2 layer; each decode
-step runs K6 (``decode_attention``) once per attention block (the
-recurrent layers' one-token steps are plain PyTorch).
+(``flash_attention``) once per attention block (every layer of an
+attention model, MLA's at q/k 96 and v 64 in minicpm3-4b, each of
+zamba2's shared blocks), K7 (``rwkv6_scan``) once per rwkv6 layer and K8
+(``mamba2_ssd``) once per Mamba-2 layer; each decode step runs K6
+(``decode_attention``) once per GQA attention block (MLA's latent-space
+decode and the recurrent layers' one-token steps are plain PyTorch).
+A model of ``Q > 1`` codebooks (musicgen-large) takes prompts ``(B, S, Q)``
+and generates ``(B, max_new, Q)``; the file logs the first codebook's
+stream, as the reference does.
 
 Parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; prompts come from ``numpy.random.default_rng(--seed)``.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the kernels' plain versions.
 
-Usage (``--arch`` smollm-360m, gemma-2b, deepseek-67b, rwkv6-7b or
-zamba2-2.7b; the other archs raise ``NotImplementedError``):
+``serve_model(cfg, ...)`` is the same run for a config the caller made (a
+depth cut with ``cfg.with_(n_layers=...)``, say); the command line takes
+the registry's names only.
+
+Usage (``--arch`` any of the registry's ten):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --requests 16 --prompt-len 1000 --max-new 64 --out gen.rntj
 """
@@ -49,12 +56,12 @@ GEN_SCHEMA = Schema([
 def generate(bundle: ModelBundle, params: Dict, prompts: torch.Tensor,
              max_new: int, keep_logits: bool = False,
              timings: Optional[Dict[str, float]] = None):
-    """Greedy decode a batch of same-length prompts (B, S) int32 on the
-    parameters' device -> (B, max_new) int32 numpy array: prefill, then
-    ``max_new - 1`` decode steps.
+    """Greedy decode a batch of same-length prompts (B, S[, Q]) int32 on
+    the parameters' device -> (B, max_new[, Q]) int32 numpy array:
+    prefill, then ``max_new - 1`` decode steps.
 
     ``keep_logits`` also returns the logits that chose each token,
-    (B, max_new, V) on the device.  ``timings`` (a dict) receives
+    (B, max_new[, Q], V) on the device.  ``timings`` (a dict) receives
     ``prefill_s`` and ``decode_s``, each ended by a synchronize (the
     copy of the tokens to the host ends the decode)."""
     b, s = prompts.shape[:2]
@@ -88,11 +95,48 @@ class ServeResult:
     cfg: ArchConfig
     bundle: ModelBundle
     params: Dict
-    prompts: torch.Tensor          # (B, S) int32 on the device
-    tokens: np.ndarray             # (B, max_new) int32
-    logits: Optional[torch.Tensor]  # (B, max_new, V) with keep_logits
+    prompts: torch.Tensor          # (B, S[, Q]) int32 on the device
+    tokens: np.ndarray             # (B, max_new[, Q]) int32
+    logits: Optional[torch.Tensor]  # (B, max_new[, Q], V) with keep_logits
     timings: Dict[str, float]      # prefill_s, decode_s, write_s
     out: str
+
+
+def serve_model(cfg: ArchConfig, requests: int, prompt_len: int, max_new: int,
+                seed: int, device, out: str,
+                keep_logits: bool = False) -> ServeResult:
+    """Serve ``requests`` random prompts of ``prompt_len`` tokens on a
+    model of ``cfg`` with random parameters (both from ``seed``), and log
+    the generations to ``out``."""
+    dev = model_device(device)
+    bundle = build(cfg)
+    gen_rng = torch.Generator(device=dev)
+    gen_rng.manual_seed(seed)
+    params = bundle.init(gen_rng, dev)
+    rng = np.random.default_rng(seed)
+    shape = bundle._token_shape(requests, prompt_len)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape).astype(np.int32)).to(dev)
+
+    timings: Dict[str, float] = {}
+    res = generate(bundle, params, prompts, max_new,
+                   keep_logits=keep_logits, timings=timings)
+    gen, logits = res if keep_logits else (res, None)
+    logged = gen[..., 0] if gen.ndim == 3 else gen  # the first codebook
+    t0 = time.perf_counter()
+    writer = ParallelWriter(GEN_SCHEMA, out, device=dev)
+    ctx = writer.create_fill_context()
+    ctx.fill_batch(ColumnBatch.from_arrays(GEN_SCHEMA, requests, {
+        "request_id": np.arange(requests, dtype=np.int64),
+        "prompt_len": np.full(requests, prompt_len, np.int32),
+        "tokens": np.full(requests, logged.shape[1], np.int64),
+        "tokens._0": logged.reshape(-1).astype(np.int32),
+    }))
+    ctx.close()
+    writer.close()
+    timings["write_s"] = time.perf_counter() - t0
+    print(f"wrote {requests} generations x {logged.shape[1]} tokens -> {out}")
+    return ServeResult(cfg, bundle, params, prompts, gen, logits, timings, out)
 
 
 def main(argv=None, keep_logits: bool = False) -> ServeResult:
@@ -108,37 +152,10 @@ def main(argv=None, keep_logits: bool = False) -> ServeResult:
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "generations.rntj"))
     args = ap.parse_args(argv)
-
-    dev = model_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-    bundle = build(cfg)
-    gen_rng = torch.Generator(device=dev)
-    gen_rng.manual_seed(args.seed)
-    params = bundle.init(gen_rng, dev)
-    rng = np.random.default_rng(args.seed)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (args.requests, args.prompt_len)).astype(np.int32)).to(dev)
-
-    timings: Dict[str, float] = {}
-    res = generate(bundle, params, prompts, args.max_new,
-                   keep_logits=keep_logits, timings=timings)
-    gen, logits = res if keep_logits else (res, None)
-    t0 = time.perf_counter()
-    writer = ParallelWriter(GEN_SCHEMA, args.out, device=dev)
-    ctx = writer.create_fill_context()
-    ctx.fill_batch(ColumnBatch.from_arrays(GEN_SCHEMA, args.requests, {
-        "request_id": np.arange(args.requests, dtype=np.int64),
-        "prompt_len": np.full(args.requests, args.prompt_len, np.int32),
-        "tokens": np.full(args.requests, gen.shape[1], np.int64),
-        "tokens._0": gen.reshape(-1).astype(np.int32),
-    }))
-    ctx.close()
-    writer.close()
-    timings["write_s"] = time.perf_counter() - t0
-    print(f"wrote {args.requests} generations x {gen.shape[1]} tokens -> "
-          f"{args.out}")
-    return ServeResult(cfg, bundle, params, prompts, gen, logits, timings,
-                       args.out)
+    return serve_model(cfg, args.requests, args.prompt_len, args.max_new,
+                       args.seed, args.device, args.out,
+                       keep_logits=keep_logits)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ with the reference's names and its ``(in, out)`` matrix layout, applied as
 ``meta`` device) and a device; their numbers differ from ``jax.random``'s,
 so parity tests carry the reference's weights over
 (``repro_torch.models.weights``).  The reference's ``shard(...)``
-annotations are no-ops on one card and are dropped.  ``layer_norm``
-waits for the family that uses it.
+annotations are no-ops on one card and are dropped.  Multi-codebook
+models (musicgen-large) take tokens ``(B, T, Q)``: the embedding is the sum
+of the ``Q`` codebooks' rows and the logits are ``(B, T, Q, V)``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return ((xf * torch.rsqrt(ms + eps)) * gamma.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Layer norm in fp32 (population variance), as the reference's; no
+    architecture of the registry uses it."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 
@@ -80,28 +92,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLPs (the dense family's gated ones)
+# MLPs
 
 
 def mlp_init(gen, cfg: ArchConfig, device) -> Dict:
-    if cfg.mlp not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
+    """Gated (swiglu / geglu) weights, or the plain gelu MLP's (musicgen)."""
     d, f, dt = cfg.d_model, cfg.d_ff, pdtype(cfg)
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, d, f, dt, device),
+            "w_up": dense_init(gen, d, f, dt, device),
+            "w_down": dense_init(gen, f, d, dt, device),
+        }
     return {
-        "w_gate": dense_init(gen, d, f, dt, device),
         "w_up": dense_init(gen, d, f, dt, device),
         "w_down": dense_init(gen, f, d, dt, device),
     }
 
 
 def mlp_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, T, D).  SwiGLU, or GeGLU with the tanh-approximate gelu."""
+    """x: (B, T, D).  SwiGLU, GeGLU, or the plain MLP; every gelu is the
+    tanh approximation."""
     dt = cdtype(cfg)
     x = x.to(dt)
-    g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
-    act = F.silu(g) if cfg.mlp == "swiglu" else F.gelu(g, approximate="tanh")
-    return (act * u) @ params["w_down"].to(dt)
+    if cfg.mlp in ("swiglu", "geglu"):
+        g = x @ params["w_gate"].to(dt)
+        act = F.silu(g) if cfg.mlp == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * u
+    else:
+        h = F.gelu(u, approximate="tanh")
+    return h @ params["w_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -109,32 +130,46 @@ def mlp_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def embedding_init(gen, cfg: ArchConfig, device) -> Dict:
-    dt = pdtype(cfg)
-    p: Dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
-                                   device)}
+    """``embed`` (V, D) and ``lm_head`` (D, V) unless tied; with ``Q > 1``
+    codebooks one of each per codebook, stacked: (Q, V, D) and (Q, D, V)."""
+    dt, q = pdtype(cfg), cfg.n_codebooks
+    v, d = cfg.vocab_size, cfg.d_model
+
+    def stack(make):
+        return make() if q == 1 else torch.stack([make() for _ in range(q)])
+
+    p: Dict = {"embed": stack(lambda: embed_init(gen, v, d, dt, device))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
-    p["final_norm"] = ones(cfg.d_model, dt, device)
+        p["lm_head"] = stack(lambda: dense_init(gen, d, v, dt, device))
+    p["final_norm"] = ones(d, dt, device)
     return p
 
 
 def embed_tokens(params: Dict, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
-    """tokens: (B, T) int.  The rows are gathered, then cast (the same
-    values as the reference's cast-then-gather, without casting the whole
-    table)."""
+    """tokens: (B, T) int, or (B, T, Q) for a multi-codebook model (the
+    sum of the codebooks' rows, in the compute dtype, codebook 0 first).
+    The rows are gathered, then cast (the same values as the reference's
+    cast-then-gather, without casting the whole table)."""
     dt = cdtype(cfg)
-    x = params["embed"][tokens.long()].to(dt)
+    emb, tokens = params["embed"], tokens.long()
+    if cfg.n_codebooks > 1:
+        x = sum(emb[q][tokens[..., q]].to(dt) for q in range(cfg.n_codebooks))
+    else:
+        x = emb[tokens].to(dt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
 
 
 def lm_logits(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(B, T, D) -> logits (B, T, V), or (B, T, Q, V) with codebooks."""
     dt = cdtype(cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps).to(dt)
+    if cfg.n_codebooks > 1:
+        return torch.einsum("btd,qdv->btqv", x, params["lm_head"].to(dt))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.to(dt) @ w.to(dt)
+    return x @ w.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,24 @@
 """Model registry: ArchConfig -> ModelBundle (init/forward/prefill/decode).
 
-The twin of ``repro.models.registry`` for the families the port has (the
-dense family, rwkv6 and the zamba2 hybrid, see ``backbone.check_ported``);
-``build`` raises ``NotImplementedError`` for the others, and ``loss`` for
-all but the dense family (``backbone.check_trainable``).  The reference's
-dry-run pieces (``param_shapes``, ``input_specs``, ``runnable``) wait for
-their slices.
+The twin of ``repro.models.registry`` for every architecture of the
+registry; ``loss`` raises ``NotImplementedError`` for all but the dense
+family with GQA attention (``backbone.check_trainable`` says why).  The
+reference's dry-run pieces are here too: ``param_shapes`` and
+``input_specs`` build ``meta`` tensors (shapes and dtypes, no memory) where
+the reference builds ``jax.ShapeDtypeStruct``s, and ``runnable`` says
+whether an (arch x shape cell) can run.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.archs import get_arch
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.kernels.ops import resolve_device
 
 from . import backbone as B
@@ -57,6 +58,42 @@ class ModelBundle:
     def decode_step(self, params, tokens, cache, pos):
         return B.decode_step(params, tokens, cache, pos, self.cfg)
 
+    # -- dry-run specs -------------------------------------------------------
+
+    def param_shapes(self) -> Dict:
+        """The parameter tree on the ``meta`` device: shapes and dtypes."""
+        return self.init(None, "meta")
+
+    def _token_shape(self, batch: int, seq: int) -> Tuple[int, ...]:
+        if self.cfg.n_codebooks > 1:
+            return (batch, seq, self.cfg.n_codebooks)
+        return (batch, seq)
+
+    def input_specs(self, cell: ShapeCell) -> Dict[str, Any]:
+        """``meta`` stand-ins for the cell's step function inputs: int32
+        tokens (and labels), or for a decode cell one token each, the cache
+        of ``cell.seq_len`` and the positions.  The modality frontends of
+        the vlm / audio archs are stubs, as in the reference: the tokens
+        are precomputed ids (VQ image codes, EnCodec codebook codes)."""
+        def ids(*shape):
+            return torch.empty(shape, dtype=torch.int32, device="meta")
+
+        b = cell.global_batch
+        if cell.kind == "train":
+            return {"tokens": ids(*self._token_shape(b, cell.seq_len)),
+                    "labels": ids(*self._token_shape(b, cell.seq_len))}
+        if cell.kind == "prefill":
+            return {"tokens": ids(*self._token_shape(b, cell.seq_len))}
+        return {"tokens": ids(*self._token_shape(b, 1)),
+                "cache": self.init_cache(b, cell.seq_len, device="meta"),
+                "pos": ids(b)}
+
+    def runnable(self, cell: ShapeCell) -> Tuple[bool, str]:
+        """Is this (arch x cell) runnable? long_500k needs sub-quadratic."""
+        if cell.name == "long_500k" and not self.cfg.sub_quadratic:
+            return False, "SKIP(full-attn): 500k dense decode cache unbounded"
+        return True, ""
+
 
 def build(cfg_or_name) -> ModelBundle:
     cfg = cfg_or_name if isinstance(cfg_or_name, ArchConfig) else get_arch(cfg_or_name)
@@ -67,7 +104,8 @@ def build(cfg_or_name) -> ModelBundle:
 def make_batch(bundle: ModelBundle, rng: np.random.Generator, batch: int,
                seq: int, device="cuda") -> Dict[str, torch.Tensor]:
     """Random int32 token batch for smoke tests / examples."""
-    toks = rng.integers(0, bundle.cfg.vocab_size, (batch, seq)).astype(np.int32)
+    shape = bundle._token_shape(batch, seq)
+    toks = rng.integers(0, bundle.cfg.vocab_size, shape).astype(np.int32)
     labels = np.roll(toks, -1, axis=1)
     dev = model_device(device)
     return {"tokens": torch.from_numpy(toks).to(dev),

@@ -31,7 +31,8 @@ from repro_torch.kernels.decode_attention import (
     launch_shape,
 )
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, check_kernel_args, flash_attention,
+    HEAD_DIMS, NARROW_V, check_kernel_args, flash_attention,
+    flash_attention_bwd,
 )
 
 FP32_TOL = 1e-5
@@ -132,6 +133,59 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError):
         check_kernel_args("k", q, q, window=0)
     assert HEAD_DIMS == (32, 64, 80, 128, 256)
+    # v narrower than q/k: MLA's (96, 64) only
+    q96 = torch.zeros(1, 2, 4, 96)
+    check_kernel_args("k", q96, q96, window=None, dv=64)
+    check_kernel_args("k", q, q, window=None, dv=64)  # v as wide as q
+    for d, dv in ((96, 96), (96, 32), (128, 64), (64, 32)):
+        with pytest.raises(ValueError, match="head dim"):
+            check_kernel_args("k", torch.zeros(1, 2, 4, d), window=None, dv=dv)
+    assert NARROW_V == ((96, 64),)
+
+
+# ---------------------------------------------------------------------------
+# K5 with v narrower than q/k (MLA's prefill: q/k 96, v 64)
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,window", [
+    (1, 4, 4, 100, 100, None),        # MHA, as MLA runs it
+    (2, 6, 2, 37, 150, None),         # GQA, Sq < Sk
+    (1, 4, 4, 150, 150, 40),          # window
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_narrow_v_matches_oracle(b, h, g, sq, sk, window,
+                                                 dtype):
+    """q/k 96, v 64: the plain version against the JAX oracle (the Pallas
+    kernel's blocks take v at q's width: ROADMAP Queue 3)."""
+    arrs = _inputs(sq + sk + 96, (b, h, sq, 96), (b, g, sk, 96),
+                   (b, g, sk, 64))
+    (q, k, v), (jq, jk, jv) = _both(arrs, dtype)
+    tol = DTYPES[dtype][2]
+    scale = 1.0 / np.sqrt(96)
+    got = flash_attention(q, k, v, causal=True, window=window, scale=scale)
+    assert got.shape == (b, h, sq, 64)
+    orc = _np(jref.flash_attention_ref(jq, jk, jv, causal=True, window=window,
+                                       scale=scale))
+    np.testing.assert_allclose(_np(got), orc, atol=tol, rtol=tol)
+
+
+def test_flash_attention_narrow_v_gradients_on_the_cpu():
+    """On the CPU a graph through K5 at q/k 96, v 64 takes the plain
+    backward: the gradients equal ``jax.vjp`` of the oracle (on the card
+    such a call raises: K5's backward is built for v as wide as q/k)."""
+    arrs = _inputs(96, (1, 4, 50, 96), (1, 2, 70, 96), (1, 2, 70, 64),
+                   (1, 4, 50, 64))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(torch.from_numpy(arrs[3]))
+    _o, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(
+        a, b_, c, causal=True), *(jnp.asarray(a) for a in arrs[:3]))
+    for t, w in zip((q, k, v), vjp(jnp.asarray(arrs[3]))):
+        np.testing.assert_allclose(_np(t.grad), _np(w), atol=FP32_TOL,
+                                   rtol=FP32_TOL)
+    with pytest.raises(ValueError, match="Dv"):  # out / dout at v's width
+        flash_attention_bwd(q, k, v, q.detach(), torch.zeros(1, 4, 50),
+                            q.detach())
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +214,7 @@ def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128,
     vf = v.float().repeat_interleave(h // g, dim=1)
     qf = q.float()
     c = LOG2E / np.sqrt(d)
-    out = torch.zeros(b, h, sq, d)
+    out = torch.zeros(b, h, sq, v.shape[-1])
     lse = torch.full((b, h, sq), float("-inf"))
     for q0 in range(0, sq, bq):
         rows = min(bq, sq - q0)
@@ -169,7 +223,7 @@ def _k5_bf16_emulation(q, k, v, causal, window, bq=128, bk=128,
         k_begin = max(0, int(qpos[0]) - window + 1) if window else 0
         m = torch.full((b, h, rows), -1e30)
         l = torch.zeros(b, h, rows)
-        acc = torch.zeros(b, h, rows, d)
+        acc = torch.zeros(b, h, rows, v.shape[-1])
         for k0 in range(k_begin // bk * bk, k_end, bk):
             kpos = torch.arange(k0, min(k0 + bk, sk))
             s = qf[:, :, q0:q0 + rows] @ kf[:, :, kpos].transpose(-1, -2) * c
@@ -214,6 +268,25 @@ def test_k5_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d, causal,
     jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
     want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal,
                                         window=window))
+    assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,window", [
+    (1, 4, 4, 150, 150, None),        # MLA: MHA, two query tiles
+    (1, 2, 2, 90, 260, 70),           # window, Sq < Sk
+])
+def test_k5_bf16_narrow_v_numerics_fit_the_card_tolerance(b, h, g, sq, sk,
+                                                          window):
+    """The bf16 kernel's rounding at q/k 96, v 64 (kv tiles of 128, P in
+    bf16 before the 64-wide ``P V``) stays within the card's tolerance
+    of the JAX oracle in fp32 on the same bf16 inputs."""
+    arrs = _inputs(sq + sk, (b, h, sq, 96), (b, g, sk, 96), (b, g, sk, 64))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    got = _np(_k5_bf16_emulation(q, k, v, True, window))
+    jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=True,
+                                        window=window))
+    assert got.shape == want.shape == (b, h, sq, 64)
     assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
 
 

@@ -446,6 +446,73 @@ def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,h,g,sq,sk,causal,window", [
+    (2, 40, 40, 1000, 1000, True, None),    # minicpm3-4b's MLA prefill heads
+    (1, 4, 4, 129, 129, True, None),        # a ragged second query tile
+    (1, 6, 2, 77, 300, True, 50),           # GQA, Sq < Sk, window
+    (1, 4, 4, 50, 200, False, None),        # non-causal, padded kv tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_narrow_v_on_the_card(card, b, h, g, sq, sk, causal,
+                                              window, dtype):
+    """K5 at q/k 96, v 64 (MLA's prefill) against its plain version; its
+    LSE too."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_lse,
+    )
+
+    q, k, v = _attn_inputs(card, sq + sk + 96, dtype, (b, h, sq, 96),
+                           (b, g, sk, 96), (b, g, sk, 64))
+    scale = 96 ** -0.5
+    before = ops.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert ops.launch_shapes()["flash_attention"][(b, h, g, sq, sk, 96, 64)]
+    assert got.dtype == dtype and got.shape == (b, h, sq, 64)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window, scale=scale)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(
+        lse, ref.flash_attention_lse_ref(q, k, causal=causal, window=window,
+                                         scale=scale), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dv", [96, 32])
+def test_flash_attention_unbuilt_pairs_raise_on_the_card(card, dv):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _attn_inputs(card, 3, torch.bfloat16, (1, 2, 16, 96),
+                           (1, 2, 16, 96), (1, 2, 16, dv))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_narrow_v_backward_refuses_on_the_card(card, dtype):
+    """K5's backward is built for v as wide as q/k: at 96 / 64 a call that
+    would record a graph, and the backward itself, raise before a launch."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse,
+    )
+
+    q, k, v = _attn_inputs(card, 5, dtype, (1, 4, 64, 96), (1, 4, 64, 96),
+                           (1, 4, 64, 64))
+    out, lse = flash_attention_lse(q, k, v)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q.detach(), k, v, out, lse, torch.ones_like(out))
+    assert ops.launch_counts() == before
+    with torch.no_grad():  # serving records no graph: it runs
+        assert flash_attention(q, k, v).shape == (1, 4, 64, 64)
+
+
 @pytest.mark.parametrize("b,h,g,s,d", [
     (16, 15, 5, 1064, 64),    # smollm's decode
     (2, 8, 1, 700, 256),      # gemma-2b's MQA

@@ -25,7 +25,9 @@ def _serve(tmp_path, name="gen.rntj", seed=3, arch="smollm-360m"):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma-2b", "rwkv6-7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "minicpm3-4b",
+                                  "deepseek-moe-16b", "mixtral-8x22b",
+                                  "chameleon-34b"])
 def test_serve_writes_generations_the_reference_reads(tmp_path, arch):
     res, out = _serve(tmp_path, arch=arch)
     assert res.tokens.shape == (4, 6) and res.tokens.dtype == np.int32
@@ -38,6 +40,31 @@ def test_serve_writes_generations_the_reference_reads(tmp_path, arch):
         np.testing.assert_array_equal(r.read_column("tokens"), [6, 12, 18, 24])
         np.testing.assert_array_equal(
             r.read_column("tokens._0").reshape(4, 6), res.tokens)
+
+
+def test_serve_codebooks_logs_the_first_stream(tmp_path):
+    """musicgen-large: prompts (B, S, Q), generations (B, max_new, Q), the
+    file holds codebook 0's stream, as the reference's launcher logs it."""
+    res, out = _serve(tmp_path, arch="musicgen-large")
+    q = res.cfg.n_codebooks
+    assert q == 4 and res.prompts.shape == (4, 12, q)
+    assert res.tokens.shape == (4, 6, q)
+    with R.RNTJReader(out) as r:
+        np.testing.assert_array_equal(r.read_column("tokens"), [6, 12, 18, 24])
+        np.testing.assert_array_equal(
+            r.read_column("tokens._0").reshape(4, 6), res.tokens[..., 0])
+
+
+def test_serve_model_takes_a_cut_config(tmp_path):
+    """``serve_model`` serves a config the caller made (a depth cut), as
+    ``main`` serves the registry's."""
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config("chameleon-34b").with_(n_layers=2)
+    res = serve.serve_model(cfg, 2, 5, 3, 1, "cpu", str(tmp_path / "c.rntj"),
+                            keep_logits=True)
+    assert res.cfg.n_layers == 2 and res.tokens.shape == (2, 3)
+    assert res.logits.shape == (2, 3, cfg.vocab_size)
 
 
 def test_generation_file_is_byte_identical_to_reference_writer(tmp_path):
