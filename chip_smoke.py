@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's write -> read, serve and train paths, the
-main path as one program, the skim and its kernel API on one NVIDIA card.
+main path as one program, the skim, the meshed step, the dry-run and its
+kernel API on one NVIDIA card.
 
     python3 chip_smoke.py [--entries 1000000] [--producers 4] [--seed 0]
                           [--requests 16] [--prompt-len 1000] [--max-new 64]
@@ -106,20 +107,14 @@ Phases, in order; any failure exits non-zero:
    (within 2e-5) and bf16 (within 1e-2, against the plain version in
    fp32 from the same bf16 inputs), each as ``|got - want| <= tol (1 +
    |want|)``, at the training shapes (8, 15, 5, 1024, 1024, 64) and (8,
-   8, 1, 1024, 1024, 256), with a window, at a ragged Sq and at head dims
-   32, 80, 128 and 256 (ragged and windowed); then
-   smollm-360m at its full width and depth (fp32 parameters, bf16
-   compute, remat) from ``--seed`` trained 6 AdamW steps
-   (``make_optimizer(peak_lr=3e-4, warmup=1, total=20)``) on the device
-   loader's batches: every parameter gets a finite, non-zero gradient on
-   a first batch (outside the counted run), the counted run's launches
-   must be K5 twice per layer and step (remat runs each forward again),
-   K5's backward once per layer and step, K3 and K4 at least once (the
-   loader's read), and no other kernel; every loss finite and the last
-   below the first; step ms (the metric: the 6 steps' total / 6),
-   tokens/s, peak memory, and one more step under torch.profiler (card
-   busy ms, against the unprofiled mean step; kernel time by name); then,
-   smollm freed, gemma-2b at its full width and depth (18 layers, 8 query
+   8, 1, 1024, 1024, 256), phase 10 (b)'s four (deepseek-moe-16b (8, 16,
+   16, 1024, 1024, 128), mixtral-8x22b (8, 48, 8, 1024, 1024, 128, window
+   4096), chameleon-34b (8, 64, 8, 1024, 1024, 128), musicgen-large (8,
+   32, 32, 1024, 1024, 64)), with a window, at a ragged Sq and at head dims
+   32, 80, 128 and 256 (ragged and windowed); every parameter of
+   smollm-360m at its full size gets a finite, non-zero gradient on a
+   first batch (its steps run through the loop in phase 9 (a)); then
+   gemma-2b at its full width and depth (18 layers, 8 query
    heads over 1 kv head of 256, vocab 256,000) on the same loader at the
    largest batch of 8, 4, 2, 1 that fits: one untimed and 5 timed AdamW
    steps, K5 exactly 36 and its backward 18 times a step at gemma's
@@ -148,27 +143,30 @@ Phases, in order; any failure exits non-zero:
    the card, verbatim and with ``recompress=True`` (K1 and K2 > 0), each
    byte-identical to the same merge on the numpy backend; (d) one producer
    to ``mem-s3://``: the object equal to the same write to a file, read
-   back equal (K1-K4 > 0); (e) inside phase 7, right after smollm-360m's
-   steps: its train state (``params``, ``opt {step, m, v}``, ``err``,
-   ``loader {entry_cursor, leftover}``, about 4.9 GB) saved by
-   ``CheckpointManager`` with 2 spawned processes (phase 9 (a) saves the
-   same state with 4 writer threads), restored onto the card equal to the
-   live state bit for bit (dtype, shape, device), the resumed loader's
-   next batch equal to the live one's, and one step from the restored
-   state equal to the live state's step (loss, parameters and moments bit
-   for bit); save and restore seconds, MB/s and file size with the card's
-   name and power limit;
+   back equal (K1-K4 > 0); (e) inside phase 9 (a), on its loop after the
+   restart check: the loop's train state (``params``, ``opt {step, m,
+   v}``, ``err``, ``loader {entry_cursor, leftover}``, about 4.9 GB)
+   saved by ``CheckpointManager`` with 2 spawned processes (the loop's
+   own save is 4 writer threads), restored by a fresh ``TrainLoop`` and
+   loader on the same mesh equal to the live state bit for bit (dtype,
+   shape, device), its loader where the live one stands, and one step of
+   each loop equal bit for bit (loss, parameters and moments); save and
+   restore seconds, MB/s and file size with the card's name and power
+   limit;
 9. the main path as one program and the skim: (a) ``repro_torch.launch.
    train.main`` trains smollm-360m at full width and depth (fp32
-   parameters, bf16 compute, remat) on phase 7's corpus, (8, 1024)
-   batches, 15 steps with the loop's async checkpoint (4 writer threads)
-   at step 10: launches K5 = 2 x 32 x 15, its backward 32 x 15, K3 and K4
-   > 0 and nothing else; losses finite and falling; a fresh loader and
-   loop restore step 10 and their 5 steps equal the first loop's steps
-   11-15 bit for bit (losses, parameters, moments), reading no cluster
-   where the restored leftover holds their batches; step ms without and
-   with the save in flight, the hand-off ms, the end's wait, the restore
-   seconds, straggler events; (b) ``repro_torch.launch.quickstart`` at
+   parameters, bf16 compute, remat) on its one-rank NCCL mesh on phase
+   7's corpus, (8, 1024) batches, 15 steps with the loop's async
+   checkpoint (4 writer threads) at step 10: launches K5 = 2 x 32 x 15,
+   its backward 32 x 15, K3 and K4 > 0 and nothing else; losses finite
+   and falling; the train step's ms (the mean of steps 1-10, no save in
+   flight), tokens/s, peak memory; a fresh loader and loop restore step
+   10 and their 5 steps equal the first loop's steps 11-15 bit for bit
+   (losses, parameters, moments), reading no cluster where the restored
+   leftover holds their batches; step ms with the save in flight, the
+   hand-off ms, the end's wait, the restore seconds, straggler events;
+   then 8 (e), and one more step under torch.profiler (card busy share,
+   time by kernel); (b) ``repro_torch.launch.quickstart`` at
    its own sizes (gemma-2b's smoke config): exact launches, K5's backward
    at head dim 32, the restart at step 30, the generations file equal to
    the tokens; (c) ``make_agc_dataset`` builds 9 partitions x 4 files x
@@ -177,7 +175,32 @@ Phases, in order; any failure exits non-zero:
    and ``parallel`` without, 8 threads each: equal ``kept_events``, each
    partition's sorted events equal across runs, ``imt``'s files (K2 > 0)
    byte-identical to the numpy backend's; seconds, input and output MB;
-10. the last line: ``{"ok": true, "device": {...}}``.
+10. the mesh and the families that train since ``distributed``: (a)
+   smollm-360m at full size, 5 steps from ``--seed`` on phase 7's corpus
+   through the loop without a mesh and through ``launch.train`` on
+   ``make_local_mesh(device="cuda")`` (a one-rank NCCL group, mesh
+   (data=1, model=1)): losses, parameters, moments and the optimizer's
+   step equal bit for bit, the same K5 and K5-backward launches, the
+   losses phase 9 (a)'s first five; (b) deepseek-moe-16b, mixtral-8x22b,
+   chameleon-34b and musicgen-large at full width, each at the deepest
+   depth whose dry-run peak of a step at (8, 1024) stays under 72 GiB
+   (``family_depth``), 3 AdamW steps (fp32 parameters,
+   bf16 compute, remat) on phase 7's loader (ids modulo the vocabulary;
+   musicgen's 4 codebooks as shifted copies): the dry-run's state bytes
+   within 2 % of ``memory_allocated`` after ``init_train_state``, K5
+   twice and its backward once a layer and step and nothing else, losses
+   finite and falling, the MoE balance loss finite and the first step's
+   equal to a fresh forward's (1e-5 relative; 0 without MoE), peak memory
+   beside the dry-run's; (c) ``python -m repro_torch.launch.dryrun --all
+   [--multi-pod]``, one child process a mesh on the host (started before
+   (a), kept off the card): 80 records, none ``error``, the counts and the
+   seconds; the four new paths' K5 launches join the ``kernels`` line, and
+   K5's backward is timed at chameleon-34b's training shape (head dim
+   128) in bf16 beside its bound, its plain version and SDPA's backward
+   (``at_chameleon-34b`` of its row).
+   NCCL refuses two ranks on one card: multi-rank meshes are held on the
+   CPU over gloo (``tests/test_torch_distributed.py``);
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also traces one read-back, one single-producer write,
 and each served batch's prefill and 8 of its decode steps with
@@ -1923,8 +1946,8 @@ LSE_TOL = 2e-5
 #: the train path's model and batch: smollm-360m at full width and depth,
 #: (8, 1024) token batches
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 8, 1024
-#: the train path's corpus (documents of ``synth_corpus``) and AdamW steps
-TRAIN_DOCS, TRAIN_STEPS = 8000, 6
+#: the train path's corpus (documents of ``synth_corpus``)
+TRAIN_DOCS = 8000
 #: the second train path: gemma-2b at full width and depth (18 layers,
 #: d_model 2048, 8 query heads over 1 kv head of 256, GeGLU, vocab
 #: 256,000, tied and scaled embeddings) on the same corpus (its token ids
@@ -1934,17 +1957,24 @@ GEMMA_ARCH, GEMMA_BATCHES, GEMMA_STEPS = "gemma-2b", (8, 4, 2, 1), 5
 #: K5's backward's timed shapes (b, h, g, sq, sk, d): smollm-360m's and
 #: gemma-2b's training heads, causal
 BWD_TIMED = {TRAIN_ARCH: (TRAIN_BATCH, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64),
-             GEMMA_ARCH: (8, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256)}
+             GEMMA_ARCH: (8, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256),
+             "chameleon-34b": (TRAIN_BATCH, 64, 8, TRAIN_SEQ, TRAIN_SEQ,
+                               128)}
 
 
 def bwd_cases():
     """K5 backward cases (b, h, g, sq, sk, d, causal, window): the
-    training shapes, a window, a ragged Sq, the other built head dims (32
-    non-causal with a padded kv tile, 80 MQA, 128 windowed, 256 ragged and
-    windowed), and Sq > Sk under the causal mask, whose first Sq - Sk rows
-    see no key (a q tile of them wholly)."""
+    training shapes (phase 10 (b)'s families' too), a window, a ragged Sq,
+    the other built head dims (32 non-causal with a padded kv tile, 80
+    MQA, 128 windowed, 256 ragged and windowed), and Sq > Sk under the
+    causal mask, whose first Sq - Sk rows see no key (a q tile of them
+    wholly)."""
     return [
         (8, 15, 5, 1024, 1024, 64, True, None),    # smollm-360m training
+        (8, 16, 16, 1024, 1024, 128, True, None),  # deepseek-moe-16b
+        (8, 48, 8, 1024, 1024, 128, True, 4096),   # mixtral-8x22b
+        (8, 64, 8, 1024, 1024, 128, True, None),   # chameleon-34b
+        (8, 32, 32, 1024, 1024, 64, True, None),   # musicgen-large
         (2, 15, 5, 1024, 1024, 64, True, 256),     # window
         (2, 15, 5, 300, 1024, 64, True, None),     # ragged Sq
         (1, 6, 2, 77, 130, 32, False, None),
@@ -2371,14 +2401,12 @@ def train_gemma(np, torch, ops, args, path: str, out_dir) -> tuple:
 def train_path(np, torch, ops, args):
     """Phase 7; -> (the ``kernels`` row of K5's backward, {arch: the launch
     counts of its train run}, the worst K5 errors by (kernel, dtype) at the
-    backward's shapes, phase 8 (e)'s seconds, the corpus file: phase 9
-    trains on it and removes its directory)."""
+    backward's shapes, the corpus file: phase 9 trains smollm-360m on it
+    through the loop, and removes its directory)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build
     from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
-    from repro_torch.train import (
-        init_train_state, loss_and_grads, make_optimizer, make_train_step,
-    )
+    from repro_torch.train import loss_and_grads
 
     worst = check_attention_bwd(torch)
     cfg = get_arch(TRAIN_ARCH)
@@ -2409,12 +2437,12 @@ def train_path(np, torch, ops, args):
         f"tokens/s; K4 {l_counts['decode_offset_pages']} and K3 "
         f"{l_counts['unsplit_pages']} launches over the checked stream")
 
+    # every parameter of smollm-360m gets a gradient, on a host-engine batch
+    # (its steps run through the loop in phase 9 (a))
     bundle = build(cfg)
-    opt = make_optimizer(peak_lr=3e-4, warmup=1, total=20)
-    params, opt_state, err = init_train_state(bundle, seed=args.seed,
-                                              device="cuda", optimizer=opt)
-    # every parameter gets a gradient, on a host-engine batch outside the
-    # counted run (this also warms cuBLAS up at the training shapes)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    params = bundle.init(gen, "cuda")
     host = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, engine="host",
                         device="cuda")
     first = {k: torch.from_numpy(v).cuda() for k, v in
@@ -2430,68 +2458,16 @@ def train_path(np, torch, ops, args):
     for name, g in leaves(grads):
         if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
             fail(f"parameter {name} got no finite, non-zero gradient")
-    log(f"gradients: all {len(leaves(grads))} parameter tensors got a finite, "
-        "non-zero gradient")
-    del grads, _loss, _m
-
-    step = make_train_step(bundle, optimizer=opt)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    loader = PackedLoader(path, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
-    batches = loader.batches()
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, opt_state, err, m = step(params, opt_state, err, next(batches))
-        losses.append(float(m["loss"]))  # syncs
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    check_launches(ops, counts, train_want(ops, cfg, TRAIN_STEPS),
-                   "the train path")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train losses {losses}: not finite, or the last not below "
-             "the first")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    mean_ms = sum(step_ms) / len(step_ms)  # the train metric: all timed steps
-    log(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
-        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count():,} parameters, {cfg.param_dtype} parameters, "
-        f"{cfg.compute_dtype} compute, remat {cfg.remat}; {TRAIN_STEPS} "
-        f"AdamW steps on ({TRAIN_BATCH}, {TRAIN_SEQ}) device-loader batches")
-    log(f"train losses: {json.dumps(losses)}")
-    log(f"train step ms: {json.dumps(step_ms)}; total over {TRAIN_STEPS} "
-        f"steps / {TRAIN_STEPS} = {mean_ms:.3f} ms = "
-        f"{tokens / mean_ms * 1e3:.1f} tokens/s; max_memory_allocated "
-        f"{peak / 2**30:.3f} GiB")
-    # one more step under the profiler: card busy share, time by kernel
-    batch = next(batches)
-    state = [params, opt_state, err]
-
-    def one_step():
-        state[:3] = step(*state, batch)[:3]
-
-    busy_ms, _ = trace_card(torch, "train_step", one_step,
-                            args.profile or tmp, top=30)
-    log(f"train step: card busy {busy_ms:.3f} ms (profiled step) against the "
-        f"unprofiled mean step {mean_ms:.3f} ms = {100 * busy_ms / mean_ms:.3f}"
-        f" % busy, {100 - 100 * busy_ms / mean_ms:.3f} % idle")
-    # phase 8 (e): the checkpoint of this train state, before gemma-2b
-    ck_counts, ck_s = checkpoint_path(np, torch, ops, state, loader, batches,
-                                      step, path, tmp)
-    loader.close()
-    params, opt_state, err = state
-    del params, opt_state, err, state
+    log(f"gradients: all {len(leaves(grads))} {cfg.name} parameter tensors "
+        "got a finite, non-zero gradient")
+    del grads, _loss, _m, params
     gc.collect()
     torch.cuda.empty_cache()
     g_batch, g_counts = train_gemma(np, torch, ops, args, path,
                                     args.profile or tmp)
-    by_path = {TRAIN_ARCH: counts, GEMMA_ARCH: g_counts,
-               f"{TRAIN_ARCH} checkpoint resume": ck_counts}
-    row = time_attention_bwd(torch, TRAIN_ARCH, counts["flash_attention_bwd"],
-                             worst)
+    by_path = {GEMMA_ARCH: g_counts}
+    # the launches of smollm-360m's paths join the row in phases 9 and 10
+    row = time_attention_bwd(torch, TRAIN_ARCH, 0, worst)
     at_g = time_attention_bwd(torch, GEMMA_ARCH,
                               g_counts["flash_attention_bwd"], worst)
     row["launches_by_path"] = {f"train {a}": c["flash_attention_bwd"]
@@ -2503,7 +2479,7 @@ def train_path(np, torch, ops, args):
         "forward_ms", "bytes", "call_ms", "library_call_ms",
         "library_max_abs_err")}
     row[f"at_{GEMMA_ARCH}"]["train_batch"] = g_batch
-    return row, by_path, worst, ck_s, path
+    return row, by_path, worst, path
 
 
 # ---------------------------------------------------------------------------
@@ -2823,111 +2799,128 @@ def same_bits(torch, a, b) -> bool:
                                          b.view(torch.uint8))
 
 
-def checkpoint_path(np, torch, ops, state, loader, live_batches, step,
-                    corpus: str, tmp) -> dict:
-    """Phase 8 (e), right after the smollm-360m steps: the train state tree
-    (the reference loop's shape) saved by ``CheckpointManager`` with 2
-    spawned processes (the 4-thread save of the same state is phase 9
-    (a)'s, through the loop), restored onto the card and held against the
-    live state bit for bit; then one step from the restored state and from
-    the live state on the same next batch, equal bit for bit (K5 and its
-    backward are deterministic).  -> (the launch counts of those two
-    steps, the phase's seconds)."""
+def plain(tree):
+    """A state tree with each DTensor leaf (a meshed loop's) as its local
+    tensor (the whole tensor on a one-rank mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: plain(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def on_card(t) -> bool:
+    return t.is_cuda
+
+
+def loop_state(loop) -> dict:
+    """The loop's parameters, moments and optimizer step as plain tensors."""
+    return plain({"p": loop.params, "m": loop.opt_state.m,
+                  "v": loop.opt_state.v, "step": loop.opt_state.step})
+
+
+def differing(torch, a: dict, b: dict) -> list:
+    """The names of the leaves of two state trees that differ in bits."""
+    from repro_torch.ckpt.checkpoint import _flatten_with_names
+
+    want, _r = _flatten_with_names(a)
+    got, _r = _flatten_with_names(b)
+    if [n for n, _ in want] != [n for n, _ in got]:
+        return ["(other leaves)"]
+    return [n for (n, x), (_m, y) in zip(want, got) if not same_bits(torch, x, y)]
+
+
+def checkpoint_path(np, torch, ops, loop, corpus: str, tmp) -> tuple:
+    """Phase 8 (e), on phase 9 (a)'s loop after its steps: the loop's train
+    state tree (``params``, ``opt {step, m, v}``, ``err``, ``loader
+    {entry_cursor, leftover}``) saved by ``CheckpointManager`` with 2
+    spawned processes (the loop's own 4-thread async save is phase 9 (a)'s),
+    restored by a fresh loop and loader on the same mesh and held against
+    the live state bit for bit (dtype, shape, device), the resumed loader
+    standing where the live one stands; then one step of each loop, equal
+    bit for bit (K5 and its backward are deterministic).  -> (the launch
+    counts of those two steps, the phase's seconds)."""
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.ckpt.checkpoint import _flatten_with_names
     from repro_torch.pipeline import PackedLoader
-    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train import LoopConfig, TrainLoop
 
     t_phase = time.perf_counter()
-    params, opt_state, err = state
-    ld = loader.state()
-    tree = {
-        "params": params,
-        "opt": {"step": opt_state.step, "m": opt_state.m, "v": opt_state.v},
-        "err": err,
+    ld = loop.loader.state()
+    tree = plain({
+        "params": loop.params,
+        "opt": {"step": loop.opt_state.step, "m": loop.opt_state.m,
+                "v": loop.opt_state.v},
+        "err": loop.err_state,
         "loader": {"entry_cursor": np.asarray(ld["entry_cursor"]),
                    "leftover": np.asarray(ld["leftover"], np.int32)},
-    }
+    })
     leaves, _rebuild = _flatten_with_names(tree)
     n_bytes = sum(np.asarray(x).nbytes if not torch.is_tensor(x)
                   else x.numel() * x.element_size() for _n, x in leaves)
-    restored = {}
-    for route, kw in (("2 processes", {"processes": 2}),):
-        d = os.path.join(tmp, "ckpt_" + route.replace(" ", "_"))
-        mgr = CheckpointManager(d, keep=1, **kw)
-        ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = mgr.save(TRAIN_STEPS + 1, tree, {"train_step": TRAIN_STEPS + 1})
-        save_s = time.perf_counter() - t0
-        save_counts = {k: v for k, v in ops.launch_counts().items() if v}
-        if stats.get("degraded") or any(stats.get("worker_exitcodes", [])):
-            fail(f"checkpoint save ({route}) degraded: {stats}")
-        size = os.path.getsize(mgr.path_for(TRAIN_STEPS + 1))
-        t0 = time.perf_counter()
-        back, meta = mgr.restore(target_tree=tree)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        if meta.get("train_step") != TRAIN_STEPS + 1:
-            fail(f"checkpoint ({route}) metadata {meta}")
-        got, _r = _flatten_with_names(back)
-        if [n for n, _ in got] != [n for n, _ in leaves]:
-            fail(f"checkpoint ({route}) restored other leaves")
-        for (name, want), (_n, have) in zip(leaves, got):
-            if not (torch.is_tensor(have) and have.is_cuda
-                    and same_bits(torch, want, have)):
-                fail(f"checkpoint ({route}): leaf {name} differs")
-        zlib = ""
-        if "compress_ms" in stats:
-            zlib = (f"; zlib {stats['compress_ms'] / 1e3:.3f} s summed over "
-                    f"the writer threads = {stats['compress_ms'] / 1e3 / (save_s * kw['n_writers']) * 100:.1f} "
-                    f"% of {kw['n_writers']} x the save")
-        log(f"checkpoint ({route}), {CARD}: {len(leaves)} leaves, "
-            f"{n_bytes / 1e9:.4f} GB; save {save_s:.3f} s = "
-            f"{n_bytes / 1e6 / save_s:.3f} MB/s, file {size / 1e9:.4f} GB"
-            f"{zlib}; restore onto the card {restore_s:.3f} s = "
-            f"{n_bytes / 1e6 / restore_s:.3f} MB/s; every leaf equal bit for "
-            f"bit (dtype, shape, device); launches in the save "
-            f"{json.dumps(save_counts)}")
-        restored[route] = back
-        shutil.rmtree(d)
-
-    # the loader resumes where the live one stands
-    batch = next(live_batches)
-    for route, back in restored.items():
-        resumed = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
-        resumed.load_state({k: v.cpu().numpy()
-                            for k, v in back["loader"].items()})
-        rb = next(resumed.batches())
-        resumed.close()
-        for k in batch:
-            if not torch.equal(torch.as_tensor(rb[k]).cpu(),
-                               torch.as_tensor(batch[k]).cpu()):
-                fail(f"the loader resumed from the checkpoint ({route}) "
-                     f"gives another {k} batch")
+    route = "2 processes"
+    d = os.path.join(tmp, "ckpt_2_processes")
+    mgr = CheckpointManager(d, keep=1, processes=2)
     ops.reset_launch_counts()
-    runs = {"live": (params, opt_state, err)}
-    for route, back in restored.items():
-        runs[route] = (back["params"], AdamWState(
-            back["opt"]["step"], back["opt"]["m"], back["opt"]["v"]),
-            back["err"])
-    outs = {}
-    for route, (p, o, e) in runs.items():
-        new_p, new_o, _e, m = step(p, o, e, batch)
-        outs[route] = (float(m["loss"]), new_p, new_o)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = mgr.save(loop.step, tree, {"train_step": loop.step})
+    save_s = time.perf_counter() - t0
+    save_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if stats.get("degraded") or any(stats.get("worker_exitcodes", [])):
+        fail(f"checkpoint save ({route}) degraded: {stats}")
+    size = os.path.getsize(mgr.path_for(loop.step))
+    loader = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = TrainLoop(loop.bundle, loader, d,
+                        config=LoopConfig(steps=1, ckpt_every=10 ** 9),
+                        optimizer=loop.optimizer, device="cuda",
+                        mesh=loop.mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if resumed.step != loop.step:
+        fail(f"the loop restored from the checkpoint ({route}) stands at "
+             f"step {resumed.step}, not {loop.step}")
+    diff = differing(torch, loop_state(loop), loop_state(resumed))
+    if diff or not all(on_card(t) for _n, t in _flatten_with_names(
+            loop_state(resumed))[0]):
+        fail(f"checkpoint ({route}): the restored state differs in "
+             f"{len(diff)} tensors, first {diff[:3]}, or lies off the card")
+    r_ld = resumed.loader.state()
+    if (r_ld["entry_cursor"] != ld["entry_cursor"]
+            or not np.array_equal(np.asarray(r_ld["leftover"]),
+                                  np.asarray(ld["leftover"]))):
+        fail(f"the loader resumed from the checkpoint ({route}) stands "
+             "elsewhere than the live one")
+    zlib = ""
+    if "compress_ms" in stats:
+        zlib = (f"; zlib {stats['compress_ms'] / 1e3:.3f} s summed over "
+                "the writers")
+    log(f"checkpoint ({route}), {CARD}: {len(leaves)} leaves, "
+        f"{n_bytes / 1e9:.4f} GB; save {save_s:.3f} s = "
+        f"{n_bytes / 1e6 / save_s:.3f} MB/s, file {size / 1e9:.4f} GB"
+        f"{zlib}; restore by a fresh loop onto the card {restore_s:.3f} s = "
+        f"{n_bytes / 1e6 / restore_s:.3f} MB/s; every leaf equal bit for "
+        f"bit (dtype, shape, device), the loader where the live one stands; "
+        f"launches in the save {json.dumps(save_counts)}")
+    shutil.rmtree(d)
+
+    ops.reset_launch_counts()
+    live = loop.run(1)[-1].loss
+    again = resumed.run(1)[-1].loss
     counts = ops.launch_counts()
-    live_loss, live_p, live_o = outs.pop("live")
-    want, _r = _flatten_with_names({"p": live_p, "m": live_o.m, "v": live_o.v})
-    for route, (loss, new_p, new_o) in outs.items():
-        got, _r = _flatten_with_names({"p": new_p, "m": new_o.m, "v": new_o.v})
-        diff = [n for (n, x), (_m, y) in zip(want, got)
-                if not same_bits(torch, x, y)]
-        if loss != live_loss or diff:
-            fail(f"the step resumed from the checkpoint ({route}) differs from "
-                 f"the live step: loss {loss!r} against {live_loss!r}, "
-                 f"{len(diff)} tensors, first {diff[:3]}")
-        log(f"resumed step ({route}): loss {loss!r} and every parameter "
-            "and moment equal the live step's bit for bit")
+    diff = differing(torch, loop_state(loop), loop_state(resumed))
+    if again != live or diff:
+        fail(f"the step resumed from the checkpoint ({route}) differs from "
+             f"the live step: loss {again!r} against {live!r}, "
+             f"{len(diff)} tensors, first {diff[:3]}")
+    log(f"resumed step ({route}): loss {again!r} and every parameter "
+        "and moment equal the live step's bit for bit")
+    resumed.loader.close()
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     log(f"phase 8 (e): {wall:.3f} s; launches of the two resumed steps "
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
@@ -2953,26 +2946,30 @@ SKIM_RUNS = (("imt", True), ("separate", True), ("buffermerger", True),
 SKIM_COLLECTIONS = ("electrons_pt", "muons_pt", "jets_pt")
 
 
-def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
-    """Phase 9 (a): ``repro_torch.launch.train.main`` trains smollm-360m at
-    full width and depth (fp32 parameters, bf16 compute, remat) from
-    ``--seed`` on phase 7's corpus, (8, 1024) batches, ``LOOP_STEPS`` steps
-    with the loop's async checkpoint (4 writer threads) every
+def loop_path(np, torch, ops, args, corpus: str, tmp) -> tuple:
+    """Phase 9 (a), with phase 7's smollm-360m steps and phase 8 (e):
+    ``repro_torch.launch.train.main`` trains smollm-360m at full width and
+    depth (fp32 parameters, bf16 compute, remat) from ``--seed`` on phase
+    7's corpus, (8, 1024) batches, ``LOOP_STEPS`` steps on its one-rank
+    mesh with the loop's async checkpoint (4 writer threads) every
     ``LOOP_CKPT_EVERY``; its launches must be K5 twice and its backward
     once a layer and step, K3/K4 > 0 and nothing else (the save launches
     none: its data column is ``uint8`` and its offsets stay under K1's
-    floor); every loss finite, the last below the first.  Then a fresh
-    loader and loop on the same directory with the same optimizer restore
-    the step-``LOOP_CKPT_EVERY`` checkpoint, and their steps must equal
-    the first loop's last steps bit for bit: losses, parameters, moments
-    and the optimizer's step; their launches K5 and its backward as many
-    as those steps need, K3/K4 > 0 where the restored leftover holds fewer
-    tokens than those steps take and 0 where it holds them all.
-    -> {path: launch counts}."""
-    from repro_torch.ckpt.checkpoint import _flatten_with_names
+    floor); every loss finite, the last below the first; the train step's
+    ms (the mean of the steps without a save in flight), tokens/s and peak
+    memory.  Then a fresh loader and loop on the same directory with the
+    same optimizer restore the step-``LOOP_CKPT_EVERY`` checkpoint, and
+    their steps must equal the first loop's last steps bit for bit:
+    losses, parameters, moments and the optimizer's step; their launches
+    K5 and its backward as many as those steps need, K3/K4 > 0 where the
+    restored leftover holds fewer tokens than those steps take and 0 where
+    it holds them all.  Then phase 8 (e) on the first loop
+    (``checkpoint_path``), and one more step of it under the profiler.
+    -> ({path: launch counts}, phase 8 (e)'s seconds, the losses)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.pipeline import PackedLoader
     from repro_torch.train import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import tree_leaves
 
     ckpt = os.path.join(tmp, "loop_ckpt")
     argv = ["--arch", TRAIN_ARCH, "--steps", str(LOOP_STEPS), "--batch",
@@ -3002,15 +2999,24 @@ def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
     walls = [h.wall_s * 1e3 for h in loop.history]
     before, during = walls[:LOOP_CKPT_EVERY], walls[LOOP_CKPT_EVERY:]
     handoff_s = loop.saves[0].block_s
-    state_bytes = sum(x.numel() * x.element_size() for _n, x in
-                      _flatten_with_names({"p": loop.params,
-                                           "m": loop.opt_state.m,
-                                           "v": loop.opt_state.v})[0])
+    state = loop_state(loop)
+    state_bytes = sum(x.numel() * x.element_size() for k, t in state.items()
+                      if k != "step" for x in tree_leaves(t))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"loop {cfg.name}, {CARD}: {LOOP_STEPS} steps of ({TRAIN_BATCH}, "
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = statistics.mean(before)  # the train metric
+    log(f"train {cfg.name} (launch.train, mesh {loop.mesh.mesh_dim_names} "
+        f"{tuple(loop.mesh.shape)}), {CARD}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count():,} parameters, {cfg.param_dtype} parameters, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}; train step ms "
+        f"(steps 1-{LOOP_CKPT_EVERY}, no save in flight: total / "
+        f"{LOOP_CKPT_EVERY}) {mean_ms:.3f} = {tokens / mean_ms * 1e3:.1f} "
+        f"tokens/s; max_memory_allocated {peak / 2**30:.3f} GiB")
+    log(f"loop {cfg.name}: {LOOP_STEPS} steps of ({TRAIN_BATCH}, "
         f"{TRAIN_SEQ}) in {run_s:.3f} s (model init and the save's wait "
-        f"included); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-        f"GiB; losses {json.dumps(losses)}")
+        f"included); losses {json.dumps(losses)}")
     log(f"loop step ms without a save in flight (steps 1-{LOOP_CKPT_EVERY}): "
         f"{json.dumps(before)}, mean {statistics.mean(before):.3f} "
         f"({statistics.mean(before[1:]):.3f} without the first) = "
@@ -3026,7 +3032,7 @@ def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
         f"straggler events {sum(h.straggler for h in loop.history)}")
     by_path = {f"train {cfg.name} loop": counts}
 
-    # the restart: a fresh loader and loop on the same directory
+    # the restart: a fresh loader and loop on the same directory and mesh
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3035,7 +3041,7 @@ def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
                       config=LoopConfig(steps=LOOP_STEPS - LOOP_CKPT_EVERY,
                                         ckpt_every=LOOP_CKPT_EVERY),
                       optimizer=loop.optimizer, device="cuda",
-                      seed=args.seed)
+                      seed=args.seed, mesh=loop.mesh)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     if again.step != LOOP_CKPT_EVERY:
@@ -3055,29 +3061,324 @@ def loop_path(np, torch, ops, args, corpus: str, tmp) -> dict:
     if r_losses != losses[LOOP_CKPT_EVERY:]:
         fail(f"the restarted loop's losses {r_losses} differ from the first "
              f"loop's {losses[LOOP_CKPT_EVERY:]}")
-    want, _r = _flatten_with_names({"p": loop.params, "m": loop.opt_state.m,
-                                    "v": loop.opt_state.v,
-                                    "step": loop.opt_state.step})
-    got, _r = _flatten_with_names({"p": again.params, "m": again.opt_state.m,
-                                   "v": again.opt_state.v,
-                                   "step": again.opt_state.step})
-    diff = [n for (n, x), (_m, y) in zip(want, got, strict=True)
-            if not same_bits(torch, x, y)]
+    diff = differing(torch, loop_state(loop), loop_state(again))
     if diff:
         fail(f"the restarted loop's state differs from the first loop's in "
              f"{len(diff)} tensors, first {diff[:3]}")
     log(f"loop restart: restore of step {LOOP_CKPT_EVERY} (a fresh loader and "
         f"loop) {restore_s:.3f} s; its {LOOP_STEPS - LOOP_CKPT_EVERY} steps "
         f"equal the first loop's steps {LOOP_CKPT_EVERY + 1}-{LOOP_STEPS} bit "
-        f"for bit (losses, {len(want)} tensors of parameters, moments and "
-        "the step)")
+        "for bit (losses, parameters, moments and the step)")
     by_path[f"train {cfg.name} loop restart"] = r_counts
     loader.close()
-    loop.loader.close()
-    del loop, again, want, got
+    del again, state
     gc.collect()
     torch.cuda.empty_cache()
+
+    # phase 8 (e): the checkpoint of this train state by 2 processes
+    ck_counts, ck_s = checkpoint_path(np, torch, ops, loop, corpus, tmp)
+    by_path[f"train {cfg.name} checkpoint resume"] = ck_counts
+    # one more step under the profiler: card busy share, time by kernel
+    busy_ms, _ = trace_card(torch, "train_step", lambda: loop.run(1),
+                            args.profile or tmp, top=30)
+    log(f"train step: card busy {busy_ms:.3f} ms (profiled step of the loop) "
+        f"against the unprofiled mean step {mean_ms:.3f} ms = "
+        f"{100 * busy_ms / mean_ms:.3f} % busy, "
+        f"{100 - 100 * busy_ms / mean_ms:.3f} % idle")
+    loop.loader.close()
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path, ck_s, losses
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the meshed step, the four families' training, the dry-run
+
+#: phase 10 (a): steps of smollm-360m through ``launch.train`` on the
+#: one-rank mesh and through the loop without a mesh
+MESH_STEPS = 5
+#: phase 10 (b): the families that train since ``distributed``, each at
+#: its full width and the deepest depth whose dry-run peak (state,
+#: gradients and activations of a step at (8, 1024)) stays under
+#: ``FAMILY_BUDGET``, for ``FAMILY_STEPS`` AdamW steps on phase 7's loader
+FAMILY_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "chameleon-34b",
+                "musicgen-large")
+FAMILY_STEPS = 3
+FAMILY_BUDGET = 72 * 2 ** 30
+#: phase 10 (b): the dry-run's state bytes against ``memory_allocated``
+#: after ``init_train_state``, as a share of the prediction
+STATE_BYTES_TOL = 0.02
+#: phase 10 (b): the step's MoE balance loss against a fresh forward's on
+#: the same parameters and batch, relative
+AUX_TOL = 1e-5
+
+
+def mesh_path(np, torch, ops, args, corpus: str, tmp, loop_losses) -> dict:
+    """Phase 10 (a): smollm-360m at full size, ``MESH_STEPS`` steps from
+    ``--seed`` on phase 7's corpus, once through the loop without a mesh
+    and once through ``launch.train`` on ``make_local_mesh(device="cuda")``
+    (a one-rank NCCL group, mesh (data=1, model=1)), with the launcher's
+    optimizer: losses, parameters, moments and the optimizer's step equal
+    bit for bit (every collective of one rank is an identity), the same
+    K5 and K5-backward launches, and the losses phase 9 (a)'s first ones
+    (the same state, batches and learning rates).  -> {path: counts}."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build
+    from repro_torch.pipeline import PackedLoader
+    from repro_torch.train import LoopConfig, TrainLoop, make_optimizer
+
+    cfg = get_arch(TRAIN_ARCH)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loader = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    # launch.train's optimizer at --steps MESH_STEPS
+    straight = TrainLoop(
+        build(cfg), loader, os.path.join(tmp, "mesh_straight"),
+        config=LoopConfig(steps=MESH_STEPS, ckpt_every=10 ** 9),
+        optimizer=make_optimizer(peak_lr=3e-4, warmup=20, total=MESH_STEPS),
+        device="cuda", seed=args.seed)
+    straight.run()
+    s_counts = ops.launch_counts()
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    meshed = launch_train.main([
+        "--arch", TRAIN_ARCH, "--steps", str(MESH_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--data", corpus,
+        "--ckpt-dir", os.path.join(tmp, "mesh_ckpt"), "--ckpt-every",
+        str(10 ** 9), "--seed", str(args.seed)])
+    m_counts = ops.launch_counts()
+    t2 = time.perf_counter()
+    mesh = dict(zip(meshed.mesh.mesh_dim_names, meshed.mesh.shape))
+    if mesh != {"data": 1, "model": 1} or dist.get_backend() != "nccl":
+        fail(f"launch.train ran on {mesh} over {dist.get_backend()}, not a "
+             "one-rank NCCL mesh")
+    want = train_want(ops, cfg, MESH_STEPS)
+    check_launches(ops, s_counts, want, "phase 10 (a)'s loop without a mesh")
+    check_launches(ops, m_counts, want, "phase 10 (a)'s meshed launch.train")
+    s_losses = [h.loss for h in straight.history]
+    m_losses = [h.loss for h in meshed.history]
+    diff = differing(torch, loop_state(straight), loop_state(meshed))
+    if m_losses != s_losses or diff:
+        fail(f"the meshed step differs from the one-card step: losses "
+             f"{m_losses} against {s_losses}, {len(diff)} tensors, first "
+             f"{diff[:3]}")
+    if s_losses != loop_losses[:MESH_STEPS]:
+        fail(f"phase 10 (a)'s losses {s_losses} are not phase 9 (a)'s first "
+             f"{loop_losses[:MESH_STEPS]}")
+    ms = lambda loop: statistics.mean(h.wall_s * 1e3 for h in loop.history)
+    log(f"phase 10 (a), {CARD}: launch.train on the one-rank NCCL mesh "
+        f"{mesh} equals the loop without a mesh bit for bit over "
+        f"{MESH_STEPS} steps of {cfg.name} (losses {json.dumps(m_losses)}, "
+        "parameters, moments, the step), the same launches "
+        f"(K5 {m_counts['flash_attention']}, its backward "
+        f"{m_counts['flash_attention_bwd']}), the losses phase 9 (a)'s "
+        f"first {MESH_STEPS}; step ms without the mesh {ms(straight):.3f}, "
+        f"on the mesh {ms(meshed):.3f}; {t1 - t0:.3f} s and {t2 - t1:.3f} s "
+        "with the model's init")
+    for lp in (straight, meshed):
+        lp.loader.close()
+    del straight, meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"train {cfg.name} loop without a mesh": s_counts,
+            f"train {cfg.name} meshed launch.train": m_counts}
+
+
+def family_depth(cfg, dryrun, mesh) -> tuple:
+    """The deepest depth whose dry-run peak of a step at
+    (``TRAIN_BATCH``, ``TRAIN_SEQ``) lies under ``FAMILY_BUDGET`` (the peak
+    grows linearly with the layers: two probes and a check) -> (depth, the
+    dry-run's bytes at it)."""
+    probe = {n: dryrun.train_memory(cfg.with_(n_layers=n), mesh, TRAIN_BATCH,
+                                    TRAIN_SEQ)["peak_bytes"]
+             for n in (1, 2)}
+    per = probe[2] - probe[1]
+    depth = max(1, min(cfg.n_layers,
+                       int((FAMILY_BUDGET - probe[1]) // per) + 1))
+    while True:
+        mem = dryrun.train_memory(cfg.with_(n_layers=depth), mesh,
+                                  TRAIN_BATCH, TRAIN_SEQ)
+        if mem["peak_bytes"] < FAMILY_BUDGET or depth == 1:
+            return depth, mem
+        depth -= 1
+
+
+def family_batch(torch, cfg, batch) -> dict:
+    """A loader batch (ids below 49,152) as the model's: ids modulo its
+    vocabulary, and for a model of Q codebooks Q shifted copies, (B, S, Q)."""
+    out = {}
+    for k, t in batch.items():
+        t = torch.as_tensor(t).cuda().long()
+        if cfg.n_codebooks > 1:
+            t = torch.stack([t + q * 997 for q in range(cfg.n_codebooks)], -1)
+        out[k] = (t % cfg.vocab_size).to(torch.int32)
+    return out
+
+
+def families_path(np, torch, ops, args, corpus: str) -> dict:
+    """Phase 10 (b): each of ``FAMILY_ARCHS`` at its full width and
+    ``family_depth`` (fp32 parameters, bf16 compute, remat) from
+    ``--seed``: the dry-run's state bytes within ``STATE_BYTES_TOL`` of
+    ``memory_allocated`` after ``init_train_state``; ``FAMILY_STEPS``
+    AdamW steps on phase 7's loader (``family_batch``): launches
+    K5 twice and its backward once a layer and step, nothing else; losses
+    finite and falling; the balance loss finite (0 without MoE) and the
+    first step's equal to a fresh forward's on the same parameters and
+    batch; peak memory beside the dry-run's prediction.  -> {path:
+    counts}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import build
+    from repro_torch.pipeline import PackedLoader
+    from repro_torch.train import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    one = MeshShape(("data", "model"), (1, 1))
+    by_path = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        full = get_arch(arch)
+        depth, pred = family_depth(full, dryrun, one)
+        cfg = full.with_(n_layers=depth)
+        bundle = build(cfg)
+        t1 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        opt = make_optimizer(peak_lr=3e-4, warmup=1, total=20)
+        state = list(init_train_state(bundle, seed=args.seed, device="cuda",
+                                      optimizer=opt))
+        torch.cuda.synchronize()
+        got = torch.cuda.memory_allocated() - base
+        if abs(got - pred["state"]) > STATE_BYTES_TOL * pred["state"]:
+            fail(f"{arch}: the dry-run's state {pred['state']} bytes against "
+                 f"{got} allocated after init_train_state")
+        loader = PackedLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+        it = loader.batches()
+        batches = [family_batch(torch, cfg, next(it))
+                   for _ in range(FAMILY_STEPS)]
+        loader.close()
+        with torch.no_grad():
+            _logits, fresh_aux = bundle.forward(state[0], batches[0]["tokens"])
+        fresh_aux = float(fresh_aux)
+        del _logits
+        step = make_train_step(bundle, optimizer=opt)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        losses, auxes, step_ms = [], [], []
+        for b in batches:
+            t = time.perf_counter()
+            *state[:3], m = step(*state, b)
+            losses.append(float(m["loss"]))  # syncs
+            auxes.append(float(m["aux"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_launches(ops, counts, train_want(ops, cfg, FAMILY_STEPS),
+                       f"the {arch} train path ({depth} layers)", reads=False)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"{arch} train losses {losses}: not finite, or the last not "
+                 "below the first")
+        if cfg.moe is None:
+            ok_aux = auxes == [0.0] * FAMILY_STEPS and fresh_aux == 0.0
+        else:
+            ok_aux = (all(np.isfinite(auxes)) and auxes[0] > 0 and
+                      abs(auxes[0] - fresh_aux) <= AUX_TOL * abs(fresh_aux))
+        if not ok_aux:
+            fail(f"{arch}: balance losses {auxes}, a fresh forward's "
+                 f"{fresh_aux!r}")
+        G = 2 ** 30
+        log(f"train {arch}, {CARD}: {depth} of {full.n_layers} layers at full "
+            f"width (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, vocab "
+            f"{cfg.vocab_size}"
+            + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+               if cfg.moe else "")
+            + (f", {cfg.n_codebooks} codebooks" if cfg.n_codebooks > 1
+               else "")
+            + f"), {cfg.param_count():,} parameters; {FAMILY_STEPS} "
+            f"AdamW steps at ({TRAIN_BATCH}, {TRAIN_SEQ}): losses "
+            f"{json.dumps(losses)}, balance losses {json.dumps(auxes)} (a "
+            f"fresh forward's {fresh_aux!r}), step ms {json.dumps(step_ms)}; "
+            f"K5 {counts['flash_attention']}, its backward "
+            f"{counts['flash_attention_bwd']}")
+        log(f"  memory {arch}: state after init_train_state {got / G:.3f} GiB "
+            f"allocated, dry-run {pred['state'] / G:.3f} GiB "
+            f"({100 * (got - pred['state']) / pred['state']:+.3f} %); peak "
+            f"max_memory_allocated {peak / G:.3f} GiB, dry-run "
+            f"{pred['peak_bytes'] / G:.3f} GiB (activations "
+            f"{pred['activation_bytes'] / G:.3f}); depth chosen in "
+            f"{t1 - t0:.3f} s, run {time.perf_counter() - t1:.3f} s")
+        by_path[f"train {arch} ({depth} layers)"] = counts
+        del state, step, batches, m
+        gc.collect()
+        torch.cuda.empty_cache()
     return by_path
+
+
+def dryrun_start(tmp) -> tuple:
+    """Phase 10 (c) in the background: the dry-run of every arch x cell on
+    both production meshes, two child processes on the host (one a mesh,
+    kept off the card) while (a) and (b) run."""
+    out = os.path.join(tmp, "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out",
+         out, *mesh], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for mesh in ([], ["--multi-pod"])]
+    return procs, out, time.perf_counter()
+
+
+def dryrun_finish(procs, out: str, t0: float) -> None:
+    """Phase 10 (c): every record ``ok`` or ``skipped``, none ``error``;
+    the counts, the seconds, and each arch's per-rank train state on the
+    single-pod mesh."""
+    texts = []
+    try:
+        for proc in procs:
+            texts.append(proc.communicate(timeout=900)[0])
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+            proc.communicate()
+        fail("the dry-run outlived 900 s")
+    wall = time.perf_counter() - t0
+    text = "".join(texts)
+    rc = max(proc.returncode for proc in procs)
+    recs = [json.load(open(os.path.join(out, f)))
+            for f in sorted(os.listdir(out)) if f.endswith(".json")]
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    if rc != 0 or status.get("error") or len(recs) != 80:
+        fail(f"the dry-run (rc {rc}) gave {status} over {len(recs)} "
+             f"records: {text[-2000:]}")
+    meta_s = sum(r.get("meta_s", 0.0) for r in recs)
+    log(f"phase 10 (c): dry-run of 10 archs x 4 cells x 2 meshes on the "
+        f"host: {json.dumps(status)}; {wall:.3f} s from its start (in the "
+        f"background of (a) and (b)), {meta_s:.3f} s in meta runs")
+    G = 2 ** 30
+    for r in recs:
+        if (r["status"] == "ok" and r["shape"] == "train_4k"
+                and not r["multi_pod"]):
+            m = r["memory"]
+            log(f"  dry-run {r['arch']} train_4k {r['mesh']}: state "
+                f"{m['state'] / G:.3f} GiB a rank, activations "
+                f"{m['activation_bytes'] / G:.3f}, gathered parameters "
+                f"{m['gathered_params'] / G:.3f}, peak "
+                f"{m['peak_bytes'] / G:.3f}; flops a rank "
+                f"{r['flops']:.4g}, collective bytes "
+                f"{r['collective_bytes']:.4g}, dominant "
+                f"{r['roofline']['dominant']}")
 
 
 def quickstart_path(np, torch, core, ops, tmp) -> dict:
@@ -3533,8 +3834,7 @@ def main() -> int:
         row["launches_by_op_entries"] = o_counts.get(row["name"], 0)
 
     # -- phase 7: the train path ---------------------------------------------
-    bwd_row, t_counts, t_worst, ck_s, corpus = train_path(np, torch, ops,
-                                                          args)
+    bwd_row, t_counts, t_worst, corpus = train_path(np, torch, ops, args)
     for row in rows:  # K5's forward runs on the train paths too
         if row["name"] == "flash_attention":
             for arch, c in t_counts.items():
@@ -3549,7 +3849,7 @@ def main() -> int:
     rows.append(bwd_row)
 
     # -- phase 8: multi-process writing, recovery, merge, remote -------------
-    # ((e), the checkpoint, ran in phase 7 right after smollm-360m's steps)
+    # ((e), the checkpoint, runs in phase 9 (a) on the loop's train state)
     gc.collect()
     torch.cuda.empty_cache()
     t8 = time.perf_counter()
@@ -3564,8 +3864,7 @@ def main() -> int:
                           data, one))
     shutil.rmtree(tmp)
     w8 = time.perf_counter() - t8
-    log(f"phase 8: (a)-(d) {w8:.3f} s, (e) {ck_s:.3f} s (in phase 7), "
-        f"{w8 + ck_s:.3f} s in all")
+    log(f"phase 8: (a)-(d) {w8:.3f} s ((e) in phase 9 (a))")
     for row in rows:
         name = row["name"]
         if name in ops.WRITE_READ_KERNELS:
@@ -3579,21 +3878,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
     tmp = os.path.dirname(corpus)
-    p9 = loop_path(np, torch, ops, args, corpus, tmp)
+    p9, ck_s, loop_losses = loop_path(np, torch, ops, args, corpus, tmp)
     t9b = time.perf_counter()
     p9.update(quickstart_path(np, torch, core, ops, tmp))
     t9c = time.perf_counter()
     p9.update(skim_path(np, core, ops, args, tmp))
-    shutil.rmtree(tmp)
     t9d = time.perf_counter()
-    log(f"phase 9: (a) {t9b - t9:.3f} s, (b) {t9c - t9b:.3f} s, (c) "
-        f"{t9d - t9c:.3f} s, {t9d - t9:.3f} s in all")
+    log(f"phase 9: (a) {t9b - t9:.3f} s (phase 8 (e) {ck_s:.3f} s of it), "
+        f"(b) {t9c - t9b:.3f} s, (c) {t9d - t9c:.3f} s, {t9d - t9:.3f} s in "
+        "all")
+
+    # -- phase 10: the meshed step, the four families, the dry-run ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    dry = dryrun_start(tmp)
+    p10 = mesh_path(np, torch, ops, args, corpus, tmp, loop_losses)
+    t10b = time.perf_counter()
+    p10.update(families_path(np, torch, ops, args, corpus))
+    t10c = time.perf_counter()
+    dryrun_finish(*dry)
+    shutil.rmtree(tmp)
+    t10d = time.perf_counter()
+    log(f"phase 10: (a) {t10b - t10:.3f} s, (b) {t10c - t10b:.3f} s, (c) "
+        f"waited {t10d - t10c:.3f} s more, {t10d - t10:.3f} s in all")
     for row in rows:  # K1-K6 and K5's backward: each has its paths' counts
-        extra = {k: c[row["name"]] for k, c in p9.items()
+        extra = {k: c[row["name"]] for p in (p9, p10) for k, c in p.items()
                  if c.get(row["name"])}
         if extra:
             row["launches_by_path"].update(extra)
             row["launches"] = sum(row["launches_by_path"].values())
+    # K5's backward at head dim 128: timed at chameleon-34b's training shape
+    fam = "chameleon-34b"
+    n_fam = sum(c["flash_attention_bwd"] for k, c in p10.items()
+                if k.startswith(f"train {fam} "))
+    at_fam = time_attention_bwd(torch, fam, n_fam, t_worst)
+    bwd_row[f"at_{fam}"] = {k: at_fam[k] for k in (
+        "launches", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_backend", "max_abs_err", "launch_ms",
+        "forward_ms", "bytes", "call_ms", "library_call_ms",
+        "library_max_abs_err")}
+    log(f"phase 10: K5's backward timed at {fam}'s shape "
+        f"{time.perf_counter() - t10d:.3f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ three stages, a lane owns a 16-byte slice of a row, and the heads'
 running softmax stays in registers.  ``length`` stays on the card: the
 kernel reads it there and no step waits on the host.  On a CPU tensor
 the wrapper runs the plain version (``ref.decode_attention_ref``), on a
-CUDA tensor it launches the kernel or raises.
+``meta`` tensor the dry-run's stand-in (``meta.py``), on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from .flash_attention import DTYPE_CODES, aligned16, check_kernel_args
 from .ops import count_launch, refuse_grad
 
@@ -109,6 +110,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         scale=scale)
     refuse_grad("decode_attention", q, k, v)
     check_kernel_args("decode_attention", q, k, v, window=window)
+    if q.device.type == "meta":  # the dry-run: shapes and FLOPs
+        return meta.ops().decode_attention(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     if length is None:

@@ -8,7 +8,9 @@ position ``i + Sk - Sq``, a causal mask and an optional sliding window;
 softmax statistics and the accumulator in fp32, the output in the
 inputs' dtype.  The CUDA kernels live in ``csrc/attention.cu``; on a CPU
 tensor the wrapper runs the plain version (``ref.flash_attention_ref``),
-on a CUDA tensor it launches the kernel of its dtype or raises:
+on a ``meta`` tensor the dry-run's stand-in (``meta.py``: shapes and a
+FLOP formula), on a CUDA tensor it launches the kernel of its dtype or
+raises:
 
 - bfloat16 (the serve path): ``flash_fwd_wgmma``, both products on the
   tensor cores (``wgmma``, fp32 accumulators, P rounded to bf16 before
@@ -61,7 +63,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from .ops import count_launch
 
 #: head dims the CUDA kernels are built for (80: zamba2's shared attention)
@@ -177,6 +179,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                if with_lse else None)
         return out, lse
     check_kernel_args("flash_attention", q, k, v, window=window, dv=dv)
+    if q.device.type == "meta":  # the dry-run: shapes and FLOPs
+        out, lse = meta.ops().flash_attention(q, k, v, causal, window or 0,
+                                              with_lse)
+        return out, lse if with_lse else None
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = q.new_empty((b, h, sq, dv))
@@ -227,6 +233,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_bwd_dims("flash_attention_bwd", q, v)
     check_kernel_args("flash_attention_bwd", q, k, v, out, dout,
                       window=window)
+    if q.device.type == "meta":
+        return meta.ops().flash_attention_bwd(q, k, v, causal, window or 0)
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)

@@ -25,14 +25,15 @@ Both take any T (the Pallas kernel asserts ``T % chunk == 0``) and give
 finite results where a decay is exactly 0 (``log_a = -inf``; log_a <= 0,
 as the model gives).  N is one of ``STATE_DIMS``, P at most
 ``MAX_COLS``.  On a CPU tensor the wrapper runs the plain version
-(``ref.mamba2_ref``), on a CUDA tensor it launches the kernel or raises.
+(``ref.mamba2_ref``), on a ``meta`` tensor the dry-run's stand-in
+(``meta.py``), on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from .flash_attention import DTYPE_CODES
 from .ops import count_launch, refuse_grad
 from .rwkv6_scan import MAX_COLS, STATE_DIMS
@@ -62,6 +63,8 @@ def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
     if n not in STATE_DIMS or not 1 <= p <= MAX_COLS:
         raise ValueError(f"mamba2_ssd: N {n} not in {STATE_DIMS} or P {p} "
                          f"not in [1, {MAX_COLS}]")
+    if x.device.type == "meta":  # the dry-run: shapes and FLOPs
+        return meta.ops().mamba2_ssd(x, Bm)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
     x, log_a, Bm, Cm = (a.contiguous() for a in (x, log_a, Bm, Cm))

@@ -72,8 +72,9 @@ SERVE_KERNELS = ("flash_attention", "decode_attention", "rwkv6_scan",
 #: the single-buffer codec kernels, K9 and K10: no path of the writer or
 #: the models runs them, only the op entries below
 CODEC_KERNELS = ("byteshuffle", "delta_zigzag")
-#: the kernels of the train step (dense family): K5's forward and its
-#: backward, one ``flash_attention_bwd`` launch per attention layer
+#: the kernels of the train step (the GQA attention families): K5's
+#: forward and its backward, one ``flash_attention_bwd`` launch per
+#: attention layer
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS + CODEC_KERNELS + tuple(
     k for k in TRAIN_KERNELS if k not in SERVE_KERNELS)

@@ -25,15 +25,16 @@ Every decay either route applies is a product of w, so any T works (the
 Pallas kernel asserts ``T % chunk == 0``) and a decay of exactly 0 gives
 finite output (the Pallas kernel's log-space ratios give NaN there).  Dk
 is one of ``STATE_DIMS``, Dv at most ``MAX_COLS``.  On a CPU tensor the
-wrapper runs the plain version (``ref.rwkv6_ref``), on a CUDA tensor it
-launches the kernel or raises.
+wrapper runs the plain version (``ref.rwkv6_ref``), on a ``meta`` tensor
+the dry-run's stand-in (``meta.py``), on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from .flash_attention import DTYPE_CODES
 from .ops import count_launch, refuse_grad
 
@@ -67,6 +68,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk not in STATE_DIMS or not 1 <= dv <= MAX_COLS:
         raise ValueError(f"rwkv6_scan: Dk {dk} not in {STATE_DIMS} or Dv "
                          f"{dv} not in [1, {MAX_COLS}]")
+    if r.device.type == "meta":  # the dry-run: shapes and FLOPs
+        return meta.ops().rwkv6_scan(r, v)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))

@@ -6,8 +6,15 @@ the packing loader's device engine, a checkpoint every ``--ckpt-every``
 steps, and a restart from the newest committed checkpoint in
 ``--ckpt-dir`` when there is one.  ``--device`` defaults to ``cuda`` and
 raises without a card; ``--device cpu`` runs the kernels' plain versions.
-Parameters are random, drawn from ``--seed``.  There is no mesh on one
-card: ``--production-mesh`` raises ``NotImplementedError``.
+Parameters are random, drawn from ``--seed``.  The loop trains on
+``make_local_mesh(device=--device)``, a mesh over the world
+``torch.distributed`` was started with (a one-rank group when there is
+none: NCCL on the card, gloo on the CPU), as the reference does;
+``--production-mesh`` builds the 16 x 16 production mesh and raises its
+world-size error unless 256 ranks run.  The launcher prints the
+dry-run's per-rank bytes of the train state and of the step's peak on its
+mesh, and on the card refuses a run whose peak exceeds the card's memory
+(``RuntimeError``, before anything is drawn).
 
 ``main(argv)`` returns the loop (its ``history``, ``params``, ``saves``).
 
@@ -19,11 +26,19 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 from pathlib import Path
 
+import torch
+
 from repro_torch.configs import ARCHS, get_arch, smoke_config
+from repro_torch.distributed.sharding import AxisRules, _axes
+from repro_torch.launch.dryrun import train_memory
+from repro_torch.launch.mesh import (
+    describe, make_local_mesh, make_production_mesh, mesh_shape,
+)
 from repro_torch.models.registry import build, model_device
 from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
 from repro_torch.train import LoopConfig, TrainLoop, make_optimizer
@@ -46,19 +61,18 @@ def main(argv=None) -> TrainLoop:
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 production mesh (not on one card)")
+                    help="use the 16x16 production mesh (needs 256 ranks)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the port trains on one card; the mesh comes "
-            "with the distributed slice (ROADMAP Queue 1 item 4)")
     dev = model_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     bundle = build(cfg)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_local_mesh(device=dev))
+    check_fits(cfg, bundle, mesh, args, dev)
 
     if not Path(args.data).exists():
         print(f"ingesting synthetic corpus -> {args.data}")
@@ -78,7 +92,7 @@ def main(argv=None) -> TrainLoop:
             microbatches=args.microbatches,
         ),
         optimizer=make_optimizer(peak_lr=args.lr, warmup=20, total=args.steps),
-        device=dev, seed=args.seed,
+        device=dev, seed=args.seed, mesh=mesh,
     )
     if loop.step:
         print(f"restored from checkpoint at step {loop.step}")
@@ -86,6 +100,33 @@ def main(argv=None) -> TrainLoop:
     print(f"done: step {loop.step}, "
           f"loss {history[0].loss:.3f} -> {history[-1].loss:.3f}")
     return loop
+
+
+def check_fits(cfg, bundle, mesh, args, dev) -> None:
+    """Print the dry-run's per-rank train state and step peak on ``mesh``
+    at this run's rows; on the card, raise ``RuntimeError`` when the peak
+    exceeds the card's memory."""
+    shape = mesh_shape(mesh)
+    tok = bundle._token_shape(args.batch // args.microbatches, args.seq)
+    row_axes = _axes(AxisRules(shape).spec(["dp"] + [None] * (len(tok) - 1),
+                                           tok)[0])
+    rows = tok[0] // math.prod(shape.shape[a] for a in row_axes)
+    mem = train_memory(cfg, shape, rows, args.seq, args.grad_compression,
+                       row_axes=row_axes)
+    G = 2 ** 30
+    print(f"mesh {describe(mesh)}: train state {mem['state'] / G:.3f} GiB a "
+          f"rank, step peak {mem['peak_bytes'] / G:.3f} GiB (dry-run)")
+    if dev.type == "cuda":
+        cap = torch.cuda.get_device_properties(dev).total_memory
+        if mem["peak_bytes"] > cap:
+            raise RuntimeError(
+                f"{cfg.name} on mesh {describe(mesh)}: the dry-run puts a "
+                f"rank's train step at {mem['peak_bytes'] / G:.1f} GiB (state "
+                f"{mem['state'] / G:.1f}, activations "
+                f"{mem['activation_bytes'] / G:.1f}, gathered parameters "
+                f"{mem['gathered_params'] / G:.1f}) and the card holds "
+                f"{cap / G:.1f} GiB: train on more ranks, fewer rows a rank "
+                "(--batch, --microbatches) or a smaller config")
 
 
 if __name__ == "__main__":

@@ -26,8 +26,10 @@ non-reentrant), as ``jax.checkpoint`` does over the reference's scan body.
 Entry points (see ``registry.ModelBundle``):
 
 * ``loss_fn``     — next-token cross-entropy of ``forward`` plus 0.01 times
-  the MoE balance loss (the dense family with GQA only,
-  ``check_trainable`` says why the others wait);
+  the MoE balance loss (the attention families with GQA,
+  ``check_trainable`` says why MLA and the recurrent families wait), as
+  ``loss_from_sums`` of ``loss_sums``: the sums over the batch first (the
+  meshed train step adds the other ranks' counts to them);
 * ``forward``     — full-sequence logits (teacher forcing) and the summed
   MoE balance loss;
 * ``prefill``     — forward over the prompt that fills the decode cache,
@@ -52,7 +54,7 @@ return it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -65,8 +67,8 @@ from . import mamba2 as M2
 from . import moe as MOE
 from . import rwkv6 as R6
 from .layers import (
-    cdtype, cross_entropy_loss, embed_tokens, embedding_init, lm_logits,
-    mlp_apply, mlp_init, ones, pdtype, rms_norm,
+    cdtype, embed_tokens, embedding_init, lm_logits, mlp_apply, mlp_init,
+    nll_sum, ones, pdtype, rms_norm,
 )
 
 
@@ -96,7 +98,9 @@ def check_ported(cfg: ArchConfig) -> None:
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can train this model:
-    the dense family with GQA attention only, for now."""
+    every attention family with GQA (dense, vlm, audio, moe).  No family is
+    refused for its size: what a mesh's rank holds is the dry-run's
+    (``repro_torch.launch.dryrun``)."""
     check_ported(cfg)
     if cfg.family in ("ssm", "hybrid"):
         why = ("needs backward kernels for K7/K8 that the port does not "
@@ -104,19 +108,12 @@ def check_trainable(cfg: ArchConfig) -> None:
     elif cfg.attention == "mla":
         why = ("needs K5's backward at v narrower than q/k (MLA: q/k 96, "
                "v 64 at minicpm3-4b), which the port does not have yet")
-    elif cfg.family in ("moe", "vlm"):
-        why = ("waits for `distributed`: AdamW's state of 16 bytes a "
-               "parameter does not fit one card at full size "
-               "(deepseek-moe-16b: about 270 GB)")
-    elif cfg.family == "audio":
-        why = ("is not ported yet (its AdamW state would fit one card; "
-               "serving is)")
     else:
         return
     raise NotImplementedError(
         f"{cfg.name}: training family {cfg.family!r} with "
-        f"{cfg.attention!r} attention {why}; the port trains the dense "
-        "family with GQA attention")
+        f"{cfg.attention!r} attention {why}; the port trains the attention "
+        "families with GQA attention")
 
 
 # ---------------------------------------------------------------------------
@@ -146,15 +143,15 @@ def block_init(gen, cfg: ArchConfig, device) -> Dict:
 
 
 def _finish_block(p: Dict, x: torch.Tensor, attn_out: torch.Tensor,
-                  cfg: ArchConfig
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x + attention, then its MLP or MoE -> (x, the MoE balance loss, or
-    None without MoE)."""
+                  cfg: ArchConfig) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """x + attention, then its MLP or MoE -> (x, the MoE layer's routing
+    sums ``(probs, picks)`` (``moe.moe_route_sums``), or None without
+    MoE)."""
     x = x + attn_out
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = MOE.moe_apply(p["moe"], xn, cfg)
-        return x + y, aux
+        y, probs, picks = MOE.moe_route_sums(p["moe"], xn, cfg)
+        return x + y, (probs, picks)
     return x + mlp_apply(p["mlp"], xn, cfg), None
 
 
@@ -170,10 +167,11 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig,
 
 def block_apply_aux(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The block's forward -> (x, the MoE balance loss), as the
-    reference's ``block_apply`` returns them; the loss is None without
-    MoE (the reference's zeros, without a launch a layer)."""
+                    ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """The block's forward -> (x, the MoE layer's routing sums ``(probs,
+    picks)``, from which ``moe.balance_loss`` forms the loss the
+    reference's ``block_apply`` returns; None without MoE, the
+    reference's zeros, without a launch a layer)."""
     if not _is_attn_block(cfg):
         return _recurrent_apply(cfg)(p, x, cfg)[0], None
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -272,26 +270,44 @@ def _shared_after(cfg: ArchConfig, i: int) -> Optional[int]:
 # model init
 
 
-def init_params(gen, cfg: ArchConfig, device) -> Dict:
+def init_params(gen, cfg: ArchConfig, device,
+                keep: Optional[Callable] = None) -> Dict:
     """``gen`` is a ``torch.Generator`` on ``device`` (``None`` on the
     ``meta`` device).  Layers are drawn one after another, each into its
-    slot of the stacked tree."""
+    slot of the stacked tree.  ``keep(path, t)`` maps each drawn tensor to
+    what is stored (the meshed train state keeps a rank's shards); a
+    layer's tensors come one layer at a time under their stacked leaf's
+    path (``("layers", "attn", "wq")``)."""
     check_ported(cfg)
-    params: Dict[str, Any] = {"embedding": embedding_init(gen, cfg, device)}
-    params["layers"] = _init_stacked(gen, cfg, device)
+    keep = keep or _drawn
+    params: Dict[str, Any] = {"embedding": _kept(
+        keep, ("embedding",), embedding_init(gen, cfg, device))}
+    params["layers"] = _init_stacked(gen, cfg, device, keep)
     if cfg.shared_attn_every:
-        params["shared_attn"] = block_init(gen, _shared_attn_cfg(cfg), device)
+        params["shared_attn"] = _kept(
+            keep, ("shared_attn",),
+            block_init(gen, _shared_attn_cfg(cfg), device))
     return params
 
 
-def _init_stacked(gen, cfg: ArchConfig, device) -> Dict:
-    """``cfg.n_layers`` draws of ``block_init``, each copied into its slot
-    of the stacked leaves as soon as it is drawn: the peak is the model
-    plus one layer (deepseek-moe-16b: 62.9 GiB of fp32 layers, whose
-    stacked expert bank alone is 19 GiB)."""
+def _drawn(_path, t):
+    return t
+
+
+def _kept(keep: Callable, path: Tuple[str, ...], tree):
+    if isinstance(tree, dict):
+        return {k: _kept(keep, path + (k,), v) for k, v in tree.items()}
+    return keep(path, tree)
+
+
+def _init_stacked(gen, cfg: ArchConfig, device, keep: Callable) -> Dict:
+    """``cfg.n_layers`` draws of ``block_init``, each kept (``keep``) and
+    copied into its slot of the stacked leaves as soon as it is drawn: the
+    peak is the kept model plus one drawn layer (deepseek-moe-16b: 62.9 GiB
+    of fp32 layers, whose stacked expert bank alone is 19 GiB)."""
     n, stacked = cfg.n_layers, None
     for i in range(n):
-        layer = block_init(gen, cfg, device)
+        layer = _kept(keep, ("layers",), block_init(gen, cfg, device))
         if stacked is None:
             stacked = _tree_map(lambda t: t.new_empty((n,) + t.shape), layer)
             if device.type == "meta":
@@ -335,33 +351,104 @@ def forward(params: Dict, tokens: torch.Tensor,
             cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S[, Q]) -> (logits (B, S[, Q], V), aux): ``aux`` is the
     MoE balance loss summed over the layers (0 without MoE)."""
+    logits, routed = forward_sums(params, tokens, cfg)
+    if routed is None:
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+    return logits, MOE.balance_loss(*routed, _count(tokens))
+
+
+def _block(view: Callable, p: Dict, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor):
+    return block_apply_aux(view(p), x, cfg, positions)
+
+
+def _same(tree):
+    return tree
+
+
+def _count(tokens: torch.Tensor) -> torch.Tensor:
+    """The (B, S) positions of ``tokens``, an fp32 scalar on its device."""
+    b, s = tokens.shape[:2]
+    return torch.full((), float(b * s), dtype=torch.float32,
+                      device=tokens.device)
+
+
+def forward_sums(params: Dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 view: Optional[Callable] = None
+                 ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """tokens (B, S[, Q]) -> (logits, the MoE layers' routing sums
+    ``(probs, picks)``, each (MoE layers, E), or None without MoE).
+
+    ``view`` maps a subtree of ``params`` (the embedding's, one layer's,
+    the shared block's) to the tensors the model computes on (the meshed
+    train step gathers a layer's shards there).  A layer's view runs
+    inside its remat region, so the backward takes it again and only one
+    layer's view is alive at a time."""
+    view = view or _same
     b, s = tokens.shape[:2]
     positions = _positions(b, s, tokens.device)
     sc = _shared_attn_cfg(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    x = embed_tokens(params["embedding"], tokens, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    emb = view(params["embedding"])
+    x = embed_tokens(emb, tokens, cfg)
+    routed = []
     for i, p in enumerate(_unstack(params["layers"])):
         if remat:
-            x, a = checkpoint(block_apply_aux, p, x, cfg, positions,
+            x, r = checkpoint(_block, view, p, x, cfg, positions,
                               use_reentrant=False)
         else:
-            x, a = block_apply_aux(p, x, cfg, positions)
-        if a is not None:
-            aux = aux + a
+            x, r = _block(view, p, x, cfg, positions)
+        if r is not None:
+            routed.append(r)
         if _shared_after(cfg, i) is not None:
-            x = block_apply(params["shared_attn"], x, sc, positions)
-    return lm_logits(params["embedding"], x, cfg), aux
+            x = block_apply(view(params["shared_attn"]), x, sc, positions)
+    sums = (tuple(torch.stack(t) for t in zip(*routed)) if routed
+            else None)
+    return lm_logits(emb, x, cfg), sums
+
+
+def loss_sums(params: Dict, batch: Dict, cfg: ArchConfig,
+              view: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """The loss's sums over ``batch`` (``tokens``, ``labels`` (B, S[, Q])),
+    fp32: ``nll`` (the token NLL summed), ``labels`` (the labels counted),
+    and with MoE ``probs``, ``picks`` ((MoE layers, E), ``forward_sums``)
+    and ``routed`` (the tokens each layer routed).  ``loss_from_sums``
+    forms the loss; ``view`` is ``forward_sums``'."""
+    check_trainable(cfg)
+    logits, routed = forward_sums(params, batch["tokens"], cfg, view)
+    nll, count = nll_sum(logits, batch["labels"])
+    sums = {"nll": nll, "labels": count}
+    if routed is not None:
+        sums.update(probs=routed[0], picks=routed[1],
+                    routed=_count(batch["tokens"]))
+    return sums
+
+
+def loss_from_sums(sums: Dict[str, torch.Tensor],
+                   total: Optional[Callable] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """-> (ce + 0.01 aux, {"ce", "aux"}) from ``loss_sums``' sums.
+    ``total`` maps a count to its sum over the batch the loss is taken on
+    (the identity by default): the meshed train step passes the sum over
+    the ranks holding other rows, so that each rank's result is its share
+    of the loss over the global batch (the shares sum to it), with the
+    counts, and the picks of the balance loss, the global batch's."""
+    total = total or _same
+    ce = sums["nll"] / torch.clamp(total(sums["labels"]), min=1.0)
+    if "probs" in sums:
+        routed = total(sums["routed"])
+        aux = MOE.balance_loss(sums["probs"], total(sums["picks"]), routed)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def loss_fn(params: Dict, batch: Dict,
             cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     """-> (ce + 0.01 aux, {"ce", "aux"}) over ``batch["tokens"]`` and
     ``batch["labels"]`` (B, S[, Q])."""
-    check_trainable(cfg)
-    logits, aux = forward(params, batch["tokens"], cfg)
-    ce = cross_entropy_loss(logits, batch["labels"])
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    return loss_from_sums(loss_sums(params, batch, cfg))
 
 
 def _kv_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, dtype,

@@ -6,7 +6,8 @@ with the reference's names and its ``(in, out)`` matrix layout, applied as
 ``meta`` device) and a device; their numbers differ from ``jax.random``'s,
 so parity tests carry the reference's weights over
 (``repro_torch.models.weights``).  The reference's ``shard(...)``
-annotations are no-ops on one card and are dropped.  Multi-codebook
+annotations are dropped: the meshed train step computes on gathered
+parameters (``repro_torch.train.step``).  Multi-codebook
 models (musicgen-large) take tokens ``(B, T, Q)``: the embedding is the sum
 of the ``Q`` codebooks' rows and the logits are ``(B, T, Q, V)``.
 """
@@ -14,7 +15,7 @@ of the ``Q`` codebooks' rows and the logits are ``(B, T, Q, V)``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -180,8 +181,16 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -100) -> torch.Tensor:
     """Mean token NLL in fp32.  logits (..., V), labels (...); labels equal
     to ``ignore_index`` count for nothing."""
+    nll, count = nll_sum(logits, labels, ignore_index)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (the token NLL summed over the labels that are not
+    ``ignore_index``, their count), both fp32."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels != ignore_index).float()
-    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum((lse - gold) * mask), mask.sum()

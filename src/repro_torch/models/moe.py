@@ -11,8 +11,11 @@ still see it), so drops are part of the result, and the capacity is
 
 Mixtral (8 experts, top-2) and DeepSeekMoE (64 fine-grained experts,
 top-6, plus 2 shared experts every token uses) take the same code.  The
-reference's ``shard(...)`` annotations are no-ops on one card and are
-dropped.
+reference's ``shard(...)`` annotations are dropped (the meshed train step
+computes on gathered parameters).  ``moe_route_sums`` returns the layer's
+routing sums over its (B, T) and ``balance_loss`` forms the Switch loss
+from them, so that a caller holding rows of a larger batch can sum them
+over its ranks first (the meshed train step).
 """
 
 from __future__ import annotations
@@ -57,9 +60,28 @@ def _capacity(group_tokens: int, cfg: ArchConfig) -> int:
     return max(4, ((cap + 3) // 4) * 4)  # pad to a multiple of 4
 
 
+def balance_loss(probs: torch.Tensor, picks: torch.Tensor,
+                 tokens) -> torch.Tensor:
+    """The Switch load-balancing loss, E * sum_e mean prob_e * mean
+    picks_e, from ``moe_route_sums``' sums over ``tokens`` routed tokens
+    (``probs`` and ``picks`` (..., E); a leading layer axis is summed
+    over)."""
+    e = probs.shape[-1]
+    return (e * torch.sum((probs / tokens) * (picks / tokens))).float()
+
+
 def moe_apply(params: Dict, x: torch.Tensor,
               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (y (B, T, D), the Switch balance loss, fp32)."""
+    y, probs, picks = moe_route_sums(params, x, cfg)
+    return y, balance_loss(probs, picks, x.shape[0] * x.shape[1])
+
+
+def moe_route_sums(params: Dict, x: torch.Tensor, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, T, D) -> (y (B, T, D), the router's probabilities summed
+    over (B, T) (E,), fp32, the top-k picks of each expert summed over
+    (B, T) (E,), fp32)."""
     m = cfg.moe
     dt = cdtype(cfg)
     b, t, _ = x.shape
@@ -103,8 +125,5 @@ def moe_apply(params: Dict, x: torch.Tensor,
         us = torch.einsum("btd,sdf->btsf", xt, ws["w_up"].to(dt))
         y = y + torch.einsum("btsf,sfd->btd", gs * us, ws["w_down"].to(dt))
 
-    # Switch load-balancing loss: E * sum_e mean prob_e * mean picks_e
-    me = probs.mean(dim=(0, 1))
-    ce = onehot.sum(dim=2).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-    return y, aux.float()
+    # the balance loss's sums (``balance_loss``)
+    return y, probs.sum(dim=(0, 1)), onehot.sum(dim=2).sum(dim=(0, 1))

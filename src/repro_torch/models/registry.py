@@ -1,8 +1,8 @@
 """Model registry: ArchConfig -> ModelBundle (init/forward/prefill/decode).
 
 The twin of ``repro.models.registry`` for every architecture of the
-registry; ``loss`` raises ``NotImplementedError`` for all but the dense
-family with GQA attention (``backbone.check_trainable`` says why).  The
+registry; ``loss`` raises ``NotImplementedError`` for MLA and the
+recurrent families (``backbone.check_trainable`` says why).  The
 reference's dry-run pieces are here too: ``param_shapes`` and
 ``input_specs`` build ``meta`` tensors (shapes and dtypes, no memory) where
 the reference builds ``jax.ShapeDtypeStruct``s, and ``runnable`` says
@@ -36,14 +36,24 @@ def model_device(device) -> torch.device:
 class ModelBundle:
     cfg: ArchConfig
 
-    def init(self, gen: Optional[torch.Generator], device="cuda") -> Dict:
+    def init(self, gen: Optional[torch.Generator], device="cuda",
+             keep=None) -> Dict:
         """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
-        ``device``; ``None`` on ``meta``)."""
-        return B.init_params(gen, self.cfg, model_device(device))
+        ``device``; ``None`` on ``meta``); ``keep``: ``backbone.init_params``'."""
+        return B.init_params(gen, self.cfg, model_device(device), keep)
 
     def loss(self, params, batch):
         """-> (loss, {"ce", "aux"}): ``backbone.loss_fn``."""
         return B.loss_fn(params, batch, self.cfg)
+
+    def loss_sums(self, params, batch, view=None):
+        """The loss's sums over ``batch``: ``backbone.loss_sums``."""
+        return B.loss_sums(params, batch, self.cfg, view)
+
+    @staticmethod
+    def loss_from_sums(sums, total=None):
+        """-> (loss, {"ce", "aux"}): ``backbone.loss_from_sums``."""
+        return B.loss_from_sums(sums, total)
 
     def forward(self, params, tokens):
         return B.forward(params, tokens, self.cfg)

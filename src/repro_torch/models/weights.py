@@ -44,7 +44,8 @@ def from_jax_params(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
 
 
 def to_numpy_tree(params) -> Dict:
-    """The port's parameters -> nested dicts of numpy arrays."""
+    """The port's parameters -> nested dicts of numpy arrays, copies (the
+    train step updates its state in place)."""
     if isinstance(params, dict):
         return {k: to_numpy_tree(v) for k, v in params.items()}
-    return params.detach().cpu().numpy()
+    return np.array(params.detach().cpu().numpy())

@@ -15,14 +15,21 @@ Fault-tolerance behaviour:
     deprioritize it; here the hook records the event and the test asserts
     the detection fires).
 
-There is no mesh on one card: the step is ``make_train_step``'s eager
-step, built once (the reference's ``jitted_for(shapes)`` has no
-counterpart).  The parameters, the optimizer state and the checkpoint
-manager live on ``device`` (``"cuda"`` by default, ``RuntimeError``
-without a card; ``"cpu"`` when asked).  A restore puts every leaf on that
-device, in the order of a freshly built state (the order sets the sums of
-the gradient norm, so a resumed run repeats a straight one bit for bit);
-the loader's two leaves come back to the host first.
+The step is ``make_train_step``'s eager step, built once (the
+reference's ``jitted_for(shapes)`` has no counterpart), on one card
+(``mesh=None``) or on a ``DeviceMesh`` (``launch.mesh``), where every rank
+runs the loop on the same loader and keeps its shards of the state.  The
+parameters, the optimizer state and the checkpoint manager live on
+``device`` (``"cuda"`` by default, ``RuntimeError`` without a card;
+``"cpu"`` when asked).  On a mesh the ranks gather the full state and
+rank 0 saves it, in the one-card file format (the reference's one-host
+semantics: its save gathers to the host); a restore is mesh-agnostic:
+every rank reads the full leaves and keeps its shards on the current mesh
+(``elastic.py``'s contract: placements come from (shape, mesh), never
+from the file).  A restore puts every leaf on ``device``, in the order of
+a freshly built state (the order sets the sums of the gradient norm, so a
+resumed run repeats a straight one bit for bit); the loader's two leaves
+come back to the host first.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.registry import ModelBundle
 from repro_torch.pipeline import PackedLoader
 
-from .optimizer import AdamW, AdamWState, make_optimizer
-from .step import init_train_state, make_train_step
+from repro_torch.distributed.sharding import place
+
+from .optimizer import AdamW, AdamWState, make_optimizer, tree_map
+from .step import init_train_state, make_train_step, param_sharding
 
 
 @dataclass
@@ -82,8 +91,10 @@ class TrainLoop:
         on_straggler: Optional[Callable[[StepEvent], None]] = None,
         device="cuda",
         seed: int = 0,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.bundle = bundle
         self.loader = loader
         self.config = config or LoopConfig()
@@ -100,7 +111,7 @@ class TrainLoop:
         self._step_fn = make_train_step(
             bundle, optimizer=self.optimizer,
             grad_compression=self.config.grad_compression,
-            microbatches=self.config.microbatches,
+            microbatches=self.config.microbatches, mesh=mesh,
         )
         self.step = 0
 
@@ -111,18 +122,20 @@ class TrainLoop:
             self.params, self.opt_state, self.err_state = init_train_state(
                 bundle, seed=seed, device=self.device,
                 optimizer=self.optimizer,
-                grad_compression=self.config.grad_compression,
+                grad_compression=self.config.grad_compression, mesh=mesh,
             )
 
     # -- checkpoint integration ------------------------------------------------
 
     def _state_tree(self) -> Dict:
         ld = self.loader.state()  # device engine syncs its leftover here
+        full = _full if self.mesh is not None else (lambda t: t)
         return {
-            "params": self.params,
-            "opt": {"step": self.opt_state.step, "m": self.opt_state.m,
-                    "v": self.opt_state.v},
-            "err": self.err_state,
+            "params": tree_map(full, self.params),
+            "opt": {"step": self.opt_state.step,
+                    "m": tree_map(full, self.opt_state.m),
+                    "v": tree_map(full, self.opt_state.v)},
+            "err": tree_map(full, self.err_state),
             "loader": {
                 "entry_cursor": np.asarray(ld["entry_cursor"]),
                 "leftover": np.asarray(ld["leftover"], np.int32),
@@ -130,7 +143,9 @@ class TrainLoop:
         }
 
     def _save(self) -> None:
-        tree = self._state_tree()
+        tree = self._state_tree()  # on a mesh every rank gathers
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return
         meta = {"train_step": self.step}
         t0 = time.perf_counter()
         if self.config.ckpt_async:
@@ -155,6 +170,14 @@ class TrainLoop:
         o = tree["opt"]
         self.opt_state = AdamWState(o["step"], o["m"], o["v"])
         self.err_state = tree["err"]
+        if self.mesh is not None:
+            sh = param_sharding(self.bundle, self.mesh)
+            self.params = tree_map(place, self.params, sh)
+            self.opt_state = AdamWState(o["step"],
+                                        tree_map(place, o["m"], sh),
+                                        tree_map(place, o["v"], sh))
+            if self.config.grad_compression:
+                self.err_state = tree_map(place, self.err_state, sh)
         ld = tree["loader"]
         self.loader.load_state({
             "entry_cursor": int(ld["entry_cursor"].cpu()),
@@ -193,5 +216,14 @@ class TrainLoop:
                 self._save()
         t0 = time.perf_counter()
         self.mgr.wait()
+        if self.mesh is not None:
+            torch.distributed.barrier()  # rank 0's save is committed
         self.wait_s = time.perf_counter() - t0
         return self.history
+
+
+def _full(t):
+    """A DTensor leaf gathered whole (every rank takes part)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t

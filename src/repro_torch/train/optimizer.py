@@ -7,9 +7,10 @@ gradients in fp32, clipped by their global norm before the moments,
 bias-corrected moments, decoupled weight decay only on tensors of two or
 more dimensions, fp32 moments, the update cast back to each parameter's
 dtype.  ``torch.optim.AdamW`` differs (it decays ``p`` by ``lr * wd``
-before the step and clips nothing), so it is not used.  ``update`` is
-functional like the reference's: it returns new parameters and a new
-state and leaves its arguments as they were.  ``AdamWState`` keeps the
+before the step and clips nothing), so it is not used.  ``update`` works
+in place: it consumes the parameters, the state and the gradients, as the
+reference's step donates its buffers, and returns the same trees (the
+reference's is functional).  ``AdamWState`` keeps the
 reference's field names (``step``, ``m``, ``v``), so a checkpoint can
 flatten it to the same keys.  The step lives on the parameters' device as
 an int32 scalar and the learning rate is computed there: a step makes no
@@ -55,20 +56,29 @@ class AdamW:
     clip_norm: Optional[float] = 1.0
 
     def init(self, params) -> AdamWState:
+        # ``zeros_like``: a sharded parameter (DTensor) gets moments of its
+        # placements
         zeros = lambda p: tree_map(
-            lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                  device=x.device), p)
+            lambda x: torch.zeros_like(x, dtype=torch.float32), p)
         device = tree_leaves(params)[0].device
         return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
                           zeros(params), zeros(params))
 
-    def update(self, grads, state: AdamWState,
-               params) -> Tuple[Dict, AdamWState]:
+    def update(self, grads, state: AdamWState, params,
+               norm: Optional[Callable] = None) -> Tuple[Dict, AdamWState]:
+        """-> (params, state), updated in place: the update consumes
+        ``grads``, ``state`` and ``params``, as the reference's step donates
+        its buffers (a caller that needs the old state clones it first).
+        Each parameter and its moments are updated, and its gradient
+        dropped, leaf by leaf, with two temporaries of the leaf's size: the
+        peak is the state and the gradients (16 bytes a parameter) and two
+        fp32 temporaries of the largest leaf.  ``norm`` maps the gradients
+        to their global norm (``global_norm`` by default; a rank's shards
+        need the sum over every rank's)."""
         step = state.step + 1
-        gf = tree_map(lambda g: g.float(), grads)
         scale = None
         if self.clip_norm is not None:
-            gnorm = global_norm(gf)
+            gnorm = (norm or global_norm)(grads)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         s = step.float()
         bc1 = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
@@ -77,24 +87,35 @@ class AdamW:
                                          device=s.device), s)
         lr = self.schedule(step)
 
-        # one leaf at a time, so that a clipped gradient and the update's
-        # temporaries exist for one tensor at once: the step's peak is the
-        # old and new state beside the gradients (gemma-2b: 70 of the
-        # card's 80 GB), as under the reference's fused, donated update
         def leaf(p, g, mm, vv):
+            g = g.float()
             if scale is not None:
-                g = g * scale
-            mm = self.b1 * mm + (1 - self.b1) * g
-            vv = self.b2 * vv + (1 - self.b2) * g * g
-            u = (mm / bc1) / (torch.sqrt(vv / bc2) + self.eps)
+                g.mul_(scale)
+            a = g * (1 - self.b1)
+            mm.mul_(self.b1).add_(a)                  # b1 m + (1 - b1) g
+            torch.mul(g, 1 - self.b2, out=a).mul_(g)
+            vv.mul_(self.b2).add_(a)                  # b2 v + (1 - b2) g g
+            del g
+            b = torch.div(vv, bc2).sqrt_().add_(self.eps)
+            torch.div(mm, bc1, out=a).div_(b)         # the Adam direction
             if self.weight_decay and p.dim() >= 2:
-                u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), mm, vv
+                a.add_(torch.mul(p.float(), self.weight_decay, out=b))
+            del b
+            a.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(a)
+            else:
+                p.copy_(p.float().sub_(a))
 
-        out = tree_map(leaf, params, gf, state.m, state.v)
-        new_params, m, v = (tree_map(lambda _p, t: t[i], params, out)
-                            for i in range(3))
-        return new_params, AdamWState(step, m, v)
+        def walk(p, g, mm, vv):
+            for k in list(p):
+                if isinstance(p[k], dict):
+                    walk(p[k], g[k], mm[k], vv[k])
+                else:
+                    leaf(p[k], g.pop(k), mm[k], vv[k])
+
+        walk(params, grads, state.m, state.v)
+        return params, AdamWState(step, state.m, state.v)
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -225,6 +225,27 @@ def test_the_scan_covers_the_skim_and_every_launcher():
         assert f"repro_torch/{mod}.py" in scanned, mod
 
 
+def test_the_scan_covers_distributed_and_the_mesh_launchers():
+    scanned = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    for mod in ("distributed/__init__", "distributed/sharding",
+                "distributed/collectives", "distributed/pipeline_parallel",
+                "distributed/elastic", "launch/mesh", "launch/dryrun",
+                "launch/hlo_analysis", "kernels/meta"):
+        assert f"repro_torch/{mod}.py" in scanned, mod
+
+
+def test_the_mesh_refuses_without_a_card(no_card):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    started = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_local_mesh()
+    assert dist.is_initialized() == started  # refused before a group
+
+
 def test_the_loop_and_its_launchers_refuse_without_a_card(tmp_path, no_card):
     from repro_torch.configs import smoke_config
     from repro_torch.launch import (

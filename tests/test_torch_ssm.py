@@ -408,7 +408,8 @@ def test_mamba2_chunked_emulation_needs_its_split_products():
 def test_state_width_48_passes_the_wrappers_checks(device):
     """Dk = 48 (the reference sweep's rwkv6 row) and N = 48 are built
     widths: the wrappers' shape checks take them, on CPU tensors (the
-    plain versions) and up to the device check on meta tensors."""
+    plain versions) and on meta tensors, where they pass every check the
+    card makes and give the dry-run's outputs of the right shapes."""
     assert 48 in STATE_DIMS
     if device == "cpu":
         r, k, v, w, u = _torch(*rwkv6_inputs(1, 1, 4, 96, 48, 64))
@@ -417,20 +418,27 @@ def test_state_width_48_passes_the_wrappers_checks(device):
         y, s = mamba2_ssd(*_torch(*mamba2_inputs(2, 1, 4, 96, 40, 48)))
         assert y.shape == (1, 4, 96, 40) and s.shape == (1, 4, 48, 40)
         return
-    # on meta tensors a width passes every shape check and meets the
-    # device check last; an unbuilt width (40) is refused before it
+    # on meta tensors (the dry-run) a built width passes every check the
+    # card makes and gives outputs of the kernel's shapes; an unbuilt
+    # width (40) is refused as on the card
     meta = dict(device="meta")
     v = torch.empty((1, 4, 96, 64), **meta)
     x = torch.empty((1, 4, 96, 40), **meta)
     la = torch.empty((1, 4, 96), **meta)
-    for width, msg in ((48, "unsupported device meta"), (40, "not in")):
-        r = torch.empty((1, 4, 96, width), **meta)
-        u = torch.empty((4, width), **meta)
-        with pytest.raises(ValueError, match=msg):
-            rwkv6_scan(r, r, v, r, u)
-        bc = torch.empty((1, 96, width), **meta)
-        with pytest.raises(ValueError, match=msg):
-            mamba2_ssd(x, la, bc, bc)
+    r = torch.empty((1, 4, 96, 48), **meta)
+    out, state = rwkv6_scan(r, r, v, r, torch.empty((4, 48), **meta))
+    assert (out.shape, state.shape) == ((1, 4, 96, 64), (1, 4, 48, 64))
+    assert out.is_meta and state.dtype == torch.float32
+    bc = torch.empty((1, 96, 48), **meta)
+    y, s = mamba2_ssd(x, la, bc, bc)
+    assert (y.shape, s.shape) == ((1, 4, 96, 40), (1, 4, 48, 40))
+    assert y.is_meta and s.dtype == torch.float32
+    r = torch.empty((1, 4, 96, 40), **meta)
+    with pytest.raises(ValueError, match="not in"):
+        rwkv6_scan(r, r, v, r, torch.empty((4, 40), **meta))
+    bc = torch.empty((1, 96, 40), **meta)
+    with pytest.raises(ValueError, match="not in"):
+        mamba2_ssd(x, la, bc, bc)
 
 
 # ---------------------------------------------------------------------------

@@ -299,5 +299,6 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
     second = launch_train.main(argv)
     assert "restored from checkpoint at step 4" in capsys.readouterr().out
     assert second.step == 8 and [h.step for h in second.history] == [5, 6, 7, 8]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks, this world "
+                       "has 1"):
         launch_train.main(argv + ["--production-mesh"])
