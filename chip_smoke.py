@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
    ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
    of K2's and K3's register forms, of K4's cluster kernel, of the chunked
-   routes of K7 and K8 and of K5's backward (head dims 32 to 256);
+   routes of K7 and K8, of K5's backward (head dims 32 to 256, and q/k 96
+   with v 64) and of K7's and K8's backward;
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
    (K1 up to 2^24 values; K2 at the write path's four page shapes in
@@ -54,10 +55,10 @@ Phases, in order; any failure exits non-zero:
 4. the serve path: ``repro_torch.launch.serve`` with smollm-360m,
    rwkv6-7b, zamba2-2.7b, minicpm3-4b (MLA), deepseek-moe-16b (MoE),
    musicgen-large (4 codebooks), chameleon-34b and mixtral-8x22b (MoE,
-   a window), one after another, each at its full width and, but for the
-   last two (``SERVE_DEPTH``: their parameters do not fit one card), its
-   full depth (``--requests`` prompts of ``--prompt-len`` tokens,
-   ``--max-new`` greedy tokens, bf16 compute, random weights from
+   a window), one after another, each at its full width and its full
+   depth but for ``SERVE_DEPTH`` (chameleon-34b and mixtral-8x22b: their
+   parameters do not fit one card) (``--requests`` prompts of
+   ``--prompt-len`` tokens, ``--max-new`` greedy tokens, bf16 compute, random weights from
    ``--seed``), each model freed before the next; the launch counts of
    each run alone must be K5 once per attention block in prefill and K6
    once per GQA attention block and decode step (every layer of an
@@ -107,11 +108,20 @@ Phases, in order; any failure exits non-zero:
    (within 2e-5) and bf16 (within 1e-2, against the plain version in
    fp32 from the same bf16 inputs), each as ``|got - want| <= tol (1 +
    |want|)``, at the training shapes (8, 15, 5, 1024, 1024, 64) and (8,
-   8, 1, 1024, 1024, 256), phase 10 (b)'s four (deepseek-moe-16b (8, 16,
+   8, 1, 1024, 1024, 256), phase 10 (b)'s (deepseek-moe-16b (8, 16,
    16, 1024, 1024, 128), mixtral-8x22b (8, 48, 8, 1024, 1024, 128, window
    4096), chameleon-34b (8, 64, 8, 1024, 1024, 128), musicgen-large (8,
-   32, 32, 1024, 1024, 64)), with a window, at a ragged Sq and at head dims
-   32, 80, 128 and 256 (ragged and windowed); every parameter of
+   32, 32, 1024, 1024, 64), minicpm3-4b (8, 40, 40, 1024, 1024, q/k 96,
+   v 64), zamba2-2.7b (8, 32, 32, 1024, 1024, 80)), with a window, at a
+   ragged Sq, at head dims 32, 80, 128 and 256 (ragged and windowed) and
+   at 96 / 64 ragged and windowed; K7's and K8's backward
+   (``rwkv6_scan_bwd``, ``mamba2_ssd_bwd``) against their plain versions
+   with the same tolerances (the fp32 route against the plain version in
+   fp64, the bf16 route against it in fp32, from the same input values)
+   at every case of phase 2's scans (T of 1 and
+   ragged, every state width, decays of exactly 0, log_a of -inf) and at
+   the training shapes (8, 64, 1024, 64, 64) and (8, 80, 1024, 64, 64),
+   every other case with a cotangent of the final state; every parameter of
    smollm-360m at its full size gets a finite, non-zero gradient on a
    first batch (its steps run through the loop in phase 9 (a)); then
    gemma-2b at its full width and depth (18 layers, 8 query
@@ -124,8 +134,8 @@ Phases, in order; any failure exits non-zero:
    (the backend it ran), each of its two launches and SDPA's from a
    trace, and K5's forward there with and without its LSE beside SDPA's
    forward; one JSON ``kernels`` line of the
-   ten kernels and K5's backward (K1's, K5's, K6's and K8's rows name the
-   ``design`` they timed, as do K2's, K4's and K9's);
+   ten kernels and the backwards of K5, K7 and K8 (K1's, K5's, K6's and
+   K8's rows name the ``design`` they timed, as do K2's, K4's and K9's);
 8. multi-process writing and the checkpoint: (a) a
    ``MultiWriterCoordinator`` and ``--producers`` participant processes
    (started with ``spawn``), each joining the file on the card with
@@ -182,22 +192,30 @@ Phases, in order; any failure exits non-zero:
    (data=1, model=1)): losses, parameters, moments and the optimizer's
    step equal bit for bit, the same K5 and K5-backward launches, the
    losses phase 9 (a)'s first five; (b) deepseek-moe-16b, mixtral-8x22b,
-   chameleon-34b and musicgen-large at full width, each at the deepest
+   chameleon-34b, musicgen-large, minicpm3-4b (MLA), rwkv6-7b and
+   zamba2-2.7b at full width, each at the deepest
    depth whose dry-run peak of a step at (8, 1024) stays under 72 GiB
-   (``family_depth``), 3 AdamW steps (fp32 parameters,
-   bf16 compute, remat) on phase 7's loader (ids modulo the vocabulary;
-   musicgen's 4 codebooks as shifted copies): the dry-run's state bytes
-   within 2 % of ``memory_allocated`` after ``init_train_state``, K5
-   twice and its backward once a layer and step and nothing else, losses
+   (``family_depth``), 3 AdamW steps (fp32 parameters, bf16 compute,
+   remat, ``launch.train``'s warm-up) on phase 7's loader (ids modulo
+   the vocabulary; musicgen's 4 codebooks as shifted copies): the
+   dry-run's state bytes
+   within 2 % of ``memory_allocated`` after ``init_train_state``, K5, K7
+   or K8 twice and its backward once a layer and step (zamba2-2.7b's
+   shared attention blocks K5 once) and nothing else, losses
    finite and falling, the MoE balance loss finite and the first step's
    equal to a fresh forward's (1e-5 relative; 0 without MoE), peak memory
    beside the dry-run's; (c) ``python -m repro_torch.launch.dryrun --all
    [--multi-pod]``, one child process a mesh on the host (started before
    (a), kept off the card): 80 records, none ``error``, the counts and the
-   seconds; the four new paths' K5 launches join the ``kernels`` line, and
-   K5's backward is timed at chameleon-34b's training shape (head dim
-   128) in bf16 beside its bound, its plain version and SDPA's backward
-   (``at_chameleon-34b`` of its row).
+   seconds; the new paths' K5, K7 and K8 launches and their backwards'
+   join the ``kernels`` line; K5's backward is timed at the training
+   shapes of chameleon-34b (head dim 128), minicpm3-4b (q/k 96, v 64) and
+   zamba2-2.7b (head dim 80) in bf16 beside its bound, its plain version
+   and SDPA's backward (the backend that ran; ``at_<arch>`` of its row),
+   and K7's and K8's backward (rows of their own) at rwkv6-7b's and
+   zamba2-2.7b's (30 launches queued, the plain version, the bound; no
+   library call computes them; the launch's workspace as the C library
+   sizes it equal to the dry-run's count, which its peaks include).
    NCCL refuses two ranks on one card: multi-rank meshes are held on the
    CPU over gloo (``tests/test_torch_distributed.py``);
 11. the last line: ``{"ok": true, "device": {...}}``.
@@ -262,6 +280,12 @@ KERNEL_INFO = {
                     "src/repro/kernels/byteshuffle.py:27"),
     "delta_zigzag": ("src/repro_torch/csrc/scans.cu",
                      "src/repro/kernels/delta_zigzag.py:38"),
+    # no pallas_call: the reference differentiates the op entries (on the
+    # CPU the jnp oracles at src/repro/kernels/ref.py:202 and :253)
+    "rwkv6_scan_bwd": ("src/repro_torch/csrc/ssm.cu",
+                       "src/repro/kernels/rwkv6_scan.py:82"),
+    "mamba2_ssd_bwd": ("src/repro_torch/csrc/ssm.cu",
+                       "src/repro/kernels/mamba2_ssd.py:70"),
 }
 
 #: which kernel design each phase-6 row times (K5, its backward, K7 and
@@ -296,6 +320,18 @@ KERNEL_DESIGN = {
                    "float32": "simt steps"},
     "mamba2_ssd": {"bfloat16": "chunked split-bf16 mma",
                    "float32": "simt steps"},
+    "rwkv6_scan_bwd": dict.fromkeys(
+        ("bfloat16", "float32"),
+        "simt reverse scan: a block per (b, h) and 64 state columns, a "
+        "thread a state row, the state stored every 16 steps and each "
+        "step's recomputed from its chunk's; a second launch adds the "
+        "blocks' partial sums in a fixed order"),
+    "mamba2_ssd_bwd": dict.fromkeys(
+        ("bfloat16", "float32"),
+        "simt reverse scan: a block per (b, h) and 64 state columns, a "
+        "thread a state row, the state stored every 16 steps and each "
+        "step's recomputed from its chunk's; a second launch sums dB and "
+        "dC over the heads in a fixed order"),
 }
 
 #: the served models, in the order they run: each at its full width and
@@ -566,13 +602,15 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 #: of their mangled names)
 PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
                  "wkv_chunked", "shuffle_reg", "unsplit_reg",
-                 "decode_offsets_cluster", "bwd_dq", "bwd_dkv")
+                 "decode_offsets_cluster", "bwd_dq", "bwd_dkv", "wkv_bwd",
+                 "ssd_bwd")
 
 
 def ptxas_report(path) -> list:
     """``ptxas -v``'s registers and spills of the tensor-core and
-    cp.async kernels (K5 and its backward, K6, the chunked routes of K7
-    and K8), of K1, of K2's register form and of K4's cluster kernel, one
+    cp.async kernels (K5 and its backward, MLA's 96 / 64 instantiations
+    among them, K6, the chunked routes of K7 and K8), of K7's and K8's
+    backward, of K1, of K2's register form and of K4's cluster kernel, one
     line each, and every warning that ``wgmma`` runs serialized."""
     out, name = [], None
     for line in open(path, errors="replace").read().splitlines():
@@ -582,7 +620,10 @@ def ptxas_report(path) -> list:
         elif "Performance Loss" in line:
             out.append(f"ptxas {line.split(':', 1)[-1].strip()}")
         elif name and ("spill" in line or "Used" in line):
-            out.append(f"ptxas {name[:72]}: {line.split(':')[-1].strip()}")
+            # the kernel's name and template arguments, past the mangled
+            # anonymous namespace
+            short = name.split("_cu_", 1)[-1][:80]
+            out.append(f"ptxas {short}: {line.split(':')[-1].strip()}")
     return out
 
 
@@ -1954,35 +1995,45 @@ TRAIN_DOCS = 8000
 #: lie below 49,152) and loader, at the largest batch of ``GEMMA_BATCHES``
 #: that fits the card: one untimed step, then ``GEMMA_STEPS`` timed
 GEMMA_ARCH, GEMMA_BATCHES, GEMMA_STEPS = "gemma-2b", (8, 4, 2, 1), 5
-#: K5's backward's timed shapes (b, h, g, sq, sk, d): smollm-360m's and
-#: gemma-2b's training heads, causal
+#: K5's backward's timed shapes (b, h, g, sq, sk, d[, dv]): the training
+#: heads of smollm-360m, gemma-2b, chameleon-34b (head dim 128),
+#: minicpm3-4b (MLA: q/k 96, v 64) and zamba2-2.7b's shared attention
+#: blocks (head dim 80), causal
 BWD_TIMED = {TRAIN_ARCH: (TRAIN_BATCH, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64),
              GEMMA_ARCH: (8, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256),
              "chameleon-34b": (TRAIN_BATCH, 64, 8, TRAIN_SEQ, TRAIN_SEQ,
-                               128)}
+                               128),
+             "minicpm3-4b": (TRAIN_BATCH, 40, 40, TRAIN_SEQ, TRAIN_SEQ, 96,
+                             64),
+             "zamba2-2.7b": (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80)}
 
 
 def bwd_cases():
-    """K5 backward cases (b, h, g, sq, sk, d, causal, window): the
-    training shapes (phase 10 (b)'s families' too), a window, a ragged Sq,
-    the other built head dims (32 non-causal with a padded kv tile, 80
-    MQA, 128 windowed, 256 ragged and windowed), and Sq > Sk under the
-    causal mask, whose first Sq - Sk rows see no key (a q tile of them
-    wholly)."""
+    """K5 backward cases (b, h, g, sq, sk, d, dv, causal, window): the
+    training shapes (phase 10 (b)'s families' too: MLA's q/k 96 with v 64,
+    zamba2-2.7b's head dim 80), a window, a ragged Sq, the other built
+    head dims (32 non-causal with a padded kv tile, 80 MQA, 128 windowed,
+    256 ragged and windowed), 96 / 64 ragged and windowed, and Sq > Sk
+    under the causal mask, whose first Sq - Sk rows see no key (a q tile
+    of them wholly)."""
     return [
-        (8, 15, 5, 1024, 1024, 64, True, None),    # smollm-360m training
-        (8, 16, 16, 1024, 1024, 128, True, None),  # deepseek-moe-16b
-        (8, 48, 8, 1024, 1024, 128, True, 4096),   # mixtral-8x22b
-        (8, 64, 8, 1024, 1024, 128, True, None),   # chameleon-34b
-        (8, 32, 32, 1024, 1024, 64, True, None),   # musicgen-large
-        (2, 15, 5, 1024, 1024, 64, True, 256),     # window
-        (2, 15, 5, 300, 1024, 64, True, None),     # ragged Sq
-        (1, 6, 2, 77, 130, 32, False, None),
-        (1, 4, 1, 200, 200, 80, True, None),
-        (1, 4, 2, 150, 150, 128, True, 40),
-        (1, 4, 2, 203, 130, 64, True, None),       # 73 rows see no key
-        (8, 8, 1, 1024, 1024, 256, True, None),    # gemma-2b training
-        (1, 8, 1, 300, 517, 256, True, 100),       # D=256 ragged, window
+        (8, 15, 5, 1024, 1024, 64, 64, True, None),    # smollm-360m
+        (8, 16, 16, 1024, 1024, 128, 128, True, None),  # deepseek-moe-16b
+        (8, 48, 8, 1024, 1024, 128, 128, True, 4096),   # mixtral-8x22b
+        (8, 64, 8, 1024, 1024, 128, 128, True, None),   # chameleon-34b
+        (8, 32, 32, 1024, 1024, 64, 64, True, None),    # musicgen-large
+        (8, 40, 40, 1024, 1024, 96, 64, True, None),    # minicpm3-4b (MLA)
+        (8, 32, 32, 1024, 1024, 80, 80, True, None),    # zamba2-2.7b
+        (2, 15, 5, 1024, 1024, 64, 64, True, 256),      # window
+        (2, 15, 5, 300, 1024, 64, 64, True, None),      # ragged Sq
+        (2, 8, 8, 300, 1024, 96, 64, True, None),       # MLA, ragged Sq
+        (1, 8, 8, 700, 700, 96, 64, True, 129),         # MLA, window
+        (1, 6, 2, 77, 130, 32, 32, False, None),
+        (1, 4, 1, 200, 200, 80, 80, True, None),
+        (1, 4, 2, 150, 150, 128, 128, True, 40),
+        (1, 4, 2, 203, 130, 64, 64, True, None),        # 73 rows see no key
+        (8, 8, 1, 1024, 1024, 256, 256, True, None),    # gemma-2b training
+        (1, 8, 1, 300, 517, 256, 256, True, 100),       # D=256 ragged, window
     ]
 
 
@@ -2032,10 +2083,10 @@ def check_attention_bwd(torch) -> dict:
     worst = {}
     for dname, tol in BWD_TOL.items():
         dtype = getattr(torch, dname)
-        for b, h, g, sq, sk, d, causal, window in bwd_cases():
+        for b, h, g, sq, sk, d, dv, causal, window in bwd_cases():
             q, k, v, do = _attention_inputs(torch, gen, dtype, (b, h, sq, d),
-                                            (b, g, sk, d), (b, g, sk, d),
-                                            (b, h, sq, d))
+                                            (b, g, sk, d), (b, g, sk, dv),
+                                            (b, h, sq, dv))
             out, lse, f_err, l_err = k5_out(torch, q, k, v, causal, window)
             for key, err in ((("flash_attention", dname), f_err),
                              (("flash_attention_lse", dname), l_err)):
@@ -2047,8 +2098,9 @@ def check_attention_bwd(torch) -> dict:
             # plain version (NaN there) takes the others
             e = empty_rows(sq, sk, causal)
             if bool(got[0][:, :, :e].any()):
-                fail(f"flash_attention_bwd {dname} at {(b, h, g, sq, sk, d)}:"
-                     " dq of a row that sees no key is not 0")
+                fail(f"flash_attention_bwd {dname} at "
+                     f"{(b, h, g, sq, sk, d, dv)}: dq of a row that sees no "
+                     "key is not 0")
             want = ref.flash_attention_bwd_ref(
                 q[:, :, e:].float(), k.float(), v.float(),
                 out[:, :, e:].float(), lse[:, :, e:], do[:, :, e:].float(),
@@ -2057,7 +2109,8 @@ def check_attention_bwd(torch) -> dict:
             for name, a, w in zip(("dq", "dk", "dv"), got, want):
                 err = _attention_err(torch, a, w, tol, (
                     f"flash_attention_bwd {name} {dname} at "
-                    f"{(b, h, g, sq, sk, d)} causal={causal} window={window}"))
+                    f"{(b, h, g, sq, sk, d, dv)} causal={causal} "
+                    f"window={window}"))
                 key = ("flash_attention_bwd", dname)
                 worst[key] = max(worst.get(key, 0.0), err)
             del q, k, v, do, out, lse, got, want
@@ -2077,15 +2130,17 @@ BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dkv_sum")
 
 def attention_bwd_bound(shape, itemsize: int):
     """(bound_ms, bound_by, bytes) of one K5 backward call on this run's
-    inputs: q, k, v, o and dO read once and dq, dk, dv written once over
-    the memory rate; five products of ``2 D`` operations per visible
-    (query, key) pair (QK^T again, dO V^T, P^T dO, dS K, dS^T Q) over the
-    bf16 tensor-core rate; causal pairs with ``q_offset = Sk - Sq``."""
-    b, h, g, sq, sk, d = shape
+    inputs, ``shape`` (b, h, g, sq, sk, d[, dv]): q, k, v, o and dO read
+    once and dq, dk, dv written once over the memory rate; five products
+    per visible (query, key) pair, three of ``2 D`` operations (QK^T again,
+    dS K, dS^T Q) and two of ``2 Dv`` (dO V^T, P^T dO), over the bf16
+    tensor-core rate; causal pairs with ``q_offset = Sk - Sq``."""
+    b, h, g, sq, sk, d = shape[:6]
+    dv = shape[6] if len(shape) > 6 else d
     off = sk - sq
     pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
-    ops = 10 * b * h * d * pairs
-    nbytes = itemsize * (4 * b * h * sq * d + 4 * b * g * sk * d)
+    ops = 2 * b * h * pairs * (3 * d + 2 * dv)
+    nbytes = itemsize * (b * h * sq + b * g * sk) * (2 * d + 2 * dv)
     return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
 
 
@@ -2094,8 +2149,8 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
     card time (and each of its two launches' from a trace), plain version,
     SDPA's backward (``torch.autograd.grad`` through
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on a
-    kept graph, with the backend it ran), bound; K5's forward there with
-    and without its LSE, and SDPA's forward; -> its ``kernels`` row."""
+    kept graph, with the backend it ran), bound; K5's forward there with and without its LSE,
+    and SDPA's forward; -> its ``kernels`` row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2106,27 +2161,29 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
     shape = BWD_TIMED[arch]
-    b, h, g, sq, sk, d = shape
+    b, h, g, sq, sk, d = shape[:6]
+    dv = shape[6] if len(shape) > 6 else d
     q, k, v, do = _attention_inputs(torch, gen, torch.bfloat16, (b, h, sq, d),
-                                    (b, g, sk, d), (b, g, sk, d), (b, h, sq, d))
+                                    (b, g, sk, d), (b, g, sk, dv),
+                                    (b, h, sq, dv))
     out, lse, _f_err, _l_err = k5_out(torch, q, k, v)
     kern = lambda _: flash_attention_bwd(q, k, v, out, lse, do)
     plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float())
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               enable_gqa=True)
     lib = lambda _: torch.autograd.grad(sdpa_out, leaves, do,
                                         retain_graph=True)
+    lib_err = max(float((a.float() - w).abs().max())
+                  for a, w in zip(lib(None), want))
     backend = type(sdpa_out.grad_fn).__name__  # the SDPA route it ran
-    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       out.float(), lse, do.float())
     got = kern(None)
     torch.cuda.synchronize()
     err = max(_attention_err(torch, a, w, BWD_TOL["bfloat16"],
                              f"flash_attention_bwd at {shape}")
               for a, w in zip(got, want))
-    lib_err = max(float((a.float() - w).abs().max())
-                  for a, w in zip(lib(None), want))
     timed = {}
     fwd = {"fwd_": lambda _: flash_attention(q, k, v),  # no graph: no LSE
            "fwd_lse_": lambda _: flash_attention_lse(q, k, v),
@@ -2174,9 +2231,9 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
     log(f"flash_attention_bwd at {shape} bf16: card {timed['ms']:.5f} ms "
         f"(bound {b_ms:.5f} ms by {b_by}, plain {plain_ms:.5f} ms, SDPA "
         f"backward {timed['library_ms']:.5f} ms); per call with host "
-        f"overhead {timed['call_ms']:.5f} ms (SDPA {timed['library_call_ms']:.5f}"
-        f" ms); max abs err {err:.3e} (SDPA {lib_err:.3e}) against the fp32 "
-        f"plain version; SDPA ran {backend}")
+        f"overhead {timed['call_ms']:.5f} ms (SDPA "
+        f"{timed['library_call_ms']:.5f} ms); max abs err {err:.3e} (SDPA "
+        f"{lib_err:.3e}) against the fp32 plain version; SDPA ran {backend}")
     log("flash_attention_bwd launches (trace, ms a launch): " + ", ".join(
         f"{n} {ms:.5f}" for n, ms in by_launch.items() if n != "sdpa")
         + "; SDPA's: " + ", ".join(f"{n} {ms:.5f}" for n, ms in
@@ -2209,6 +2266,196 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
             "max_abs_err_bf16_checks": worst["flash_attention_bwd", "bfloat16"],
             "lse_max_abs_err": max(worst["flash_attention_lse", d]
                                    for d in ("float32", "bfloat16"))}
+
+
+#: K7's and K8's backward at the training shapes of phase 10 (b)'s
+#: rwkv6-7b (b, h, t, Dk, Dv) and zamba2-2.7b (b, h, t, P, N), as the
+#: models give them: (8, 1024) batches, bf16
+SCAN_BWD_TIMED = {"rwkv6_scan_bwd": ("rwkv6-7b", (TRAIN_BATCH, 64, TRAIN_SEQ,
+                                                  64, 64)),
+                  "mamba2_ssd_bwd": ("zamba2-2.7b", (TRAIN_BATCH, 80,
+                                                     TRAIN_SEQ, 64, 64))}
+
+
+def scan_bwd_cases():
+    """K7's and K8's backward cases: every case of ``scan_cases()`` (T of
+    1 and ragged, every state width, Dv and P up to 1,024, decays of
+    exactly 0 and log_a of -inf and -1e4) and the training shapes, a
+    final-state cotangent in every other case and at the training shapes;
+    -> (K7 cases (shape, decay, with_state), K8 cases (shape, decay,
+    with_state))."""
+    rwkv6, mamba2 = scan_cases()
+    r = [(c[:5], c[5], i % 2 == 0) for i, c in enumerate(rwkv6)]
+    m = [(c[:5], c[5] if len(c) > 5 else "reference", i % 2 == 1)
+         for i, c in enumerate(mamba2)]
+    r.append((SCAN_BWD_TIMED["rwkv6_scan_bwd"][1], "reference", True))
+    m.append((SCAN_BWD_TIMED["mamba2_ssd_bwd"][1], "reference", True))
+    return r, m
+
+
+def scan_bwd_inputs(torch, gen, name: str, shape, decay: str, with_state,
+                    dtype):
+    """(the forward's inputs, the output's cotangent, the final state's
+    or None) on the card."""
+    if name == "rwkv6_scan_bwd":
+        b, h, t, dk, dv = shape
+        ins = rwkv6_inputs(torch, gen, shape, decay, dtype)
+        rows, cols = dk, dv
+    else:
+        b, h, t, p, n = shape
+        ins = mamba2_inputs(torch, gen, shape, dtype, decay)
+        rows, cols = n, p
+    dout = torch.randn((b, h, t, cols), generator=gen,
+                       device="cuda").to(dtype)
+    ds = (torch.randn((b, h, rows, cols), generator=gen, device="cuda")
+          if with_state else None)
+    return ins, dout, ds
+
+
+def scan_bwd_fns(name: str):
+    """(the backward wrapper, its plain version, the names of its
+    gradients)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+
+    if name == "rwkv6_scan_bwd":
+        return (rwkv6_scan_bwd, ref.rwkv6_bwd_ref,
+                ("dr", "dk", "dv", "dw", "du"))
+    return mamba2_ssd_bwd, ref.mamba2_bwd_ref, ("dx", "dlog_a", "dB", "dC")
+
+
+def check_scan_bwd(torch) -> dict:
+    """K7's and K8's backward against their plain versions from the same
+    input values (the bf16 route's in fp32; the fp32 route's in fp64: the
+    kernels carry their sums in fp64, and an fp32 plain version's own
+    rounding, at sums that cancel, used up to 0.83 of 2e-5 (1 + |want|)) at
+    ``scan_bwd_cases()``, every gradient finite and within ``BWD_TOL`` of
+    its route as ``|got - want| <= tol (1 + |want|)``; -> the worst error
+    per (kernel, dtype)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8642)
+    worst, shares = {}, {}
+    cases = dict(zip(("rwkv6_scan_bwd", "mamba2_ssd_bwd"), scan_bwd_cases()))
+    for dname, tol in BWD_TOL.items():
+        dtype = getattr(torch, dname)
+        wide = torch.float64 if dtype == torch.float32 else torch.float32
+        for name, kcases in cases.items():
+            kern, plain, names = scan_bwd_fns(name)
+            for shape, decay, with_state in kcases:
+                ins, dout, ds = scan_bwd_inputs(torch, gen, name, shape,
+                                                decay, with_state, dtype)
+                got = kern(*ins, dout, ds)
+                torch.cuda.synchronize()
+                want = plain(*(a.to(wide) for a in ins), dout.to(wide),
+                             None if ds is None else ds.to(wide))
+                key = (name, dname)
+                for g_name, a, w in zip(names, got, want):
+                    what = (f"{name} {g_name} {dname} at {tuple(shape)} decay "
+                            f"{decay}{' with a state cotangent' if with_state else ''}")
+                    if not bool(torch.isfinite(a.float()).all()):
+                        fail(f"{what} is not finite")
+                    diff = (a.to(wide) - w).abs()
+                    share = float((diff / (tol * (1 + w.abs()))).max())
+                    if share > 1.0:
+                        fail(f"{what} differs from its plain version (max abs "
+                             f"err {float(diff.max()):.3e}, tol {tol})")
+                    worst[key] = max(worst.get(key, 0.0), float(diff.max()))
+                    shares[key] = max(shares.get(key, 0.0), share)
+                del ins, dout, ds, got, want
+    for (name, dname), err in sorted(worst.items()):
+        log(f"kernel {name} {dname}: finite and within {BWD_TOL[dname]} of "
+            f"its plain version at {len(cases[name])} shapes (max abs err "
+            f"{err:.3e}; largest share of the tolerance "
+            f"{shares[(name, dname)]:.4f})")
+    return worst
+
+
+def scan_bwd_bound(name: str, shape, itemsize: int):
+    """(bound_ms, bound_by, bytes) of one K7 or K8 backward launch on this
+    run's inputs (with a final-state cotangent): the forward's inputs, the
+    cotangents and the gradients each moved once (in the inputs' type; the
+    state's cotangent, K8's log_a, B, C and their gradients fp32) over
+    the memory rate; the operations of the meta op's FLOP formula (the
+    recomputed state update and the reverse recurrence: 16 a state
+    element and step for K7, 14 for K8) over the bf16 tensor-core rate."""
+    if name == "rwkv6_scan_bwd":
+        b, h, t, dk, dv = shape
+        # r, k, w, v, u, dout in; dr, dk, dw, dv, du out; dstate in fp32
+        nbytes = (itemsize * (6 * b * h * t * dk + 3 * b * h * t * dv
+                              + 2 * h * dk)
+                  + 4 * b * h * dk * dv)
+        ops = 16 * b * h * t * dk * dv
+    else:
+        b, h, t, p, n = shape
+        # x, dy in and dx out; log_a, B, C in and their gradients out,
+        # dstate in, fp32
+        nbytes = (itemsize * 3 * b * h * t * p
+                  + 4 * 2 * (b * h * t + 2 * b * t * n) + 4 * b * h * n * p)
+        ops = 14 * b * h * t * n * p
+    return _larger(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+
+
+def time_scan_bwd(torch, ops, name: str, launches: int, worst: dict) -> dict:
+    """K7's or K8's backward at its training shape (``SCAN_BWD_TIMED``) in
+    bf16 with a final-state cotangent: card time (30 launches queued
+    behind a sleep), per call with its host overhead, plain version,
+    bound; no PyTorch call computes it (``library_ms`` null); the launch's
+    workspace as the C library sizes it, which must be the dry-run's
+    count; -> its ``kernels`` row."""
+    from repro_torch.kernels import _build, meta
+
+    arch, shape = SCAN_BWD_TIMED[name]
+    # the launch's workspace as the C library sizes it: the dry-run's
+    # count of it (phase 10 (b)'s peaks) must be the same
+    if name == "rwkv6_scan_bwd":
+        kind, (b, h, t, rows, cols) = "wkv", shape    # rows Dk, cols Dv
+    else:
+        kind, (b, h, t, cols, rows) = "ssd", shape    # rows N, cols P
+    query = getattr(_build.library("ssm"), f"repro_{name}_ws")
+    ws = 4 * query(b, h, t, rows, cols, 1)  # dtype 1: bf16
+    ws_dry = meta.scan_bwd_workspace_bytes(kind, torch.bfloat16, b * h, t,
+                                           rows, cols)
+    if ws != ws_dry:
+        fail(f"{name}'s workspace at {shape}: {ws} bytes, the dry-run "
+             f"counts {ws_dry}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    kern, plain, _names = scan_bwd_fns(name)
+    ins, dout, ds = scan_bwd_inputs(torch, gen, name, shape, "reference",
+                                    True, torch.bfloat16)
+    got = kern(*ins, dout, ds)
+    want = plain(*(a.float() for a in ins), dout.float(), ds)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
+    del got, want
+    before = ops.launch_counts()[name]
+    c_ms = call_ms(torch, lambda _: kern(*ins, dout, ds), None)
+    ms = device_ms(torch, lambda _: kern(*ins, dout, ds), None, c_ms)
+    assert ops.launch_counts()[name] > before  # the timing ran the kernel
+    plain_ms = events_ms(torch, lambda: plain(*ins, dout, ds))
+    b_ms, b_by, nbytes = scan_bwd_bound(name, shape, 2)
+    source, replaces = KERNEL_INFO[name]
+    log(f"{name} at {shape} bf16 ({arch}'s training shape): card {ms:.5f} ms "
+        f"(bound {b_ms:.5f} ms by {b_by}, plain {plain_ms:.5f} ms, library "
+        f"none); per call with host overhead {c_ms:.5f} ms; max abs err "
+        f"{err:.3e} against the fp32 plain version; workspace of a launch "
+        f"{ws / 2**30:.4f} GiB, the dry-run's")
+    del ins, dout, ds
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "replaces_note": "no pallas_call: the reference differentiates "
+                             "the op entry",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "library": None, "path": f"train {arch}",
+            "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
+            "workspace_bytes": ws,
+            "call_ms": c_ms,
+            "plain_timing": "CUDA events around one call, median of 3",
+            "design": KERNEL_DESIGN[name]["bfloat16"],
+            "max_abs_err_fp32_checks": worst[(name, "float32")],
+            "max_abs_err_bf16_checks": worst[(name, "bfloat16")]}
 
 
 def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
@@ -2268,14 +2515,25 @@ def check_loader(np, torch, ops, PackedLoader, path: str, n_tokens: int):
 def train_want(ops, cfg, steps: int, prefills: int = 0,
                decode_steps: int = 0) -> dict:
     """The launches ``steps`` train steps, ``prefills`` prefills and
-    ``decode_steps`` decode steps of a dense model make (K3/K4: the
-    loader's reads, checked apart)."""
+    ``decode_steps`` decode steps of a model of the registry make (K3/K4:
+    the loader's reads, checked apart): per step, K5 (or K7, K8) twice a
+    layer under remat (the backward runs its layer again) and its
+    backward once; zamba2-2.7b's shared attention blocks, applied outside
+    its layers' remat as in the reference, K5 once."""
+    fwd = steps * (2 if cfg.remat else 1)
     want = dict.fromkeys(ops.KERNELS, 0)
-    want.update(
-        flash_attention=cfg.n_layers * (steps * (2 if cfg.remat else 1)
-                                        + prefills),
-        flash_attention_bwd=cfg.n_layers * steps,
-        decode_attention=cfg.n_layers * decode_steps)
+    if cfg.family == "ssm":
+        want.update(rwkv6_scan=cfg.n_layers * (fwd + prefills),
+                    rwkv6_scan_bwd=cfg.n_layers * steps)
+        return want
+    attn, attn_fwd = cfg.n_layers, fwd
+    if cfg.family == "hybrid":
+        attn, attn_fwd = cfg.n_layers // cfg.shared_attn_every, steps
+        want.update(mamba2_ssd=cfg.n_layers * (fwd + prefills),
+                    mamba2_ssd_bwd=cfg.n_layers * steps)
+    want.update(flash_attention=attn * (attn_fwd + prefills),
+                flash_attention_bwd=attn * steps,
+                decode_attention=attn * decode_steps)
     return want
 
 
@@ -2408,7 +2666,12 @@ def train_path(np, torch, ops, args):
     from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
     from repro_torch.train import loss_and_grads
 
+    t0 = time.perf_counter()
     worst = check_attention_bwd(torch)
+    t1 = time.perf_counter()
+    worst.update(check_scan_bwd(torch))
+    log(f"phase 7: the backward checks: K5's {t1 - t0:.3f} s, K7's and K8's "
+        f"{time.perf_counter() - t1:.3f} s")
     cfg = get_arch(TRAIN_ARCH)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     path = os.path.join(tmp, "corpus.rntj")
@@ -3098,13 +3361,21 @@ def loop_path(np, torch, ops, args, corpus: str, tmp) -> tuple:
 #: phase 10 (a): steps of smollm-360m through ``launch.train`` on the
 #: one-rank mesh and through the loop without a mesh
 MESH_STEPS = 5
-#: phase 10 (b): the families that train since ``distributed``, each at
-#: its full width and the deepest depth whose dry-run peak (state,
-#: gradients and activations of a step at (8, 1024)) stays under
-#: ``FAMILY_BUDGET``, for ``FAMILY_STEPS`` AdamW steps on phase 7's loader
+#: phase 10 (b): the families that train since ``distributed`` and since
+#: the backwards of MLA's K5, K7 and K8, each at its full width and the
+#: deepest depth whose dry-run peak (state, gradients and activations of a
+#: step at (8, 1024)) stays under ``FAMILY_BUDGET``, for ``FAMILY_STEPS``
+#: AdamW steps on phase 7's loader
 FAMILY_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "chameleon-34b",
-                "musicgen-large")
+                "musicgen-large", "minicpm3-4b", "rwkv6-7b", "zamba2-2.7b")
 FAMILY_STEPS = 3
+#: the families' learning-rate warm-up, ``launch.train``'s: at a warm-up
+#: of 1 step Adam's first, sign-like steps at the peak rate overshoot at
+#: chameleon-34b's width of 8,192 (its third loss rose above its second
+#: on each of 7 batch sets, above its first on 2; the batches follow the
+#: corpus's order, which 4 writers leave open); at 20 every family's
+#: losses fell step by step (chameleon-34b's on 5 batch sets)
+FAMILY_WARMUP = 20
 FAMILY_BUDGET = 72 * 2 ** 30
 #: phase 10 (b): the dry-run's state bytes against ``memory_allocated``
 #: after ``init_train_state``, as a share of the prediction
@@ -3191,20 +3462,22 @@ def mesh_path(np, torch, ops, args, corpus: str, tmp, loop_losses) -> dict:
 def family_depth(cfg, dryrun, mesh) -> tuple:
     """The deepest depth whose dry-run peak of a step at
     (``TRAIN_BATCH``, ``TRAIN_SEQ``) lies under ``FAMILY_BUDGET`` (the peak
-    grows linearly with the layers: two probes and a check) -> (depth, the
+    grows linearly with the layers: two probes and a check), in whole
+    groups of zamba2-2.7b's ``shared_attn_every`` layers -> (depth, the
     dry-run's bytes at it)."""
-    probe = {n: dryrun.train_memory(cfg.with_(n_layers=n), mesh, TRAIN_BATCH,
-                                    TRAIN_SEQ)["peak_bytes"]
+    unit = cfg.shared_attn_every or 1
+    probe = {n: dryrun.train_memory(cfg.with_(n_layers=n * unit), mesh,
+                                    TRAIN_BATCH, TRAIN_SEQ)["peak_bytes"]
              for n in (1, 2)}
     per = probe[2] - probe[1]
-    depth = max(1, min(cfg.n_layers,
-                       int((FAMILY_BUDGET - probe[1]) // per) + 1))
+    groups = max(1, min(cfg.n_layers // unit,
+                        int((FAMILY_BUDGET - probe[1]) // per) + 1))
     while True:
-        mem = dryrun.train_memory(cfg.with_(n_layers=depth), mesh,
+        mem = dryrun.train_memory(cfg.with_(n_layers=groups * unit), mesh,
                                   TRAIN_BATCH, TRAIN_SEQ)
-        if mem["peak_bytes"] < FAMILY_BUDGET or depth == 1:
-            return depth, mem
-        depth -= 1
+        if mem["peak_bytes"] < FAMILY_BUDGET or groups == 1:
+            return groups * unit, mem
+        groups -= 1
 
 
 def family_batch(torch, cfg, batch) -> dict:
@@ -3224,8 +3497,9 @@ def families_path(np, torch, ops, args, corpus: str) -> dict:
     ``family_depth`` (fp32 parameters, bf16 compute, remat) from
     ``--seed``: the dry-run's state bytes within ``STATE_BYTES_TOL`` of
     ``memory_allocated`` after ``init_train_state``; ``FAMILY_STEPS``
-    AdamW steps on phase 7's loader (``family_batch``): launches
-    K5 twice and its backward once a layer and step, nothing else; losses
+    AdamW steps on phase 7's loader (``family_batch``): launches as
+    ``train_want`` (K5, K7 or K8 twice and its backward once a layer and
+    step, zamba2-2.7b's shared blocks K5 once), nothing else; losses
     finite and falling; the balance loss finite (0 without MoE) and the
     first step's equal to a fresh forward's on the same parameters and
     batch; peak memory beside the dry-run's prediction.  -> {path:
@@ -3253,7 +3527,7 @@ def families_path(np, torch, ops, args, corpus: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        opt = make_optimizer(peak_lr=3e-4, warmup=1, total=20)
+        opt = make_optimizer(peak_lr=3e-4, warmup=FAMILY_WARMUP, total=20)
         state = list(init_train_state(bundle, seed=args.seed, device="cuda",
                                       optimizer=opt))
         torch.cuda.synchronize()
@@ -3308,14 +3582,16 @@ def families_path(np, torch, ops, args, corpus: str) -> dict:
             f"AdamW steps at ({TRAIN_BATCH}, {TRAIN_SEQ}): losses "
             f"{json.dumps(losses)}, balance losses {json.dumps(auxes)} (a "
             f"fresh forward's {fresh_aux!r}), step ms {json.dumps(step_ms)}; "
-            f"K5 {counts['flash_attention']}, its backward "
-            f"{counts['flash_attention_bwd']}")
+            "launches " + json.dumps({k: c for k, c in counts.items()
+                                      if c and k in ops.TRAIN_KERNELS}))
         log(f"  memory {arch}: state after init_train_state {got / G:.3f} GiB "
             f"allocated, dry-run {pred['state'] / G:.3f} GiB "
             f"({100 * (got - pred['state']) / pred['state']:+.3f} %); peak "
             f"max_memory_allocated {peak / G:.3f} GiB, dry-run "
             f"{pred['peak_bytes'] / G:.3f} GiB (activations "
-            f"{pred['activation_bytes'] / G:.3f}); depth chosen in "
+            f"{pred['activation_bytes'] / G:.3f}, a scan backward's "
+            f"workspace {pred['_meta']['bwd_workspace_bytes'] / G:.3f} of "
+            f"them); depth chosen in "
             f"{t1 - t0:.3f} s, run {time.perf_counter() - t1:.3f} s")
         by_path[f"train {arch} ({depth} layers)"] = counts
         del state, step, batches, m
@@ -3640,6 +3916,13 @@ def main() -> int:
             log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
+    lap_t = [time.perf_counter()]
+
+    def lap(what: str) -> None:  # the seconds since the last lap
+        now = time.perf_counter()
+        log(f"{what}: {now - lap_t[0]:.3f} s")
+        lap_t[0] = now
+
     check_kernels(torch, kernels, ragged_shapes(), odd_views=True)
     check_offsets_calls(np, torch, kernels)
     check_codec(torch, kernels)
@@ -3647,6 +3930,7 @@ def main() -> int:
     worst = check_attention(torch, flash_cases, decode_cases)
     worst.update(check_scans(torch, *scan_cases()))
 
+    lap("phase 2")
     # -- phase 3: the write -> read path ------------------------------------
     data = make_data(np, args.seed, args.producers, args.entries)
     raw_bytes = sum(len(ids) * 16 + len(vals) * 4
@@ -3719,6 +4003,7 @@ def main() -> int:
     for f in (path, p_card, p_numpy):
         os.remove(f)
 
+    lap("phase 3")
     # -- phase 4: the serve path, one model after another --------------------
     from repro_torch.models import build
 
@@ -3738,11 +4023,13 @@ def main() -> int:
         del res
         gc.collect()
         torch.cuda.empty_cache()
+        lap(f"phase 4, {arch}")
     os.rmdir(tmp)
 
     # -- phase 5: the kernels package's entry points -------------------------
     o_counts, _o_shapes = ops_phase(torch, ops)
 
+    lap("phase 5")
     # -- phase 6: time every kernel at its path's shapes ---------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
@@ -3833,6 +4120,7 @@ def main() -> int:
     for row in rows:
         row["launches_by_op_entries"] = o_counts.get(row["name"], 0)
 
+    lap("phase 6")
     # -- phase 7: the train path ---------------------------------------------
     bwd_row, t_counts, t_worst, corpus = train_path(np, torch, ops, args)
     for row in rows:  # K5's forward runs on the train paths too
@@ -3848,6 +4136,7 @@ def main() -> int:
                 row[key] = max(row[key], t_worst["flash_attention", dname])
     rows.append(bwd_row)
 
+    lap("phase 7")
     # -- phase 8: multi-process writing, recovery, merge, remote -------------
     # ((e), the checkpoint, runs in phase 9 (a) on the loop's train state)
     gc.collect()
@@ -3902,23 +4191,33 @@ def main() -> int:
     t10d = time.perf_counter()
     log(f"phase 10: (a) {t10b - t10:.3f} s, (b) {t10c - t10b:.3f} s, (c) "
         f"waited {t10d - t10c:.3f} s more, {t10d - t10:.3f} s in all")
-    for row in rows:  # K1-K6 and K5's backward: each has its paths' counts
+    for row in rows:  # K1-K8 and K5's backward: each has its paths' counts
         extra = {k: c[row["name"]] for p in (p9, p10) for k, c in p.items()
                  if c.get(row["name"])}
         if extra:
+            if "launches_by_path" not in row:  # K7's and K8's: serve alone
+                row["launches_by_path"] = {row["path"]: row["launches"]}
             row["launches_by_path"].update(extra)
             row["launches"] = sum(row["launches_by_path"].values())
-    # K5's backward at head dim 128: timed at chameleon-34b's training shape
-    fam = "chameleon-34b"
-    n_fam = sum(c["flash_attention_bwd"] for k, c in p10.items()
-                if k.startswith(f"train {fam} "))
-    at_fam = time_attention_bwd(torch, fam, n_fam, t_worst)
-    bwd_row[f"at_{fam}"] = {k: at_fam[k] for k in (
-        "launches", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "library_backend", "max_abs_err", "launch_ms",
-        "forward_ms", "bytes", "call_ms", "library_call_ms",
-        "library_max_abs_err")}
-    log(f"phase 10: K5's backward timed at {fam}'s shape "
+    # K5's backward timed at the training shapes of chameleon-34b (head dim
+    # 128), minicpm3-4b (q/k 96, v 64) and zamba2-2.7b (head dim 80);
+    # K7's and K8's backward at rwkv6-7b's and zamba2-2.7b's (rows of
+    # their own, their launches phase 10 (b)'s)
+    for fam in ("chameleon-34b", "minicpm3-4b", "zamba2-2.7b"):
+        n_fam = sum(c["flash_attention_bwd"] for k, c in p10.items()
+                    if k.startswith(f"train {fam} "))
+        at_fam = time_attention_bwd(torch, fam, n_fam, t_worst)
+        bwd_row[f"at_{fam}"] = {k: at_fam[k] for k in (
+            "launches", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "max_abs_err", "launch_ms",
+            "forward_ms", "bytes", "call_ms", "library_call_ms",
+            "library_max_abs_err")}
+    for name in SCAN_BWD_TIMED:
+        by = {k: c[name] for k, c in p10.items() if c.get(name)}
+        rows.append(time_scan_bwd(torch, ops, name, sum(by.values()),
+                                  t_worst))
+        rows[-1]["launches_by_path"] = by
+    log(f"phase 10: the backwards timed at the families' shapes "
         f"{time.perf_counter() - t10d:.3f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

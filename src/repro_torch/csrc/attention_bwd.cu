@@ -8,7 +8,8 @@
 //
 //     O = softmax(scale * Q K^T, causal / window mask) V
 //
-// with q, o, dO (B, H, Sq, D), k, v (B, G, Sk, D), GQA heads h -> h / (H / G),
+// with q (B, H, Sq, D), o, dO (B, H, Sq, DV), k (B, G, Sk, D), v (B, G, Sk,
+// DV) (DV = D, or MLA's 64 at D = 96), GQA heads h -> h / (H / G),
 // query row i at position i + Sk - Sq and padded kv columns masked, as the
 // forward does.  K5's forward hands over each row's log-sum-exp (natural
 // log, -inf for a row that sees no key), so P = exp(scale * Q K^T - LSE)
@@ -48,7 +49,9 @@
 //    the tile the MN-major B operand).  The gradients then carry only their
 //    own bf16 rounding.  Masks apply only to the tiles that straddle the
 //    diagonal, the window edge or Sk.  D = 80 runs a 64-wide and a 16-wide
-//    column block, as the forward does.  At D = 256 the ring has two
+//    column block, as the forward does, and q/k at 96 (MLA) a 64-wide and a
+//    32-wide one; every kernel is templated on (D, DV): S, dQ and dK are D
+//    wide, dP, dV and Delta's rowsum DV wide.  At D = 256 the ring has two
 //    stages (64 KB each), dQ takes one block an SM (its 128 accumulators
 //    beside S and dP), and dK/dV is bwd_dkv_wgmma2: two consumer
 //    warpgroups own a 128-column half of dK and dV each and share S^T and
@@ -69,7 +72,7 @@
 // cores); the bf16 route runs ten (the second pieces, S again in B).  Of
 // the forms timed (PERF.md §6), two one-warpgroup blocks an SM beat one
 // block of two warpgroups that share each stage.  Head dims 32, 64, 80,
-// 128 and 256.  A query row that sees no key gets zero gradients
+// 128 and 256 with DV = D, and q/k 96 with v 64.  A query row that sees no key gets zero gradients
 // (the plain version gives NaN there, as the forward's does).  The launcher
 // returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when a
 // tensor map cannot be made.
@@ -101,7 +104,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int causal,
 }
 
 // rows [r0, r0 + BT) of a (n, D) matrix -> shared [BT][D + 1], zeros past
-// row n
+// row n (D: the matrix's width, q/k's or v's)
 template <int D, int BT>
 __device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g,
                                           int r0, int n) {
@@ -112,7 +115,7 @@ __device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g,
 }
 
 // acc[r][c] += sum_d A[ty + 16 r][d] B[tx + 16 c][d]   (A B^T, BT x BT;
-// R = BT / 16 rows and columns a thread)
+// R = BT / 16 rows and columns a thread; A and B D wide)
 template <int D, int R>
 __device__ __forceinline__ void mm_abt(float (&acc)[R][R], const float* A,
                                        const float* B, int ty, int tx) {
@@ -168,31 +171,35 @@ __device__ __forceinline__ void mm_atb(float (&acc)[R][D / 16], const float* S,
   }
 }
 
-// shared memory of either fp32 kernel: four [BT][D + 1] tiles, one
-// [BT][BT + 1] score tile and two rows of BT statistics (D = 256: 136 KB)
-template <int D>
+// shared memory of either fp32 kernel: two [BT][D + 1] tiles (q, k), two
+// [BT][DV + 1] (v, dO), one [BT][BT + 1] score tile and two rows of BT
+// statistics (D = 256: 136 KB)
+template <int D, int DV>
 constexpr size_t bwd_smem() {
   constexpr int BT = fp_bt<D>();
-  return sizeof(float) * (4 * BT * (D + 1) + BT * (BT + 1) + 2 * BT);
+  return sizeof(float) *
+         (2 * BT * (D + 1) + 2 * BT * (DV + 1) + BT * (BT + 1) + 2 * BT);
 }
 
 // ---------------------------------------------------------------------------
-// fp32, launch A: dQ, and each row's Delta
+// fp32, launch A: dQ, and each row's Delta.  q/k head dim D, v's (and o's,
+// dO's) DV.
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT)
 bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, const float* __restrict__ o,
        const float* __restrict__ dout, const float* __restrict__ lse,
        float* __restrict__ dq, float* __restrict__ delta_out, int H, int G,
        int sq, int sk, int causal, int window, float scale) {
-  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1;
+  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1,
+                PV = DV + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BT * P;
-  float* Ks = dOs + BT * P;  // O first, for Delta
-  float* Vs = Ks + BT * P;
-  float* Ss = Vs + BT * P;   // dS
+  float* Ks = Qs + BT * P;
+  float* dOs = Ks + BT * P;
+  float* Vs = dOs + BT * PV;  // O first, for Delta
+  float* Ss = Vs + BT * PV;   // dS
   float* delta_s = Ss + BT * SP;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal tiles first
@@ -202,16 +209,16 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int off = sk - sq;
   const size_t bh = (size_t)b * H + h;
   const float* kb = k + ((size_t)b * G + g) * sk * D;
-  const float* vb = v + ((size_t)b * G + g) * sk * D;
+  const float* vb = v + ((size_t)b * G + g) * sk * DV;
 
   load_tile<D, BT>(Qs, q + bh * sq * D, q0, sq);
-  load_tile<D, BT>(dOs, dout + bh * sq * D, q0, sq);
-  load_tile<D, BT>(Ks, o + bh * sq * D, q0, sq);
+  load_tile<DV, BT>(dOs, dout + bh * sq * DV, q0, sq);
+  load_tile<DV, BT>(Vs, o + bh * sq * DV, q0, sq);
   __syncthreads();
   if (tid < BT) {
     float s = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) s = fmaf(dOs[tid * P + d], Ks[tid * P + d], s);
+    for (int d = 0; d < DV; ++d) s = fmaf(dOs[tid * PV + d], Vs[tid * PV + d], s);
     delta_s[tid] = s;
     if (q0 + tid < sq) delta_out[bh * sq + q0 + tid] = s;
   }
@@ -233,13 +240,13 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   // P from the LSE, dS = P o (dP - Delta), dQ += dS K
   float acc[R][D / 16] = {};
   for (int k0 = k_begin; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the last reads of Ks, Vs and Ss are done
+    __syncthreads();  // the last reads of Ks, Vs (O, the first time) and Ss are done
     load_tile<D, BT>(Ks, kb, k0, sk);
-    load_tile<D, BT>(Vs, vb, k0, sk);
+    load_tile<DV, BT>(Vs, vb, k0, sk);
     __syncthreads();
     float s[R][R] = {}, dp[R][R] = {};
     mm_abt<D, R>(s, Qs, Ks, ty, tx);
-    mm_abt<D, R>(dp, dOs, Vs, ty, tx);
+    mm_abt<DV, R>(dp, dOs, Vs, ty, tx);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int qpos = q0 + ty + 16 * r + off;
@@ -271,20 +278,21 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // fp32, launch B: dK and dV of one kv tile over the group's heads
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT)
 bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dk, float* __restrict__ dv, int H, int G, int sq, int sk,
         int causal, int window, float scale) {
-  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1;
+  constexpr int BT = fp_bt<D>(), R = BT / 16, SP = BT + 1, P = D + 1,
+                PV = DV + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BT * P;
-  float* Qs = Vs + BT * P;
-  float* dOs = Qs + BT * P;
-  float* Ps = dOs + BT * P;  // P, then dS
+  float* Qs = Ks + BT * P;
+  float* Vs = Qs + BT * P;
+  float* dOs = Vs + BT * PV;
+  float* Ps = dOs + BT * PV;  // P, then dS
   float* lse_s = Ps + BT * SP;
   float* delta_s = lse_s + BT;
 
@@ -296,7 +304,7 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const size_t bg = (size_t)b * G + g;
 
   load_tile<D, BT>(Ks, k + bg * sk * D, k0, sk);
-  load_tile<D, BT>(Vs, v + bg * sk * D, k0, sk);
+  load_tile<DV, BT>(Vs, v + bg * sk * DV, k0, sk);
 
   // the q rows that can see a key of this tile
   const int kmax = min(sk, k0 + BT) - 1;
@@ -307,13 +315,13 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   // the totals: a sum over the group's H / G heads of up to Sq rows would
   // otherwise be one FMA chain of (H / G) Sq terms (8,192 at gemma-2b's
   // 8:1 MQA), whose rounding reached 1.03x the 2e-5 tolerance of dv
-  float dk_acc[R][D / 16] = {}, dv_acc[R][D / 16] = {};
+  float dk_acc[R][D / 16] = {}, dv_acc[R][DV / 16] = {};
   for (int hh = 0; hh < hg; ++hh) {
     const size_t bh = (size_t)b * H + g * hg + hh;
     for (int i0 = i_begin; i0 < i_end; i0 += BT) {
       __syncthreads();  // the last reads of Qs, dOs and Ps are done
       load_tile<D, BT>(Qs, q + bh * sq * D, i0, sq);
-      load_tile<D, BT>(dOs, dout + bh * sq * D, i0, sq);
+      load_tile<DV, BT>(dOs, dout + bh * sq * DV, i0, sq);
       if (tid < BT) {
         const int row = i0 + tid;
         lse_s[tid] = row < sq ? lse[bh * sq + row] : -CUDART_INF_F;
@@ -322,7 +330,7 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       float s[R][R] = {}, dp[R][R] = {};
       mm_abt<D, R>(s, Qs, Ks, ty, tx);   // rows: queries, columns: keys
-      mm_abt<D, R>(dp, dOs, Vs, ty, tx);
+      mm_abt<DV, R>(dp, dOs, Vs, ty, tx);
       float p[R][R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -337,8 +345,8 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      float dk_t[R][D / 16] = {}, dv_t[R][D / 16] = {};
-      mm_atb<D, R>(dv_t, Ps, dOs, ty, tx);  // dV += P^T dO
+      float dk_t[R][D / 16] = {}, dv_t[R][DV / 16] = {};
+      mm_atb<DV, R>(dv_t, Ps, dOs, ty, tx);  // dV += P^T dO
       __syncthreads();                      // the reads of P are done
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -350,26 +358,27 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       mm_atb<D, R>(dk_t, Ps, Qs, ty, tx);   // dK += dS^T Q
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          dk_acc[r][c] += dk_t[r][c];
-          dv_acc[r][c] += dv_t[r][c];
-        }
+        for (int c = 0; c < D / 16; ++c) dk_acc[r][c] += dk_t[r][c];
+#pragma unroll
+        for (int c = 0; c < DV / 16; ++c) dv_acc[r][c] += dv_t[r][c];
+      }
     }
   }
 
   float* dkb = dk + bg * sk * D;
-  float* dvb = dv + bg * sk * D;
+  float* dvb = dv + bg * sk * DV;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = k0 + ty + 16 * r;
     if (row < sk) {
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < D / 16; ++c)
         dkb[(size_t)row * D + tx + 16 * c] = dk_acc[r][c] * scale;
-        dvb[(size_t)row * D + tx + 16 * c] = dv_acc[r][c];
-      }
+#pragma unroll
+      for (int c = 0; c < DV / 16; ++c)
+        dvb[(size_t)row * DV + tx + 16 * c] = dv_acc[r][c];
     }
   }
 }
@@ -385,38 +394,43 @@ constexpr int BW_THREADS = 160;  // a consumer warpgroup, then the producer warp
 // Shared memory of either bf16 kernel, from a 1024-byte aligned base: the
 // resident pair of 64-row tiles (dQ: Q, dO; dK/dV: K, V), NS stages of the
 // streamed pair (dQ: K, V; dK/dV: Q, dO), fp32 rows (dQ: the tile's Delta;
-// dK/dV: each stage's base-2 LSE and Delta), then the barriers.
-template <int D>
+// dK/dV: each stage's base-2 LSE and Delta), then the barriers.  A pair is
+// a q/k tile (D wide) and then a v/dO tile (DV wide).
+template <int D, int DV = D>
 struct BwTile {
-  static constexpr int TILE = WT * D * 2;
+  static constexpr int TILE = WT * D * 2;     // Q or K
+  static constexpr int TILE_V = WT * DV * 2;  // V or dO
+  static constexpr int PAIR = TILE + TILE_V;
   // stages of the TMA ring: three, two at D = 256 (64 KB a stage)
   static constexpr int NS = D <= 128 ? 3 : 2;
-  static constexpr int STAGE_OFF = 2 * TILE;
-  static constexpr int ROWS_OFF = STAGE_OFF + NS * 2 * TILE;
+  static constexpr int STAGE_OFF = PAIR;
+  static constexpr int ROWS_OFF = STAGE_OFF + NS * PAIR;
   static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
   // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
   // base
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
-  // two blocks an SM up to D = 80: ptxas then holds a thread to 168
-  // registers (two blocks' ten warps put three on one SM sub-partition, of
-  // 16,384 registers); from D = 128 one block (up to 255 registers: D =
-  // 128's dK/dV kernel holds 128 accumulators a thread, D = 256's dQ
-  // kernel 128 beside S and dP)
-  static constexpr int MIN_BLOCKS = D <= 80 ? 2 : 1;
-  static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
+  // two blocks an SM up to D = 80 and at MLA's 96 / 64 (the dK/dV
+  // kernel's 80 accumulators a thread either way): ptxas then holds a
+  // thread to 168 registers (two blocks' ten warps put three on one SM
+  // sub-partition, of 16,384 registers); from D = 128 one block (up to 255
+  // registers: D = 128's dK/dV kernel holds 128 accumulators a thread, D =
+  // 256's dQ kernel 128 beside S and dP)
+  static constexpr int MIN_BLOCKS = D + DV <= 160 ? 2 : 1;
+  static_assert(TILE % 1024 == 0 && TILE_V % 1024 == 0,
+                "swizzled blocks must stay 1024-byte aligned");
 };
 
-// one 64-row tile (rows [row, row + 64) of head `head`, zeros past the
-// map's rows) into shared memory at `dst`, completion on `bar`; m1 is the
-// map of D = 80's 16-wide block
-template <int D>
+// one 64-row tile of width W (rows [row, row + 64) of head `head`, zeros
+// past the map's rows) into shared memory at `dst`, completion on `bar`;
+// m1 is the map of the narrower second block (W = 80: 16 wide, 96: 32)
+template <int W>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* m0,
                                          const CUtensorMap* m1, uint32_t bar,
                                          int row, int head) {
 #pragma unroll
-  for (int c = 0; c < Cols<D>::NB; ++c)
-    tma_load_3d(dst + WT * 128 * c, c == 1 && D == 80 ? m1 : m0, bar, 64 * c,
-                row, head);
+  for (int c = 0; c < Cols<W>::NB; ++c)
+    tma_load_3d(dst + WT * 128 * c, c == 1 && Cols<W>::TAIL ? m1 : m0, bar,
+                64 * c, row, head);
 }
 
 // x (a 64 x 64 accumulator fragment) -> the A fragments of its four
@@ -501,9 +515,10 @@ __device__ __forceinline__ void store_rows_f32(float* out, const float* acc,
 }
 
 // launch A: dQ of one q tile, and its rows' Delta.  Q and dO stay in shared
-// memory; the producer warp streams the visible K/V tiles.
-template <int D>
-__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
+// memory; the producer warp streams the visible K/V tiles.  q/k head dim D,
+// v's (o's, dO's) DV.
+template <int D, int DV>
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D, DV>::MIN_BLOCKS)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
              const __grid_constant__ CUtensorMap tq1,
              const __grid_constant__ CUtensorMap tdo0,
@@ -516,7 +531,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
              const float* __restrict__ lse, bf16* __restrict__ dq,
              float* __restrict__ delta, int B, int H, int G, int sq, int sk,
              int causal, int window, float scale) {
-  using L = BwTile<D>;
+  using L = BwTile<D, DV>;
   extern __shared__ uint8_t bw_smem[];
   const uint32_t raw = smem_u32(bw_smem);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -552,17 +567,17 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
 
   if (threadIdx.x >= 128) {  // the producer warp: one thread issues every copy
     if (threadIdx.x == 128) {
-      mbar_expect_tx(res_full, 2 * L::TILE);
+      mbar_expect_tx(res_full, L::PAIR);
       tma_tile<D>(sbase, &tq0, &tq1, res_full, q0, bh);
-      tma_tile<D>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
+      tma_tile<DV>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % NS;
         mbar_wait(empty(s), ((i / NS) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(full(s), 2 * L::TILE);
-        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+        mbar_expect_tx(full(s), L::PAIR);
+        const uint32_t dst = sbase + L::STAGE_OFF + s * L::PAIR;
         const int k0 = (t_begin + i) * WT;
         tma_tile<D>(dst, &tk0, &tk1, full(s), k0, b * G + g);
-        tma_tile<D>(dst + L::TILE, &tv0, &tv1, full(s), k0, b * G + g);
+        tma_tile<DV>(dst + L::TILE, &tv0, &tv1, full(s), k0, b * G + g);
       }
     }
     return;  // no block-wide barrier follows
@@ -577,11 +592,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
     const int r = tid / 2, half = tid % 2;
     float s = 0.f;
     if (q0 + r < sq) {
-      const size_t at = ((size_t)bh * sq + q0 + r) * D + half * (D / 2);
+      const size_t at = ((size_t)bh * sq + q0 + r) * DV + half * (DV / 2);
       const uint4* op = reinterpret_cast<const uint4*>(o + at);
       const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
+      for (int j = 0; j < DV / 16; ++j) {
         const uint4 x = op[j], y = dp[j];
         const bf16* xe = reinterpret_cast<const bf16*>(&x);
         const bf16* ye = reinterpret_cast<const bf16*>(&y);
@@ -612,10 +627,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % NS;
     mbar_wait(full(s), (i / NS) & 1);
-    const uint32_t kt = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+    const uint32_t kt = sbase + L::STAGE_OFF + s * L::PAIR;
     wg_fence();
-    ss_tile<D, WT>(sc, sbase, WT, 0, kt);                   // S = Q K^T
-    ss_tile<D, WT>(dp, sbase + L::TILE, WT, 0, kt + L::TILE);  // dP = dO V^T
+    ss_tile<D, WT>(sc, sbase, WT, 0, kt);                       // S = Q K^T
+    ss_tile<DV, WT>(dp, sbase + L::TILE, WT, 0, kt + L::TILE);  // dP = dO V^T
     wg_commit();
     wg_wait<0>();
     reg_fence<WT / 2>(sc);
@@ -650,8 +665,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
 // launch B: dK and dV of one kv tile over its group's heads.  K and V stay
 // in shared memory; the producer warp streams the Q and dO tiles that can
 // see the kv tile, with their rows' LSE and Delta.
-template <int D>
-__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
+template <int D, int DV>
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D, DV>::MIN_BLOCKS)
 bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
               const __grid_constant__ CUtensorMap tq1,
               const __grid_constant__ CUtensorMap tdo0,
@@ -663,7 +678,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int G,
               int sq, int sk, int causal, int window, float scale) {
-  using L = BwTile<D>;
+  using L = BwTile<D, DV>;
   extern __shared__ uint8_t bw_smem[];
   const uint32_t raw = smem_u32(bw_smem);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -700,9 +715,9 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   if (threadIdx.x >= 128) {  // the producer warp
     const int lane = threadIdx.x - 128;
     if (lane == 0) {
-      mbar_expect_tx(res_full, 2 * L::TILE);
+      mbar_expect_tx(res_full, L::PAIR);
       tma_tile<D>(sbase, &tk0, &tk1, res_full, k0, bg);
-      tma_tile<D>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
+      tma_tile<DV>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
     }
     for (int it = 0; it < n_it; ++it) {
       const int s = it % NS;
@@ -718,10 +733,10 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
       }
       mbar_wait(empty(s), ((it / NS) & 1) ^ 1);  // round 0 passes at once
       if (lane == 0) {  // the copies first: they take longest
-        mbar_expect_tx(full(s), 2 * L::TILE);
-        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
+        mbar_expect_tx(full(s), L::PAIR);
+        const uint32_t dst = sbase + L::STAGE_OFF + s * L::PAIR;
         tma_tile<D>(dst, &tq0, &tq1, full(s), i0, bh);
-        tma_tile<D>(dst + L::TILE, &tdo0, &tdo1, full(s), i0, bh);
+        tma_tile<DV>(dst + L::TILE, &tdo0, &tdo1, full(s), i0, bh);
       }
       float* Ls = rows_s + s * 2 * WT;
 #pragma unroll
@@ -739,9 +754,11 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   const int kp0 = k0 + r0, kp1 = kp0 + 8;
   const float sl2 = scale * LOG2E;
 
-  float dka[D / 2], dva[D / 2];
+  float dka[D / 2], dva[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
   float st[WT / 2], dpt[WT / 2];
   uint32_t ph[WT / 16][4], pl[WT / 16][4], dh[WT / 16][4], dl[WT / 16][4];
   mbar_wait(res_full, 0);
@@ -749,12 +766,12 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
     const int s = it % NS;
     mbar_wait(full(s), (it / NS) & 1);
     const int i0 = i_begin + (it % n_qt) * WT;
-    const uint32_t qt = sbase + L::STAGE_OFF + s * 2 * L::TILE, dot = qt + L::TILE;
+    const uint32_t qt = sbase + L::STAGE_OFF + s * L::PAIR, dot = qt + L::TILE;
     const float* Ls = rows_s + s * 2 * WT;
     const float* Ds = Ls + WT;
     wg_fence();
-    ss_tile<D, WT>(st, sbase, WT, 0, qt);            // S^T = K Q^T
-    ss_tile<D, WT>(dpt, sbase + L::TILE, WT, 0, dot);  // dP^T = V dO^T
+    ss_tile<D, WT>(st, sbase, WT, 0, qt);              // S^T = K Q^T
+    ss_tile<DV, WT>(dpt, sbase + L::TILE, WT, 0, dot);  // dP^T = V dO^T
     wg_commit();
     wg_wait<0>();
     reg_fence<WT / 2>(st);
@@ -776,16 +793,16 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
     split_pieces(ph, pl, st);
     split_pieces(dh, dl, dpt);
     wg_fence();
-    rs_pieces<D>(dva, ph, pl, dot);  // dV += P^T dO
-    rs_pieces<D>(dka, dh, dl, qt);   // dK += dS^T Q
+    rs_pieces<DV>(dva, ph, pl, dot);  // dV += P^T dO
+    rs_pieces<D>(dka, dh, dl, qt);    // dK += dS^T Q
     wg_commit();
     wg_wait<0>();
     reg_fence<D / 2>(dka);
-    reg_fence<D / 2>(dva);
+    reg_fence<DV / 2>(dva);
     release(empty(s), lane);
   }
   store_rows<D>(dk + (size_t)bg * sk * D, dka, kp0, sk, quad, scale);
-  store_rows<D>(dv + (size_t)bg * sk * D, dva, kp0, sk, quad, 1.f);
+  store_rows<DV>(dv + (size_t)bg * sk * DV, dva, kp0, sk, quad, 1.f);
 }
 
 // D = 256's dK and dV: 128 accumulators a thread of each in one warpgroup
@@ -1042,34 +1059,41 @@ bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
   reinterpret_cast<uint2*>(dv)[i] = v;
 }
 
-template <int D>
+// the two maps of a (heads, rows, W) bf16 tensor, boxes of 64 rows: its
+// first column block, then its narrower second one (W = 80, 96; else the
+// first again)
+template <int W>
+int make_maps(CUtensorMap* m, const void* base, int64_t rows, int64_t heads) {
+  using C = Cols<W>;
+  int e = make_map(&m[0], base, rows, heads, W, C::width(0), WT);
+  if (e || !C::TAIL) {
+    m[1] = m[0];
+    return e;
+  }
+  return make_map(&m[1], base, rows, heads, W, C::width(1), WT);
+}
+
+template <int D, int DV = D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, void* dk,
                      void* dv, float* delta, float* part, int64_t B, int64_t H,
                      int64_t G, int64_t sq, int64_t sk, int causal, int window,
                      float scale, cudaStream_t stream) {
-  using L = BwTile<D>;
-  constexpr int w0 = Cols<D>::width(0);
-  // q, dO over (B H, Sq, D); k, v over (B G, Sk, D); boxes of 64 rows; the
-  // odd ones are D = 80's 16-wide block
+  using L = BwTile<D, DV>;
+  // q, dO over (B H, Sq, D or DV); k, v over (B G, Sk, D or DV); boxes of
+  // 64 rows; the odd ones are the narrower second blocks
   CUtensorMap m[8];
   std::memset(m, 0, sizeof(m));
-  const void* base[4] = {q, dout, k, v};
-  for (int t = 0; t < 4; ++t) {
-    const int64_t rows = t < 2 ? sq : sk, heads = t < 2 ? B * H : B * G;
-    int e = make_map(&m[2 * t], base[t], rows, heads, D, w0, WT);
-    if (e) return e;
-    if (D == 80) {
-      if ((e = make_map(&m[2 * t + 1], base[t], rows, heads, D, 16, WT))) return e;
-    } else {
-      m[2 * t + 1] = m[2 * t];
-    }
-  }
+  int e = make_maps<D>(&m[0], q, sq, B * H);
+  if (!e) e = make_maps<DV>(&m[2], dout, sq, B * H);
+  if (!e) e = make_maps<D>(&m[4], k, sk, B * G);
+  if (!e) e = make_maps<DV>(&m[6], v, sk, B * G);
+  if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      bwd_dq_wgmma<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
   const unsigned n_dq = (unsigned)((sq + WT - 1) / WT * B * H);
-  bwd_dq_wgmma<D><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
+  bwd_dq_wgmma<D, DV><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
       static_cast<bf16*>(dq), delta, (int)B, (int)H, (int)G, (int)sq, (int)sk,
@@ -1099,10 +1123,10 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
           static_cast<bf16*>(dv), n4, scale);
     }
   } else {
-    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (err != cudaSuccess) return err;
-    bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
+    bwd_dkv_wgmma<D, DV><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
         m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
         (int)sq, (int)sk, causal, window, scale);
@@ -1110,17 +1134,17 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk, void* dv,
                float* delta, int64_t B, int64_t H, int64_t G, int64_t sq,
                int64_t sk, int causal, int window, float scale,
                cudaStream_t stream) {
-  const size_t smem = bwd_smem<D>();
+  const size_t smem = bwd_smem<D, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bwd_dq<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_dkv<D>,
+  e = cudaFuncSetAttribute(bwd_dkv<D, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const float* qt = static_cast<const float*>(q);
@@ -1128,25 +1152,32 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
   constexpr int BT = fp_bt<D>();
-  bwd_dq<D><<<dim3((unsigned)((sq + BT - 1) / BT), (unsigned)H, (unsigned)B),
-              NT, smem, stream>>>(
+  bwd_dq<D, DV><<<dim3((unsigned)((sq + BT - 1) / BT), (unsigned)H, (unsigned)B),
+                  NT, smem, stream>>>(
       qt, kt, vt, static_cast<const float*>(o), dot, lse, static_cast<float*>(dq),
       delta, (int)H, (int)G, (int)sq, (int)sk, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dkv<D><<<dim3((unsigned)((sk + BT - 1) / BT), (unsigned)G, (unsigned)B),
-               NT, smem, stream>>>(
+  bwd_dkv<D, DV><<<dim3((unsigned)((sk + BT - 1) / BT), (unsigned)G, (unsigned)B),
+                   NT, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
       (int)H, (int)G, (int)sq, (int)sk, causal, window, scale);
   return cudaGetLastError();
 }
 
-// each dtype has one pair of kernels: fp32 the SIMT pair, bf16 the wgmma pair
-int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
-               const void* o, const void* dout, const float* lse, void* dq,
-               void* dk, void* dv, float* delta, float* part, int64_t B, int64_t H,
-               int64_t G, int64_t sq, int64_t sk, int causal, int window,
-               float scale, cudaStream_t st) {
+// each dtype has one pair of kernels: fp32 the SIMT pair, bf16 the wgmma
+// pair; v as wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
+int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
+               const void* v, const void* o, const void* dout, const float* lse,
+               void* dq, void* dk, void* dv, float* delta, float* part,
+               int64_t B, int64_t H, int64_t G, int64_t sq, int64_t sk,
+               int causal, int window, float scale, cudaStream_t st) {
+  if (DV != D) {
+    if (D != 96 || DV != 64) return cudaErrorInvalidValue;
+    if (dtype == 0) return launch_bwd<96, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+    if (dtype == 1) return launch_bwd_wgmma<96, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     switch (D) {
       case 32: return launch_bwd<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
@@ -1172,8 +1203,9 @@ int bwd_by_dim(int D, int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// (q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, Sq, Sk, D,
-//  dtype, causal, window, scale, stream); lse is the forward's (B, H, Sq)
+// (q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, Sq, Sk, D, Dv,
+//  dtype, causal, window, scale, stream); v, o, dout and dv have head dim
+// Dv (= D, or 64 at D = 96); lse is the forward's (B, H, Sq)
 // fp32 natural-log log-sum-exp of each row's scaled, masked scores, delta
 // (B, H, Sq) fp32 workspace, part a 4 B G Sk D fp32 workspace that bf16 at
 // D = 256 needs when H / G is even (else unused, may be null); window <= 0
@@ -1182,9 +1214,9 @@ extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, void* part, int64_t B, int64_t H, int64_t G, int64_t sq,
-    int64_t sk, int D, int dtype, int causal, int window, float scale,
+    int64_t sk, int D, int DV, int dtype, int causal, int window, float scale,
     void* stream) {
-  return bwd_by_dim(D, dtype, q, k, v, o, dout, static_cast<const float*>(lse),
+  return bwd_by_dim(D, DV, dtype, q, k, v, o, dout, static_cast<const float*>(lse),
                     dq, dk, dv, static_cast<float*>(delta),
                     static_cast<float*>(part), B, H, G, sq, sk, causal, window,
                     scale, static_cast<cudaStream_t>(stream));

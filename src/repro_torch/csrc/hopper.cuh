@@ -7,8 +7,8 @@
 // Tiles: a bf16 (rows, D) tile lies in shared memory as column blocks
 // (Cols<D>): 64 columns with the 128-byte swizzle, except D = 32 (one
 // 32-wide block, 64-byte swizzle), D = 80's second block (16 wide,
-// 32-byte swizzle) and D = 96's (32 wide, 64-byte swizzle: K5's forward
-// only, MLA's q/k); block c of a tile of R rows starts R * 128 bytes after
+// 32-byte swizzle) and D = 96's (32 wide, 64-byte swizzle: MLA's q/k);
+// block c of a tile of R rows starts R * 128 bytes after
 // block c - 1.  One TMA box fills one block (make_map).  The same tile is
 // a K-major operand (its rows are the M or N of a product over D) or an
 // MN-major one (its rows are the k of a product whose N is D).
@@ -264,6 +264,10 @@ __device__ __forceinline__ void rs_tile(float* acc, const uint32_t* a,
     wgmma_rs<64>(acc, a, gmma_desc(tile + kk * 16 * 128, 128, true));
     wgmma_rs<16>(acc + 32, a,
                  gmma_desc(tile + ROWS * 128 + kk * 16 * 32, 32, true));
+  } else if constexpr (D == 96) {  // MLA's dQ and dK
+    wgmma_rs<64>(acc, a, gmma_desc(tile + kk * 16 * 128, 128, true));
+    wgmma_rs<32>(acc + 32, a,
+                 gmma_desc(tile + ROWS * 128 + kk * 16 * 64, 64, true));
   } else {
 #pragma unroll
     for (int c = 0; c < D / 64; ++c)

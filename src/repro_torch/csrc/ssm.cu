@@ -9,6 +9,9 @@
 // with an (N, P) state and a scalar decay,
 //     H_t = exp(a_t) H_{t-1} + B_t^T x_t,  y_t = C_t H_t   (no D skip).
 //
+// Their gradients, for training, are repro_rwkv6_scan_bwd and
+// repro_mamba2_ssd_bwd ("K7's and K8's backward" below).
+//
 // Bound on the card: bytes (each input read once, each output written
 // once); at the serve shapes 0.20 ms (K7) and 0.11 ms (K8).
 //
@@ -121,6 +124,8 @@
 
 #include <cuda_bf16.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -134,11 +139,16 @@ namespace {
 constexpr int TC = 16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // The step kernels take the state's columns in tiles of at most kStepCols
 // threads (blockIdx.y): 1,024 threads of ~170 registers (Dk or N = 128)
@@ -1293,6 +1303,541 @@ int wkv_chunked_by_dim(int dk, const void* r, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7's and K8's backward ("simt reverse scans")
+//
+// Neither reference kernel has a backward: the reference's training
+// differentiates its jnp oracles (src/repro/kernels/ref.py::rwkv6_ref,
+// mamba2_ref).  These are those gradients as reverse recurrences, with
+// G_t = dL/dS_t (dL/dH_t), started from the final state's cotangent:
+//
+//   K7: G_{t-1} = diag(w_t) G_t + r_t^T do_t
+//       dr_t = S_{t-1} do_t + (u o k_t)(v_t . do_t)
+//       dk_t = G_t v_t + (r_t o u)(v_t . do_t)
+//       dv_t = k_t^T G_t + (sum r_t o u o k_t) do_t
+//       dw_t = rowsum(G_t o S_{t-1}),  du = sum_{b,t} r_t o k_t (v_t . do_t)
+//   K8: G_t = C_t^T dy_t + a_{t+1} G_{t+1}        (a = exp(log_a))
+//       dx_t = B_t G_t,  dB_t = sum_h G_t x_t^T,  dC_t = sum_h H_t dy_t^T
+//       dlog_a_t = a_t sum(G_t o H_{t-1})
+//
+// Nothing divides by a decay, so w = 0 and log_a = -inf give finite
+// gradients.  A block takes one (b, h) and a tile of NC state columns (Dv
+// or P; any width up to 1024 is grid size), one thread a state ROW (Dk or
+// N threads), so the sums over columns (dr, dk, dw; dB, dC, dlog_a) are
+// each thread's own and only dv / dx are summed over the rows, in shared
+// memory.  The state and G stay in registers (NC each).  A first pass
+// walks forward and stores the state at the start of every chunk of
+// BW_CHUNK steps (a workspace that lives only for the launch); the
+// reverse pass then takes the chunks last to first, and for each step
+// recomputes S_{t-1} from its chunk's stored state (at most BW_CHUNK - 1
+// state updates), so no per-step state is ever stored and remat's memory
+// stays the dry-run's.  Sums that cross blocks are per-block fp64
+// partials, added in a fixed order by a second launch (K7: over the column
+// tiles, and du over b; K8: dB and dC over the heads and tiles, dlog_a
+// over the tiles): no float atomics, the result is the same run to run.
+//
+// Precision, by the inputs' dtype (BwRoute): bf16 inputs (the train path)
+// carry the state and G in fp32 over 64 columns a block; fp32 inputs carry
+// them in fp64 over 32 columns (the registers of 64 fp64 values a thread),
+// the stored states too.  Every sum that ends in a gradient (the dot
+// products over a tile's columns, the sums over the rows, over t and over
+// the blocks) runs in fp64 in both.  In fp32, a gradient that is a long
+// sum of products that cancel (K8's dlog_a: 4,096 products G H a step)
+// missed 2e-5 (1 + |g|) of the exact gradient by up to 6x at T = 1,000:
+// the fp32 state's own rounding, which no summation order removes.  Every
+// gradient in its input's dtype.
+
+constexpr int BW_CHUNK = 16;  // steps between stored states
+
+// the state's type (A) and the state columns a block takes (NC), by the
+// inputs' type
+template <typename T>
+struct BwRoute;
+template <>
+struct BwRoute<__nv_bfloat16> {
+  typedef float A;
+  static constexpr int NC = 64;
+};
+template <>
+struct BwRoute<float> {
+  typedef double A;
+  static constexpr int NC = 32;
+};
+
+__host__ __device__ inline int64_t bw_tiles(int cols, int nc) {
+  return (cols + nc - 1) / nc;
+}
+__host__ __device__ inline int64_t bw_chunks(int64_t nt) {
+  return (nt + BW_CHUNK - 1) / BW_CHUNK;
+}
+
+// workspace of either backward, in floats: the stored states (A), padded to
+// an even count, then the fp64 partial sums
+template <typename T>
+__host__ __device__ inline int64_t bw_states(int64_t BH, int64_t nt, int rows,
+                                             int cols) {
+  constexpr int NC = BwRoute<T>::NC;
+  return (BH * bw_tiles(cols, NC) * bw_chunks(nt) * NC * rows *
+              (int64_t)(sizeof(typename BwRoute<T>::A) / 4) +
+          1) / 2 * 2;
+}
+template <typename T>
+inline int64_t wkv_bwd_floats(int64_t BH, int64_t nt, int dk, int dv) {
+  const int64_t tiles = bw_tiles(dv, BwRoute<T>::NC);
+  return bw_states<T>(BH, nt, dk, dv) +
+         2 * (tiles * BH * nt * (3 * dk + 1)  // dr, dk, dw, v.do
+              + BH * tiles * dk);             // du
+}
+template <typename T>
+inline int64_t ssd_bwd_floats(int64_t BH, int64_t nt, int n, int p) {
+  const int64_t tiles = bw_tiles(p, BwRoute<T>::NC);
+  return bw_states<T>(BH, nt, n, p) +
+         2 * tiles * BH * nt * (2 * n + 1);  // dB, dC, sum G o H
+}
+
+template <typename T, int DK>
+size_t wkv_bwd_smem() {
+  using A = typename BwRoute<T>::A;
+  constexpr int NC = BwRoute<T>::NC;
+  // v . dO [BW_CHUNK] (fp64), the chunk's state [NC][DK] and the column
+  // sums [DK][NC + 1] (A), then R, K, W [BW_CHUNK][DK] and V, dO
+  // [BW_CHUNK][NC] (fp32)
+  return sizeof(double) * BW_CHUNK + sizeof(A) * (NC * DK + DK * (NC + 1)) +
+         sizeof(float) * (3 * BW_CHUNK * DK + 2 * BW_CHUNK * NC);
+}
+
+// rows [t0, t0 + n) of a (T, DK) input -> shared [n][DK] (fp32)
+template <typename T, int DK>
+__device__ __forceinline__ void stage_rows(float* s, const T* __restrict__ g,
+                                           int t0, int n) {
+  for (int i = threadIdx.x; i < n * DK; i += blockDim.x)
+    s[i] = to_f(g[(size_t)t0 * DK + i]);
+}
+
+// rows [t0, t0 + n), columns [col0, col0 + NC) of a (T, cols) input ->
+// shared [BW_CHUNK][NC], zeros past the columns and rows
+template <typename T, int NC>
+__device__ __forceinline__ void stage_cols(float* s, const T* __restrict__ g,
+                                           int t0, int n, int cols, int col0) {
+  for (int i = threadIdx.x; i < BW_CHUNK * NC; i += blockDim.x) {
+    const int tt = i / NC, j = col0 + i % NC;
+    s[i] = tt < n && j < cols ? to_f(g[(size_t)(t0 + tt) * cols + j]) : 0.f;
+  }
+}
+
+template <typename T, int DK>
+__global__ void __launch_bounds__(128)
+wkv_bwd(const T* __restrict__ r, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ w,
+        const T* __restrict__ u, const T* __restrict__ dout,
+        const float* __restrict__ dstate, T* __restrict__ dv_out,
+        float* __restrict__ ws, int BH, int H, int nt, int dv) {
+  using A = typename BwRoute<T>::A;
+  constexpr int NC = BwRoute<T>::NC, RP = NC + 1;
+  extern __shared__ float4 smem4[];
+  double* VD = reinterpret_cast<double*>(smem4);  // this tile's v . dO
+  A* CK = reinterpret_cast<A*>(VD + BW_CHUNK);    // the chunk's first S_{t-1}, [col][row]
+  A* RED = CK + NC * DK;                          // the rows' dv terms, [row][col]
+  float* Rs = reinterpret_cast<float*>(RED + DK * RP);
+  float* Ks = Rs + BW_CHUNK * DK;
+  float* Ws = Ks + BW_CHUNK * DK;
+  float* Vs = Ws + BW_CHUNK * DK;
+  float* Os = Vs + BW_CHUNK * NC;  // dO
+
+  const int bh = blockIdx.x, h = bh % H, tile = blockIdx.y, tiles = gridDim.y;
+  const int c = threadIdx.x;  // this thread's state row
+  const int col0 = tile * NC, cw = min(NC, dv - col0);
+  const int nch = (int)bw_chunks(nt);
+  const size_t kb = (size_t)bh * nt * DK, vb = (size_t)bh * nt * dv;
+  A* ckpt = reinterpret_cast<A*>(ws) + ((size_t)bh * tiles + tile) * nch * NC * DK;
+  double* sums = reinterpret_cast<double*>(
+      ws + bw_states<T>(BH, nt, DK, dv));
+  const size_t n_part = (size_t)BH * nt * DK;
+  double* part = sums + (size_t)tile * 3 * n_part + (size_t)bh * nt * DK;
+  double* vdo_part = sums + (size_t)tiles * 3 * n_part +
+                     ((size_t)tile * BH + bh) * nt;
+  double* du_part = sums + (size_t)tiles * BH * nt * (3 * DK + 1) +
+                    ((size_t)bh * tiles + tile) * DK;
+  const float uc = to_f(u[(size_t)h * DK + c]);
+
+  // pass 1: S_{t0-1} of every chunk
+  A S[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) S[j] = 0;
+  for (int ci = 0; ci < nch; ++ci) {
+    A* ck = ckpt + (size_t)ci * NC * DK;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) ck[j * DK + c] = S[j];
+    if (ci + 1 == nch) break;
+    const int t0 = ci * BW_CHUNK;
+    __syncthreads();  // the last chunk's reads are done
+    stage_rows<T, DK>(Ks, k + kb, t0, BW_CHUNK);
+    stage_rows<T, DK>(Ws, w + kb, t0, BW_CHUNK);
+    stage_cols<T, NC>(Vs, v + vb, t0, BW_CHUNK, dv, col0);
+    __syncthreads();
+    for (int tt = 0; tt < BW_CHUNK; ++tt) {
+      const A kc = Ks[tt * DK + c], wc = Ws[tt * DK + c];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) S[j] = fma(wc, S[j], kc * Vs[tt * NC + j]);
+    }
+  }
+
+  // pass 2: the chunks last to first, G = dL/dS_t in registers
+  A G[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    G[j] = dstate != nullptr && j < cw
+               ? dstate[((size_t)bh * DK + c) * dv + col0 + j] : 0.f;
+  double du = 0.0;
+  for (int ci = nch - 1; ci >= 0; --ci) {
+    const int t0 = ci * BW_CHUNK, n = min(BW_CHUNK, nt - t0);
+    __syncthreads();  // the last chunk's reads are done
+    stage_rows<T, DK>(Rs, r + kb, t0, n);
+    stage_rows<T, DK>(Ks, k + kb, t0, n);
+    stage_rows<T, DK>(Ws, w + kb, t0, n);
+    stage_cols<T, NC>(Vs, v + vb, t0, n, dv, col0);
+    stage_cols<T, NC>(Os, dout + vb, t0, n, dv, col0);
+    const A* ck = ckpt + (size_t)ci * NC * DK;
+    for (int i = c; i < NC * DK; i += DK) CK[i] = ck[i];
+    __syncthreads();
+    for (int tt = c; tt < n; tt += DK) {  // this tile's v . dO
+      double s = 0.0;
+#pragma unroll 8
+      for (int j = 0; j < NC; ++j)
+        s = fma((double)Vs[tt * NC + j], (double)Os[tt * NC + j], s);
+      VD[tt] = s;
+    }
+    __syncthreads();
+    for (int tt = n - 1; tt >= 0; --tt) {
+      // S = S_{t-1}: the chunk's stored state, then its steps before tt
+#pragma unroll
+      for (int j = 0; j < NC; ++j) S[j] = CK[j * DK + c];
+      for (int q = 0; q < tt; ++q) {
+        const A kc = Ks[q * DK + c], wc = Ws[q * DK + c];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) S[j] = fma(wc, S[j], kc * Vs[q * NC + j]);
+      }
+      const A rc = Rs[tt * DK + c], kc = Ks[tt * DK + c],
+              wc = Ws[tt * DK + c], ruk = rc * (A)uc * kc;
+      const float* vt = Vs + tt * NC;
+      const float* ot = Os + tt * NC;
+      double dr = 0.0, dkk = 0.0, dw = 0.0;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        dr = fma((double)S[j], (double)ot[j], dr);
+        dkk = fma((double)G[j], (double)vt[j], dkk);
+        dw = fma((double)G[j], (double)S[j], dw);
+        RED[c * RP + j] = fma(kc, G[j], ruk * ot[j]);
+        G[j] = fma(wc, G[j], rc * ot[j]);
+      }
+      const size_t at = (size_t)(t0 + tt) * DK + c;
+      part[at] = dr;
+      part[n_part + at] = dkk;
+      part[2 * n_part + at] = dw;
+      du = fma((double)rc * kc, VD[tt], du);
+      if (c == 0) vdo_part[t0 + tt] = VD[tt];
+      __syncthreads();
+      for (int j = c; j < cw; j += DK) {  // dv_t: the rows' sum
+        double s = 0.0;
+#pragma unroll 8
+        for (int i = 0; i < DK; ++i) s += RED[i * RP + j];
+        dv_out[vb + (size_t)(t0 + tt) * dv + col0 + j] = from_f<T>((float)s);
+      }
+      __syncthreads();
+    }
+  }
+  du_part[c] = du;
+}
+
+// dr, dk, dw: the tiles' partial sums plus the u terms, and du: the
+// partials of every (b, tile), each in a fixed order
+template <typename T>
+__global__ void __launch_bounds__(256)
+wkv_bwd_finish(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ u, const float* __restrict__ ws,
+               T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dw,
+               T* __restrict__ du, int B, int H, int nt, int DK, int dv) {
+  constexpr int NC = BwRoute<T>::NC;
+  const int64_t BH = (int64_t)B * H, tiles = bw_tiles(dv, NC);
+  const int64_t n_part = BH * nt * DK;
+  const double* part = reinterpret_cast<const double*>(
+      ws + bw_states<T>(BH, nt, DK, dv));
+  const double* vdo_part = part + tiles * 3 * n_part;
+  const double* du_part = vdo_part + tiles * BH * nt;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_part;
+       i += stride) {
+    const int64_t row = i / DK;  // (b h, t)
+    const int c = (int)(i % DK), h = (int)(row / nt % H);
+    double vdo = 0.0, a = 0.0, b = 0.0, d = 0.0;
+    for (int64_t ti = 0; ti < tiles; ++ti) {
+      vdo += vdo_part[ti * BH * nt + row];
+      a += part[ti * 3 * n_part + i];
+      b += part[(ti * 3 + 1) * n_part + i];
+      d += part[(ti * 3 + 2) * n_part + i];
+    }
+    const double uc = to_f(u[(int64_t)h * DK + c]);
+    dr[i] = from_f<T>((float)fma(uc * to_f(k[i]), vdo, a));
+    dk[i] = from_f<T>((float)fma(to_f(r[i]) * uc, vdo, b));
+    dw[i] = from_f<T>((float)d);
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (int64_t)H * DK; i += stride) {
+    const int h = (int)(i / DK), c = (int)(i % DK);
+    double s = 0.0;
+    for (int bb = 0; bb < B; ++bb)
+      for (int64_t ti = 0; ti < tiles; ++ti)
+        s += du_part[(((int64_t)bb * H + h) * tiles + ti) * DK + c];
+    du[i] = from_f<T>((float)s);
+  }
+}
+
+template <typename T, int DK>
+int launch_wkv_bwd(const void* r, const void* k, const void* v, const void* w,
+                   const void* u, const void* dout, const float* dstate,
+                   void* dr, void* dk, void* dv_out, void* dw, void* du,
+                   float* ws, int64_t B, int64_t H, int64_t nt, int dv,
+                   cudaStream_t stream) {
+  const size_t smem = wkv_bwd_smem<T, DK>();
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv_bwd<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  wkv_bwd<T, DK><<<dim3((unsigned)(B * H), (unsigned)bw_tiles(dv, BwRoute<T>::NC)),
+                   DK, smem, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w),
+      static_cast<const T*>(u), static_cast<const T*>(dout), dstate,
+      static_cast<T*>(dv_out), ws, (int)(B * H), (int)H, (int)nt, dv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int64_t n = B * H * nt * DK;
+  wkv_bwd_finish<T><<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256,
+                      0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(u), ws, static_cast<T*>(dr), static_cast<T*>(dk),
+      static_cast<T*>(dw), static_cast<T*>(du), (int)B, (int)H, (int)nt, DK, dv);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int wkv_bwd_by_dim(int dk, const void* r, const void* k, const void* v,
+                   const void* w, const void* u, const void* dout,
+                   const float* dstate, void* dr, void* dkk, void* dv_out,
+                   void* dw, void* du, float* ws, int64_t B, int64_t H,
+                   int64_t nt, int dv, cudaStream_t st) {
+  switch (dk) {
+    case 16: return launch_wkv_bwd<T, 16>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, nt, dv, st);
+    case 32: return launch_wkv_bwd<T, 32>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, nt, dv, st);
+    case 48: return launch_wkv_bwd<T, 48>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, nt, dv, st);
+    case 64: return launch_wkv_bwd<T, 64>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, nt, dv, st);
+    case 128: return launch_wkv_bwd<T, 128>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, nt, dv, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int N>
+size_t ssd_bwd_smem() {
+  using A = typename BwRoute<T>::A;
+  constexpr int NC = BwRoute<T>::NC;
+  // each row's sum of G o H_{t-1} [N] (fp64), the chunk's state [NC][N],
+  // the column sums [N][NC + 1] and exp(log_a) [BW_CHUNK] (A), then B, C
+  // [BW_CHUNK][N] and x, dy [BW_CHUNK][NC] (fp32)
+  return sizeof(double) * N + sizeof(A) * (NC * N + N * (NC + 1) + BW_CHUNK) +
+         sizeof(float) * (2 * BW_CHUNK * N + 2 * BW_CHUNK * NC);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(128)
+ssd_bwd(const T* __restrict__ x, const float* __restrict__ la,
+        const float* __restrict__ Bm, const float* __restrict__ Cm,
+        const T* __restrict__ dy, const float* __restrict__ dstate,
+        T* __restrict__ dx, float* __restrict__ ws, int BH, int H, int nt,
+        int p) {
+  using A = typename BwRoute<T>::A;
+  constexpr int NC = BwRoute<T>::NC, RP = NC + 1;
+  extern __shared__ float4 smem4[];
+  double* GH = reinterpret_cast<double*>(smem4);  // each row's sum of G o H
+  A* CK = reinterpret_cast<A*>(GH + N);           // the chunk's first H_{t-1}, [col][row]
+  A* RED = CK + NC * N;                           // the rows' dx terms, [row][col]
+  A* As = RED + N * RP;                           // exp(log_a)
+  float* Bs = reinterpret_cast<float*>(As + BW_CHUNK);
+  float* Cs = Bs + BW_CHUNK * N;
+  float* Xs = Cs + BW_CHUNK * N;
+  float* Ys = Xs + BW_CHUNK * NC;  // dy
+
+  const int bh = blockIdx.x, b = bh / H, tile = blockIdx.y, tiles = gridDim.y;
+  const int c = threadIdx.x;  // this thread's state row
+  const int col0 = tile * NC, cw = min(NC, p - col0);
+  const int nch = (int)bw_chunks(nt);
+  const size_t xb = (size_t)bh * nt * p;
+  const size_t nb = (size_t)b * nt * N;  // B and C are shared by the heads
+  const float* lb = la + (size_t)bh * nt;
+  A* ckpt = reinterpret_cast<A*>(ws) + ((size_t)bh * tiles + tile) * nch * NC * N;
+  double* sums = reinterpret_cast<double*>(
+      ws + bw_states<T>(BH, nt, N, p));
+  const size_t n_part = (size_t)BH * nt * N;
+  double* part = sums + (size_t)tile * 2 * n_part + (size_t)bh * nt * N;
+  double* gh_part = sums + (size_t)tiles * 2 * n_part +
+                    ((size_t)tile * BH + bh) * nt;
+
+  // pass 1: H_{t0-1} of every chunk
+  A S[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) S[j] = 0;
+  for (int ci = 0; ci < nch; ++ci) {
+    A* ck = ckpt + (size_t)ci * NC * N;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) ck[j * N + c] = S[j];
+    if (ci + 1 == nch) break;
+    const int t0 = ci * BW_CHUNK;
+    __syncthreads();  // the last chunk's reads are done
+    for (int i = c; i < BW_CHUNK * N; i += N) Bs[i] = Bm[nb + (size_t)t0 * N + i];
+    stage_cols<T, NC>(Xs, x + xb, t0, BW_CHUNK, p, col0);
+    for (int i = c; i < BW_CHUNK; i += N) As[i] = exp((A)lb[t0 + i]);
+    __syncthreads();
+    for (int tt = 0; tt < BW_CHUNK; ++tt) {
+      const A bc = Bs[tt * N + c], a = As[tt];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) S[j] = fma(a, S[j], bc * Xs[tt * NC + j]);
+    }
+  }
+
+  // pass 2: the chunks last to first, G = a_{t+1} dL/dH_{t+1} in registers
+  A G[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    G[j] = dstate != nullptr && j < cw
+               ? dstate[((size_t)bh * N + c) * p + col0 + j] : 0.f;
+  for (int ci = nch - 1; ci >= 0; --ci) {
+    const int t0 = ci * BW_CHUNK, n = min(BW_CHUNK, nt - t0);
+    __syncthreads();  // the last chunk's reads are done
+    for (int i = c; i < n * N; i += N) {
+      Bs[i] = Bm[nb + (size_t)t0 * N + i];
+      Cs[i] = Cm[nb + (size_t)t0 * N + i];
+    }
+    stage_cols<T, NC>(Xs, x + xb, t0, n, p, col0);
+    stage_cols<T, NC>(Ys, dy + xb, t0, n, p, col0);
+    for (int i = c; i < n; i += N) As[i] = exp((A)lb[t0 + i]);
+    const A* ck = ckpt + (size_t)ci * NC * N;
+    for (int i = c; i < NC * N; i += N) CK[i] = ck[i];
+    __syncthreads();
+    for (int tt = n - 1; tt >= 0; --tt) {
+      // S = H_{t-1}: the chunk's stored state, then its steps before tt
+#pragma unroll
+      for (int j = 0; j < NC; ++j) S[j] = CK[j * N + c];
+      for (int q = 0; q < tt; ++q) {
+        const A bc = Bs[q * N + c], a = As[q];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) S[j] = fma(a, S[j], bc * Xs[q * NC + j]);
+      }
+      const A bc = Bs[tt * N + c], cc = Cs[tt * N + c], a = As[tt];
+      const float* xt = Xs + tt * NC;
+      const float* yt = Ys + tt * NC;
+      double db = 0.0, dc = 0.0, gh = 0.0;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const A g = fma(cc, (A)yt[j], G[j]);       // G_t
+        const A ht = fma(a, S[j], bc * xt[j]);     // H_t
+        dc = fma((double)yt[j], (double)ht, dc);
+        db = fma((double)g, (double)xt[j], db);
+        gh = fma((double)g, (double)S[j], gh);
+        RED[c * RP + j] = bc * g;
+        G[j] = a * g;
+      }
+      GH[c] = gh;
+      const size_t at = (size_t)(t0 + tt) * N + c;
+      part[at] = db;
+      part[n_part + at] = dc;
+      __syncthreads();
+      for (int j = c; j <= NC; j += N) {  // dx_t and sum G o H_{t-1}
+        if (j < NC && j >= cw) continue;
+        double s = 0.0;
+        if (j < NC) {
+#pragma unroll 8
+          for (int i = 0; i < N; ++i) s += RED[i * RP + j];
+          dx[xb + (size_t)(t0 + tt) * p + col0 + j] = from_f<T>((float)s);
+        } else {
+          for (int i = 0; i < N; ++i) s += GH[i];
+          gh_part[t0 + tt] = s;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// dB, dC: the heads' and tiles' partial sums; dlog_a = exp(log_a) times
+// the tiles' sums of G o H_{t-1}; each in a fixed order
+template <typename T>
+__global__ void __launch_bounds__(256)
+ssd_bwd_finish(const float* __restrict__ la, const float* __restrict__ ws,
+               float* __restrict__ dla, float* __restrict__ dB,
+               float* __restrict__ dC, int B, int H, int nt, int N, int p) {
+  const int64_t BH = (int64_t)B * H, tiles = bw_tiles(p, BwRoute<T>::NC);
+  const int64_t n_part = BH * nt * N;
+  const double* part = reinterpret_cast<const double*>(
+      ws + bw_states<T>(BH, nt, N, p));
+  const double* gh_part = part + tiles * 2 * n_part;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t per_b = (int64_t)nt * N;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < B * per_b; i += stride) {
+    const int64_t b = i / per_b, tn = i % per_b;
+    double sb = 0.0, sc = 0.0;
+    for (int64_t ti = 0; ti < tiles; ++ti)
+      for (int h = 0; h < H; ++h) {
+        const int64_t at = (b * H + h) * per_b + tn;
+        sb += part[ti * 2 * n_part + at];
+        sc += part[(ti * 2 + 1) * n_part + at];
+      }
+    dB[i] = (float)sb;
+    dC[i] = (float)sc;
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < BH * nt;
+       i += stride) {
+    double s = 0.0;
+    for (int64_t ti = 0; ti < tiles; ++ti) s += gh_part[ti * BH * nt + i];
+    dla[i] = (float)(exp((double)la[i]) * s);  // a decay of 0 gives 0, not 0 * inf
+  }
+}
+
+template <typename T, int N>
+int launch_ssd_bwd(const void* x, const float* la, const float* Bm,
+                   const float* Cm, const void* dy, const float* dstate,
+                   void* dx, float* dla, float* dB, float* dC, float* ws,
+                   int64_t B, int64_t H, int64_t nt, int p,
+                   cudaStream_t stream) {
+  constexpr int NC = BwRoute<T>::NC;
+  const size_t smem = ssd_bwd_smem<T, N>();
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_bwd<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  ssd_bwd<T, N><<<dim3((unsigned)(B * H), (unsigned)bw_tiles(p, NC)), N, smem,
+                  stream>>>(
+      static_cast<const T*>(x), la, Bm, Cm, static_cast<const T*>(dy), dstate,
+      static_cast<T*>(dx), ws, (int)(B * H), (int)H, (int)nt, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int64_t n = B * nt * N;
+  ssd_bwd_finish<T><<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256,
+                      0, stream>>>(la, ws, dla, dB, dC, (int)B, (int)H,
+                                   (int)nt, N, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int ssd_bwd_by_dim(int n, const void* x, const float* la, const float* Bm,
+                   const float* Cm, const void* dy, const float* dstate,
+                   void* dx, float* dla, float* dB, float* dC, float* ws,
+                   int64_t B, int64_t H, int64_t nt, int p, cudaStream_t st) {
+  switch (n) {
+    case 16: return launch_ssd_bwd<T, 16>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, nt, p, st);
+    case 32: return launch_ssd_bwd<T, 32>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, nt, p, st);
+    case 48: return launch_ssd_bwd<T, 48>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, nt, p, st);
+    case 64: return launch_ssd_bwd<T, 64>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, nt, p, st);
+    case 128: return launch_ssd_bwd<T, 128>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, nt, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream): r/k/w
@@ -1330,5 +1875,85 @@ extern "C" int repro_mamba2_ssd(const void* x, const void* log_a,
     return ssd_steps_by_dim(n, x, la, bm, cm, y, s, B, H, T, p, st);
   if (dtype == 1)
     return ssd_chunked_by_dim(n, x, la, bm, cm, y, s, B, H, T, p, st);
+  return cudaErrorInvalidValue;
+}
+
+// (B, H, T, Dk, Dv, dtype) -> the fp32 floats of the workspace
+// repro_rwkv6_scan_bwd takes (the stored states and partial sums), -1 for
+// an unknown dtype
+extern "C" int64_t repro_rwkv6_scan_bwd_ws(int64_t B, int64_t H, int64_t T,
+                                           int dk, int dv, int dtype) {
+  if (dtype == 0) return wkv_bwd_floats<float>(B * H, T, dk, dv);
+  if (dtype == 1) return wkv_bwd_floats<__nv_bfloat16>(B * H, T, dk, dv);
+  return -1;
+}
+
+// (B, H, T, N, P, dtype) -> the fp32 floats of repro_mamba2_ssd_bwd's
+// workspace, -1 for an unknown dtype
+extern "C" int64_t repro_mamba2_ssd_bwd_ws(int64_t B, int64_t H, int64_t T,
+                                           int n, int p, int dtype) {
+  if (dtype == 0) return ssd_bwd_floats<float>(B * H, T, n, p);
+  if (dtype == 1) return ssd_bwd_floats<__nv_bfloat16>(B * H, T, n, p);
+  return -1;
+}
+
+// (r, k, v, w, u, dout, dstate, dr, dk, dv, dw, du, ws, ws_floats, B, H, T,
+// Dk, Dv, dtype, stream): K7's backward at the cotangents dout (B, H, T,
+// Dv) of the output and dstate (B, H, Dk, Dv) fp32 (null: zero) of the
+// final state; the gradients in their inputs' shapes and dtype (all fp32
+// or all bf16, dtype 0 / 1); ws an fp32 workspace of ws_floats >=
+// repro_rwkv6_scan_bwd_ws's floats
+extern "C" int repro_rwkv6_scan_bwd(const void* r, const void* k, const void* v,
+                                    const void* w, const void* u, const void* dout,
+                                    const void* dstate, void* dr, void* dk,
+                                    void* dv_out, void* dw, void* du, void* ws,
+                                    int64_t ws_floats, int64_t B, int64_t H,
+                                    int64_t T, int dk_, int dv, int dtype,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ds = static_cast<const float*>(dstate);
+  float* w_ = static_cast<float*>(ws);
+  if (dv < 1 || dv > 1024 ||
+      ws_floats < repro_rwkv6_scan_bwd_ws(B, H, T, dk_, dv, dtype))
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return wkv_bwd_by_dim<float>(dk_, r, k, v, w, u, dout, ds, dr, dk, dv_out,
+                                 dw, du, w_, B, H, T, dv, st);
+  if (dtype == 1)
+    return wkv_bwd_by_dim<__nv_bfloat16>(dk_, r, k, v, w, u, dout, ds, dr, dk,
+                                         dv_out, dw, du, w_, B, H, T, dv, st);
+  return cudaErrorInvalidValue;
+}
+
+// (x, log_a, Bm, Cm, dy, dstate, dx, dlog_a, dBm, dCm, ws, ws_floats, B, H,
+// T, N, P, dtype, stream): K8's backward at the cotangents dy (B, H, T, P)
+// in x's dtype and dstate (B, H, N, P) fp32 (null: zero); dx in x's dtype
+// (fp32 or bf16, dtype 0 / 1), dlog_a (B, H, T), dBm and dCm (B, T, N) fp32;
+// ws an fp32 workspace of ws_floats >= repro_mamba2_ssd_bwd_ws's floats
+extern "C" int repro_mamba2_ssd_bwd(const void* x, const void* log_a,
+                                    const void* Bm, const void* Cm, const void* dy,
+                                    const void* dstate, void* dx, void* dla,
+                                    void* dB, void* dC, void* ws,
+                                    int64_t ws_floats, int64_t B, int64_t H,
+                                    int64_t T, int n, int p, int dtype,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* la = static_cast<const float*>(log_a);
+  const float* bm = static_cast<const float*>(Bm);
+  const float* cm = static_cast<const float*>(Cm);
+  const float* ds = static_cast<const float*>(dstate);
+  float* w_ = static_cast<float*>(ws);
+  if (p < 1 || p > 1024 ||
+      ws_floats < repro_mamba2_ssd_bwd_ws(B, H, T, n, p, dtype))
+    return cudaErrorInvalidValue;
+  float* o_la = static_cast<float*>(dla);
+  float* o_b = static_cast<float*>(dB);
+  float* o_c = static_cast<float*>(dC);
+  if (dtype == 0)
+    return ssd_bwd_by_dim<float>(n, x, la, bm, cm, dy, ds, dx, o_la, o_b, o_c,
+                                 w_, B, H, T, p, st);
+  if (dtype == 1)
+    return ssd_bwd_by_dim<__nv_bfloat16>(n, x, la, bm, cm, dy, ds, dx, o_la,
+                                         o_b, o_c, w_, B, H, T, p, st);
   return cudaErrorInvalidValue;
 }

@@ -44,7 +44,8 @@ _P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 
 #: library -> {C function: argtypes}; every launcher returns the
-#: ``cudaGetLastError()`` code of its launches (0 = success)
+#: ``cudaGetLastError()`` code of its launches (0 = success), a size query
+#: of ``RESTYPES`` its own type
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "scans": {
         # (in, out, workspace, capacity, n, epoch, base, stream)
@@ -78,10 +79,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "attention_bwd": {
         # (q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, Sq, Sk,
-        #  D, dtype, causal, window, scale, stream)
+        #  D, Dv, dtype, causal, window, scale, stream)
         "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I64, _I64, _I64, _I64, _I64, _INT,
-                                      _INT, _INT, _INT, _F32, _P],
+                                      _INT, _INT, _INT, _INT, _F32, _P],
     },
     "ssm": {
         # (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream)
@@ -90,8 +91,23 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # (x, log_a, Bm, Cm, y, state, B, H, T, N, P, dtype, stream)
         "repro_mamba2_ssd": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
                              _INT, _INT, _P],
+        # (B, H, T, Dk, Dv, dtype) -> the backward's workspace in floats
+        "repro_rwkv6_scan_bwd_ws": [_I64, _I64, _I64, _INT, _INT, _INT],
+        # (B, H, T, N, P, dtype) -> the same for K8's backward
+        "repro_mamba2_ssd_bwd_ws": [_I64, _I64, _I64, _INT, _INT, _INT],
+        # (r, k, v, w, u, dout, dstate, dr, dk, dv, dw, du, ws, ws_floats,
+        #  B, H, T, Dk, Dv, dtype, stream)
+        "repro_rwkv6_scan_bwd": [_P] * 13 + [_I64, _I64, _I64, _I64, _INT,
+                                             _INT, _INT, _P],
+        # (x, log_a, Bm, Cm, dy, dstate, dx, dlog_a, dBm, dCm, ws, ws_floats,
+        #  B, H, T, N, P, dtype, stream)
+        "repro_mamba2_ssd_bwd": [_P] * 11 + [_I64, _I64, _I64, _I64, _INT,
+                                             _INT, _INT, _P],
     },
 }
+#: C functions that return something else than an error code
+RESTYPES = {"repro_rwkv6_scan_bwd_ws": ctypes.c_int64,
+            "repro_mamba2_ssd_bwd_ws": ctypes.c_int64}
 _ERROR_STRING = "repro_cuda_error_string"  # (code) -> const char*, in every library
 
 _lock = threading.Lock()
@@ -180,7 +196,7 @@ def library(name: str) -> ctypes.CDLL:
                 for fn, argtypes in SIGNATURES[n].items():
                     f = getattr(cdll, fn)
                     f.argtypes = argtypes
-                    f.restype = ctypes.c_int
+                    f.restype = RESTYPES.get(fn, ctypes.c_int)
                 f = getattr(cdll, _ERROR_STRING)
                 f.argtypes = [ctypes.c_int]
                 f.restype = ctypes.c_char_p

@@ -9,8 +9,8 @@ softmax statistics and the accumulator in fp32, the output in the
 inputs' dtype.  The CUDA kernels live in ``csrc/attention.cu``; on a CPU
 tensor the wrapper runs the plain version (``ref.flash_attention_ref``),
 on a ``meta`` tensor the dry-run's stand-in (``meta.py``: shapes and a
-FLOP formula), on a CUDA tensor it launches the kernel of its dtype or
-raises:
+FLOP formula, at any head dims: the smoke configs' too), on a CUDA tensor
+it launches the kernel of its dtype or raises:
 
 - bfloat16 (the serve path): ``flash_fwd_wgmma``, both products on the
   tensor cores (``wgmma``, fp32 accumulators, P rounded to bf16 before
@@ -41,11 +41,10 @@ tile over the group's heads.  bf16 runs them on the tensor cores
 (``wgmma`` fed by TMA, P and dS in two bf16 pieces; at head dim 256 the
 dK/dV kernel splits the head dim over two warpgroups and an even group's
 heads over two blocks, whose fp32 sums a third kernel adds), fp32 on the
-CUDA cores (tiles of 32 rows at head dim 256).  Both take every head dim of
-``HEAD_DIMS`` with ``Dv = D``; a narrow v (``NARROW_V``) has no backward
-kernel yet, so on the card a call that would record a graph there raises
-``ValueError`` before it launches (the CPU's plain backward takes it).
-When a graph will be recorded (grad mode on and an input that
+CUDA cores (tiles of 32 rows at head dim 256).  Both take the forward's
+pairs: every head dim of ``HEAD_DIMS`` with ``Dv = D`` and the narrow-v
+pairs of ``NARROW_V`` (MLA's training: dQ and dK 96 wide, dV, dO, O and
+Delta's rowsum 64).  When a graph will be recorded (grad mode on and an input that
 requires grad) the forward launch also writes each query row's
 log-sum-exp, LSE: ``(B, H, Sq)`` fp32, the natural log of the sum of
 ``exp(scale * q k^T)`` over the row's visible keys, ``-inf`` for a row that
@@ -122,18 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # decided here: inside ``forward`` grad mode is off
     graph = torch.is_grad_enabled() and any(t.requires_grad
                                             for t in (q, k, v))
-    if graph and q.device.type != "cpu":
-        _check_bwd_dims("flash_attention", q, v)
     return FlashAttention.apply(q, k, v, causal, window, scale, graph)
-
-
-def _check_bwd_dims(name: str, q: torch.Tensor, v: torch.Tensor) -> None:
-    """K5's backward kernels take ``Dv = D`` only."""
-    d, dv = q.shape[-1], v.shape[-1]
-    if dv != d:
-        raise ValueError(
-            f"{name}: K5's backward is not built for head dim {d} with v "
-            f"{dv} (v narrower than q/k: MLA's training waits for it)")
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,17 +160,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     b, h, sq, d = q.shape
     g, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.device.type == "cpu":
-        out = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                      scale=scale)
-        lse = (ref.flash_attention_lse_ref(q, k, causal=causal,
-                                           window=window, scale=scale)
-               if with_lse else None)
-        return out, lse
-    check_kernel_args("flash_attention", q, k, v, window=window, dv=dv)
-    if q.device.type == "meta":  # the dry-run: shapes and FLOPs
+        if with_lse:
+            return ref.flash_attention_with_lse_ref(
+                q, k, v, causal=causal, window=window, scale=scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale), None
+    if q.device.type == "meta":  # the dry-run: shapes and FLOPs, any dims
         out, lse = meta.ops().flash_attention(q, k, v, causal, window or 0,
                                               with_lse)
         return out, lse if with_lse else None
+    check_kernel_args("flash_attention", q, k, v, window=window, dv=dv)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = q.new_empty((b, h, sq, dv))
@@ -215,7 +202,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``(B, H, Sq)`` fp32, natural log, as :func:`flash_attention_lse`
     returns it); each in its input's dtype (fp32 accumulation).  On a CPU
     tensor ``ref.flash_attention_bwd_ref``; on a CUDA tensor the kernel of
-    ``csrc/attention_bwd.cu`` (``Dv = D`` only) or a raise."""
+    ``csrc/attention_bwd.cu`` (the forward's head-dim pairs) or a raise."""
     _check_shapes("flash_attention_bwd", q, k, v)
     o_shape = q.shape[:3] + v.shape[3:]
     if out.shape != o_shape or dout.shape != o_shape:
@@ -230,13 +217,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window,
                                            scale=scale)
-    _check_bwd_dims("flash_attention_bwd", q, v)
-    check_kernel_args("flash_attention_bwd", q, k, v, out, dout,
-                      window=window)
     if q.device.type == "meta":
         return meta.ops().flash_attention_bwd(q, k, v, causal, window or 0)
+    check_kernel_args("flash_attention_bwd", q, k, v, out, dout,
+                      window=window, dv=v.shape[3])
     b, h, sq, d = q.shape
-    g, sk = k.shape[1], k.shape[2]
+    g, sk, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v, out, dout = (aligned16(t.contiguous())
                           for t in (q, k, v, out, dout))
@@ -257,7 +243,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(),
             None if part is None else part.data_ptr(), b, h, g, sq, sk, d,
-            DTYPE_CODES[q.dtype], int(causal),
+            dv_dim, DTYPE_CODES[q.dtype], int(causal),
             0 if window is None else int(window), float(scale), stream)
     _build.check(lib, rc, "flash_attention_bwd")
     count_launch("flash_attention_bwd", (b, h, g, sq, sk, d))

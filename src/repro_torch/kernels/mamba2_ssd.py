@@ -27,6 +27,18 @@ as the model gives).  N is one of ``STATE_DIMS``, P at most
 ``MAX_COLS``.  On a CPU tensor the wrapper runs the plain version
 (``ref.mamba2_ref``), on a ``meta`` tensor the dry-run's stand-in
 (``meta.py``), on a CUDA tensor it launches the kernel or raises.
+
+**Gradients.**  Every call runs through ``Mamba2SSD``, a
+``torch.autograd.Function`` that saves only the inputs: its backward,
+:func:`mamba2_ssd_bwd`, recomputes the states.  On a CUDA tensor that is
+K8's backward kernel (``csrc/ssm.cu``, ``ssd_bwd``, one launch counted as
+``mamba2_ssd_bwd``), K7's design: a block per (b, h) and a tile of state
+columns, a thread a state row, the state stored every 16th step and each
+step's ``H_{t-1}`` recomputed from its chunk's; dB and dC (B and C are
+shared by the heads) and dlog_a are summed over the blocks by a second
+kernel in a fixed order; the state's precision follows x's dtype as
+K7's does, every sum that ends in a gradient in fp64.  On the CPU it is ``ref.mamba2_bwd_ref``, on
+``meta`` the dry-run's op.
 """
 
 from __future__ import annotations
@@ -35,14 +47,11 @@ import torch
 
 from . import _build, meta, ref
 from .flash_attention import DTYPE_CODES
-from .ops import count_launch, refuse_grad
+from .ops import count_launch
 from .rwkv6_scan import MAX_COLS, STATE_DIMS
 
 
-def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
-               Cm: torch.Tensor):
-    """-> (y (B, H, T, P) without the D skip, final state (B, H, N, P)
-    fp32)."""
+def _check_shapes(x, log_a, Bm, Cm) -> None:
     if x.dim() != 4:
         raise ValueError("mamba2_ssd: x must be (B, H, T, P)")
     b, h, t, p = x.shape
@@ -50,23 +59,57 @@ def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"mamba2_ssd: log_a must be ({b}, {h}, {t})")
     if Bm.dim() != 3 or tuple(Bm.shape[:2]) != (b, t) or Cm.shape != Bm.shape:
         raise ValueError(f"mamba2_ssd: Bm and Cm must be ({b}, {t}, N)")
-    if x.device.type == "cpu":
-        return ref.mamba2_ref(x, log_a, Bm, Cm)
-    refuse_grad("mamba2_ssd", x, log_a, Bm, Cm)
-    n = Bm.shape[2]
+
+
+def _check_kernel_args(name: str, x, log_a, Bm, Cm) -> None:
+    """What the CUDA kernels take: one device, x in fp32 or bf16 and the
+    rest in fp32, a built state width."""
+    n, p = Bm.shape[2], x.shape[3]
     if any(a.device != x.device for a in (log_a, Bm, Cm)):
-        raise ValueError("mamba2_ssd: x, log_a, Bm and Cm must share a device")
+        raise ValueError(f"{name}: x, log_a, Bm and Cm must share a device")
     if x.dtype not in DTYPE_CODES or any(
             a.dtype != torch.float32 for a in (log_a, Bm, Cm)):
-        raise TypeError("mamba2_ssd: the kernel takes x in float32 or "
+        raise TypeError(f"{name}: the kernel takes x in float32 or "
                         "bfloat16 and log_a, Bm, Cm in float32")
     if n not in STATE_DIMS or not 1 <= p <= MAX_COLS:
-        raise ValueError(f"mamba2_ssd: N {n} not in {STATE_DIMS} or P {p} "
+        raise ValueError(f"{name}: N {n} not in {STATE_DIMS} or P {p} "
                          f"not in [1, {MAX_COLS}]")
+
+
+def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor):
+    """-> (y (B, H, T, P) without the D skip, final state (B, H, N, P)
+    fp32); differentiable in x, log_a, Bm and Cm (see the module
+    docstring)."""
+    _check_shapes(x, log_a, Bm, Cm)
+    return Mamba2SSD.apply(x, log_a, Bm, Cm)
+
+
+class Mamba2SSD(torch.autograd.Function):
+    """K8 under autograd: the forward launch, the inputs saved, and
+    :func:`mamba2_ssd_bwd` for the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, Bm, Cm):
+        ctx.save_for_backward(x, log_a, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return _forward(x, log_a, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return mamba2_ssd_bwd(*ctx.saved_tensors, dy, dstate)
+
+
+def _forward(x, log_a, Bm, Cm):
+    b, h, t, p = x.shape
+    if x.device.type == "cpu":
+        return ref.mamba2_ref(x, log_a, Bm, Cm)
+    _check_kernel_args("mamba2_ssd", x, log_a, Bm, Cm)
     if x.device.type == "meta":  # the dry-run: shapes and FLOPs
         return meta.ops().mamba2_ssd(x, Bm)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
+    n = Bm.shape[2]
     x, log_a, Bm, Cm = (a.contiguous() for a in (x, log_a, Bm, Cm))
     # the chunked kernel stages B and C rows with 16-byte copies
     Bm, Cm = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (Bm, Cm))
@@ -84,3 +127,49 @@ def mamba2_ssd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
     _build.check(lib, rc, "mamba2_ssd")
     count_launch("mamba2_ssd", (b, h, t, p, n))
     return y, state
+
+
+def mamba2_ssd_bwd(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, dy, dstate=None):
+    """K8's backward: ``(dx, dlog_a, dBm, dCm)`` of :func:`mamba2_ssd` at
+    the cotangents ``dy`` (B, H, T, P) of the output and ``dstate`` (B, H,
+    N, P) of the final state (None: zero), each in its input's dtype (fp32
+    sums).  On a CPU tensor ``ref.mamba2_bwd_ref``; on a CUDA tensor the
+    kernel of ``csrc/ssm.cu`` or a raise."""
+    _check_shapes(x, log_a, Bm, Cm)
+    b, h, t, p = x.shape
+    n = Bm.shape[2]
+    for name, a, shape in (("dy", dy, x.shape),
+                           ("dstate", dstate, (b, h, n, p))):
+        if a is not None and tuple(a.shape) != tuple(shape):
+            raise ValueError(f"mamba2_ssd_bwd: {name} must be "
+                             f"{tuple(shape)}, got {tuple(a.shape)}")
+    if x.device.type == "cpu":
+        return ref.mamba2_bwd_ref(x, log_a, Bm, Cm, dy, dstate)
+    _check_kernel_args("mamba2_ssd_bwd", x, log_a, Bm, Cm)
+    if x.device.type == "meta":
+        return meta.ops().mamba2_ssd_bwd(x, log_a, Bm)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd_bwd: unsupported device {x.device}")
+    x, log_a, Bm, Cm = (a.contiguous() for a in (x, log_a, Bm, Cm))
+    dy = (torch.zeros_like(x) if dy is None
+          else dy.to(x.dtype).contiguous())
+    if dstate is not None:
+        dstate = dstate.to(device=x.device, dtype=torch.float32).contiguous()
+    grads = tuple(torch.empty_like(a) for a in (x, log_a, Bm, Cm))
+    if b * h * t == 0:
+        return tuple(g.zero_() for g in grads)
+    lib = _build.library("ssm")
+    # the stored states and the partial sums, for this launch only
+    n_ws = lib.repro_mamba2_ssd_bwd_ws(b, h, t, n, p, DTYPE_CODES[x.dtype])
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    guard, stream = _build.launch_args(x)
+    with guard:
+        rc = lib.repro_mamba2_ssd_bwd(
+            x.data_ptr(), log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), n_ws, b, h, t, n,
+            p, DTYPE_CODES[x.dtype], stream)
+    _build.check(lib, rc, "mamba2_ssd_bwd")
+    count_launch("mamba2_ssd_bwd", (b, h, t, p, n))
+    return grads

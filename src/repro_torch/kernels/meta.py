@@ -1,5 +1,5 @@
-"""The serve and train kernels (K5, its backward, K6, K7, K8) on the
-``meta`` device: the dry-run's stand-ins.
+"""The serve and train kernels (K5, K6, K7, K8 and the backwards of K5, K7
+and K8) on the ``meta`` device: the dry-run's stand-ins.
 
 A wrapper given ``meta`` tensors calls the op of its name here instead of
 its kernel: a ``torch.library.custom_op`` whose fake implementation only
@@ -13,7 +13,15 @@ registers nothing.
 The FLOP formulas count multiply-adds as 2 and the work this call's
 shapes need: K5's visible (query, key) pairs under its causal mask and
 window, K6 every cached position (its lengths are data), the scans'
-state updates and read-outs.
+state updates and read-outs; the scans' backwards also count the forward
+state update they recompute.
+
+The scans' backward kernels take a workspace for the launch (the stored
+states and the fp64 partial sums): :func:`scan_bwd_workspace_bytes` is
+its size as the dry-run counts it, the same formula as the C library's
+``repro_rwkv6_scan_bwd_ws`` / ``repro_mamba2_ssd_bwd_ws`` (held equal on
+the card), and the meta ops record the largest they were asked for
+(:func:`workspace_peak`).
 """
 
 from __future__ import annotations
@@ -26,6 +34,46 @@ import torch
 
 _lock = threading.Lock()
 _ops = None
+#: the largest backward workspace the meta ops stood in for, in bytes
+_workspace = [0]
+
+#: by the inputs' dtype, the state columns a backward block takes and the
+#: bytes of a stored state value (``BwRoute`` of ``csrc/ssm.cu``)
+_BWD_ROUTE = {torch.bfloat16: (64, 4), torch.float32: (32, 8)}
+#: the steps between the states a backward stores (``BW_CHUNK``)
+_BWD_CHUNK = 16
+
+
+def scan_bwd_workspace_bytes(kind: str, dtype, bh: int, t: int, rows: int,
+                             cols: int) -> int:
+    """Bytes of the workspace of one K7 (``kind`` "wkv": rows Dk, cols Dv)
+    or K8 ("ssd": rows N, cols P) backward launch on ``bh`` (batch x head)
+    sequences of ``t`` steps: one stored state slice per (sequence, column
+    tile, chunk of steps), padded to an even count of floats, then the
+    fp64 partial sums (K7: dr, dk, dw and v . dO of each tile and step, du
+    of each sequence and tile; K8: dB, dC and the sum of G o H)."""
+    nc, nbytes = _BWD_ROUTE[dtype]
+    tiles = -(-cols // nc)
+    states = bh * tiles * -(-t // _BWD_CHUNK) * nc * rows * nbytes // 4
+    states += states % 2
+    if kind == "wkv":
+        part = tiles * bh * t * (3 * rows + 1) + bh * tiles * rows
+    else:
+        part = tiles * bh * t * (2 * rows + 1)
+    return 4 * (states + 2 * part)
+
+
+def workspace_peak(reset: bool = False) -> int:
+    """The largest backward workspace (bytes) the meta ops stood in for
+    since the last reset; ``reset`` starts again from 0."""
+    peak = _workspace[0]
+    if reset:
+        _workspace[0] = 0
+    return peak
+
+
+def _note_workspace(nbytes: int) -> None:
+    _workspace[0] = max(_workspace[0], nbytes)
 
 
 def visible_pairs(sq: int, sk: int, causal: bool,
@@ -101,6 +149,36 @@ def _define():
         return (torch.empty_like(x),
                 x.new_empty((b, h, bm.shape[2], p), dtype=torch.float32))
 
+    @torch.library.custom_op(f"{ns}::rwkv6_scan_bwd", mutates_args=())
+    def rwkv6_scan_bwd(r: torch.Tensor, v: torch.Tensor, u: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+        raise RuntimeError("rwkv6_scan_bwd: the meta op takes meta tensors")
+
+    @rwkv6_scan_bwd.register_fake
+    def _(r, v, u):
+        b, h, t, dk = r.shape
+        _note_workspace(scan_bwd_workspace_bytes("wkv", r.dtype, b * h, t, dk,
+                                                 v.shape[3]))
+        # dr, dk, dv, dw, du
+        return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(v),
+                torch.empty_like(r), torch.empty_like(u))
+
+    @torch.library.custom_op(f"{ns}::mamba2_ssd_bwd", mutates_args=())
+    def mamba2_ssd_bwd(x: torch.Tensor, log_a: torch.Tensor, bm: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+        raise RuntimeError("mamba2_ssd_bwd: the meta op takes meta tensors")
+
+    @mamba2_ssd_bwd.register_fake
+    def _(x, log_a, bm):
+        b, h, t, p = x.shape
+        _note_workspace(scan_bwd_workspace_bytes("ssd", x.dtype, b * h, t,
+                                                 bm.shape[2], p))
+        # dx, dlog_a, dBm, dCm
+        return (torch.empty_like(x), torch.empty_like(log_a),
+                torch.empty_like(bm), torch.empty_like(bm))
+
     def win(w):
         return None if w <= 0 else w
 
@@ -134,6 +212,20 @@ def _define():
     def _(x_shape, bm_shape, *a, **kw):
         b, h, t, p = x_shape
         return 5 * b * h * t * bm_shape[2] * p
+
+    @register_flop_formula(ops.rwkv6_scan_bwd)
+    def _(r_shape, v_shape, u_shape, *a, **kw):
+        b, h, t, dk = r_shape
+        # the recomputed S = w S + k v^T (3); dr, dk, dw, dv's k^T G and
+        # the G update's r^T do (2 each); the decay of G (1); dv's u term (2)
+        return 16 * b * h * t * dk * v_shape[3]
+
+    @register_flop_formula(ops.mamba2_ssd_bwd)
+    def _(x_shape, log_a_shape, bm_shape, *a, **kw):
+        b, h, t, p = x_shape
+        # the recomputed H = a H + B^T x (3); G's C^T dy, dx, dB, dC and
+        # dlog_a's sum (2 each); the decay of G (1)
+        return 14 * b * h * t * bm_shape[2] * p
 
     return ops
 

@@ -42,10 +42,11 @@ Every kernel wrapper counts its launches here (:func:`count_launch`), one
 per launch of its CUDA kernel and nowhere else, with the shape it was
 given, so a run can show which kernels its path went through and at
 which shapes.
-K5's backward (``flash_attention_bwd``) counts one launch per call of
-its C entry, which runs its two kernels.  The card routes of K6, K7 and
-K8 have no backward and refuse inputs that require grad
-(:func:`refuse_grad`).
+The backwards (``flash_attention_bwd``, ``rwkv6_scan_bwd``,
+``mamba2_ssd_bwd``) count one launch per call of their C entry, which
+runs their kernels (K5's: dQ, then dK and dV; K7's and K8's: the reverse
+scan, then the sums across its blocks).  The card route of K6 has no
+backward and refuses inputs that require grad (:func:`refuse_grad`).
 """
 
 from __future__ import annotations
@@ -72,10 +73,11 @@ SERVE_KERNELS = ("flash_attention", "decode_attention", "rwkv6_scan",
 #: the single-buffer codec kernels, K9 and K10: no path of the writer or
 #: the models runs them, only the op entries below
 CODEC_KERNELS = ("byteshuffle", "delta_zigzag")
-#: the kernels of the train step (the GQA attention families): K5's
-#: forward and its backward, one ``flash_attention_bwd`` launch per
-#: attention layer
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+#: the kernels of the train step: K5's forward and its backward (one
+#: ``flash_attention_bwd`` launch per attention layer), K7's and K8's (one
+#: ``rwkv6_scan_bwd`` / ``mamba2_ssd_bwd`` per recurrent layer)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan",
+                 "rwkv6_scan_bwd", "mamba2_ssd", "mamba2_ssd_bwd")
 KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS + CODEC_KERNELS + tuple(
     k for k in TRAIN_KERNELS if k not in SERVE_KERNELS)
 

@@ -10,9 +10,10 @@ yardsticks of speed.  ``flash_attention_chunked`` and the one-token
 ``*_decode_ref`` steps have no kernel of their own: they are the twins of
 the reference's oracles of the same names.  ``flash_attention_lse_ref``
 is the rows' log-sum-exp K5's forward hands to its backward, and
-``flash_attention_bwd_ref`` is K5's backward written out: the reference
-has no backward kernel (its training differentiates the jnp oracle), and
-the tests hold it against ``jax.vjp`` of that oracle.
+``flash_attention_bwd_ref`` is K5's backward written out; ``rwkv6_bwd_ref``
+and ``mamba2_bwd_ref`` are K7's and K8's, reverse recurrences.  The
+reference has no backward kernel (its training differentiates the jnp
+oracles), and the tests hold these against ``jax.vjp`` of those oracles.
 """
 
 from __future__ import annotations
@@ -134,18 +135,42 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
 
 
+def flash_attention_with_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, causal: bool = True,
+                                 window=None, scale=None):
+    """``(flash_attention_ref(...), flash_attention_lse_ref(...))``, what
+    K5's CPU route records for its backward, the same values bit for bit.
+    fp32 inputs take both from one pass of scores ``(scale q) k^T``.
+    Narrower inputs round their scores to their dtype for the output, so
+    their LSE, fp32 from the inputs' values, takes a pass of its own."""
+    if q.dtype != torch.float32:
+        return (flash_attention_ref(q, k, v, causal, window, scale),
+                flash_attention_lse_ref(q, k, causal, window, scale))
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * scale, _expand_kv(k, h))
+    logits = logits.masked_fill(
+        ~attention_mask(sq, sk, causal, window, q.device), float("-inf"))
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
+                       _expand_kv(v, h))
+    return out, torch.logsumexp(logits, dim=-1)
+
+
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             causal: bool = True, window=None,
                             scale=None) -> torch.Tensor:
     """(B, H, Sq) fp32: each query row's log-sum-exp (natural log) of its
-    scaled, masked scores ``scale * q k^T``, in fp32 from the inputs'
+    scaled, masked scores ``(scale q) k^T``, in fp32 from the inputs'
     values; ``-inf`` for a row that sees no key.  K5's forward writes this
     for its backward."""
     h, sq, d = q.shape[1], q.shape[2], q.shape[3]
     sk = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                     _expand_kv(k, h).float()) * scale
+    # q scaled first, as flash_attention_ref does: for fp32 inputs the
+    # scores are that function's, bit for bit
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale,
+                     _expand_kv(k, h).float())
     s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device),
                       float("-inf"))
     return torch.logsumexp(s, dim=-1)
@@ -297,6 +322,128 @@ def mamba2_ref(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
              + torch.einsum("bn,bhp->bhnp", B_[:, i], x_[:, :, i]))
         y[:, :, i] = torch.einsum("bn,bhnp->bhp", C_[:, i], s)
     return y.to(x.dtype), s
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in fp64 where it is fp64 (a reference for the
+    kernels' fp32 sums)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+#: steps whose gradient terms the plain backwards take in one product
+_BWD_SPAN = 64
+
+
+def rwkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dout, dstate=None):
+    """The gradients ``(dr, dk, dv, dw, du)`` of :func:`rwkv6_ref` (from a
+    zero state) at the cotangents ``dout`` of its output and ``dstate`` of
+    its final state (zero when None), written out in fp32 from the inputs'
+    values (fp64 for fp64 inputs); each in its input's dtype.  The
+    forward's states ``S_{t-1}`` are kept, then with ``G_t = dL/dS_t``
+    (``G_{T-1} = dstate``), per (b, h) and from the last step back::
+
+        dr_t = S_{t-1} do_t + (u o k_t)(v_t . do_t)
+        dk_t = G_t v_t + (r_t o u)(v_t . do_t)
+        dv_t = k_t^T G_t + (sum r_t o u o k_t) do_t
+        dw_t = rowsum(G_t o S_{t-1})
+        du   = sum over b and t of r_t o k_t (v_t . do_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T do_t
+
+    Only the two recurrences walk the steps; the terms are products over
+    ``_BWD_SPAN`` steps at a time.  Nothing divides by w: a decay of
+    exactly 0 gives finite gradients."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    r_, k_, v_, w_ = (_wide(x) for x in (r, k, v, w))
+    u_ = _wide(u)[None, :, None]                                  # (1, H, 1, Dk)
+    f = r_.dtype
+    do = (_wide(dout) if dout is not None else
+          torch.zeros((b, h, t, dv), dtype=f, device=r.device))
+    s = torch.zeros((b, h, dk, dv), dtype=f, device=r.device)
+    prev = []  # S_{t-1} of each step
+    for i in range(t):
+        prev.append(s)
+        s = w_[:, :, i, :, None] * s + k_[:, :, i, :, None] * v_[:, :, i, None, :]
+    vdo = (v_ * do).sum(-1, keepdim=True)                         # (B, H, T, 1)
+    d_r = u_ * k_ * vdo
+    d_k = r_ * u_ * vdo
+    d_v = (r_ * u_ * k_).sum(-1, keepdim=True) * do
+    d_w = torch.empty_like(r_)
+    du = (r_ * k_ * vdo).sum((0, 2))
+    g = (dstate.to(f).clone() if dstate is not None else torch.zeros_like(s))
+    for c in reversed(range(0, t, _BWD_SPAN)):
+        e = min(c + _BWD_SPAN, t)
+        gs = []
+        for i in reversed(range(c, e)):
+            gs.append(g)
+            g = (w_[:, :, i, :, None] * g
+                 + r_[:, :, i, :, None] * do[:, :, i, None, :])
+        gg = torch.stack(gs[::-1], 2)                             # G_t
+        sp = torch.stack(prev[c:e], 2)                            # S_{t-1}
+        span = slice(c, e)
+        d_r[:, :, span] += torch.einsum("bhtkv,bhtv->bhtk", sp, do[:, :, span])
+        d_k[:, :, span] += torch.einsum("bhtkv,bhtv->bhtk", gg, v_[:, :, span])
+        d_v[:, :, span] += torch.einsum("bhtk,bhtkv->bhtv", k_[:, :, span], gg)
+        d_w[:, :, span] = (gg * sp).sum(-1)
+    return (d_r.to(r.dtype), d_k.to(k.dtype), d_v.to(v.dtype),
+            d_w.to(w.dtype), du.to(u.dtype))
+
+
+def mamba2_bwd_ref(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, dy, dstate=None):
+    """The gradients ``(dx, dlog_a, dBm, dCm)`` of :func:`mamba2_ref` (from
+    a zero state) at the cotangents ``dy`` of its output and ``dstate`` of
+    its final state (zero when None), written out in fp32 from the inputs'
+    values (fp64 for fp64 inputs); each in its input's dtype.  With ``a_t =
+    exp(log_a_t)`` and
+    ``G_t = dL/dH_t``, per (b, h) and from the last step back::
+
+        G_t = C_t^T dy_t + a_{t+1} G_{t+1}     (a_T G_T: dstate)
+        dx_t = B_t G_t
+        dB_t = sum_h G_t x_t^T,  dC_t = sum_h H_t dy_t^T   (B, C shared by
+                                                            the heads)
+        dlog_a_t = a_t sum(G_t o H_{t-1})
+
+    Only the two recurrences walk the steps; the terms are products over
+    ``_BWD_SPAN`` steps at a time.  Nothing divides by ``a``: ``log_a =
+    -inf`` gives finite gradients."""
+    b, h, t, p = x.shape
+    n = Bm.shape[-1]
+    x_, la, B_, C_ = (_wide(a) for a in (x, log_a, Bm, Cm))
+    f = x_.dtype
+    a = torch.exp(la)
+    dy_ = (_wide(dy) if dy is not None else
+           torch.zeros((b, h, t, p), dtype=f, device=x.device))
+    s = torch.zeros((b, h, n, p), dtype=f, device=x.device)
+    states = [s]  # H_{-1}, H_0, ..., H_{T-1}
+    for i in range(t):
+        s = (a[:, :, i, None, None] * s
+             + torch.einsum("bn,bhp->bhnp", B_[:, i], x_[:, :, i]))
+        states.append(s)
+    g = (dstate.to(f).clone() if dstate is not None else torch.zeros_like(s))
+    dx = torch.empty((b, h, t, p), dtype=f, device=x.device)
+    dla = torch.empty((b, h, t), dtype=f, device=x.device)
+    dB = torch.empty((b, t, n), dtype=f, device=x.device)
+    dC = torch.empty((b, t, n), dtype=f, device=x.device)
+    for c in reversed(range(0, t, _BWD_SPAN)):
+        e = min(c + _BWD_SPAN, t)
+        gs = []
+        for i in reversed(range(c, e)):
+            g = g + torch.einsum("bn,bhp->bhnp", C_[:, i], dy_[:, :, i])
+            gs.append(g)
+            g = a[:, :, i, None, None] * g
+        gg = torch.stack(gs[::-1], 2)                             # G_t
+        span = slice(c, e)
+        dx[:, :, span] = torch.einsum("btn,bhtnp->bhtp", B_[:, span], gg)
+        dB[:, span] = torch.einsum("bhtnp,bhtp->btn", gg, x_[:, :, span])
+        dC[:, span] = torch.einsum("bhtnp,bhtp->btn",
+                                   torch.stack(states[c + 1:e + 1], 2),
+                                   dy_[:, :, span])
+        dla[:, :, span] = a[:, :, span] * (
+            gg * torch.stack(states[c:e], 2)).sum((-2, -1))
+    return (dx.to(x.dtype), dla.to(log_a.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype))
 
 
 def rwkv6_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -40,9 +40,12 @@ peak in the train step: its state, its gradient shards, the gathered
 parameters and their full gradients alive at once (the embedding's for
 the whole step, one layer's at a time under remat, every layer's without
 it), and the larger of the activations and the in-place AdamW update's
-two fp32 temporaries of the largest leaf.  Train cells of
-archs the port cannot train yet (``backbone.check_trainable``) and cells
-``bundle.runnable`` refuses are ``skipped`` with the reason.  The
+two fp32 temporaries of the largest leaf.  The activations count the
+saved tensors, remat's layer inputs, one recomputed layer's saved set and
+the largest workspace a K7 or K8 backward launch takes (its stored states
+and partial sums, ``meta.scan_bwd_workspace_bytes``), which lives while
+that layer's backward runs.  Cells ``bundle.runnable``
+refuses are ``skipped`` with the reason (the port trains every arch).  The
 ``chunked-attn`` variants set ``attn_impl``, which only the CPU route of
 the kernel API reads: on the card and here K5 is the one route.
 
@@ -264,7 +267,8 @@ def _ids(shape):
 def meta_train(cfg: ArchConfig, rows: int, seq: int) -> Dict:
     """The train step's loss and backward on ``rows`` sequences of ``seq``
     tokens on ``meta``: FLOPs (total and by op) and the activation bytes
-    saved for the backward (see the module docstring)."""
+    (saved for the backward, and the largest scan backward's workspace;
+    see the module docstring)."""
     bundle = build(cfg)
     params = _meta_params(bundle, grad=True)
     shape = bundle._token_shape(rows, seq)
@@ -272,10 +276,12 @@ def meta_train(cfg: ArchConfig, rows: int, seq: int) -> Dict:
     saved = _Saved(params)
     remat = [0]
     flops = _flop_counter()
+    meta.workspace_peak(reset=True)
     with flops, _remat_inputs(remat), torch.autograd.graph.saved_tensors_hooks(
             saved.pack, saved.unpack):
         loss, _m = bundle.loss(params, batch)
         torch.autograd.grad(loss, [t for _p, t in _leaves(params)])
+    workspace = meta.workspace_peak(reset=True)
     layer = 0
     if cfg.remat:
         # one layer's saved set, live while the backward recomputes it
@@ -291,8 +297,8 @@ def meta_train(cfg: ArchConfig, rows: int, seq: int) -> Dict:
             "flops_by_op": {str(k): float(v) for k, v in
                             flops.get_flop_counts()["Global"].items()},
             "saved_bytes": saved.bytes, "remat_input_bytes": remat[0],
-            "recompute_layer_bytes": layer,
-            "activation_bytes": saved.bytes + remat[0] + layer}
+            "recompute_layer_bytes": layer, "bwd_workspace_bytes": workspace,
+            "activation_bytes": saved.bytes + remat[0] + layer + workspace}
 
 
 def meta_serve(cfg: ArchConfig, cell: ShapeCell, rows: int) -> Dict:
@@ -368,11 +374,6 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     head = {"arch": arch, "shape": shape, "multi_pod": multi_pod,
             "variant": variant}
     ok, reason = build(cfg).runnable(cell)
-    if ok and cell.kind == "train":
-        try:
-            B.check_trainable(cfg)
-        except NotImplementedError as e:
-            ok, reason = False, f"SKIP(train): {e}"
     if not ok:
         return {**head, "status": "skipped", "reason": reason}
 

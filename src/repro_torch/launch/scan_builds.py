@@ -159,9 +159,14 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
         if lib == "scans" and len(c_params(trees[tree], lib,
                                            "repro_decode_offset_pages")) == 5:
             cdll.repro_decode_offset_pages.argtypes = K4_ARGS_BEFORE_CLUSTERS
-        if lib == "attention_bwd" and not has_part(trees[tree]):
+        if lib == "attention_bwd":
             f = cdll.repro_flash_attention_bwd
-            f.argtypes = f.argtypes[:10] + f.argtypes[11:]
+            args = list(f.argtypes)
+            if not has_dv(trees[tree]):
+                del args[17]  # v's head dim, after D
+            if not has_part(trees[tree]):
+                del args[10]
+            f.argtypes = args
         libs[(tree, lib)] = cdll
     return libs
 
@@ -171,6 +176,13 @@ def has_part(csrc) -> bool:
     workspace ``part`` after ``delta`` (PR 21 on)."""
     return "void* part" in c_params(csrc, "attention_bwd",
                                     "repro_flash_attention_bwd")
+
+
+def has_dv(csrc) -> bool:
+    """Whether the tree's K5 backward entry takes v's head dim after D
+    (the trees that build MLA's 96 / 64 backward)."""
+    return "int DV" in c_params(csrc, "attention_bwd",
+                                "repro_flash_attention_bwd")
 
 
 def tol_share(got, want, tol: float) -> float:
@@ -301,10 +313,11 @@ def bwd_calls(libs, trees, stream, shape) -> tuple:
             mid = (dq, dk, dv, work.data_ptr(), delta.data_ptr())
         if has_part(trees[tree]):
             mid += (part.data_ptr(),)
+        dims = (d, d) if has_dv(trees[tree]) else (d,)
 
-        def call(f=f, mid=mid):
+        def call(f=f, mid=mid, dims=dims):
             return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     do.data_ptr(), *mid, b, h, g, s, s, d, 1, 1, 0,
+                     do.data_ptr(), *mid, b, h, g, s, s, *dims, 1, 1, 0,
                      d ** -0.5, stream)
 
         if call() != 0:  # a tree built without this head dim

@@ -26,9 +26,8 @@ non-reentrant), as ``jax.checkpoint`` does over the reference's scan body.
 Entry points (see ``registry.ModelBundle``):
 
 * ``loss_fn``     — next-token cross-entropy of ``forward`` plus 0.01 times
-  the MoE balance loss (the attention families with GQA,
-  ``check_trainable`` says why MLA and the recurrent families wait), as
-  ``loss_from_sums`` of ``loss_sums``: the sums over the batch first (the
+  the MoE balance loss (every family), as ``loss_from_sums`` of
+  ``loss_sums``: the sums over the batch first (the
   meshed train step adds the other ranks' counts to them);
 * ``forward``     — full-sequence logits (teacher forcing) and the summed
   MoE balance loss;
@@ -94,26 +93,6 @@ def check_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attention!r} "
             "attention is not a model of the registry")
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port can train this model:
-    every attention family with GQA (dense, vlm, audio, moe).  No family is
-    refused for its size: what a mesh's rank holds is the dry-run's
-    (``repro_torch.launch.dryrun``)."""
-    check_ported(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        why = ("needs backward kernels for K7/K8 that the port does not "
-               "have yet")
-    elif cfg.attention == "mla":
-        why = ("needs K5's backward at v narrower than q/k (MLA: q/k 96, "
-               "v 64 at minicpm3-4b), which the port does not have yet")
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: training family {cfg.family!r} with "
-        f"{cfg.attention!r} attention {why}; the port trains the attention "
-        "families with GQA attention")
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +394,7 @@ def loss_sums(params: Dict, batch: Dict, cfg: ArchConfig,
     and with MoE ``probs``, ``picks`` ((MoE layers, E), ``forward_sums``)
     and ``routed`` (the tokens each layer routed).  ``loss_from_sums``
     forms the loss; ``view`` is ``forward_sums``'."""
-    check_trainable(cfg)
+    check_ported(cfg)
     logits, routed = forward_sums(params, batch["tokens"], cfg, view)
     nll, count = nll_sum(logits, batch["labels"])
     sums = {"nll": nll, "labels": count}

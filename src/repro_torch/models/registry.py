@@ -1,8 +1,7 @@
 """Model registry: ArchConfig -> ModelBundle (init/forward/prefill/decode).
 
 The twin of ``repro.models.registry`` for every architecture of the
-registry; ``loss`` raises ``NotImplementedError`` for MLA and the
-recurrent families (``backbone.check_trainable`` says why).  The
+registry, each served and trained.  The
 reference's dry-run pieces are here too: ``param_shapes`` and
 ``input_specs`` build ``meta`` tensors (shapes and dtypes, no memory) where
 the reference builds ``jax.ShapeDtypeStruct``s, and ``runnable`` says

@@ -57,7 +57,6 @@ from repro_torch.distributed.sharding import (
     AxisRules, NamedSharding, _axes, auto_param_sharding, place,
     tree_map_with_path,
 )
-from repro_torch.models.backbone import check_trainable
 from repro_torch.models.registry import ModelBundle, model_device
 
 from .grad_compress import compress_grads, init_error_state
@@ -217,7 +216,6 @@ def make_train_step(bundle: ModelBundle, optimizer: Optional[AdamW] = None,
     on a mesh the state must be ``init_train_state(..., mesh=mesh)``'s
     (its placements are the parameters'; ``rules_mapping`` places the
     batch's rows)."""
-    check_trainable(bundle.cfg)
     opt = optimizer or make_optimizer()
     rules = AxisRules(mesh, rules_mapping) if mesh is not None else None
 
@@ -304,7 +302,6 @@ def init_train_state(bundle: ModelBundle, seed: int = 0, device="cuda",
     and keeps its shards of each (``param_sharding``): a rank holds its
     shards and one drawn layer; the moments and the error state take the
     parameters' placements."""
-    check_trainable(bundle.cfg)
     opt = optimizer or make_optimizer()
     dev = model_device(device)
     gen = torch.Generator(device=dev)

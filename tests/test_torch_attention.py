@@ -14,6 +14,8 @@ these plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,9 @@ from repro_torch.kernels.flash_attention import (
     HEAD_DIMS, NARROW_V, check_kernel_args, flash_attention,
     flash_attention_bwd,
 )
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2

@@ -32,6 +32,9 @@ from repro_torch.ckpt import (
 from repro_torch.ckpt.checkpoint import _flatten_with_names
 from repro_torch.core import RNTJReader, WriteOptions
 
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
+
 MP_OPTS = WriteOptions(codec="zlib", level=1, cluster_bytes=1 << 20,
                        lease_interval=0.5, rendezvous_timeout=15.0,
                        mpw_log_fsync=False)

@@ -29,6 +29,8 @@ against the plain versions on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_pages import (
     DECODE_ITEMS, DECODE_THREADS, DECODE_TILE, MAX_CLUSTER, launch_shape,
 )
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 U32 = np.uint64(0xFFFFFFFF)
 

@@ -15,6 +15,7 @@ options and the file.
 """
 
 import dataclasses
+import os
 from collections import Counter
 
 import numpy as np
@@ -30,6 +31,9 @@ import repro_torch.core as T
 import repro_torch.kernels.byteshuffle as t_shuffle
 import repro_torch.kernels.offsets_scan as t_scan
 from repro_torch.kernels import ops
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 REF_SCHEMA = R.Schema([
     R.Leaf("id", "int64"),

@@ -9,6 +9,8 @@ Marked ``cuda``: without a card every test skips.  On the card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.byteshuffle import byteshuffle_pages
 from repro_torch.kernels.decode_pages import decode_offset_pages, unsplit_pages
 from repro_torch.kernels.offsets_scan import offsets_scan
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 pytestmark = pytest.mark.cuda
 
@@ -494,23 +499,62 @@ def test_flash_attention_unbuilt_pairs_raise_on_the_card(card, dv):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_narrow_v_backward_refuses_on_the_card(card, dtype):
-    """K5's backward is built for v as wide as q/k: at 96 / 64 a call that
-    would record a graph, and the backward itself, raise before a launch."""
+    """K5's backward is built for the forward's pairs: at q/k 96 with a v
+    of 32 the backward raises before a launch; at MLA's 96 / 64 a graph is
+    recorded and its backward launches once."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_lse,
+        flash_attention, flash_attention_bwd,
     )
 
     q, k, v = _attn_inputs(card, 5, dtype, (1, 4, 64, 96), (1, 4, 64, 96),
                            (1, 4, 64, 64))
-    out, lse = flash_attention_lse(q, k, v)
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q.requires_grad_(), k, v)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q.detach(), k, v, out, lse, torch.ones_like(out))
+        flash_attention_bwd(q, k, v[..., :32], v[..., :32],
+                            torch.zeros((1, 4, 64), device=card),
+                            v[..., :32])
     assert ops.launch_counts() == before
-    with torch.no_grad():  # serving records no graph: it runs
-        assert flash_attention(q, k, v).shape == (1, 4, 64, 64)
+    q.requires_grad_()
+    flash_attention(q, k, v).backward(torch.ones((1, 4, 64, 64), dtype=dtype,
+                                                 device=card))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
+
+
+#: MLA's K5 backward: b, h, g, sq, sk, causal, window (q/k 96, v 64)
+BWD_NARROW_CASES = [
+    (2, 40, 40, 1024, 1024, True, None),   # minicpm3-4b's training heads
+    (1, 4, 4, 129, 300, True, None),       # ragged Sq
+    (1, 4, 4, 300, 300, True, 33),         # window
+    (1, 2, 2, 77, 130, False, None),       # non-causal, padded kv tile
+]
+
+
+@pytest.mark.parametrize("b,h,g,sq,sk,causal,window", BWD_NARROW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_narrow_v_on_the_card(card, b, h, g, sq, sk,
+                                                  causal, window, dtype):
+    """K5's backward at q/k 96, v 64 against the plain version: dq and dk
+    96 wide, dv 64."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_lse,
+    )
+
+    q, k, v, do = _attn_inputs(card, sq + sk + 96, dtype, (b, h, sq, 96),
+                               (b, g, sk, 96), (b, g, sk, 64), (b, h, sq, 64))
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float(),
+                                       causal=causal, window=window)
+    for a, x, w in zip(got, (q, k, v), want):
+        assert a.dtype == dtype and a.shape == x.shape
+        _bwd_close(a, w, dtype)
 
 
 @pytest.mark.parametrize("b,h,g,s,d", [
@@ -778,7 +822,8 @@ def test_op_entries_on_the_card(card):
     counts = ops.launch_counts()
     assert counts["byteshuffle_pages"] == 0
     assert all(counts[k] >= 1 for k in ops.KERNELS
-               if k not in ("byteshuffle_pages", "flash_attention_bwd")), counts
+               if k not in ("byteshuffle_pages", "flash_attention_bwd",
+                            "rwkv6_scan_bwd", "mamba2_ssd_bwd")), counts
 
 
 # ---------------------------------------------------------------------------
@@ -945,22 +990,174 @@ def test_flash_attention_bwd_refuses_an_unbuilt_head_dim_on_the_card(card):
 
 
 def test_kernels_without_backward_refuse_grad_on_the_card(card):
+    """K6 (one-token decode) is the one kernel with no backward."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
     q = torch.zeros((1, 2, 64), device=card, requires_grad=True)
     kv = torch.zeros((1, 2, 8, 64), device=card)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         decode_attention(q, kv, kv)
-    r = torch.zeros((1, 2, 8, 16), device=card, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        rwkv6_scan(r, r, r, r, torch.zeros((2, 16), device=card))
-    x = torch.zeros((1, 2, 8, 16), device=card, requires_grad=True)
-    log_a = torch.zeros((1, 2, 8), device=card)
-    bm = torch.zeros((1, 8, 16), device=card)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        mamba2_ssd(x, log_a, bm, bm)
+
+
+#: K7's and K8's backward: b, h, t, state width (Dk or N), columns (Dv or
+#: P), decays ("zero": w = 0 / log_a = -inf every 7th step), and whether
+#: the final state gets a cotangent
+SCAN_BWD_CASES = [
+    (2, 3, 1, 16, 16, "reference", True),
+    (2, 3, 31, 32, 32, "zero", True),
+    (1, 4, 100, 48, 40, "reference", False),
+    (2, 2, 129, 64, 70, "zero", True),      # two column tiles
+    (1, 2, 70, 128, 96, "reference", True),
+    (1, 2, 33, 32, 1024, "reference", False),
+    (8, 64, 1024, 64, 64, "reference", True),  # rwkv6-7b's / zamba2's
+]
+
+
+def _wide(dtype):
+    """The plain backward's dtype for a route: the bf16 route against the
+    plain version in fp32, the fp32 route in fp64 (the kernels carry their
+    sums in fp64; an fp32 plain version's own rounding, where sums cancel,
+    uses most of 2e-5 (1 + |g|))."""
+    return torch.float64 if dtype == torch.float32 else torch.float32
+
+
+def _scan_bwd_close(got, want, dtype):
+    """``dtype``: the route's (the tolerance's); every gradient finite."""
+    assert bool(torch.isfinite(got.float()).all())
+    diff = (got.to(want.dtype) - want).abs()
+    bound = BWD_TOL[dtype] * (1 + want.abs())
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,decay,with_state", SCAN_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_bwd_on_the_card(card, b, h, t, dk, dv, decay,
+                                    with_state, dtype):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+
+    g = torch.Generator(device=card)
+    g.manual_seed(t + dk + dv)
+    r, k = (0.5 * torch.randn((b, h, t, dk), generator=g, device=card)
+            for _ in range(2))
+    v, do = (torch.randn((b, h, t, dv), generator=g, device=card)
+             for _ in range(2))
+    u = torch.randn((h, dk), generator=g, device=card)
+    w = torch.exp(-torch.exp(-4 + 5 * torch.rand((b, h, t, dk), generator=g,
+                                                 device=card)))
+    if decay == "zero":
+        w[..., ::7, :] = 0.0
+    ds = (torch.randn((b, h, dk, dv), generator=g, device=card)
+          if with_state else None)
+    r, k, v, w, u, do = (a.to(dtype) for a in (r, k, v, w, u, do))
+    before = ops.launch_counts()["rwkv6_scan_bwd"]
+    got = rwkv6_scan_bwd(r, k, v, w, u, do, ds)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == before + 1
+    want = ref.rwkv6_bwd_ref(*(a.to(_wide(dtype)) for a in (r, k, v, w, u, do)),
+                             None if ds is None else ds.to(_wide(dtype)))
+    for a, x in zip(got, want):
+        assert a.dtype == dtype
+        _scan_bwd_close(a, x, dtype)
+
+
+@pytest.mark.parametrize("b,h,t,n,p,decay,with_state", SCAN_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_bwd_on_the_card(card, b, h, t, n, p, decay, with_state,
+                                    dtype):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd
+
+    x, log_a, Bm, Cm = _mamba2_inputs(card, b, h, t, p, n, dtype,
+                                      "-inf" if decay == "zero" else decay)
+    g = torch.Generator(device=card)
+    g.manual_seed(t + n + p)
+    dy = torch.randn((b, h, t, p), generator=g, device=card).to(dtype)
+    ds = (torch.randn((b, h, n, p), generator=g, device=card)
+          if with_state else None)
+    before = ops.launch_counts()["mamba2_ssd_bwd"]
+    got = mamba2_ssd_bwd(x, log_a, Bm, Cm, dy, ds)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_ssd_bwd"] == before + 1
+    wide = _wide(dtype)
+    want = ref.mamba2_bwd_ref(x.to(wide), log_a.to(wide), Bm.to(wide),
+                              Cm.to(wide), dy.to(wide),
+                              None if ds is None else ds.to(wide))
+    assert got[0].dtype == dtype  # dlog_a, dB and dC: fp32, as their inputs
+    assert all(a.dtype == torch.float32 for a in got[1:])
+    for a, x_ in zip(got, want):
+        _scan_bwd_close(a, x_, dtype)
+
+
+def test_scan_bwds_are_deterministic_on_the_card(card):
+    """No float atomics: the same inputs give the same bits."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+
+    x, log_a, Bm, Cm = _mamba2_inputs(card, 2, 8, 300, 70, 64,
+                                      torch.bfloat16)
+    dy = torch.ones_like(x)
+    first = mamba2_ssd_bwd(x, log_a, Bm, Cm, dy)
+    for a, b_ in zip(first, mamba2_ssd_bwd(x, log_a, Bm, Cm, dy)):
+        assert torch.equal(a, b_)
+    r = torch.rand((2, 8, 300, 64), device=card)
+    v = torch.randn((2, 8, 300, 70), device=card)
+    u = torch.randn((8, 64), device=card)
+    first = rwkv6_scan_bwd(r, r, v, r, u, v)
+    for a, b_ in zip(first, rwkv6_scan_bwd(r, r, v, r, u, v)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,rows,cols", [
+    (1, 1, 1, 16, 1), (2, 3, 17, 48, 70), (8, 64, 1024, 64, 64),
+    (8, 80, 1024, 64, 64), (1, 2, 1000, 128, 1024)])
+def test_scan_bwd_workspace_is_the_dryruns_on_the_card(card, kind, dtype, b,
+                                                       h, t, rows, cols):
+    """The workspace a K7 or K8 backward launch takes, as the C library
+    sizes it, is what the dry-run counts (``meta.scan_bwd_workspace_bytes``)."""
+    from repro_torch.kernels import _build, meta
+    from repro_torch.kernels.flash_attention import DTYPE_CODES
+
+    lib = _build.library("ssm")
+    query = (lib.repro_rwkv6_scan_bwd_ws if kind == "wkv"
+             else lib.repro_mamba2_ssd_bwd_ws)
+    floats = query(b, h, t, rows, cols, DTYPE_CODES[dtype])
+    assert 4 * floats == meta.scan_bwd_workspace_bytes(kind, dtype, b * h, t,
+                                                       rows, cols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_autograd_on_the_card(card, dtype):
+    """``backward`` through K7 and K8 launches each backward kernel once
+    and gives what the backward entry gives (the final state's cotangent
+    left out: zero)."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
+
+    g = torch.Generator(device=card)
+    g.manual_seed(7)
+    ins = [torch.rand((2, 4, 50, 32), generator=g, device=card).to(dtype)
+           for _ in range(2)]
+    ins += [torch.randn((2, 4, 50, 48), generator=g, device=card).to(dtype),
+            torch.rand((2, 4, 50, 32), generator=g, device=card).to(dtype),
+            torch.randn((4, 32), generator=g, device=card).to(dtype)]
+    leaves = [a.clone().requires_grad_(True) for a in ins]
+    out, _state = rwkv6_scan(*leaves)
+    do = torch.randn(out.shape, generator=g, device=card).to(dtype)
+    before = ops.launch_counts()["rwkv6_scan_bwd"]
+    out.backward(do)
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == before + 1
+    for a, w in zip(leaves, rwkv6_scan_bwd(*ins, do)):
+        assert torch.equal(a.grad, w)
+    x, log_a, Bm, Cm = _mamba2_inputs(card, 2, 4, 50, 48, 32, dtype)
+    leaves = [a.clone().requires_grad_(True) for a in (x, log_a, Bm, Cm)]
+    y, _state = mamba2_ssd(*leaves)
+    before = ops.launch_counts()["mamba2_ssd_bwd"]
+    y.backward(torch.ones_like(y))
+    assert ops.launch_counts()["mamba2_ssd_bwd"] == before + 1
+    for a, w in zip(leaves, mamba2_ssd_bwd(x, log_a, Bm, Cm,
+                                           torch.ones_like(y))):
+        assert torch.equal(a.grad, w)
 
 
 def test_flash_attention_autograd_on_the_card(card):

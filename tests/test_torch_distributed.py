@@ -58,6 +58,9 @@ from repro_torch.launch.mesh import MeshShape, make_production_mesh
 from repro_torch.models import build
 from repro_torch.train import init_train_state
 
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
+
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT_S = 120
 MESHES = {"16x16": MeshShape(("data", "model"), (16, 16)),

@@ -9,7 +9,9 @@ device, against the JAX package's, on the CPU.
   backward through their meta ops (FLOPs counted), and creates no tensor
   off the ``meta`` device;
 * ``skipped`` records carry ``bundle.runnable``'s reasons, and the train
-  cells of archs the port cannot train yet ``check_trainable``'s;
+  cells of the archs whose training needs MLA's K5 backward or K7's and
+  K8's (minicpm3-4b, rwkv6-7b, zamba2-2.7b) are ``ok``, their backwards
+  counted through their meta ops;
 * the kernels' FLOP formulas count K5's visible pairs;
 * ``launch.train`` prints the dry-run's state bytes for its mesh.
 """
@@ -29,10 +31,15 @@ from repro.configs import get_arch as j_get_arch
 from repro.distributed.sharding import _leaf_spec as j_leaf_spec
 from repro.models import build as j_build
 
-from repro_torch.configs import ARCHS, SHAPES, SHAPES_BY_NAME, get_arch
+from repro_torch.configs import (
+    ARCHS, SHAPES, SHAPES_BY_NAME, get_arch, smoke_config,
+)
 from repro_torch.kernels import meta
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import production_mesh_shape
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 
 def reference_dryrun():
@@ -122,10 +129,33 @@ def test_a_meta_train_cell_allocates_nothing():
     json.dumps(rec)
 
 
+@pytest.mark.parametrize("arch,kind", [("rwkv6-7b", "wkv"),
+                                       ("zamba2-2.7b", "ssd"),
+                                       ("smollm-360m", None)])
+def test_the_scan_backwards_workspace_is_in_the_activations(arch, kind):
+    """A recurrent layer's backward launch takes a workspace (stored states
+    and partial sums) for as long as it runs: the train step's activation
+    bytes count the largest, at the step's (rows x heads, seq, state)."""
+    cfg = smoke_config(arch)
+    mem = D.meta_train(cfg, 2, 64)
+    if kind is None:
+        assert mem["bwd_workspace_bytes"] == 0
+        return
+    s = cfg.ssm
+    rows, cols = ((s.head_dim, s.head_dim) if kind == "wkv"
+                  else (s.d_state, s.head_dim))
+    heads = (cfg.d_model if kind == "wkv" else s.expand * cfg.d_model
+             ) // s.head_dim
+    want = meta.scan_bwd_workspace_bytes(
+        kind, getattr(torch, cfg.compute_dtype), 2 * heads, 64, rows, cols)
+    assert mem["bwd_workspace_bytes"] == want > 0
+    assert mem["activation_bytes"] == (
+        mem["saved_bytes"] + mem["remat_input_bytes"]
+        + mem["recompute_layer_bytes"] + want)
+
+
 @pytest.mark.parametrize("arch,shape,reason", [
     ("smollm-360m", "long_500k", "SKIP(full-attn)"),
-    ("rwkv6-7b", "train_4k", "backward kernels for K7/K8"),
-    ("minicpm3-4b", "train_4k", "narrower than q/k"),
 ])
 def test_skipped_records_carry_the_reason(arch, shape, reason):
     rec = D.lower_cell(arch, shape, True)
@@ -133,6 +163,22 @@ def test_skipped_records_carry_the_reason(arch, shape, reason):
     ok, why = D.build(get_arch(arch)).runnable(SHAPES_BY_NAME[shape])
     if not ok:
         assert rec["reason"] == why
+
+
+@pytest.mark.parametrize("arch,backwards", [
+    ("minicpm3-4b", ("flash_attention_bwd",)),
+    ("rwkv6-7b", ("rwkv6_scan_bwd",)),
+    ("zamba2-2.7b", ("mamba2_ssd_bwd", "flash_attention_bwd")),
+])
+def test_the_last_three_archs_train_cells_are_ok(arch, backwards):
+    rec = D.lower_cell(arch, "train_4k", False)
+    assert rec["status"] == "ok", rec.get("reason")
+    assert math.isfinite(rec["flops"]) and rec["flops"] > 0
+    ops = rec["flops_by_op"]
+    for name in backwards:
+        assert ops[f"repro_torch_meta.{name}"] > 0, name
+    mem = rec["memory"]
+    assert 0 < mem["state"] < mem["peak_bytes"]
 
 
 def test_serve_cells_count_the_serve_kernels(tmp_path):
@@ -174,6 +220,22 @@ def test_launch_train_prints_the_state_bytes(tmp_path, capsys):
                          MeshShape(("data", "model"), (1, 1)))
     assert (f"mesh data=1 x model=1: train state {want / 2**30:.3f} GiB"
             in capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "rwkv6-7b", "zamba2-2.7b"])
+def test_launch_train_takes_the_last_three_archs(tmp_path, capsys, arch):
+    """``launch.train --arch`` trains MLA, RWKV-6 and the Mamba-2 hybrid
+    (smoke configs on the CPU; the dry-run's estimate runs first, on
+    ``meta``, at their head dims)."""
+    from repro_torch.launch import train as launch_train
+
+    loop = launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--steps", "2", "--batch", "2", "--seq", "16",
+                              "--data", str(tmp_path / "c.rntj"),
+                              "--ckpt-dir", str(tmp_path / "ck")])
+    assert loop.step == 2
+    assert all(math.isfinite(h.loss) for h in loop.history)
+    assert "(dry-run)" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("card_gib,refused", [(1, True), (80, False)])

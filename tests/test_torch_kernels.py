@@ -8,6 +8,8 @@ CUDA kernels themselves are compared with these plain versions on the card
 by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,9 @@ from repro_torch.kernels.decode_pages import (
     device_decode_split, unsplit_pages,
 )
 from repro_torch.kernels.offsets_scan import offsets_scan, offsets_scan_host
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 CPU = torch.device("cpu")
 

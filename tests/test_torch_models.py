@@ -24,6 +24,7 @@ different places in each of the 4 layers); greedy tokens exactly equal.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,9 @@ from repro_torch.configs import ARCHS, get_arch, smoke_config
 from repro_torch.launch.serve import generate
 from repro_torch.models import build, layers as TL
 from repro_torch.models.weights import from_jax_params, to_numpy_tree
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 DENSE = ["smollm-360m", "gemma-2b"]
 NEW = ["minicpm3-4b", "deepseek-moe-16b", "mixtral-8x22b", "chameleon-34b",
@@ -298,23 +302,9 @@ def test_weights_carry_round_trips_and_checks_shapes():
         from_jax_params(bad, tb.cfg, CPU)
 
 
-#: why ``check_trainable`` refuses MLA, a word of its message
-NOT_TRAINABLE = {"minicpm3-4b": "narrower than q/k"}
-#: the new families that train since ``distributed`` came
-TRAINABLE = [n for n in NEW if n not in NOT_TRAINABLE]
-
-
-@pytest.mark.parametrize("name", sorted(NOT_TRAINABLE))
-def test_new_families_serve_but_do_not_train_yet(name):
-    from repro_torch.models.backbone import check_trainable
-
-    build(name)  # served
-    with pytest.raises(NotImplementedError, match=NOT_TRAINABLE[name]):
-        check_trainable(get_arch(name))
-    _, _, tb, tp = _pair(name)
-    toks = torch.from_numpy(_tokens(tb.cfg, 1, 4, 0))
-    with pytest.raises(NotImplementedError, match=NOT_TRAINABLE[name]):
-        tb.loss(tp, {"tokens": toks, "labels": toks})
+#: every new family trains, and so do the recurrent ones (since their
+#: backward kernels came)
+TRAINABLE = NEW + ["rwkv6-7b", "zamba2-2.7b"]
 
 
 @pytest.mark.parametrize("name", TRAINABLE)
@@ -323,10 +313,8 @@ def test_new_families_train_one_step(name):
     MoE balance loss), every parameter moved, none to a non-finite value
     (``tests/test_torch_train_families.py`` holds three steps against the
     reference)."""
-    from repro_torch.models.backbone import check_trainable
     from repro_torch.train import init_train_state, make_train_step
 
-    check_trainable(get_arch(name))
     bundle = build(smoke_config(name))
     params, opt, err = init_train_state(bundle, seed=1, device=CPU)
     before = [(path, t.clone()) for path, t in _leaf_items(params)]

@@ -14,6 +14,7 @@ different orders).  The dry-run pieces are compared at full size on the
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,9 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.models import attention as TA
 from repro_torch.models import build, layers as TL, moe as TM
 from repro_torch.models.weights import from_jax_params
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 FP32_TOL = 1e-4
 MOE = ["deepseek-moe-16b", "mixtral-8x22b"]

@@ -19,6 +19,8 @@ The CUDA kernels are held against these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,9 @@ from repro_torch.kernels.byteshuffle import byteshuffle, byteshuffle_host
 from repro_torch.kernels.delta_zigzag import delta_zigzag
 from repro_torch.models.mamba2 import ssd_step
 from repro_torch.models.rwkv6 import wkv_step
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 FP32_TOL = 1e-5
 

@@ -9,6 +9,8 @@ carried across the packages in both directions.  Token streams are
 compared exactly: they are integers.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,9 @@ from repro_torch.core import ReadOptions, RNTJReader, WriteOptions
 from repro_torch.pipeline import (
     DOC_SCHEMA, PackedLoader, docs_to_batch, ingest_corpus, synth_corpus,
 )
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 CPU = "cpu"
 ENGINES_BOTH = ("host", "device")

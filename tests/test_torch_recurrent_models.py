@@ -26,6 +26,7 @@ runs would measure that amplification, not the port.  Greedy tokens
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,9 @@ from repro_torch.models import build
 from repro_torch.models import mamba2 as TM2
 from repro_torch.models import rwkv6 as TR6
 from repro_torch.models.weights import from_jax_params
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 RECURRENT = ["rwkv6-7b", "zamba2-2.7b"]
 FP32_TOL = 1e-4

@@ -7,13 +7,19 @@ the tokens ``generate`` returned, and it is byte-identical to the file
 reference's ``GEN_SCHEMA``.
 """
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import repro.core as R
 from repro.launch.serve import GEN_SCHEMA as J_GEN_SCHEMA
 
 from repro_torch.launch import serve
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 
 def _serve(tmp_path, name="gen.rntj", seed=3, arch="smollm-360m"):

@@ -18,6 +18,8 @@ kernels are held against these plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,9 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as j_rwkv6_scan
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 from repro_torch.kernels.rwkv6_scan import STATE_DIMS, rwkv6_scan
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2

@@ -10,6 +10,8 @@ the skim, the checkpoint demo, batched serving, the recovery tool) runs
 through its ``main(argv)`` with ``--device cpu`` at a small size.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,9 @@ from repro_torch.models import build
 from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
 from repro_torch.train import LoopConfig, TrainLoop, make_optimizer
 from repro_torch.train.optimizer import tree_leaves
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 CPU = torch.device("cpu")
 

@@ -1,8 +1,9 @@
-"""The families whose training waited for ``distributed``: MoE
-(deepseek-moe-16b, mixtral-8x22b), VLM (chameleon-34b) and audio
-(musicgen-large, four codebooks, logits (B, T, Q, V)) train through the
-port's step, held against ``repro.train.make_train_step`` on one CPU
-device.
+"""The families whose training waited for ``distributed`` or for
+backward kernels: MoE (deepseek-moe-16b, mixtral-8x22b), VLM
+(chameleon-34b), audio (musicgen-large, four codebooks, logits (B, T, Q,
+V)), MLA (minicpm3-4b), RWKV-6 (rwkv6-7b) and the Mamba-2 hybrid
+(zamba2-2.7b) train through the port's step, held against
+``repro.train.make_train_step`` on one CPU device.
 
 Smoke configs in fp32 compute, the same random weights in both
 (``repro_torch.models.weights``), the same three batches: each step's
@@ -18,9 +19,28 @@ not 0 but within ``NOISE_FLOOR`` of its tensor's largest may differ by 2
 tensor's weights may have such a step (``assert_params_close``).  A
 gradient of exactly 0 (an expert no token picked, the embedding row of a
 token the batch lacks) is no noise: such a weight keeps the 2e-4 bound.
-The models' K5 calls run its plain forward and backward here.  The
-helpers serve ``tests/test_torch_distributed.py``'s meshed step too.
+
+``STEPWISE`` (minicpm3-4b, rwkv6-7b, zamba2-2.7b) is held a step at a
+time instead, each of the three steps from the reference's state before
+it (parameters and AdamW moments, ``reference_states``), under the same
+bounds a step, and the port's moments after each step against the
+reference's.  Their step-1 gradients match the reference's to 2e-6
+(minicpm3-4b), 6e-6 (rwkv6-7b) and 4e-5 (zamba2-2.7b) of each tensor's
+largest, with no sign that differs above ``NOISE_FLOOR``, but two
+free-running trajectories part: a weight of noise that Adam moves by
+``lr`` either way at step 1 moves the step-2 loss by 2.2e-5, 2.7e-5 and
+6.0e-5, and the weights after it by up to 7.5e-3.  rwkv6-7b's
+``ddlerp_b`` and ``mu_x`` have 9-13 % of a step's gradients under
+``NOISE_FLOOR`` of their largest (the decay branch's gradients are
+small by structure); ``CROWDED`` names them, and they get no allowance:
+every weight of theirs keeps 2e-4.
+
+The models' K5, K7 and K8 calls run their plain forwards and backwards
+here (MLA's K5 at q/k 96, v 64).  The helpers serve
+``tests/test_torch_distributed.py``'s meshed step too.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +58,9 @@ from repro_torch.models import build
 from repro_torch.models.weights import from_jax_params, to_numpy_tree
 from repro_torch.train import init_train_state, make_optimizer, make_train_step
 
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
+
 CPU = torch.device("cpu")
 TOL = 1e-5
 #: final parameters: absolute, as ``tests/test_torch_train.py``
@@ -52,6 +75,9 @@ NOISE_FLOOR = 1e-5
 #: a step, 3 of chameleon-34b's ``lm_head`` lie beyond 2e-4, by up to
 #: 1.2e-3)
 NOISE_SHARE = 0.02
+#: AdamW's moments after a step, as a share of each tensor's largest (the
+#: most seen: 4.4e-5, zamba2-2.7b's ``v`` of ``final_norm``)
+MOMENT_TOL = 1e-4
 
 
 def flat(tree, path=""):
@@ -136,6 +162,56 @@ def port_run(cfg, params_np, batches, **step_kw):
     return metrics, to_numpy_tree(params)
 
 
+def reference_states(jcfg, params_np, batches):
+    """The reference's run, step by step -> ([(parameters, AdamW step
+    count, m, v) as numpy before each step and after the last], [each
+    step's gradient as numpy], [each step's metrics])."""
+    bundle = j_build(jcfg)
+    opt = JO.make_optimizer(peak_lr=LR, warmup=1, total=20)
+    grad = jax.jit(jax.grad(lambda p, b: bundle.loss(p, b)[0]))
+    jitted_for, _sh = j_make_train_step(bundle, make_local_mesh(),
+                                        optimizer=opt)
+    params = jax.tree_util.tree_map(jnp.asarray, params_np)
+    opt_state = opt.init(params)
+    step = jitted_for(jax.tree_util.tree_map(
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batches[0]))
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+
+    def state():
+        return (as_np(params), int(opt_state.step), as_np(opt_state.m),
+                as_np(opt_state.v))
+
+    states, grads, metrics = [], [], []
+    err = jnp.zeros(())
+    for b in batches:
+        states.append(state())
+        jb = jax.tree_util.tree_map(jnp.asarray, b)
+        grads.append(as_np(grad(params, jb)))
+        params, opt_state, err, m = step(params, opt_state, err, jb)
+        metrics.append({k: float(v) for k, v in m.items()})
+    states.append(state())
+    return states, grads, metrics
+
+
+def port_step_from(cfg, state, batch):
+    """One port step from a reference state -> (metrics, the parameters,
+    m and v after it as numpy)."""
+    from repro_torch.train.optimizer import AdamWState
+
+    params_np, count, m_np, v_np = state
+    bundle = build(cfg)
+    opt = optimizer()
+    params = from_jax_params(params_np, cfg, CPU)
+    _p, _o, err = init_train_state(bundle, device=CPU, optimizer=opt)
+    opt_state = AdamWState(torch.tensor(count, dtype=torch.int32),
+                           from_jax_params(m_np, cfg, CPU),
+                           from_jax_params(v_np, cfg, CPU))
+    params, opt_state, _e, m = make_train_step(bundle, optimizer=opt)(
+        params, opt_state, err, batch)
+    return ({k: float(v) for k, v in m.items()}, to_numpy_tree(params),
+            to_numpy_tree(opt_state.m), to_numpy_tree(opt_state.v))
+
+
 def assert_metrics_close(got, want):
     for w, g in zip(want, got, strict=True):
         assert set(g) == set(w) == {"loss", "ce", "aux"}
@@ -144,22 +220,42 @@ def assert_metrics_close(got, want):
                                        err_msg=k)
 
 
-def assert_params_close(got, want, noise):
+def assert_params_close(got, want, noise, crowded=()):
     """Each weight within ``PARAM_TOL`` plus 2 ``lr`` for each step of
     noise in its gradient (``noise``: ``reference_run``'s counts), and no
-    more than ``NOISE_SHARE`` of a tensor's weights with such a step."""
+    more than ``NOISE_SHARE`` of a tensor's weights with such a step; a
+    tensor named in ``crowded`` may have more, and then gets no allowance
+    (``PARAM_TOL`` for every weight)."""
     for (n, a), (_n, w) in zip(flat(got), flat(want), strict=True):
         steps = noise[n]
         share = float(np.mean(steps > 0))
-        assert share <= NOISE_SHARE, f"{n}: {share:.4%} of the weights noisy"
+        if n in crowded:
+            steps = np.zeros_like(steps)
+        else:
+            assert share <= NOISE_SHARE, f"{n}: {share:.4%} of the weights noisy"
         over = np.abs(a - w) - (PARAM_TOL + 2 * LR * steps)
         assert not (over > 0).any(), (
             f"{n}: {int((over > 0).sum())} weights beyond their bound, the "
             f"worst by {float(over.max()):.3e}")
 
 
+def assert_moments_close(got, want):
+    """AdamW's m or v after a step: each tensor within ``MOMENT_TOL`` of
+    its largest."""
+    for (n, a), (_n, w) in zip(flat(got), flat(want), strict=True):
+        d = float(np.abs(a - w).max())
+        top = float(np.abs(w).max())
+        assert d <= MOMENT_TOL * top, f"{n}: off by {d:.3e}, its largest {top:.3e}"
+
+
 FAMILIES = ("deepseek-moe-16b", "mixtral-8x22b", "chameleon-34b",
             "musicgen-large")
+#: held a step at a time (module docstring)
+STEPWISE = ("minicpm3-4b", "rwkv6-7b", "zamba2-2.7b")
+#: tensors with more than ``NOISE_SHARE`` of noisy gradients at a step
+#: (module docstring): 9.6-12.5 % of rwkv6-7b's smoke ``ddlerp_b``,
+#: 8.9-9.9 % of its ``mu_x``
+CROWDED = {"rwkv6-7b": ("/layers/ddlerp_b", "/layers/mu_x")}
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -175,6 +271,24 @@ def test_three_steps_match_the_reference(arch):
     assert_params_close(tp, jp, noise)
 
 
+@pytest.mark.parametrize("arch", STEPWISE)
+def test_each_step_matches_the_reference_from_its_state(arch):
+    jcfg, cfg = configs(arch)
+    params_np = initial_params(cfg, 5)
+    batches = family_batches(cfg, 4, 16, 30)
+    states, grads, jm = reference_states(jcfg, params_np, batches)
+    for k, b in enumerate(batches):
+        tm, tp, m, v = port_step_from(cfg, states[k], b)
+        assert_metrics_close([tm], [jm[k]])
+        noise = {n: ((g != 0) & (np.abs(g) <= NOISE_FLOOR * np.abs(g).max())
+                     ).astype(np.int64) for n, g in flat(grads[k])}
+        jp, count, jmom, jvel = states[k + 1]
+        assert count == k + 1
+        assert_params_close(tp, jp, noise, CROWDED.get(arch, ()))
+        assert_moments_close(m, jmom)
+        assert_moments_close(v, jvel)
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -183,7 +297,7 @@ def _clone(tree):
     return tree.clone()
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + STEPWISE)
 def test_the_step_updates_its_state_in_place(arch):
     """The step returns the tensors it was passed, updated in place, and
     a caller that clones the state first keeps the old one: a run from the

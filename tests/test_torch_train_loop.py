@@ -20,6 +20,7 @@ launcher, on the CPU.
   second call resumes from the first's checkpoint.
 """
 
+import os
 import shutil
 import time
 
@@ -44,6 +45,9 @@ from repro_torch.models import build
 from repro_torch.models.weights import to_numpy_tree
 from repro_torch.pipeline import PackedLoader, ingest_corpus, synth_corpus
 from repro_torch.train import LoopConfig, TrainLoop, make_optimizer
+
+# six test workers share the cores: one thread each, not one per core
+torch.set_num_threads(max(1, os.cpu_count() // 6))
 
 CPU = torch.device("cpu")
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
