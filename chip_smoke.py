@@ -320,18 +320,33 @@ KERNEL_DESIGN = {
                    "float32": "simt steps"},
     "mamba2_ssd": {"bfloat16": "chunked split-bf16 mma",
                    "float32": "simt steps"},
-    "rwkv6_scan_bwd": dict.fromkeys(
-        ("bfloat16", "float32"),
-        "simt reverse scan: a block per (b, h) and 64 state columns, a "
-        "thread a state row, the state stored every 16 steps and each "
-        "step's recomputed from its chunk's; a second launch adds the "
-        "blocks' partial sums in a fixed order"),
-    "mamba2_ssd_bwd": dict.fromkeys(
-        ("bfloat16", "float32"),
-        "simt reverse scan: a block per (b, h) and 64 state columns, a "
-        "thread a state row, the state stored every 16 steps and each "
-        "step's recomputed from its chunk's; a second launch sums dB and "
-        "dC over the heads in a fixed order"),
+    "rwkv6_scan_bwd": {
+        "bfloat16": "chunked reverse scan on mma: the state stored every 16 "
+                    "steps by a first launch; a block per (b, h) and 64 state "
+                    "columns walks the 16-step sub-chunks last to first with "
+                    "dS in mma accumulators (dv, dS, X, Y, D as split-bf16 "
+                    "mma on the forward's rP, K', A), dr, dk and dw per "
+                    "channel in Horner form (dw direct, nothing divided); a "
+                    "last launch sums du",
+        "float32": "simt reverse scan: a block per (b, h) and 32 state "
+                   "columns, a thread a state row, the state stored every 16 "
+                   "steps and each step's recomputed from its chunk's; a "
+                   "second launch adds the blocks' partial sums in a fixed "
+                   "order"},
+    "mamba2_ssd_bwd": {
+        "bfloat16": "chunked on mma: a first launch walks the 64-step "
+                    "chunks forward for H and backward for dH in mma "
+                    "accumulators, storing both at every chunk boundary; a "
+                    "block per (chunk, 8 heads) then takes dX, dB, dC and "
+                    "dlog_a (direct form, box sums in fp32) as split-bf16 "
+                    "mma, C B^T shared by the heads, the next head's inputs "
+                    "landing by cp.async; a last launch sums dB and dC over "
+                    "the head groups in a fixed order",
+        "float32": "simt reverse scan: a block per (b, h) and 32 state "
+                   "columns, a thread a state row, the state stored every 16 "
+                   "steps and each step's recomputed from its chunk's; a "
+                   "second launch sums dB and dC over the heads in a fixed "
+                   "order"},
 }
 
 #: the served models, in the order they run: each at its full width and
@@ -2414,7 +2429,7 @@ def time_scan_bwd(torch, ops, name: str, launches: int, worst: dict) -> dict:
         kind, (b, h, t, cols, rows) = "ssd", shape    # rows N, cols P
     query = getattr(_build.library("ssm"), f"repro_{name}_ws")
     ws = 4 * query(b, h, t, rows, cols, 1)  # dtype 1: bf16
-    ws_dry = meta.scan_bwd_workspace_bytes(kind, torch.bfloat16, b * h, t,
+    ws_dry = meta.scan_bwd_workspace_bytes(kind, torch.bfloat16, b, h, t,
                                            rows, cols)
     if ws != ws_dry:
         fail(f"{name}'s workspace at {shape}: {ws} bytes, the dry-run "

@@ -449,6 +449,9 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
 // Four 8x8 bf16 tiles, transposed: r[m] holds tile m's elements
 // (2q, g) and (2q + 1, g) (q = lane % 4, g = lane / 4) in its low and high
 // halves; lane i gives the address of row i % 8 of tile i / 8.
@@ -939,6 +942,146 @@ __device__ __forceinline__ void put_pieces(__nv_bfloat16* p, int stride, float a
   *reinterpret_cast<uint32_t*>(p + stride) = pc[1];
 }
 
+// The prepared operands of one sub-chunk, from its raw r, k, w rows (rs,
+// stride RS) into a prepared stage pp (rP and K' in pieces, then A's
+// pieces), the quadrant's r'' and k'' (rq, kq) and W (Wd); all products of
+// w in fp32 within the sub-chunk, each in [0, 1]:
+//   rP[t] = r_t o prod_{q<t} w_q,  K'[s] = k_s o prod_{q>s} w_q,  W = prod_q w_q,
+//   A[t][s] = sum_c r_tc k_sc prod_{s<q<t} w_qc (s < t),
+//   A[t][t] = sum_c r_tc u_c k_tc,  A[t][s] = 0 (s > t, never written).
+// First (chains) the products along the sub-chunk, and the quadrant's
+// operands r''[t] = r_t o prod_{8<=q<t} w_q (t >= 8) and k''[s] = k_s o
+// prod_{s<q<8} w_q (s < 8); after a block barrier (diagonal) A: its
+// quadrant t >= 8 > s is r'' k''^T on the tensor cores, the rest per
+// channel.  Both take a block of 128 threads.
+template <int DK>
+__device__ __forceinline__ void wkv_prepare_chains(const __nv_bfloat16* rs, __nv_bfloat16* pp,
+                                                   __nv_bfloat16* rq, __nv_bfloat16* kq,
+                                                   float* Wd) {
+  constexpr int RS = WkvSmem<DK>::RS, HT = WT / 2;
+  const __nv_bfloat16* ks = rs + WT * RS;
+  const __nv_bfloat16* ws = ks + WT * RS;
+  const int x = threadIdx.x;
+  if (x >= DK) return;
+  // threads 0 .. DK/2 - 1: the forward products of a channel pair;
+  // DK/2 .. DK - 1: the backward ones
+  const bool fwd = x < DK / 2;
+  const int c = 2 * (fwd ? x : x - DK / 2);
+  const __nv_bfloat16* src = fwd ? rs : ks;
+  __nv_bfloat16* dst = pp + (fwd ? 0 : kWkvPieces * WT * RS);
+  __nv_bfloat16* qdst = fwd ? rq - HT * RS : kq;  // rows t - 8 / s
+  float p0v = 1.f, p1v = 1.f, h0 = 1.f, h1 = 1.f;
+#pragma unroll
+  for (int j = 0; j < WT; ++j) {
+    const int t = fwd ? j : WT - 1 - j;
+    const uint32_t xv = *reinterpret_cast<const uint32_t*>(src + t * RS + c);
+    const uint32_t wv = *reinterpret_cast<const uint32_t*>(ws + t * RS + c);
+    const float x0 = bf16_lo(xv), x1 = bf16_hi(xv), w0 = bf16_lo(wv), w1 = bf16_hi(wv);
+    put_pieces(dst + t * RS + c, WT * RS, x0 * p0v, x1 * p1v);
+    if (j >= HT) put_pieces(qdst + t * RS + c, HT * RS, x0 * h0, x1 * h1);
+    p0v *= w0;
+    p1v *= w1;
+    if (j >= HT) {
+      h0 *= w0;
+      h1 *= w1;
+    }
+  }
+  if (fwd) *reinterpret_cast<float2*>(Wd + c) = make_float2(p0v, p1v);
+}
+
+template <int DK>
+__device__ __forceinline__ void wkv_prepare_diagonal(const __nv_bfloat16* rs, __nv_bfloat16* pp,
+                                                     const __nv_bfloat16* rq,
+                                                     const __nv_bfloat16* kq,
+                                                     const __nv_bfloat16* us_bf) {
+  constexpr int RS = WkvSmem<DK>::RS, AS = WkvSmem<DK>::AS, KT = DK / 16, HT = WT / 2;
+  constexpr int NC = DK / 16;  // channels of each thread in the diagonal blocks
+  constexpr unsigned kAll = 0xffffffffu;
+  const __nv_bfloat16* ks = rs + WT * RS;
+  const __nv_bfloat16* ws = ks + WT * RS;
+  __nv_bfloat16* ap = pp + 2 * kWkvPieces * WT * RS;  // [piece][WT][AS]
+  const int x = threadIdx.x, warp = x >> 5, g = (x & 31) >> 2, q = x & 3;
+  // The two 8 x 8 diagonal blocks: each thread the steps s and 7 - s of
+  // one (7 running products: balanced) over NC channels
+  // (load_channels); the 16 channel groups of a pair are 16 lanes of one
+  // warp.
+  const int grp = x & 15, pu = x >> 4, base = HT * (pu >> 2), jj = pu & 3;
+  const int s1 = base + jj, s2 = base + HT - 1 - jj;
+  float kr[NC], k2[NC], rr[NC], uu[NC];
+  float d1 = 0.f, d2 = 0.f;
+  load_channels<NC>(us_bf, grp, uu);
+  load_channels<NC>(ks + s1 * RS, grp, kr);
+  load_channels<NC>(rs + s1 * RS, grp, rr);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) d1 = fmaf(rr[j] * uu[j], kr[j], d1);
+  load_channels<NC>(ks + s2 * RS, grp, k2);
+  load_channels<NC>(rs + s2 * RS, grp, rr);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) d2 = fmaf(rr[j] * uu[j], k2[j], d2);
+  // acc[jt]: (t, s) = (s1 + 1 + jt, s1) or, from jt = 7 - jj, (base + 1 + jt, s2)
+  float acc[HT];
+#pragma unroll
+  for (int jt = 0; jt < HT - 1; ++jt) {
+    const int t = jt < HT - 1 - jj ? s1 + 1 + jt : base + 1 + jt;
+    if (jt == HT - 1 - jj) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) kr[j] = k2[j];
+    }
+    float wr[NC];
+    load_channels<NC>(rs + t * RS, grp, rr);
+    load_channels<NC>(ws + t * RS, grp, wr);
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      a = fmaf(rr[j], kr[j], a);
+      kr[j] *= wr[j];
+    }
+    acc[jt] = a;
+  }
+  acc[HT - 1] = d1;
+  // lanes grp and grp ^ 1 end with the 16 lanes' sum of acc[grp / 2]
+  reduce_scatter_level<8, 4>(acc, grp);
+  reduce_scatter_level<4, 2>(acc, grp);
+  reduce_scatter_level<2, 1>(acc, grp);
+  acc[0] += __shfl_xor_sync(kAll, acc[0], 1);
+#pragma unroll
+  for (int o2 = 8; o2 >= 1; o2 >>= 1) d2 += __shfl_xor_sync(kAll, d2, o2);
+  auto put = [&](int t, int s, float val) {
+    const __nv_bfloat16 hi = __float2bfloat16(val);
+    ap[t * AS + s] = hi;
+    ap[(WT + t) * AS + s] = __float2bfloat16(val - __bfloat162float(hi));
+  };
+  const int idx = grp >> 1;
+  if (!(grp & 1)) {
+    if (idx == HT - 1) put(s1, s1, acc[0]);
+    else if (idx < HT - 1 - jj) put(s1 + 1 + idx, s1, acc[0]);
+    else put(base + 1 + idx, s2, acc[0]);
+  } else if (grp == 1) {
+    put(s2, s2, d2);
+  }
+  // the quadrant t >= 8 > s, by warp 0: rows 8 + g of an m16n8k16 whose
+  // rows 0-7 are zero
+  if (warp == 0) {
+    float qa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t ra[kWkvPieces][2], kb[kWkvPieces][2];
+#pragma unroll
+      for (int pc = 0; pc < kWkvPieces; ++pc)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int off = pc * HT * RS + g * RS + 16 * kt + 8 * e + 2 * q;
+          ra[pc][e] = *reinterpret_cast<const uint32_t*>(rq + off);
+          kb[pc][e] = *reinterpret_cast<const uint32_t*>(kq + off);
+        }
+      mma_bf16(qa, 0u, ra[0][0], 0u, ra[0][1], kb[0][0], kb[0][1]);
+      mma_bf16(qa, 0u, ra[0][0], 0u, ra[0][1], kb[1][0], kb[1][1]);
+      mma_bf16(qa, 0u, ra[1][0], 0u, ra[1][1], kb[0][0], kb[0][1]);
+    }
+    put_pieces(ap + (HT + g) * AS + 2 * q, WT * AS, qa[2], qa[3]);
+  }
+}
+
 template <int DK>
 __global__ void __launch_bounds__(128, DK <= 64 ? 4 : 2)
 wkv_chunked(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
@@ -947,8 +1090,6 @@ wkv_chunked(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict
             float* __restrict__ state, int H, int T, int Dv) {
   using L = WkvSmem<DK>;
   constexpr int RS = L::RS, VS = L::VS, AS = L::AS, KT = DK / 16, HT = WT / 2;
-  constexpr int NC = DK / 16;  // channels of each thread in the diagonal blocks
-  constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ float4 smem4[];
   float* us = reinterpret_cast<float*>(smem4);
   __nv_bfloat16* us_bf = reinterpret_cast<__nv_bfloat16*>(us);  // u, DK bf16
@@ -1010,131 +1151,11 @@ wkv_chunked(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict
     cp_async_commit();
   };
 
-  // The prepared operands of raw stage st into prepared stage ps, all
-  // products of w in fp32 within the sub-chunk, each in [0, 1]:
-  //   rP[t] = r_t o prod_{q<t} w_q,  K'[s] = k_s o prod_{q>s} w_q,  W = prod_q w_q,
-  //   A[t][s] = sum_c r_tc k_sc prod_{s<q<t} w_qc (s < t),
-  //   A[t][t] = sum_c r_tc u_c k_tc,  A[t][s] = 0 (s > t, never written).
-  // First (chains) the products along the sub-chunk, and the quadrant's
-  // operands r''[t] = r_t o prod_{8<=q<t} w_q (t >= 8) and k''[s] = k_s o
-  // prod_{s<q<8} w_q (s < 8); after a barrier (diagonal) A: its quadrant
-  // t >= 8 > s is r'' k''^T on the tensor cores, the rest per channel.
   auto prepare_chains = [&](int st, int ps) {
-    const __nv_bfloat16* rs = raw(st);
-    const __nv_bfloat16* ks = rs + WT * RS;
-    const __nv_bfloat16* ws = ks + WT * RS;
-    const int x = threadIdx.x;
-    if (x >= DK) return;
-    // threads 0 .. DK/2 - 1: the forward products of a channel pair;
-    // DK/2 .. DK - 1: the backward ones
-    const bool fwd = x < DK / 2;
-    const int c = 2 * (fwd ? x : x - DK / 2);
-    const __nv_bfloat16* src = fwd ? rs : ks;
-    __nv_bfloat16* dst = prep(ps) + (fwd ? 0 : kWkvPieces * WT * RS);
-    __nv_bfloat16* qdst = fwd ? rq - HT * RS : kq;  // rows t - 8 / s
-    float p0v = 1.f, p1v = 1.f, h0 = 1.f, h1 = 1.f;
-#pragma unroll
-    for (int j = 0; j < WT; ++j) {
-      const int t = fwd ? j : WT - 1 - j;
-      const uint32_t xv = *reinterpret_cast<const uint32_t*>(src + t * RS + c);
-      const uint32_t wv = *reinterpret_cast<const uint32_t*>(ws + t * RS + c);
-      const float x0 = bf16_lo(xv), x1 = bf16_hi(xv), w0 = bf16_lo(wv), w1 = bf16_hi(wv);
-      put_pieces(dst + t * RS + c, WT * RS, x0 * p0v, x1 * p1v);
-      if (j >= HT) put_pieces(qdst + t * RS + c, HT * RS, x0 * h0, x1 * h1);
-      p0v *= w0;
-      p1v *= w1;
-      if (j >= HT) {
-        h0 *= w0;
-        h1 *= w1;
-      }
-    }
-    if (fwd) *reinterpret_cast<float2*>(Wst + (ps * DK) + c) = make_float2(p0v, p1v);
+    wkv_prepare_chains<DK>(raw(st), prep(ps), rq, kq, Wst + ps * DK);
   };
   auto prepare_diagonal = [&](int st, int ps) {
-    const __nv_bfloat16* rs = raw(st);
-    const __nv_bfloat16* ks = rs + WT * RS;
-    const __nv_bfloat16* ws = ks + WT * RS;
-    __nv_bfloat16* ap = prep(ps) + 2 * kWkvPieces * WT * RS;  // [piece][WT][AS]
-    const int x = threadIdx.x;
-    // The two 8 x 8 diagonal blocks: each thread the steps s and 7 - s of
-    // one (7 running products: balanced) over NC channels
-    // (load_channels); the 16 channel groups of a pair are 16 lanes of one
-    // warp.
-    const int grp = x & 15, pu = x >> 4, base = HT * (pu >> 2), jj = pu & 3;
-    const int s1 = base + jj, s2 = base + HT - 1 - jj;
-    float kr[NC], k2[NC], rr[NC], uu[NC];
-    float d1 = 0.f, d2 = 0.f;
-    load_channels<NC>(us_bf, grp, uu);
-    load_channels<NC>(ks + s1 * RS, grp, kr);
-    load_channels<NC>(rs + s1 * RS, grp, rr);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) d1 = fmaf(rr[j] * uu[j], kr[j], d1);
-    load_channels<NC>(ks + s2 * RS, grp, k2);
-    load_channels<NC>(rs + s2 * RS, grp, rr);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) d2 = fmaf(rr[j] * uu[j], k2[j], d2);
-    // acc[jt]: (t, s) = (s1 + 1 + jt, s1) or, from jt = 7 - jj, (base + 1 + jt, s2)
-    float acc[HT];
-#pragma unroll
-    for (int jt = 0; jt < HT - 1; ++jt) {
-      const int t = jt < HT - 1 - jj ? s1 + 1 + jt : base + 1 + jt;
-      if (jt == HT - 1 - jj) {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) kr[j] = k2[j];
-      }
-      float wr[NC];
-      load_channels<NC>(rs + t * RS, grp, rr);
-      load_channels<NC>(ws + t * RS, grp, wr);
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        a = fmaf(rr[j], kr[j], a);
-        kr[j] *= wr[j];
-      }
-      acc[jt] = a;
-    }
-    acc[HT - 1] = d1;
-    // lanes grp and grp ^ 1 end with the 16 lanes' sum of acc[grp / 2]
-    reduce_scatter_level<8, 4>(acc, grp);
-    reduce_scatter_level<4, 2>(acc, grp);
-    reduce_scatter_level<2, 1>(acc, grp);
-    acc[0] += __shfl_xor_sync(kAll, acc[0], 1);
-#pragma unroll
-    for (int o2 = 8; o2 >= 1; o2 >>= 1) d2 += __shfl_xor_sync(kAll, d2, o2);
-    auto put = [&](int t, int s, float val) {
-      const __nv_bfloat16 hi = __float2bfloat16(val);
-      ap[t * AS + s] = hi;
-      ap[(WT + t) * AS + s] = __float2bfloat16(val - __bfloat162float(hi));
-    };
-    const int idx = grp >> 1;
-    if (!(grp & 1)) {
-      if (idx == HT - 1) put(s1, s1, acc[0]);
-      else if (idx < HT - 1 - jj) put(s1 + 1 + idx, s1, acc[0]);
-      else put(base + 1 + idx, s2, acc[0]);
-    } else if (grp == 1) {
-      put(s2, s2, d2);
-    }
-    // the quadrant t >= 8 > s, by warp 0: rows 8 + g of an m16n8k16 whose
-    // rows 0-7 are zero
-    if (warp == 0) {
-      float qa[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        uint32_t ra[kWkvPieces][2], kb[kWkvPieces][2];
-#pragma unroll
-        for (int pc = 0; pc < kWkvPieces; ++pc)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int off = pc * HT * RS + g * RS + 16 * kt + 8 * e + 2 * q;
-            ra[pc][e] = *reinterpret_cast<const uint32_t*>(rq + off);
-            kb[pc][e] = *reinterpret_cast<const uint32_t*>(kq + off);
-          }
-        mma_bf16(qa, 0u, ra[0][0], 0u, ra[0][1], kb[0][0], kb[0][1]);
-        mma_bf16(qa, 0u, ra[0][0], 0u, ra[0][1], kb[1][0], kb[1][1]);
-        mma_bf16(qa, 0u, ra[1][0], 0u, ra[1][1], kb[0][0], kb[0][1]);
-      }
-      put_pieces(ap + (HT + g) * AS + 2 * q, WT * AS, qa[2], qa[3]);
-    }
+    wkv_prepare_diagonal<DK>(raw(st), prep(ps), rq, kq, us_bf);
   };
 
   // zero the A tiles (their upper triangles are never written) and load u
@@ -1304,12 +1325,14 @@ int wkv_chunked_by_dim(int dk, const void* r, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K7's and K8's backward ("simt reverse scans")
+// K7's and K8's backward
 //
-// Neither reference kernel has a backward: the reference's training
-// differentiates its jnp oracles (src/repro/kernels/ref.py::rwkv6_ref,
-// mamba2_ref).  These are those gradients as reverse recurrences, with
-// G_t = dL/dS_t (dL/dH_t), started from the final state's cotangent:
+// repro_rwkv6_scan_bwd and repro_mamba2_ssd_bwd replace no pallas_call:
+// the reference's training differentiates the op entries
+// (src/repro/kernels/rwkv6_scan.py:82, src/repro/kernels/mamba2_ssd.py:70;
+// on the CPU its jnp oracles, src/repro/kernels/ref.py::rwkv6_ref,
+// mamba2_ref).  These are those gradients, with G_t = dL/dS_t (dL/dH_t)
+// started from the final state's cotangent:
 //
 //   K7: G_{t-1} = diag(w_t) G_t + r_t^T do_t
 //       dr_t = S_{t-1} do_t + (u o k_t)(v_t . do_t)
@@ -1320,44 +1343,41 @@ int wkv_chunked_by_dim(int dk, const void* r, const void* k, const void* v,
 //       dx_t = B_t G_t,  dB_t = sum_h G_t x_t^T,  dC_t = sum_h H_t dy_t^T
 //       dlog_a_t = a_t sum(G_t o H_{t-1})
 //
-// Nothing divides by a decay, so w = 0 and log_a = -inf give finite
-// gradients.  A block takes one (b, h) and a tile of NC state columns (Dv
-// or P; any width up to 1024 is grid size), one thread a state ROW (Dk or
-// N threads), so the sums over columns (dr, dk, dw; dB, dC, dlog_a) are
-// each thread's own and only dv / dx are summed over the rows, in shared
-// memory.  The state and G stay in registers (NC each).  A first pass
-// walks forward and stores the state at the start of every chunk of
-// BW_CHUNK steps (a workspace that lives only for the launch); the
-// reverse pass then takes the chunks last to first, and for each step
-// recomputes S_{t-1} from its chunk's stored state (at most BW_CHUNK - 1
-// state updates), so no per-step state is ever stored and remat's memory
-// stays the dry-run's.  Sums that cross blocks are per-block fp64
-// partials, added in a fixed order by a second launch (K7: over the column
-// tiles, and du over b; K8: dB and dC over the heads and tiles, dlog_a
-// over the tiles): no float atomics, the result is the same run to run.
+// Bound on the card: bytes (the forward's inputs, the cotangents and the
+// gradients each moved once); at the training shapes 0.183 ms (K7, rwkv6-7b
+// (8, 64, 1024, 64, 64)) and 0.082 ms (K8, zamba2-2.7b (8, 80, 1024, 64,
+// 64)).  Nothing divides by a decay, so w = 0 and log_a = -inf give finite
+// gradients, and no sum crosses blocks by float atomics: the partials are
+// added in a fixed order by a last launch, the same bits run to run.  One
+// counted launch a call, whatever it launches inside; the workspace (the
+// stored states and the partials) lives for the call only, so remat's
+// memory stays what the dry-run counts (kernels/meta.py).  Every gradient
+// in its input's dtype.  Two routes, by the inputs' dtype:
 //
-// Precision, by the inputs' dtype (BwRoute): bf16 inputs (the train path)
-// carry the state and G in fp32 over 64 columns a block; fp32 inputs carry
-// them in fp64 over 32 columns (the registers of 64 fp64 values a thread),
-// the stored states too.  Every sum that ends in a gradient (the dot
-// products over a tile's columns, the sums over the rows, over t and over
-// the blocks) runs in fp64 in both.  In fp32, a gradient that is a long
-// sum of products that cancel (K8's dlog_a: 4,096 products G H a step)
-// missed 2e-5 (1 + |g|) of the exact gradient by up to 6x at T = 1,000:
-// the fp32 state's own rounding, which no summation order removes.  Every
-// gradient in its input's dtype.
+// bf16 inputs (the train path): the chunked reverse scans on the tensor
+// cores, below ("The bf16 routes").
+//
+// fp32 inputs ("simt reverse scans"): a block takes one (b, h) and a tile
+// of 32 state columns (Dv or P; any width up to 1024 is grid size), one
+// thread a state ROW (Dk or N threads), so the sums over columns (dr, dk,
+// dw; dB, dC, dlog_a) are each thread's own and only dv / dx are summed
+// over the rows, in shared memory.  The state and G stay in registers, in
+// fp64.  A first pass walks forward and stores the state at the start of
+// every chunk of BW_CHUNK steps; the reverse pass takes the chunks last to
+// first and for each step recomputes S_{t-1} from its chunk's stored state
+// (at most BW_CHUNK - 1 state updates).  Every sum that ends in a gradient
+// runs in fp64 and the stored states are fp64: with fp32 states, K8's
+// dlog_a (4,096 products G H a step that cancel) missed 2e-5 (1 + |g|) by
+// up to 6x at T = 1,000, the state's own rounding, which no summation
+// order removes.
 
 constexpr int BW_CHUNK = 16;  // steps between stored states
 
-// the state's type (A) and the state columns a block takes (NC), by the
-// inputs' type
+// the state's type (A) and the state columns a block takes (NC) of the
+// simt reverse scans, by the inputs' type (fp32 only: bf16 takes the
+// chunked route)
 template <typename T>
 struct BwRoute;
-template <>
-struct BwRoute<__nv_bfloat16> {
-  typedef float A;
-  static constexpr int NC = 64;
-};
 template <>
 struct BwRoute<float> {
   typedef double A;
@@ -1838,6 +1858,1435 @@ int ssd_bwd_by_dim(int n, const void* x, const float* la, const float* Bm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 routes of K7's and K8's backward ("chunked reverse scans on
+// mma"): the forwards' chunked algebra (ssd_chunked, wkv_chunked)
+// transposed, every fp32 operand of a tensor-core product in two bf16
+// pieces (the products hi hi + hi lo + lo hi; x, dy, v and dO are exact in
+// bf16), fp32 sums.  One rounding a side misses 1e-2 (1 + |g|) by 7-24x
+// (tests/test_torch_ssm_bwd_chunked.py, a plain emulation of both
+// algorithms that rounds where they round).  Products are mma.sync
+// m16n8k16: the pair blocks of K7 are 16 wide, and K8's 64-row products
+// run as 16-row warp tiles of the same instruction (no wgmma yet).
+
+// mma.sync m16n8k16 fragments, lane = 4 g + q: A (16 x 16, row i, column
+// j): a[0] (g, 2q..2q+1), a[1] (g + 8, ..), a[2] (g, 2q + 8..), a[3]
+// (g + 8, 2q + 8..); B (16 x 8, row k, column n): b[0] (2q..2q+1, g), b[1]
+// (2q + 8.., g); C (16 x 8): c[0..1] (g, 2q..2q+1), c[2..3] (g + 8, ..).
+// The frag_* helpers build a fragment from f(row, column) of the tile:
+// "2" in two bf16 pieces (split_bf16), "1" rounded once (for values that
+// are exact in bf16: x, dy, v, dO).
+
+template <class F>
+__device__ __forceinline__ void frag_a2(F f, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = g + 8 * (r & 1), j = 2 * q + 8 * (r >> 1);
+    uint32_t p[2];
+    split_bf16(f(i, j), f(i, j + 1), p);
+    hi[r] = p[0];
+    lo[r] = p[1];
+  }
+}
+template <class F>
+__device__ __forceinline__ void frag_a1(F f, uint32_t (&a)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = g + 8 * (r & 1), j = 2 * q + 8 * (r >> 1);
+    a[r] = pack_bf16(f(i, j), f(i, j + 1));
+  }
+}
+template <class F>
+__device__ __forceinline__ void frag_b2(F f, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = 2 * q + 8 * r;
+    uint32_t p[2];
+    split_bf16(f(k, g), f(k + 1, g), p);
+    hi[r] = p[0];
+    lo[r] = p[1];
+  }
+}
+template <class F>
+__device__ __forceinline__ void frag_b1(F f, uint32_t (&b)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) b[r] = pack_bf16(f(2 * q + 8 * r, g), f(2 * q + 8 * r + 1, g));
+}
+
+// d += a b: both sides in pieces (hi hi + hi lo + lo hi), one side in
+// pieces and the other exact, or both exact
+__device__ __forceinline__ void mma_pp(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2]) {
+  mma_bf16(d, ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+  mma_bf16(d, ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+  mma_bf16(d, al[0], al[1], al[2], al[3], bh[0], bh[1]);
+}
+__device__ __forceinline__ void mma_pe(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&b)[2]) {
+  mma_bf16(d, ah[0], ah[1], ah[2], ah[3], b[0], b[1]);
+  mma_bf16(d, al[0], al[1], al[2], al[3], b[0], b[1]);
+}
+__device__ __forceinline__ void mma_ep(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_bf16(d, a[0], a[1], a[2], a[3], bh[0], bh[1]);
+  mma_bf16(d, a[0], a[1], a[2], a[3], bl[0], bl[1]);
+}
+__device__ __forceinline__ void mma_ee(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  mma_bf16(d, a[0], a[1], a[2], a[3], b[0], b[1]);
+}
+
+__device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// By one whole warp, as ssd_chunked: the fp64 inclusive sums of a chunk's
+// log-decays la[0 .. SQ) in shared memory (each floored at kLogDecayFloor;
+// the rows past T staged as 0), lane l holding those of steps 2l and 2l + 1
+// in cu0 and cu1; returns the chunk's whole sum (cum[63]) in every lane
+__device__ __forceinline__ double chunk_cum(const float* la, double& cu0, double& cu1) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const double v0 = fmax((double)la[2 * lane], kLogDecayFloor);
+  const double v1 = fmax((double)la[2 * lane + 1], kLogDecayFloor);
+  double incl = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double excl = __shfl_up_sync(kAll, incl, 1);
+  if (lane == 0) excl = 0.0;
+  cu0 = excl + v0;
+  cu1 = cu0 + v1;
+  return __shfl_sync(kAll, cu1, 31);
+}
+
+// -- K8's backward, bf16 x: three launches
+//
+// (1) ssd_bwd_states, a block per (P tile, b h, direction), 4 warps, the
+//     64-step chunks walked first to last (H, from 0) or last to first
+//     (dH, from dstate) with the state in mma accumulators as ssd_chunked
+//     keeps it, a 2-stage cp.async ring of B (C), x (dy) and log_a: the
+//     state at every chunk boundary is stored (H_start, dH_end: fp32
+//     [b h][chunk][N][P]), then H <- e^{cend} H + (B o e^{cend-cum_s})^T x
+//     or dH <- e^{cend} dH + (C o e^{cum_t})^T dy;
+// (2) ssd_bwd_chunk, a block per (chunk, P tile, b, group of kBwHeads
+//     heads), 8 warps (16 rows by half the columns each), the group's heads
+//     one after another: C B^T once, then per head
+//         dX = M^T dy + (B o e^{cend-cum_s}) dH_end,  M = C B^T o L
+//         dC = (dM o L) B + diag(e^{cum_t}) dy H_start^T,  dM = dy x^T
+//         dB = (dM o L)^T C + diag(e^{cend-cum_s}) x dH_end^T
+//         dlog_a_t = sum_{tau>=t, s<t} (M o dM)[tau, s] + sum_{tau>=t} z_tau
+//                    + sum_{s<t} w_s + e^{cend} <dH_end, H_start>,
+//     z_t = C_t . (dC's state part)_t, w_s = B_s . (dB's state part)_s:
+//     dlog_a in its direct form (every exponent spans a_t, none is
+//     positive, nothing is divided, no differences that cancel), the box
+//     sums of M o dM as a column pass then a row pass in fp32; dB and dC
+//     summed over the group's heads in registers; decays from the fp64
+//     sums of log_a floored at -128, as the forward's;
+// (3) ssd_bwd_sum: dB and dC over the groups and P tiles, dlog_a over the
+//     P tiles, in a fixed order.
+// What bounds it (edited copies with a part taken out, PERF.md §6): the
+// chunk kernel waits on its inputs and its box sums more than on its
+// products (dB and dC took 0.20 ms of 1.65 at zamba2-2.7b's training
+// shape before the head prefetch), one block an SM; the walks store
+// 0.67 GB a launch (0.28 ms).
+constexpr int kBwHeads = 8;
+
+template <int N>
+struct SsdBwSmem {
+  static constexpr int BST = N + 4, GST = SQ + 4, HST = SP + 4, XST = SP + 8;
+  // ssd_bwd_states: two stages, each B or C [SQ][BST], x or dy [SQ][XST]
+  // bf16 and log_a [SQ]; then the rows' decays [SQ] and e^{cend}
+  static constexpr int kStage = SQ * BST + SQ * XST / 2 + SQ;
+  static constexpr size_t states_bytes = sizeof(float) * (2 * kStage + SQ + 4);
+  // ssd_bwd_chunk, shared by the heads: C, B [SQ][BST]; G, M, dM o L
+  // [SQ][GST]; z, w [2][SQ] (the two column halves); the box sums' segment
+  // totals and the row sums' parts [4][SQ]; 8 warps' <dH_end, H_start>.
+  // Then a buffer per head in flight (two where they fit: the next head's
+  // lands while this one runs): H_start, dH_end [N][HST], x, dy [SQ][XST]
+  // bf16, log_a [SQ].
+  static constexpr int kC = 0, kB = SQ * BST, kG = 2 * SQ * BST, kM = kG + SQ * GST,
+                       kD = kM + SQ * GST, kZ = kD + SQ * GST, kW = kZ + 2 * SQ,
+                       kTot = kW + 2 * SQ, kPart = kTot + 4 * SQ, kRed = kPart + 4 * SQ,
+                       kBuf0 = kRed + 8;
+  static constexpr int kH = 0, kdH = N * HST, kX = 2 * N * HST, kLa = kX + SQ * XST,
+                       kBuf = kLa + SQ;
+  static constexpr size_t chunk_bytes_for(int bufs) {
+    return sizeof(float) * (kBuf0 + (size_t)bufs * kBuf);
+  }
+  static constexpr int kBufs = chunk_bytes_for(2) <= kSmemMax ? 2 : 1;
+  static constexpr size_t chunk_bytes = chunk_bytes_for(kBufs);
+};
+
+template <int N>
+__global__ void __launch_bounds__(128)
+ssd_bwd_states(const __nv_bfloat16* __restrict__ x, const float* __restrict__ la,
+               const float* __restrict__ Bm, const float* __restrict__ Cm,
+               const __nv_bfloat16* __restrict__ dy, const float* __restrict__ dstate,
+               float* __restrict__ Hs, float* __restrict__ dHs, int H, int T, int P) {
+  using L = SsdBwSmem<N>;
+  constexpr int BST = L::BST, XST = L::XST, NT = N / 16, MY = (NT + 3) / 4;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* dcy = sm + 2 * L::kStage;  // [SQ] the rows' decays, [SQ] e^{cend}
+
+  // z = 0: the chunks first to last, H (from 0) before each; z = 1: last to
+  // first, dH (from dstate) after each
+  const bool rev = blockIdx.z == 1;
+  const float* rows = rev ? Cm : Bm;
+  const __nv_bfloat16* cols = rev ? dy : x;
+  float* out = rev ? dHs : Hs;
+  const int p0 = blockIdx.x * SP, bh = blockIdx.y, b = bh / H;
+  const int nch = (T + SQ - 1) / SQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const size_t row0 = (size_t)bh * T;
+  const bool rvec = (reinterpret_cast<uintptr_t>(rows) & 15) == 0;
+  const bool xvec = P % 8 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+
+  auto rows_of = [&](int st) { return sm + st * L::kStage; };
+  auto cols_of = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(rows_of(st) + SQ * BST);
+  };
+  auto la_of = [&](int st) { return rows_of(st) + SQ * BST + SQ * XST / 2; };
+  // chunk c's B (C), x (dy) tile and log_a into stage st; rows past T zero
+  auto load_chunk = [&](int c, int st) {
+    const int t0 = c * SQ;
+    float* rs = rows_of(st);
+    for (int i = threadIdx.x; i < SQ * N / 4; i += 128) {
+      const int r = i / (N / 4), v = i % (N / 4), t = t0 + r;
+      float* d = rs + r * BST + 4 * v;
+      const float* src = rows + ((size_t)b * T + t) * N + 4 * v;
+      if (t < T && rvec) {
+        cp_async16(d, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = t < T ? src[e] : 0.f;
+      }
+    }
+    __nv_bfloat16* xs = cols_of(st);
+    for (int i = threadIdx.x; i < SQ * (SP / 8); i += 128) {
+      const int r = i / (SP / 8), v = i % (SP / 8), t = t0 + r, p = p0 + 8 * v;
+      __nv_bfloat16* d = xs + r * XST + 8 * v;
+      if (t < T && xvec && p + 8 <= P) {
+        cp_async16(d, cols + (row0 + t) * P + p);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          d[e] = t < T && p + e < P ? cols[(row0 + t) * P + p + e] : __float2bfloat16(0.f);
+      }
+    }
+    if (threadIdx.x < SQ) {
+      float* ls = la_of(st);
+      const int i = threadIdx.x;
+      if (t0 + i < T) cp_async4(ls + i, la + row0 + t0 + i);
+      else ls[i] = 0.f;
+    }
+    cp_async_commit();
+  };
+
+  // the state: rows 16 (warp + 4 m) + g (+8), columns 8 j + 2q (+1), as
+  // ssd_chunked's
+  float S[MY][8][4];
+#pragma unroll
+  for (int m = 0; m < MY; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 16 * (warp + 4 * m) + g + 8 * (e >> 1), p = p0 + 8 * j + 2 * q + (e & 1);
+        S[m][j][e] = rev && dstate != nullptr && n < N && p < P
+                         ? dstate[((size_t)bh * N + n) * P + p] : 0.f;
+      }
+
+  load_chunk(rev ? nch - 1 : 0, 0);
+  for (int i = 0; i < nch; ++i) {
+    const int c = rev ? nch - 1 - i : i, st = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c landed; the last chunk's reads are done
+    if (i + 1 < nch) load_chunk(rev ? c - 1 : c + 1, st ^ 1);
+    if (warp == 0) {  // e^{cend - cum_s} (B's) or e^{cum_t} (C's), and e^{cend}
+      double cu0, cu1;
+      const double cend = chunk_cum(la_of(st), cu0, cu1);
+      dcy[2 * lane] = rev ? expf((float)cu0) : __expf((float)(cend - cu0));
+      dcy[2 * lane + 1] = rev ? expf((float)cu1) : __expf((float)(cend - cu1));
+      if (lane == 0) dcy[SQ] = expf((float)cend);
+    }
+    {  // the state at this chunk's boundary
+      float* ob = out + ((size_t)bh * nch + c) * N * P;
+#pragma unroll
+      for (int m = 0; m < MY; ++m) {
+        const int tile = warp + 4 * m;
+        if (tile >= NT) break;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = 16 * tile + g + 8 * (e >> 1), p = p0 + 8 * j + 2 * q + (e & 1);
+            if (p < P) ob[(size_t)n * P + p] = S[m][j][e];
+          }
+      }
+    }
+    __syncthreads();  // the decays
+    const float de = dcy[SQ];
+#pragma unroll
+    for (int m = 0; m < MY; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) S[m][j][e] *= de;
+    // S += (rows o decay)^T cols over the chunk's steps, 16 at a time
+    const float* rs = rows_of(st);
+    const __nv_bfloat16* xs = cols_of(st);
+#pragma unroll
+    for (int kk = 0; kk < SQ / 16; ++kk) {
+      uint32_t xb[8][2];  // cols[s (+1)][p], [s + 8 (+9)][p], s = 16 kk + 2 q, p = 8 j + g
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t r[4];
+        const int mm = lane >> 3;
+        ldmatrix_x4_trans(r, xs + (16 * kk + 8 * (mm & 1) + (lane & 7)) * XST +
+                                 8 * (2 * jp + (mm >> 1)));
+        xb[2 * jp][0] = r[0];
+        xb[2 * jp][1] = r[1];
+        xb[2 * jp + 1][0] = r[2];
+        xb[2 * jp + 1][1] = r[3];
+      }
+      const int s = 16 * kk + 2 * q;
+      const float d0 = dcy[s], d1 = dcy[s + 1], d8 = dcy[s + 8], d9 = dcy[s + 9];
+#pragma unroll
+      for (int m = 0; m < MY; ++m) {
+        const int tile = warp + 4 * m;
+        if (tile >= NT) break;
+        const int n = 16 * tile + g;
+        uint32_t a0[2], a1[2], a2[2], a3[2];
+        split_bf16(rs[s * BST + n] * d0, rs[(s + 1) * BST + n] * d1, a0);
+        split_bf16(rs[s * BST + n + 8] * d0, rs[(s + 1) * BST + n + 8] * d1, a1);
+        split_bf16(rs[(s + 8) * BST + n] * d8, rs[(s + 9) * BST + n] * d9, a2);
+        split_bf16(rs[(s + 8) * BST + n + 8] * d8, rs[(s + 9) * BST + n + 8] * d9, a3);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            mma_bf16(S[m][j], a0[k], a1[k], a2[k], a3[k], xb[j][0], xb[j][1]);
+      }
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(256)
+ssd_bwd_chunk(const __nv_bfloat16* __restrict__ x, const float* __restrict__ la,
+              const float* __restrict__ Bm, const float* __restrict__ Cm,
+              const __nv_bfloat16* __restrict__ dy, const float* __restrict__ Hs,
+              const float* __restrict__ dHs, __nv_bfloat16* __restrict__ dx,
+              float* __restrict__ pla, float* __restrict__ pbc, int Bn, int H, int T, int P) {
+  using L = SsdBwSmem<N>;
+  constexpr int BST = L::BST, GST = L::GST, HST = L::HST, XST = L::XST, NB = L::kBufs;
+  constexpr int NJ = N / 16;  // 8-wide tiles of n in a warp's half of N
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Cs = sm + L::kC;
+  float* Bs = sm + L::kB;
+  float* Gs = sm + L::kG;
+  float* Ms = sm + L::kM;
+  float* Ds = sm + L::kD;
+  float* zp = sm + L::kZ;
+  float* wp = sm + L::kW;
+  float* tot = sm + L::kTot;
+  float* part = sm + L::kPart;
+  float* red = sm + L::kRed;
+  auto buf = [&](int k) { return sm + L::kBuf0 + k * L::kBuf; };
+
+  const int c = blockIdx.x, nch = gridDim.x, pt = blockIdx.y, ptiles = gridDim.y;
+  const int groups = (H + kBwHeads - 1) / kBwHeads;
+  const int b = blockIdx.z / groups, grp = blockIdx.z % groups;
+  const int nheads = min(kBwHeads, H - grp * kBwHeads);
+  const int p0 = pt * SP, t0 = c * SQ, nrows = min(SQ, T - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int rw = warp & 3, hf = warp >> 2;
+  const int tr = 16 * rw;        // the warp's rows (t or s) tr .. tr + 15
+  const int n0 = (N / 2) * hf;   // its columns of n in dB and dC
+  const int pc0 = 32 * hf;       // its columns of the P tile in dX
+  const size_t NP = (size_t)N * P;
+  const bool xvec = P % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
+  const bool hvec = P % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(Hs) | reinterpret_cast<uintptr_t>(dHs)) & 15) == 0;
+
+  // head hs's x, dy, H_start, dH_end and log_a into buffer k (cp.async);
+  // rows past T and columns past P are zeros
+  auto load_head = [&](int hs, int k) {
+    const size_t bh = (size_t)b * H + grp * kBwHeads + hs, row0 = bh * T;
+    float* bk = buf(k);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(bk + L::kX);
+    constexpr int XV = SQ * (SP / 8);  // 16-byte pieces of a tile
+    for (int i = threadIdx.x; i < 2 * XV; i += 256) {
+      const int a = i / XV, r = i % XV / (SP / 8), v = i % (SP / 8);
+      const int t = t0 + r, p = p0 + 8 * v;
+      const __nv_bfloat16* src = a ? dy : x;
+      __nv_bfloat16* d = xs + (a * SQ + r) * XST + 8 * v;
+      if (t < T && xvec && p + 8 <= P) {
+        cp_async16(d, src + (row0 + t) * P + p);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          d[e] = t < T && p + e < P ? src[(row0 + t) * P + p + e] : __float2bfloat16(0.f);
+      }
+    }
+    constexpr int HV = N * (SP / 4);
+    for (int i = threadIdx.x; i < 2 * HV; i += 256) {
+      const int a = i / HV, n = i % HV / (SP / 4), v = i % (SP / 4), p = p0 + 4 * v;
+      const float* src = (a ? dHs : Hs) + (bh * nch + c) * NP + (size_t)n * P;
+      float* d = bk + (a ? L::kdH : L::kH) + n * HST + 4 * v;
+      if (hvec && p + 4 <= P) {
+        cp_async16(d, src + p);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = p + e < P ? src[p + e] : 0.f;
+      }
+    }
+    if (threadIdx.x < SQ) {
+      const int i = threadIdx.x;
+      if (t0 + i < T) cp_async4(bk + L::kLa + i, la + row0 + t0 + i);
+      else bk[L::kLa + i] = 0.f;
+    }
+    cp_async_commit();
+  };
+
+  if (NB == 2) load_head(0, 0);
+  for (int i = threadIdx.x; i < SQ * N; i += 256) {
+    const int r = i / N, n = i % N;
+    const size_t gi = ((size_t)b * T + t0 + r) * N + n;
+    Cs[r * BST + n] = r < nrows ? Cm[gi] : 0.f;
+    Bs[r * BST + n] = r < nrows ? Bm[gi] : 0.f;
+  }
+  __syncthreads();
+  // G = C B^T on the warp's causal tiles: rows tr.., columns 32 hf + 8 j
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int s0 = pc0 + 8 * j;
+    if (s0 > tr + 15) break;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kn = 0; kn < N / 16; ++kn) {
+      uint32_t ah[4], al[4], bh_[2], bl[2];
+      frag_a2([&](int i, int jj) { return Cs[(tr + i) * BST + 16 * kn + jj]; }, ah, al);
+      frag_b2([&](int k, int n) { return Bs[(s0 + n) * BST + 16 * kn + k]; }, bh_, bl);
+      mma_pp(acc, ah, al, bh_, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      Gs[(tr + g + 8 * (e >> 1)) * GST + s0 + 2 * q + (e & 1)] = acc[e];
+  }
+
+  float dCa[NJ][4], dBa[NJ][4];  // rows tr.., columns n0 + 8 j
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dCa[j][e] = dBa[j][e] = 0.f;
+
+  for (int hs = 0; hs < nheads; ++hs) {
+    const size_t bh = (size_t)b * H + grp * kBwHeads + hs, row0 = bh * T;
+    const int k = NB == 2 ? hs & 1 : 0;
+    __syncthreads();  // G is ready; the last head's reads are done
+    if (NB == 1) load_head(hs, 0);
+    else if (hs + 1 < nheads) load_head(hs + 1, k ^ 1);
+    if (NB == 2 && hs + 1 < nheads) cp_async_wait_one();
+    else cp_async_wait_all();
+    __syncthreads();  // head hs landed
+    const float* bk = buf(k);
+    const float* Hm = bk + L::kH;
+    const float* dHm = bk + L::kdH;
+    const __nv_bfloat16* Xs = reinterpret_cast<const __nv_bfloat16*>(bk + L::kX);
+    const __nv_bfloat16* Ys = Xs + SQ * XST;
+
+    // the chunk's fp64 sums of floored log-decays, in every warp (lane l
+    // holds those of steps 2l, 2l + 1), and the decays of this thread's
+    // rows tr + g, tr + g + 8
+    double cu0, cu1;
+    const double cend = chunk_cum(bk + L::kLa, cu0, cu1);
+    auto cum_at = [&](int i) {
+      const double lo = __shfl_sync(kAll, cu0, i >> 1), hi = __shfl_sync(kAll, cu1, i >> 1);
+      return (i & 1) ? hi : lo;
+    };
+    const double ct0 = cum_at(tr + g), ct1 = cum_at(tr + g + 8);
+    const float eT0 = expf((float)ct0), eT1 = expf((float)ct1);
+    const float eL0 = __expf((float)(cend - ct0)), eL1 = __expf((float)(cend - ct1));
+    const float de = expf((float)cend);
+
+    // dy's fragments as A (rows tr.., columns 16 kp ..), shared by dM and
+    // dC's state part
+    uint32_t ya[SP / 16][4];
+#pragma unroll
+    for (int kp = 0; kp < SP / 16; ++kp)
+      frag_a1([&](int i, int jj) { return bf(Ys[(tr + i) * XST + 16 * kp + jj]); }, ya[kp]);
+
+    // dM = dy x^T on the warp's causal tiles -> Ds = dM o L and Ms = G o L,
+    // zero above the diagonal
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s0 = pc0 + 8 * j;
+      if (s0 > tr + 15) break;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kp = 0; kp < SP / 16; ++kp) {
+        uint32_t bb[2];
+        frag_b1([&](int kx, int n) { return bf(Xs[(s0 + n) * XST + 16 * kp + kx]); }, bb);
+        mma_ee(acc, ya[kp], bb);
+      }
+      const double cs0 = cum_at(s0 + 2 * q), cs1 = cum_at(s0 + 2 * q + 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = tr + g + 8 * (e >> 1), s = s0 + 2 * q + (e & 1);
+        float dm = 0.f, mm = 0.f;
+        if (s <= t) {
+          const float l = __expf((float)(((e >> 1) ? ct1 : ct0) - ((e & 1) ? cs1 : cs0)));
+          dm = acc[e] * l;
+          mm = Gs[t * GST + s] * l;
+        }
+        Ds[t * GST + s] = dm;
+        Ms[t * GST + s] = mm;
+      }
+    }
+    __syncthreads();
+
+    {  // dX: rows tr.., columns pc0 + 8 j of the tile
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int kk = rw; kk < SQ / 16; ++kk) {  // M^T dy: s >= t
+        uint32_t ah[4], al[4];
+        frag_a2([&](int i, int jj) { return Ms[(16 * kk + jj) * GST + tr + i]; }, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bb[2];
+          frag_b1([&](int kx, int n) { return bf(Ys[(16 * kk + kx) * XST + pc0 + 8 * j + n]); },
+                  bb);
+          mma_pe(acc[j], ah, al, bb);
+        }
+      }
+#pragma unroll
+      for (int kn = 0; kn < N / 16; ++kn) {  // (B o e^{cend - cum_t}) dH_end
+        uint32_t ah[4], al[4];
+        frag_a2([&](int i, int jj) {
+          return Bs[(tr + i) * BST + 16 * kn + jj] * (i < 8 ? eL0 : eL1);
+        }, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh_[2], bl[2];
+          frag_b2([&](int kx, int n) { return dHm[(16 * kn + kx) * HST + pc0 + 8 * j + n]; },
+                  bh_, bl);
+          mma_pp(acc[j], ah, al, bh_, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + tr + g + 8 * (e >> 1), p = p0 + pc0 + 8 * j + 2 * q + (e & 1);
+          if (t < T && p < P) dx[(row0 + t) * P + p] = __float2bfloat16(acc[j][e]);
+        }
+    }
+
+    {  // dC: its state part first (with C its row sums z), then (dM o L) B
+      float st[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < SP / 16; ++kp)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t bh_[2], bl[2];
+          frag_b2([&](int kx, int n) { return Hm[(n0 + 8 * j + n) * HST + 16 * kp + kx]; }, bh_,
+                  bl);
+          mma_ep(st[j], ya[kp], bh_, bl);
+        }
+      float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = tr + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * q + (e & 1);
+          const float v = st[j][e] * ((e >> 1) ? eT1 : eT0);
+          dCa[j][e] += v;
+          if (e >> 1) z1 = fmaf(Cs[row * BST + n], v, z1);
+          else z0 = fmaf(Cs[row * BST + n], v, z0);
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        z0 += __shfl_xor_sync(kAll, z0, o);
+        z1 += __shfl_xor_sync(kAll, z1, o);
+      }
+      if (q == 0) {
+        zp[hf * SQ + tr + g] = z0;
+        zp[hf * SQ + tr + g + 8] = z1;
+      }
+      for (int kk = 0; kk <= rw; ++kk) {  // s <= t
+        uint32_t ah[4], al[4];
+        frag_a2([&](int i, int jj) { return Ds[(tr + i) * GST + 16 * kk + jj]; }, ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t bh_[2], bl[2];
+          frag_b2([&](int kx, int n) { return Bs[(16 * kk + kx) * BST + n0 + 8 * j + n]; }, bh_,
+                  bl);
+          mma_pp(dCa[j], ah, al, bh_, bl);
+        }
+      }
+    }
+
+    {  // dB: its state part first (with B its row sums w), then (dM o L)^T C
+      float st[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < SP / 16; ++kp) {
+        uint32_t a[4];
+        frag_a1([&](int i, int jj) { return bf(Xs[(tr + i) * XST + 16 * kp + jj]); }, a);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t bh_[2], bl[2];
+          frag_b2([&](int kx, int n) { return dHm[(n0 + 8 * j + n) * HST + 16 * kp + kx]; },
+                  bh_, bl);
+          mma_ep(st[j], a, bh_, bl);
+        }
+      }
+      float w0 = 0.f, w1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = tr + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * q + (e & 1);
+          const float v = st[j][e] * ((e >> 1) ? eL1 : eL0);
+          dBa[j][e] += v;
+          if (e >> 1) w1 = fmaf(Bs[row * BST + n], v, w1);
+          else w0 = fmaf(Bs[row * BST + n], v, w0);
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        w0 += __shfl_xor_sync(kAll, w0, o);
+        w1 += __shfl_xor_sync(kAll, w1, o);
+      }
+      if (q == 0) {
+        wp[hf * SQ + tr + g] = w0;
+        wp[hf * SQ + tr + g + 8] = w1;
+      }
+      for (int kk = rw; kk < SQ / 16; ++kk) {  // t >= s
+        uint32_t ah[4], al[4];
+        frag_a2([&](int i, int jj) { return Ds[(16 * kk + jj) * GST + tr + i]; }, ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t bh_[2], bl[2];
+          frag_b2([&](int kx, int n) { return Cs[(16 * kk + kx) * BST + n0 + 8 * j + n]; }, bh_,
+                  bl);
+          mma_pp(dBa[j], ah, al, bh_, bl);
+        }
+      }
+    }
+
+    {  // <dH_end, H_start> over the tile
+      float hh = 0.f;
+      for (int i = threadIdx.x; i < N * SP; i += 256) {
+        const int o = i / SP * HST + i % SP;
+        hh = fmaf(dHm[o], Hm[o], hh);
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) hh += __shfl_xor_sync(kAll, hh, o);
+      if (lane == 0) red[warp] = hh;
+    }
+    __syncthreads();  // M is no longer read; z, w and the dots are whole
+    // The box sums of M o dM = G o Ds, dlog_a's first term, over all
+    // threads: (s, segment) first sums rows t > s of its 16-row segment
+    // from the bottom, Ms[t][s] <- sum_{t <= tau in the segment} G Ds, and
+    // the segment's total; then (t, part) sums its part's columns s < t of
+    // Ms[t][s] plus the totals of the segments below t's, with its part of
+    // the sums of w (s < t) and z (tau >= t)
+    {
+      const int s = threadIdx.x & (SQ - 1), seg = threadIdx.x >> 6;
+      float acc = 0.f;
+      for (int t = 16 * seg + 15; t >= 16 * seg && t > s; --t) {
+        acc = fmaf(Gs[t * GST + s], Ds[t * GST + s], acc);
+        Ms[t * GST + s] = acc;
+      }
+      tot[seg * SQ + s] = acc;
+    }
+    __syncthreads();
+    {
+      const int t = threadIdx.x & (SQ - 1), pp = threadIdx.x >> 6;
+      float a = 0.f;
+      for (int s = 16 * pp; s < 16 * pp + 16 && s < t; ++s) {
+        float below = 0.f;
+        for (int sg = (t >> 4) + 1; sg < 4; ++sg) below += tot[sg * SQ + s];
+        a += (Ms[t * GST + s] + below) + (wp[s] + wp[SQ + s]);
+      }
+      for (int tau = max(t, 16 * pp); tau < 16 * pp + 16; ++tau) a += zp[tau] + zp[SQ + tau];
+      part[pp * SQ + t] = a;
+    }
+    __syncthreads();
+    if (threadIdx.x < SQ) {
+      const int t = threadIdx.x;
+      float a4 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a4 += red[i];
+      if (t0 + t < T)
+        pla[((size_t)pt * Bn * H + bh) * T + t0 + t] =
+            ((part[t] + part[SQ + t]) + (part[2 * SQ + t] + part[3 * SQ + t])) + de * a4;
+    }
+  }
+
+  // the group's partial sums of dB and dC: [group, P tile][2][b][t][n]
+  const size_t plane = (size_t)Bn * T * N;
+  float* pB = pbc + (size_t)(grp * ptiles + pt) * 2 * plane;
+  float* pC = pB + plane;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + tr + g + 8 * half;
+      if (t >= T) continue;
+      const size_t o = ((size_t)b * T + t) * N + n0 + 8 * j + 2 * q;
+      *reinterpret_cast<float2*>(pB + o) = make_float2(dBa[j][2 * half], dBa[j][2 * half + 1]);
+      *reinterpret_cast<float2*>(pC + o) = make_float2(dCa[j][2 * half], dCa[j][2 * half + 1]);
+    }
+}
+
+__global__ void __launch_bounds__(256)
+ssd_bwd_sum(const float* __restrict__ pla, const float* __restrict__ pbc,
+            float* __restrict__ dla, float* __restrict__ dB, float* __restrict__ dC,
+            int64_t plane, int64_t bht, int parts, int ptiles) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < plane; i += stride) {
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < parts; ++k) {
+      sb += pbc[2 * k * plane + i];
+      sc += pbc[(2 * k + 1) * plane + i];
+    }
+    dB[i] = sb;
+    dC[i] = sc;
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < bht; i += stride) {
+    float s = 0.f;
+    for (int k = 0; k < ptiles; ++k) s += pla[k * bht + i];
+    dla[i] = s;
+  }
+}
+
+// the workspace of K8's bf16 backward, in floats: H_start and dH_end of
+// every (b h, chunk) [N][P], then the partial sums (dB and dC of every
+// (head group, P tile), dlog_a of every P tile)
+inline int64_t ssd_bwd_chunked_floats(int64_t B, int64_t H, int64_t T, int n, int p) {
+  const int64_t nch = (T + SQ - 1) / SQ, ptiles = (p + SP - 1) / SP;
+  const int64_t groups = (H + kBwHeads - 1) / kBwHeads;
+  const int64_t f =
+      2 * B * H * nch * n * p + 2 * groups * ptiles * B * T * n + ptiles * B * H * T;
+  return (f + 1) / 2 * 2;
+}
+
+template <int N>
+int launch_ssd_bwd_chunked(const void* x, const float* la, const float* Bm, const float* Cm,
+                           const void* dy, const float* dstate, void* dx, float* dla, float* dB,
+                           float* dC, float* ws, int64_t B, int64_t H, int64_t T, int p,
+                           cudaStream_t stream) {
+  using L = SsdBwSmem<N>;
+  using B16 = __nv_bfloat16;
+  const int64_t nch = (T + SQ - 1) / SQ, ptiles = (p + SP - 1) / SP, BH = B * H;
+  const int64_t groups = (H + kBwHeads - 1) / kBwHeads;
+  if (BH > 65535 || B * groups > 65535 || nch > INT32_MAX) return cudaErrorInvalidValue;
+  float* Hs = ws;
+  float* dHs = Hs + BH * nch * N * p;
+  float* pbc = dHs + BH * nch * N * p;  // float2 stores: an even offset
+  float* pla = pbc + 2 * groups * ptiles * B * T * N;
+  cudaError_t e = cudaFuncSetAttribute(ssd_bwd_states<N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L::states_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(ssd_bwd_chunk<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)L::chunk_bytes);
+  if (e != cudaSuccess) return e;
+  ssd_bwd_states<N><<<dim3((unsigned)ptiles, (unsigned)BH, 2), 128, L::states_bytes, stream>>>(
+      static_cast<const B16*>(x), la, Bm, Cm, static_cast<const B16*>(dy), dstate, Hs, dHs,
+      (int)H, (int)T, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  ssd_bwd_chunk<N><<<dim3((unsigned)nch, (unsigned)ptiles, (unsigned)(B * groups)), 256,
+                     L::chunk_bytes, stream>>>(
+      static_cast<const B16*>(x), la, Bm, Cm, static_cast<const B16*>(dy), Hs, dHs,
+      static_cast<B16*>(dx), pla, pbc, (int)B, (int)H, (int)T, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int64_t plane = B * T * N;
+  ssd_bwd_sum<<<(unsigned)std::min<int64_t>((std::max(plane, BH * T) + 255) / 256, 4096), 256,
+                0, stream>>>(pla, pbc, dla, dB, dC, plane, BH * T, (int)(groups * ptiles),
+                             (int)ptiles);
+  return cudaGetLastError();
+}
+
+int ssd_bwd_chunked_by_dim(int n, const void* x, const float* la, const float* Bm,
+                           const float* Cm, const void* dy, const float* dstate, void* dx,
+                           float* dla, float* dB, float* dC, float* ws, int64_t B, int64_t H,
+                           int64_t T, int p, cudaStream_t st) {
+  switch (n) {
+    case 16: return launch_ssd_bwd_chunked<16>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, T, p, st);
+    case 32: return launch_ssd_bwd_chunked<32>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, T, p, st);
+    case 48: return launch_ssd_bwd_chunked<48>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, T, p, st);
+    case 64: return launch_ssd_bwd_chunked<64>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, T, p, st);
+    case 128: return launch_ssd_bwd_chunked<128>(x, la, Bm, Cm, dy, dstate, dx, dla, dB, dC, ws, B, H, T, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// -- K7's backward, bf16 inputs: three launches, one counted call
+//
+// (1) wkv_bwd_states, a block per (Dv tile, h, b) as wkv_chunked: the
+//     state at the start of every sub-chunk of WT steps, S <- diag(W) S +
+//     K'^T v on mma (K' in two pieces, v exact), stored in fp32
+//     [b h][sub-chunk][Dk][Dv];
+// (2) wkv_bwd_chunks, a block per (Dv tile, h, b): the sub-chunks last to
+//     first with dS, the cotangent of the state at the sub-chunk's end,
+//     in fp32 mma accumulators, warp w owning 16 of its columns (as
+//     wkv_chunked owns S's: the same 3-stage ring of raw rows and the same
+//     prepared operands rP, K', W and A, wkv_prepare_chains / _diagonal).
+//     Per sub-chunk, on the tensor cores, every fp32 operand in two pieces:
+//         dv = A^T dO + K' dS_end,  dS_start = diag(W) dS_end + rP^T dO   (per warp)
+//         X = dO S_start^T, Y = V dS_end^T (16 x Dk), D = dO V^T (16 x 16),
+//         rowdot_c = <S_start[c], dS_end[c]>         (over the block's columns)
+//     then a thread a channel on the CUDA cores, every decay a running
+//     product of w in fp32, in Horner form, nothing divided (w = 0 gives
+//     exact zeros):
+//         dr_t = (prod_{q<t} w) X[t] + sum_{s<t} D[t][s] k_s prod_{s<q<t} w
+//         dk_s = (prod_{q>s} w) Y[s] + sum_{t>s} D[t][s] r_t prod_{s<q<t} w
+//         dw_q = sum_j dS_q[c, j] S_{q-1}[c, j], directly: sources S_start or
+//                a step s < q, sinks dS_end or a step t > q, each term with
+//                a decay product that skips w_q,
+//     plus the u terms u k_t D[t][t] and u r_s D[s][s], and du_c += sum_t
+//     r_t k_t D[t][t] (one partial per (b h, Dv tile));
+// (3) wkv_bwd_sum: du over b and the tiles; with more than one Dv tile also
+//     dr, dk and dw (each tile's partial; the u terms with D[t][t] summed
+//     over the tiles), in a fixed order.  With one tile (Dv <= 64) the
+//     second launch writes dr, dk and dw itself.
+// Unlike the forward's A, the pair sums of dr and dk run over the steps
+// of one channel, with no sum across channels: in Horner form 120 fmaf a
+// channel each, so none of the pair block goes to the tensor cores.  What
+// bounds it (edited copies with a part taken out, PERF.md §6): the
+// per-channel part and the products over columns, each ~0.33 ms of 1.36
+// at rwkv6-7b's training shape, run one after the other behind barriers,
+// 8 warps an SM (255 registers); storing the states takes 0.28 ms.
+
+template <int DK>
+struct WkvBwSmem {
+  using F = WkvSmem<DK>;
+  static constexpr int RS = F::RS, VS = F::VS, AS = F::AS, DST = WV + 8, DS = WT + 1;
+  static constexpr int kRaw = 3 * WT * RS + 2 * WT * VS;  // r, k, w; v, dO
+  // floats: u (as bf16) and W [2][DK]; X [WT][DK]; Y [WT][DK]; D [WT][DS];
+  // the row dots [DK]
+  static constexpr int kFloats = 3 * DK + 2 * WT * DK + WT * DS + DK;
+  // then bf16: the raw ring, two prepared stages, r'' and k'', and dS_end's
+  // two pieces [DK][DST]
+  static constexpr size_t bytes =
+      sizeof(float) * kFloats +
+      2 * ((size_t)WNST * kRaw + 2 * (size_t)F::kPrep + F::kQuad + 2 * (size_t)DK * DST);
+  // wkv_bwd_states: W [DK] fp32; K' [piece][WT][RS]; two stages of k, w
+  // [WT][RS] and v [WT][VS]
+  static constexpr int kStage = 2 * WT * RS + WT * VS;
+  static constexpr size_t states_bytes =
+      sizeof(float) * DK + 2 * ((size_t)kWkvPieces * WT * RS + 2 * (size_t)kStage);
+};
+
+template <int DK>
+__global__ void __launch_bounds__(128)
+wkv_bwd_states(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ w, float* __restrict__ states, int H, int T,
+               int Dv) {
+  using L = WkvBwSmem<DK>;
+  constexpr int RS = L::RS, VS = L::VS, KT = DK / 16, kStage = L::kStage;
+  extern __shared__ float4 smem4[];
+  float* Wd = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* kp = reinterpret_cast<__nv_bfloat16*>(Wd + DK);  // K' [piece][WT][RS]
+  __nv_bfloat16* raw0 = kp + kWkvPieces * WT * RS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, mm = lane >> 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int p0 = blockIdx.x * WV, c0 = p0 + 16 * warp;
+  const int ns = (T + WT - 1) / WT;
+  const size_t bh = (size_t)b * H + h, row0 = bh * T;
+  const bool kvec =
+      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  const bool vvec = Dv % 8 == 0 && (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+
+  // sub-chunk i's k, w and the block's v columns into stage st; rows past
+  // T are k = v = 0 and w = 1
+  auto load_stage = [&](int i, int st) {
+    const int t0 = i * WT;
+    __nv_bfloat16* rs = raw0 + st * kStage;
+    constexpr int CH = DK / 8;
+    for (int idx = threadIdx.x; idx < 2 * WT * CH; idx += 128) {
+      const int a = idx / (WT * CH), row = idx % (WT * CH) / CH, ch = idx % CH;
+      const int t = t0 + row;
+      __nv_bfloat16* dst = rs + (a * WT + row) * RS + 8 * ch;
+      const __nv_bfloat16* src = (a == 0 ? k : w) + (row0 + t) * DK + 8 * ch;
+      if (t < T && kvec) {
+        cp_async16(dst, src);
+      } else if (t < T) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = src[e];
+      } else {
+        const uint32_t fill = a == 1 ? 0x3f803f80u : 0u;  // bf16 1.0 pairs
+        *reinterpret_cast<uint4*>(dst) = make_uint4(fill, fill, fill, fill);
+      }
+    }
+    __nv_bfloat16* vs = rs + 2 * WT * RS;
+    for (int idx = threadIdx.x; idx < WT * (WV / 8); idx += 128) {
+      const int row = idx / (WV / 8), col = p0 + 8 * (idx % (WV / 8)), t = t0 + row;
+      __nv_bfloat16* dst = vs + row * VS + col - p0;
+      if (t < T && vvec && col + 8 <= Dv) {
+        cp_async16(dst, v + (row0 + t) * Dv + col);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = t < T && col + e < Dv ? v[(row0 + t) * Dv + col + e] : __float2bfloat16(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float St[DK / 8][4];  // S^T, as wkv_chunked's
+#pragma unroll
+  for (int n = 0; n < DK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) St[n][e] = 0.f;
+
+  if (ns > 0) load_stage(0, 0);
+  for (int i = 0; i < ns; ++i) {
+    const __nv_bfloat16* rs = raw0 + (i & 1) * kStage;
+    cp_async_wait_all();
+    __syncthreads();  // stage i landed; the last K' and stage are read
+    if (i + 1 < ns) load_stage(i + 1, (i + 1) & 1);
+    if (threadIdx.x < DK / 2) {  // K' and W of a channel pair
+      const int c = 2 * threadIdx.x;
+      float q0 = 1.f, q1 = 1.f;
+#pragma unroll
+      for (int j = 0; j < WT; ++j) {
+        const int t = WT - 1 - j;
+        const uint32_t kv = *reinterpret_cast<const uint32_t*>(rs + t * RS + c);
+        const uint32_t wv = *reinterpret_cast<const uint32_t*>(rs + (WT + t) * RS + c);
+        put_pieces(kp + t * RS + c, WT * RS, bf16_lo(kv) * q0, bf16_hi(kv) * q1);
+        q0 *= bf16_lo(wv);
+        q1 *= bf16_hi(wv);
+      }
+      *reinterpret_cast<float2*>(Wd + c) = make_float2(q0, q1);
+    }
+    {  // the state before sub-chunk i
+      float* sb = states + (bh * ns + i) * DK * Dv;
+#pragma unroll
+      for (int n = 0; n < DK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * q + (e & 1), col = c0 + g + 8 * (e >> 1);
+          if (col < Dv) sb[(size_t)c * Dv + col] = St[n][e];
+        }
+    }
+    __syncthreads();  // K' and W
+    // S^T <- S^T diag(W) + V^T K'
+    uint32_t va[4];
+    ldmatrix_x4_trans(va, rs + 2 * WT * RS + (8 * (mm >> 1) + (lane & 7)) * VS + 16 * warp +
+                              8 * (mm & 1));
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) {
+      const float2 wv = *reinterpret_cast<const float2*>(Wd + 8 * n + 2 * q);
+      St[n][0] *= wv.x;
+      St[n][1] *= wv.y;
+      St[n][2] *= wv.x;
+      St[n][3] *= wv.y;
+    }
+#pragma unroll
+    for (int pc = 0; pc < kWkvPieces; ++pc)
+#pragma unroll
+      for (int np = 0; np < KT; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, kp + pc * WT * RS + (8 * (mm & 1) + (lane & 7)) * RS + 16 * np +
+                                  8 * (mm >> 1));
+        mma_bf16(St[2 * np], va[0], va[1], va[2], va[3], kb[0], kb[1]);
+        mma_bf16(St[2 * np + 1], va[0], va[1], va[2], va[3], kb[2], kb[3]);
+      }
+  }
+}
+
+template <int DK>
+__global__ void __launch_bounds__(128)
+wkv_bwd_chunks(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ w,
+               const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ dstate, const float* __restrict__ states,
+               __nv_bfloat16* __restrict__ dr_out, __nv_bfloat16* __restrict__ dk_out,
+               __nv_bfloat16* __restrict__ dv_out, __nv_bfloat16* __restrict__ dw_out,
+               float* __restrict__ part, float* __restrict__ du_part, int H, int T, int Dv) {
+  using L = WkvBwSmem<DK>;
+  constexpr int RS = L::RS, VS = L::VS, AS = L::AS, DST = L::DST, DS = L::DS;
+  constexpr int KT = DK / 16, NT8 = DK / 8, HT = WT / 2;
+  // the per-channel roles: at Dk <= 64, threads 0-63 take dr and dk (and
+  // du), 64-127 dw; at 128 every thread all three
+  constexpr int CH = DK <= 64 ? 64 : 128;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* us = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* us_bf = reinterpret_cast<__nv_bfloat16*>(us);  // u, DK bf16
+  float* Wst = us + DK;         // [2][DK]
+  float* Xm = Wst + 2 * DK;     // X [t][c]
+  float* Ym = Xm + WT * DK;     // Y [s][c]
+  float* Dm = Ym + WT * DK;     // D [t][s]
+  float* rd = Dm + WT * DS;     // the row dots [c]
+  __nv_bfloat16* raw0 = reinterpret_cast<__nv_bfloat16*>(us + L::kFloats);
+  __nv_bfloat16* prep0 = raw0 + WNST * L::kRaw;
+  __nv_bfloat16* rq = prep0 + 2 * WkvSmem<DK>::kPrep;
+  __nv_bfloat16* kq = rq + kWkvPieces * HT * RS;
+  __nv_bfloat16* dSh = kq + kWkvPieces * HT * RS;  // dS_end's pieces [c][column]
+  __nv_bfloat16* dSl = dSh + DK * DST;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, mm = lane >> 3;
+  const int b = blockIdx.z, h = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
+  const int p0 = tile * WV, c0 = p0 + 16 * warp;
+  const int ns = (T + WT - 1) / WT;
+  const size_t bh = (size_t)b * H + h, BH = (size_t)gridDim.z * H, row0 = bh * T;
+  const bool direct = tiles == 1;
+  const bool kvec = ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  const bool vvec = Dv % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
+  const bool opair = Dv % 2 == 0 && (reinterpret_cast<uintptr_t>(dv_out) & 3) == 0;
+
+  auto raw = [&](int st) { return raw0 + st * L::kRaw; };
+  auto prep = [&](int st) { return prep0 + st * WkvSmem<DK>::kPrep; };
+
+  // sub-chunk i's r, k, w and the block's v and dO columns into raw stage
+  // st; rows past T are r = k = v = dO = 0 and w = 1
+  auto load_stage = [&](int i, int st) {
+    const int t0 = i * WT;
+    __nv_bfloat16* rs = raw(st);
+    constexpr int CHK = DK / 8;  // 16-byte pieces of a row
+    for (int idx = threadIdx.x; idx < 3 * WT * CHK; idx += 128) {
+      const int a = idx / (WT * CHK), row = idx % (WT * CHK) / CHK, ch = idx % CHK;
+      const int t = t0 + row;
+      __nv_bfloat16* dst = rs + (a * WT + row) * RS + 8 * ch;
+      const __nv_bfloat16* src = (a == 0 ? r : a == 1 ? k : w) + (row0 + t) * DK + 8 * ch;
+      if (t < T && kvec) {
+        cp_async16(dst, src);
+      } else if (t < T) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = src[e];
+      } else {
+        const uint32_t fill = a == 2 ? 0x3f803f80u : 0u;  // bf16 1.0 pairs
+        *reinterpret_cast<uint4*>(dst) = make_uint4(fill, fill, fill, fill);
+      }
+    }
+    for (int idx = threadIdx.x; idx < 2 * WT * (WV / 8); idx += 128) {
+      const int a = idx / (WT * (WV / 8)), rest = idx % (WT * (WV / 8));
+      const int row = rest / (WV / 8), col = p0 + 8 * (rest % (WV / 8)), t = t0 + row;
+      const __nv_bfloat16* src = a == 0 ? v : dout;
+      __nv_bfloat16* dst = rs + 3 * WT * RS + (a * WT + row) * VS + col - p0;
+      if (t < T && vvec && col + 8 <= Dv) {
+        cp_async16(dst, src + (row0 + t) * Dv + col);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = t < T && col + e < Dv ? src[(row0 + t) * Dv + col + e] : __float2bfloat16(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+  auto prepare_chains = [&](int st, int ps) {
+    wkv_prepare_chains<DK>(raw(st), prep(ps), rq, kq, Wst + ps * DK);
+  };
+  auto prepare_diagonal = [&](int st, int ps) {
+    wkv_prepare_diagonal<DK>(raw(st), prep(ps), rq, kq, us_bf);
+  };
+
+  // zero the A tiles (their upper triangles are never written) and load u
+  for (int i = threadIdx.x; i < 2 * kWkvPieces * WT * AS; i += 128) {
+    const int ps = i / (kWkvPieces * WT * AS), e = i % (kWkvPieces * WT * AS);
+    prep(ps)[2 * kWkvPieces * WT * RS + e] = __float2bfloat16(0.f);
+  }
+  for (int c = threadIdx.x; c < DK; c += 128) us_bf[c] = u[(size_t)h * DK + c];
+
+  // dS^T: this warp's columns c0 + g (+8) by rows 8 n + 2q (+1), from the
+  // final state's cotangent
+  float dSt[NT8][4];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * n + 2 * q + (e & 1), col = c0 + g + 8 * (e >> 1);
+      dSt[n][e] = dstate != nullptr && col < Dv ? dstate[(bh * DK + c) * Dv + col] : 0.f;
+    }
+  float du = 0.f;
+  const int cc = threadIdx.x % CH;  // this thread's channel in the per-channel part
+  const bool role_rk = threadIdx.x < CH, role_w = threadIdx.x >= CH || CH == 128;
+
+  // the last sub-chunk first
+  load_stage(ns - 1, 0);
+  if (ns > 1) load_stage(ns - 2, 1);
+  else cp_async_commit();
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+  __syncthreads();  // stage 0, u and the zeroed A tiles
+  prepare_chains(0, 0);
+  __syncthreads();
+  prepare_diagonal(0, 0);
+  for (int m = 0; m < ns; ++m) {
+    const int i = ns - 1 - m;  // the sub-chunk
+    cp_async_wait_all();
+    __syncthreads();  // sub-chunk i prepared, i - 1 landed; i + 1 done
+    if (m + 2 < ns) load_stage(i - 2, (m + 2) % WNST);
+    if (m + 1 < ns) prepare_chains((m + 1) % WNST, (m + 1) & 1);
+    __syncthreads();  // r'' and k'' of sub-chunk i - 1
+    if (m + 1 < ns) prepare_diagonal((m + 1) % WNST, (m + 1) & 1);
+
+    const __nv_bfloat16* rs = raw(m % WNST);
+    const __nv_bfloat16* vs = rs + 3 * WT * RS;
+    const __nv_bfloat16* os = vs + WT * VS;
+    const __nv_bfloat16* rp = prep(m & 1);
+    const __nv_bfloat16* kp = rp + kWkvPieces * WT * RS;
+    const __nv_bfloat16* ap = kp + kWkvPieces * WT * RS;
+    const float* Wi = Wst + (m & 1) * DK;
+    const int t0 = i * WT;
+
+    // dS_end in two bf16 pieces [c][column], for the products over columns
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * q + (e & 1), col = 16 * warp + g + 8 * (e >> 1);
+        const __nv_bfloat16 hi = __float2bfloat16(dSt[n][e]);
+        dSh[c * DST + col] = hi;
+        dSl[c * DST + col] = __float2bfloat16(dSt[n][e] - bf(hi));
+      }
+    // dO's fragments: as A of dO^T (columns by t) and as B of dO
+    uint32_t oa[4];
+    ldmatrix_x4_trans(oa, os + (8 * (mm >> 1) + (lane & 7)) * VS + 16 * warp + 8 * (mm & 1));
+
+    {  // dv = K' dS_end + A^T dO: rows g (+8) of the sub-chunk, columns 8 nb + 2q (+1)
+      float dvc[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dvc[nb][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const int off = (8 * (mm & 1) + (lane & 7)) * RS + 16 * kt + 8 * (mm >> 1);
+        uint32_t ka[kWkvPieces][4], sf[2][2][2];
+#pragma unroll
+        for (int pc = 0; pc < kWkvPieces; ++pc) ldmatrix_x4(ka[pc], kp + pc * WT * RS + off);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            split_bf16(dSt[2 * kt + half][2 * nb], dSt[2 * kt + half][2 * nb + 1], sf[nb][half]);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const uint32_t *a0 = ka[0], *a1 = ka[1];
+          mma_bf16(dvc[nb], a0[0], a0[1], a0[2], a0[3], sf[nb][0][0], sf[nb][1][0]);
+          mma_bf16(dvc[nb], a0[0], a0[1], a0[2], a0[3], sf[nb][0][1], sf[nb][1][1]);
+          mma_bf16(dvc[nb], a1[0], a1[1], a1[2], a1[3], sf[nb][0][0], sf[nb][1][0]);
+        }
+      }
+#pragma unroll
+      for (int pc = 0; pc < kWkvPieces; ++pc) {
+        // A^T's fragments: A's 8 x 8 tiles (t, s) transposed
+        uint32_t aa[4];
+        ldmatrix_x4_trans(aa, ap + pc * WT * AS + (8 * (mm >> 1) + (lane & 7)) * AS + 8 * (mm & 1));
+        mma_bf16(dvc[0], aa[0], aa[1], aa[2], aa[3], oa[0], oa[2]);
+        mma_bf16(dvc[1], aa[0], aa[1], aa[2], aa[3], oa[1], oa[3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = t0 + g + 8 * half, c = c0 + 8 * nb + 2 * q;
+          if (t >= T) continue;
+          __nv_bfloat16* dst = dv_out + (row0 + t) * Dv + c;
+          const float v0 = dvc[nb][2 * half], v1 = dvc[nb][2 * half + 1];
+          if (opair && c + 1 < Dv) {
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+          } else {
+            if (c < Dv) dst[0] = __float2bfloat16(v0);
+            if (c + 1 < Dv) dst[1] = __float2bfloat16(v1);
+          }
+        }
+    }
+
+    // dS_start = diag(W) dS_end + rP^T dO, as dS^T <- dS^T diag(W) + dO^T rP
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+      const float2 wv = *reinterpret_cast<const float2*>(Wi + 8 * n + 2 * q);
+      dSt[n][0] *= wv.x;
+      dSt[n][1] *= wv.y;
+      dSt[n][2] *= wv.x;
+      dSt[n][3] *= wv.y;
+    }
+#pragma unroll
+    for (int pc = 0; pc < kWkvPieces; ++pc)
+#pragma unroll
+      for (int np = 0; np < KT; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, rp + pc * WT * RS + (8 * (mm & 1) + (lane & 7)) * RS + 16 * np +
+                                  8 * (mm >> 1));
+        mma_bf16(dSt[2 * np], oa[0], oa[1], oa[2], oa[3], kb[0], kb[1]);
+        mma_bf16(dSt[2 * np + 1], oa[0], oa[1], oa[2], oa[3], kb[2], kb[3]);
+      }
+    __syncthreads();  // dS_end's pieces are whole
+
+    {  // X, Y and the row dots by channel tiles of 8 (warp, warp + 4, ..);
+       // D by warp 0; each over the block's 64 columns
+      uint32_t oA[WV / 16][4], vA[WV / 16][4];  // dO and V as A: rows t / s, columns 16 kc ..
+#pragma unroll
+      for (int kc = 0; kc < WV / 16; ++kc) {
+        const int off = (8 * (mm & 1) + (lane & 7)) * VS + 16 * kc + 8 * (mm >> 1);
+        ldmatrix_x4(oA[kc], os + off);
+        ldmatrix_x4(vA[kc], vs + off);
+      }
+      const float* sst = states + (bh * ns + i) * DK * Dv;  // S_start [c][column]
+      for (int nt = warp; nt < NT8; nt += 4) {
+        const int cr = 8 * nt + g;  // the channel of this lane's B values
+        float xa[4] = {0.f, 0.f, 0.f, 0.f}, ya[4] = {0.f, 0.f, 0.f, 0.f}, rdot = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < WV / 16; ++kc) {
+          float sv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = p0 + 16 * kc + 2 * q + (e & 1) + 8 * (e >> 1);
+            sv[e] = col < Dv ? sst[(size_t)cr * Dv + col] : 0.f;
+          }
+          uint32_t s0[2], s1[2];
+          split_bf16(sv[0], sv[1], s0);
+          split_bf16(sv[2], sv[3], s1);
+          const uint32_t* a = oA[kc];
+          mma_bf16(xa, a[0], a[1], a[2], a[3], s0[0], s1[0]);
+          mma_bf16(xa, a[0], a[1], a[2], a[3], s0[1], s1[1]);
+          const int o = cr * DST + 16 * kc + 2 * q;
+          const uint32_t h0 = *reinterpret_cast<const uint32_t*>(dSh + o);
+          const uint32_t h1 = *reinterpret_cast<const uint32_t*>(dSh + o + 8);
+          const uint32_t l0 = *reinterpret_cast<const uint32_t*>(dSl + o);
+          const uint32_t l1 = *reinterpret_cast<const uint32_t*>(dSl + o + 8);
+          const uint32_t* va = vA[kc];
+          mma_bf16(ya, va[0], va[1], va[2], va[3], h0, h1);
+          mma_bf16(ya, va[0], va[1], va[2], va[3], l0, l1);
+          rdot = fmaf(sv[0], bf16_lo(h0) + bf16_lo(l0), rdot);
+          rdot = fmaf(sv[1], bf16_hi(h0) + bf16_hi(l0), rdot);
+          rdot = fmaf(sv[2], bf16_lo(h1) + bf16_lo(l1), rdot);
+          rdot = fmaf(sv[3], bf16_hi(h1) + bf16_hi(l1), rdot);
+        }
+        rdot += __shfl_xor_sync(kAll, rdot, 1);
+        rdot += __shfl_xor_sync(kAll, rdot, 2);
+        if (q == 0) rd[cr] = rdot;
+        const int cx = 8 * nt + 2 * q;
+        *reinterpret_cast<float2*>(Xm + g * DK + cx) = make_float2(xa[0], xa[1]);
+        *reinterpret_cast<float2*>(Xm + (g + 8) * DK + cx) = make_float2(xa[2], xa[3]);
+        *reinterpret_cast<float2*>(Ym + g * DK + cx) = make_float2(ya[0], ya[1]);
+        *reinterpret_cast<float2*>(Ym + (g + 8) * DK + cx) = make_float2(ya[2], ya[3]);
+      }
+      if (warp == 0) {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {  // s tile nb: V's A tiles (s half nb, columns 0-7 / 8-15)
+          float da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kc = 0; kc < WV / 16; ++kc) {
+            const uint32_t* a = oA[kc];
+            mma_bf16(da, a[0], a[1], a[2], a[3], vA[kc][nb], vA[kc][nb + 2]);
+          }
+          Dm[g * DS + 8 * nb + 2 * q] = da[0];
+          Dm[g * DS + 8 * nb + 2 * q + 1] = da[1];
+          Dm[(g + 8) * DS + 8 * nb + 2 * q] = da[2];
+          Dm[(g + 8) * DS + 8 * nb + 2 * q + 1] = da[3];
+        }
+      }
+    }
+    __syncthreads();  // X, Y, D and the row dots
+
+    if (!direct && threadIdx.x < WT && t0 + threadIdx.x < T)  // v_t . dO_t of this tile
+      part[3 * (size_t)tiles * BH * T * DK + ((size_t)tile * BH + bh) * T + t0 + threadIdx.x] =
+          Dm[threadIdx.x * DS + threadIdx.x];
+    if (cc < DK) {  // per channel
+      float rr[WT], kk[WT], ww[WT];
+#pragma unroll
+      for (int t = 0; t < WT; ++t) {
+        rr[t] = bf(rs[t * RS + cc]);
+        kk[t] = bf(rs[(WT + t) * RS + cc]);
+        ww[t] = bf(rs[(2 * WT + t) * RS + cc]);
+      }
+      const float uc = bf(us_bf[cc]);
+      const size_t np = (size_t)tiles * BH * T * DK;
+      auto put = [&](__nv_bfloat16* out, int which, int t, float val, float with_u) {
+        if (t0 + t >= T) return;
+        const size_t at = (row0 + t0 + t) * DK + cc;
+        if (direct) out[at] = __float2bfloat16(val + with_u);
+        else part[which * np + (((size_t)tile * BH + bh) * T + t0 + t) * DK + cc] = val;
+      };
+      if (role_rk) {
+        float pre = 1.f;  // prod_{q<t} w_q
+#pragma unroll
+        for (int t = 0; t < WT; ++t) {
+          float acc = 0.f;
+#pragma unroll
+          for (int s = 0; s < t; ++s) acc = fmaf(acc, ww[s], Dm[t * DS + s] * kk[s]);
+          const float dd = Dm[t * DS + t];
+          du = fmaf(rr[t] * kk[t], dd, du);
+          put(dr_out, 0, t, fmaf(pre, Xm[t * DK + cc], acc), uc * kk[t] * dd);
+          pre *= ww[t];
+        }
+        float suf = 1.f;  // prod_{q>s} w_q
+#pragma unroll
+        for (int s = WT - 1; s >= 0; --s) {
+          float acc = 0.f;
+#pragma unroll
+          for (int t = WT - 1; t > s; --t) acc = fmaf(acc, ww[t], Dm[t * DS + s] * rr[t]);
+          put(dk_out, 1, s, fmaf(suf, Ym[s * DK + cc], acc), rr[s] * uc * Dm[s * DS + s]);
+          suf *= ww[s];
+        }
+      }
+      if (role_w) {
+        // pre[q] = prod_{q'<q} w, suf[q] = prod_{q'>q} w, F[q] = sum_{t>q}
+        // prod_{q<q'<t} w r_t X[t] (sinks t > q of S_start's rows)
+        float pre[WT], suf[WT], F[WT];
+        pre[0] = 1.f;
+        suf[WT - 1] = 1.f;
+        F[WT - 1] = 0.f;
+#pragma unroll
+        for (int t = 1; t < WT; ++t) {
+          pre[t] = pre[t - 1] * ww[t - 1];
+          suf[WT - 1 - t] = suf[WT - t] * ww[WT - t];
+          F[WT - 1 - t] = fmaf(ww[WT - t], F[WT - t], rr[WT - t] * Xm[(WT - t) * DK + cc]);
+        }
+        const float rdv = rd[cc];
+        // bq = sum_{s<q} prod_{s<q'<q} w k_s Y[s] (sources s < q into dS_end);
+        // Z[t] = sum_{s<q} prod_{s<q'<q} w k_s D[t][s] (into the steps t > q)
+        float Z[WT], bq = 0.f;
+#pragma unroll
+        for (int t = 0; t < WT; ++t) Z[t] = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < WT; ++qq) {
+          float a4 = 0.f;
+#pragma unroll
+          for (int t = WT - 1; t > qq; --t) a4 = fmaf(a4, ww[t], rr[t] * Z[t]);
+          put(dw_out, 2, qq, fmaf(pre[qq], fmaf(suf[qq], rdv, F[qq]), fmaf(suf[qq], bq, a4)),
+              0.f);
+          bq = fmaf(ww[qq], bq, kk[qq] * Ym[qq * DK + cc]);
+#pragma unroll
+          for (int t = qq + 2; t < WT; ++t) Z[t] = fmaf(ww[qq], Z[t], kk[qq] * Dm[t * DS + qq]);
+        }
+      }
+    }
+  }
+  if (role_rk && cc < DK) du_part[(bh * tiles + tile) * DK + cc] = du;
+}
+
+__global__ void __launch_bounds__(256)
+wkv_bwd_sum(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ u, const float* __restrict__ part,
+            const float* __restrict__ du_part, __nv_bfloat16* __restrict__ dr,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dw,
+            __nv_bfloat16* __restrict__ du, int B, int H, int T, int DK, int tiles) {
+  const int64_t BH = (int64_t)B * H, n = BH * T * DK, np = (int64_t)tiles * n;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (tiles > 1) {
+    const float* pv = part + 3 * np;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+      const int64_t row = i / DK;  // (b h, t)
+      const int c = (int)(i % DK), h = (int)(row / T % H);
+      float vdo = 0.f, a = 0.f, bb = 0.f, d = 0.f;
+      for (int ti = 0; ti < tiles; ++ti) {
+        vdo += pv[ti * BH * T + row];
+        a += part[ti * n + i];
+        bb += part[np + ti * n + i];
+        d += part[2 * np + ti * n + i];
+      }
+      const float uc = bf(u[(int64_t)h * DK + c]);
+      dr[i] = __float2bfloat16(a + uc * bf(k[i]) * vdo);
+      dk[i] = __float2bfloat16(bb + bf(r[i]) * uc * vdo);
+      dw[i] = __float2bfloat16(d);
+    }
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (int64_t)H * DK;
+       i += stride) {
+    const int h = (int)(i / DK), c = (int)(i % DK);
+    float s = 0.f;
+    for (int bb = 0; bb < B; ++bb)
+      for (int ti = 0; ti < tiles; ++ti) s += du_part[(((int64_t)bb * H + h) * tiles + ti) * DK + c];
+    du[i] = __float2bfloat16(s);
+  }
+}
+
+// the workspace of K7's bf16 backward, in floats: the state at the start
+// of every (b h, sub-chunk) [Dk][Dv]; with more than one Dv tile the
+// tiles' partial dr, dk, dw [tile][b h][t][Dk] and v . dO [tile][b h][t];
+// du of every (b h, tile)
+inline int64_t wkv_bwd_chunked_floats(int64_t BH, int64_t T, int dk, int dv) {
+  const int64_t ns = (T + WT - 1) / WT, tiles = (dv + WV - 1) / WV;
+  const int64_t f = BH * ns * dk * dv + (tiles > 1 ? tiles * BH * T * (3 * dk + 1) : 0) +
+                    BH * tiles * dk;
+  return (f + 1) / 2 * 2;
+}
+
+template <int DK>
+int launch_wkv_bwd_chunked(const void* r, const void* k, const void* v, const void* w,
+                           const void* u, const void* dout, const float* dstate, void* dr,
+                           void* dkk, void* dv_out, void* dw, void* du, float* ws, int64_t B,
+                           int64_t H, int64_t T, int dv, cudaStream_t stream) {
+  using L = WkvBwSmem<DK>;
+  using B16 = __nv_bfloat16;
+  if (B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  const int64_t ns = (T + WT - 1) / WT, tiles = (dv + WV - 1) / WV, BH = B * H;
+  float* states = ws;
+  float* part = states + BH * ns * DK * dv;
+  float* du_part = part + (tiles > 1 ? tiles * BH * T * (3 * DK + 1) : 0);
+  cudaError_t e = cudaFuncSetAttribute(wkv_bwd_states<DK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L::states_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(wkv_bwd_chunks<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)L::bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)tiles, (unsigned)H, (unsigned)B);
+  wkv_bwd_states<DK><<<grid, 128, L::states_bytes, stream>>>(
+      static_cast<const B16*>(k), static_cast<const B16*>(v), static_cast<const B16*>(w),
+      states, (int)H, (int)T, dv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  wkv_bwd_chunks<DK><<<grid, 128, L::bytes, stream>>>(
+      static_cast<const B16*>(r), static_cast<const B16*>(k), static_cast<const B16*>(v),
+      static_cast<const B16*>(w), static_cast<const B16*>(u), static_cast<const B16*>(dout),
+      dstate, states, static_cast<B16*>(dr), static_cast<B16*>(dkk), static_cast<B16*>(dv_out),
+      static_cast<B16*>(dw), part, du_part, (int)H, (int)T, dv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int64_t n = tiles > 1 ? BH * T * DK : H * DK;
+  wkv_bwd_sum<<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256, 0, stream>>>(
+      static_cast<const B16*>(r), static_cast<const B16*>(k), static_cast<const B16*>(u), part,
+      du_part, static_cast<B16*>(dr), static_cast<B16*>(dkk), static_cast<B16*>(dw),
+      static_cast<B16*>(du), (int)B, (int)H, (int)T, DK, (int)tiles);
+  return cudaGetLastError();
+}
+
+int wkv_bwd_chunked_by_dim(int dk, const void* r, const void* k, const void* v, const void* w,
+                           const void* u, const void* dout, const float* dstate, void* dr,
+                           void* dkk, void* dv_out, void* dw, void* du, float* ws, int64_t B,
+                           int64_t H, int64_t T, int dv, cudaStream_t st) {
+  switch (dk) {
+    case 16: return launch_wkv_bwd_chunked<16>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, T, dv, st);
+    case 32: return launch_wkv_bwd_chunked<32>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, T, dv, st);
+    case 48: return launch_wkv_bwd_chunked<48>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, T, dv, st);
+    case 64: return launch_wkv_bwd_chunked<64>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, T, dv, st);
+    case 128: return launch_wkv_bwd_chunked<128>(r, k, v, w, u, dout, dstate, dr, dkk, dv_out, dw, du, ws, B, H, T, dv, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // (r, k, v, w, u, o, state, B, H, T, Dk, Dv, dtype, stream): r/k/w
@@ -1884,7 +3333,7 @@ extern "C" int repro_mamba2_ssd(const void* x, const void* log_a,
 extern "C" int64_t repro_rwkv6_scan_bwd_ws(int64_t B, int64_t H, int64_t T,
                                            int dk, int dv, int dtype) {
   if (dtype == 0) return wkv_bwd_floats<float>(B * H, T, dk, dv);
-  if (dtype == 1) return wkv_bwd_floats<__nv_bfloat16>(B * H, T, dk, dv);
+  if (dtype == 1) return wkv_bwd_chunked_floats(B * H, T, dk, dv);
   return -1;
 }
 
@@ -1893,7 +3342,7 @@ extern "C" int64_t repro_rwkv6_scan_bwd_ws(int64_t B, int64_t H, int64_t T,
 extern "C" int64_t repro_mamba2_ssd_bwd_ws(int64_t B, int64_t H, int64_t T,
                                            int n, int p, int dtype) {
   if (dtype == 0) return ssd_bwd_floats<float>(B * H, T, n, p);
-  if (dtype == 1) return ssd_bwd_floats<__nv_bfloat16>(B * H, T, n, p);
+  if (dtype == 1) return ssd_bwd_chunked_floats(B, H, T, n, p);
   return -1;
 }
 
@@ -1920,8 +3369,8 @@ extern "C" int repro_rwkv6_scan_bwd(const void* r, const void* k, const void* v,
     return wkv_bwd_by_dim<float>(dk_, r, k, v, w, u, dout, ds, dr, dk, dv_out,
                                  dw, du, w_, B, H, T, dv, st);
   if (dtype == 1)
-    return wkv_bwd_by_dim<__nv_bfloat16>(dk_, r, k, v, w, u, dout, ds, dr, dk,
-                                         dv_out, dw, du, w_, B, H, T, dv, st);
+    return wkv_bwd_chunked_by_dim(dk_, r, k, v, w, u, dout, ds, dr, dk, dv_out, dw, du,
+                                  w_, B, H, T, dv, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1953,7 +3402,7 @@ extern "C" int repro_mamba2_ssd_bwd(const void* x, const void* log_a,
     return ssd_bwd_by_dim<float>(n, x, la, bm, cm, dy, ds, dx, o_la, o_b, o_c,
                                  w_, B, H, T, p, st);
   if (dtype == 1)
-    return ssd_bwd_by_dim<__nv_bfloat16>(n, x, la, bm, cm, dy, ds, dx, o_la,
-                                         o_b, o_c, w_, B, H, T, p, st);
+    return ssd_bwd_chunked_by_dim(n, x, la, bm, cm, dy, ds, dx, o_la, o_b, o_c, w_, B,
+                                  H, T, p, st);
   return cudaErrorInvalidValue;
 }

@@ -31,13 +31,25 @@ as the model gives).  N is one of ``STATE_DIMS``, P at most
 **Gradients.**  Every call runs through ``Mamba2SSD``, a
 ``torch.autograd.Function`` that saves only the inputs: its backward,
 :func:`mamba2_ssd_bwd`, recomputes the states.  On a CUDA tensor that is
-K8's backward kernel (``csrc/ssm.cu``, ``ssd_bwd``, one launch counted as
-``mamba2_ssd_bwd``), K7's design: a block per (b, h) and a tile of state
-columns, a thread a state row, the state stored every 16th step and each
-step's ``H_{t-1}`` recomputed from its chunk's; dB and dC (B and C are
-shared by the heads) and dlog_a are summed over the blocks by a second
-kernel in a fixed order; the state's precision follows x's dtype as
-K7's does, every sum that ends in a gradient in fp64.  On the CPU it is ``ref.mamba2_bwd_ref``, on
+K8's backward (``csrc/ssm.cu``; one launch counted as ``mamba2_ssd_bwd``
+however many kernels it runs), by x's dtype:
+
+* bf16 (the train path): the chunked form on the tensor cores.  A first
+  kernel walks the 64-step chunks forward for the state and backward for
+  its cotangent (in ``mma`` accumulators, as the forward carries the
+  state) and stores both at every chunk boundary; a block per (chunk, 8
+  heads) then takes dx, dB, dC and dlog_a of its chunk from them with
+  ``mma.sync`` products (C B^T once for the heads; every fp32 operand in
+  two bf16 pieces; dlog_a in its direct form, nothing divided); a last
+  kernel sums dB and dC over the head groups and dlog_a over the column
+  tiles in a fixed order.  Within 1e-2 (1 + |g|) of the fp32 plain
+  version.
+* fp32: one block per (b, h) and 32 state columns, a thread a state row,
+  the state in fp64 stored every 16th step and each step's ``H_{t-1}``
+  recomputed from it; fp64 sums; a second kernel sums dB and dC over the
+  heads and dlog_a over the tiles in a fixed order.  Within 2e-5.
+
+On the CPU it is ``ref.mamba2_bwd_ref``, on
 ``meta`` the dry-run's op.
 """
 

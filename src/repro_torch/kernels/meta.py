@@ -17,7 +17,7 @@ state updates and read-outs; the scans' backwards also count the forward
 state update they recompute.
 
 The scans' backward kernels take a workspace for the launch (the stored
-states and the fp64 partial sums): :func:`scan_bwd_workspace_bytes` is
+states and the partial sums): :func:`scan_bwd_workspace_bytes` is
 its size as the dry-run counts it, the same formula as the C library's
 ``repro_rwkv6_scan_bwd_ws`` / ``repro_mamba2_ssd_bwd_ws`` (held equal on
 the card), and the meta ops record the largest they were asked for
@@ -37,24 +37,53 @@ _ops = None
 #: the largest backward workspace the meta ops stood in for, in bytes
 _workspace = [0]
 
-#: by the inputs' dtype, the state columns a backward block takes and the
-#: bytes of a stored state value (``BwRoute`` of ``csrc/ssm.cu``)
-_BWD_ROUTE = {torch.bfloat16: (64, 4), torch.float32: (32, 8)}
-#: the steps between the states a backward stores (``BW_CHUNK``)
-_BWD_CHUNK = 16
+#: the fp32 route's backward (``BwRoute<float>`` of ``csrc/ssm.cu``): the
+#: state columns a block takes, the bytes of a stored state value, and the
+#: steps between the states it stores (``BW_CHUNK``)
+_SIMT_COLS, _SIMT_STATE_BYTES, _SIMT_CHUNK = 32, 8, 16
+#: the bf16 route's: K7's sub-chunk and K8's chunk (the states stored),
+#: the state columns a block takes (both), and the heads a K8 block sums
+#: dB and dC over (``WT``, ``SQ``, ``WV`` = ``SP``, ``kBwHeads``)
+_WKV_SUB, _SSD_CHUNK, _BF16_COLS, _SSD_HEADS = 16, 64, 64, 8
 
 
-def scan_bwd_workspace_bytes(kind: str, dtype, bh: int, t: int, rows: int,
-                             cols: int) -> int:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def scan_bwd_workspace_bytes(kind: str, dtype, b: int, h: int, t: int,
+                             rows: int, cols: int) -> int:
     """Bytes of the workspace of one K7 (``kind`` "wkv": rows Dk, cols Dv)
-    or K8 ("ssd": rows N, cols P) backward launch on ``bh`` (batch x head)
-    sequences of ``t`` steps: one stored state slice per (sequence, column
-    tile, chunk of steps), padded to an even count of floats, then the
+    or K8 ("ssd": rows N, cols P) backward launch on ``b`` x ``h``
+    sequences of ``t`` steps, as ``repro_rwkv6_scan_bwd_ws`` /
+    ``repro_mamba2_ssd_bwd_ws`` size it (in floats, padded to an even
+    count).
+
+    bf16 (the chunked kernels): K7 stores the state at the start of every
+    16-step sub-chunk, and with more than one 64-column tile each tile's
+    partial dr, dk, dw and v . dO of every step, then du of every
+    (sequence, tile); K8 stores H_start and dH_end of every 64-step chunk,
+    then dB and dC of every (group of 8 heads, P tile) and dlog_a of every
+    P tile.  fp32 (the simt reverse scans): one
+    state slice (fp64) per (sequence, 32-column tile, 16 steps), then the
     fp64 partial sums (K7: dr, dk, dw and v . dO of each tile and step, du
     of each sequence and tile; K8: dB, dC and the sum of G o H)."""
-    nc, nbytes = _BWD_ROUTE[dtype]
-    tiles = -(-cols // nc)
-    states = bh * tiles * -(-t // _BWD_CHUNK) * nc * rows * nbytes // 4
+    bh = b * h
+    if dtype == torch.bfloat16:
+        tiles = _cdiv(cols, _BF16_COLS)
+        if kind == "wkv":
+            floats = (bh * _cdiv(t, _WKV_SUB) * rows * cols
+                      + (tiles * bh * t * (3 * rows + 1) if tiles > 1 else 0)
+                      + bh * tiles * rows)
+        else:
+            nch = _cdiv(t, _SSD_CHUNK)
+            floats = (2 * bh * nch * rows * cols
+                      + 2 * _cdiv(h, _SSD_HEADS) * tiles * b * t * rows
+                      + tiles * bh * t)
+        return 4 * (floats + floats % 2)
+    tiles = _cdiv(cols, _SIMT_COLS)
+    states = (bh * tiles * _cdiv(t, _SIMT_CHUNK) * _SIMT_COLS * rows
+              * _SIMT_STATE_BYTES // 4)
     states += states % 2
     if kind == "wkv":
         part = tiles * bh * t * (3 * rows + 1) + bh * tiles * rows
@@ -158,7 +187,7 @@ def _define():
     @rwkv6_scan_bwd.register_fake
     def _(r, v, u):
         b, h, t, dk = r.shape
-        _note_workspace(scan_bwd_workspace_bytes("wkv", r.dtype, b * h, t, dk,
+        _note_workspace(scan_bwd_workspace_bytes("wkv", r.dtype, b, h, t, dk,
                                                  v.shape[3]))
         # dr, dk, dv, dw, du
         return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(v),
@@ -173,7 +202,7 @@ def _define():
     @mamba2_ssd_bwd.register_fake
     def _(x, log_a, bm):
         b, h, t, p = x.shape
-        _note_workspace(scan_bwd_workspace_bytes("ssd", x.dtype, b * h, t,
+        _note_workspace(scan_bwd_workspace_bytes("ssd", x.dtype, b, h, t,
                                                  bm.shape[2], p))
         # dx, dlog_a, dBm, dCm
         return (torch.empty_like(x), torch.empty_like(log_a),

@@ -33,15 +33,29 @@ kernel or raises.
 ``torch.autograd.Function`` that saves only the inputs: its backward,
 :func:`rwkv6_scan_bwd`, recomputes the states, so the graph holds no
 per-step state (remat's memory stays the dry-run's).  On a CUDA tensor
-that is K7's backward kernel (``csrc/ssm.cu``, ``wkv_bwd``, one launch
-counted as ``rwkv6_scan_bwd``): one block per (b, h) and a tile of state
-columns, a thread a state row; a forward pass stores the state at every
-16th step, and the reverse pass recomputes each step's ``S_{t-1}`` from
-its chunk's stored state; a second kernel adds the blocks' partial sums
-(the column tiles', and du's over b) in a fixed order.  bf16 inputs carry
-the state and its gradient in fp32 over 64 columns a block, fp32 inputs
-in fp64 over 32; every sum that ends in a gradient runs in fp64.  On the CPU it is ``ref.rwkv6_bwd_ref``, on
-``meta`` the dry-run's op.  The reference has no backward kernel: its training
+that is K7's backward (``csrc/ssm.cu``; one launch counted as
+``rwkv6_scan_bwd`` however many kernels it runs), by the inputs' dtype:
+
+* bf16 (the train path): the chunked reverse scan on the tensor cores.
+  A first kernel stores the state at the start of every 16-step
+  sub-chunk (``mma.sync``, as the forward carries it); a block per (b, h)
+  and 64 state columns then walks the sub-chunks last to first with the
+  state's cotangent in ``mma`` accumulators and the forward's own
+  operands of each sub-chunk (the decayed r and k, its decay, its block of
+  step pairs): dv, the cotangent's update and the products over the
+  block's columns on ``mma`` with every fp32 operand in two bf16 pieces,
+  then dr, dk and dw per channel on the CUDA cores, each decay a running
+  product of w (dw in its direct form: nothing divides by w); a last
+  kernel adds du over b (and, past 64 columns, the column tiles'
+  partials) in a fixed order.  Within 1e-2 (1 + |g|) of the fp32 plain
+  version.
+* fp32: one block per (b, h) and 32 state columns, a thread a state
+  row, the state in fp64 stored every 16th step and each step's
+  ``S_{t-1}`` recomputed from it; fp64 sums; a second kernel adds the
+  blocks' partials in a fixed order.  Within 2e-5 (1 + |g|).
+
+On the CPU it is ``ref.rwkv6_bwd_ref``, on ``meta`` the dry-run's op.
+The reference has no backward kernel: its training
 differentiates its jnp oracle.
 """
 

@@ -21,7 +21,8 @@ geometry; a tree whose source declares the entry without it, the first
 design's, is called without it); K1's workspace is zeroed and sized for slots of up to 32 bytes
 a tile.  A variant of a kernel (one bf16 piece per operand instead of
 two, a part taken out) is timed as an edited copy of the checkout's
-``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8),
+``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8 and
+their backwards),
 ``k1``, ``codec``, ``bwd`` (K5's backward); all by default.
 
 K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
@@ -29,7 +30,11 @@ inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
 at zamba2-2.7b's (16, 80, 1000, 64, 64): each tree's output and final
 state are held against the plain version and printed as the largest
 share of ``SCAN_TOL`` they use (bf16 outputs 1e-2, final states 1e-4, as
-``|got - want| / (tol (1 + |want|))``; above 1 misses it).  K1 runs at
+``|got - want| / (tol (1 + |want|))``; above 1 misses it).  Their
+backwards run with bf16 inputs and a final-state cotangent at the
+training shapes ``BWD_SCAN_SHAPES`` (rwkv6-7b's and zamba2-2.7b's), each
+tree with the workspace its own size query gives (printed), each
+gradient as its share of 1e-2 against the plain version in fp32.  K1 runs at
 100,000, 1,100,003 and 2^24 values beside ``torch.cumsum`` and must equal
 it bit for bit.  The codec kernels run at the write -> read path's shapes
 (K2 at its four seal shapes, K4 at its two read shapes, K3 at (91, 4,
@@ -67,11 +72,16 @@ from repro_torch.kernels import _build, ref
 
 K7_SHAPE = (16, 64, 1000, 64, 64)  # (B, H, T, Dk, Dv)
 K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
+#: K7's and K8's backward: rwkv6-7b's and zamba2-2.7b's training shapes
+BWD_SCAN_SHAPES = {"wkv": (8, 64, 1024, 64, 64),   # (B, H, T, Dk, Dv)
+                   "ssd": (8, 80, 1024, 64, 64)}   # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
 #: K5's backward: smollm-360m's and gemma-2b's training shapes (B, H, G,
 #: S, D), causal
 BWD_SHAPES = ((8, 15, 5, 1024, 64), (8, 8, 1, 1024, 256))
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
+                 "ssd_bwd_localILi64", "ssd_bwd_chunkILi64",
+                 "wkv_bwd_statesILi64", "wkv_bwd_chunksILi64",
                  "shuffle_reg", "shuffle_vec", "unsplit_reg", "unsplit_vec",
                  "decode_offsets",
                  "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64",
@@ -155,7 +165,7 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
         cdll = ctypes.CDLL(str(target))
         for fn, argtypes in _build.SIGNATURES[lib].items():
             getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
+            getattr(cdll, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
         if lib == "scans" and len(c_params(trees[tree], lib,
                                            "repro_decode_offset_pages")) == 5:
             cdll.repro_decode_offset_pages.argtypes = K4_ARGS_BEFORE_CLUSTERS
@@ -248,6 +258,57 @@ def k7_calls(libs, trees, stream) -> tuple:
         shares[tree] = {"y": tol_share(o, want_o, 1e-2),
                         "state": tol_share(st, want_s, 1e-4)}
         calls[tree] = call
+    return calls, shares
+
+
+def scan_bwd_calls(libs, trees, stream, kind: str) -> tuple:
+    """({tree: call}, {tree: {gradient: share of 1e-2, "workspace_bytes":
+    n}}) of K7's ("wkv") or K8's ("ssd") backward with bf16 inputs and a
+    final-state cotangent at its training shape, each tree with the
+    workspace its own size query gives; the gradients against the plain
+    version in fp32."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    if kind == "wkv":
+        b, h, t, dk, dv = BWD_SCAN_SHAPES[kind]
+        w = torch.exp(-torch.exp(-4 + 5 * torch.rand(
+            (b, h, t, dk), generator=gen, device="cuda")))
+        ins = [a.bfloat16() for a in (rnd(b, h, t, dk), rnd(b, h, t, dk),
+                                      rnd(b, h, t, dv), w, rnd(h, dk))]
+        dout, ds = rnd(b, h, t, dv).bfloat16(), rnd(b, h, dk, dv)
+        want = ref.rwkv6_bwd_ref(*(a.float() for a in ins), dout.float(), ds)
+        names, dims = ("dr", "dk", "dv", "dw", "du"), (b, h, t, dk, dv)
+        entry = "repro_rwkv6_scan_bwd"
+    else:
+        b, h, t, p, n = BWD_SCAN_SHAPES[kind]
+        la = -torch.exp(-3 + 3.5 * torch.rand((b, h, t), generator=gen,
+                                              device="cuda"))
+        ins = [rnd(b, h, t, p).bfloat16(), la, rnd(b, t, n), rnd(b, t, n)]
+        dout, ds = rnd(b, h, t, p).bfloat16(), rnd(b, h, n, p)
+        want = ref.mamba2_bwd_ref(ins[0].float(), *ins[1:], dout.float(), ds)
+        names, dims = ("dx", "dlog_a", "dB", "dC"), (b, h, t, n, p)
+        entry = "repro_mamba2_ssd_bwd"
+    calls, shares = {}, {}
+    for tree in trees:
+        lib = libs[(tree, "ssm")]
+        floats = getattr(lib, entry + "_ws")(*dims, 1)
+        ws = torch.empty(floats, dtype=torch.float32, device="cuda")
+        grads = [torch.empty_like(a) for a in ins]
+
+        def call(f=getattr(lib, entry), ws=ws, grads=grads, floats=floats):
+            return f(*(a.data_ptr() for a in ins), dout.data_ptr(),
+                     ds.data_ptr(), *(g.data_ptr() for g in grads),
+                     ws.data_ptr(), floats, *dims, 1, stream)
+
+        if call() != 0:
+            sys.exit(f"{tree}: {entry} failed")
+        torch.cuda.synchronize()
+        shares[tree] = {nm: tol_share(g, w_, 1e-2)
+                        for nm, g, w_ in zip(names, grads, want)}
+        shares[tree]["workspace_bytes"] = 4 * floats
+        calls[tree] = call
+    del want
     return calls, shares
 
 
@@ -456,8 +517,8 @@ def time_codec(libs, trees, n_rounds: int, stream) -> dict:
 
 
 def time_ssm(libs, trees, n_rounds: int, stream, result: dict) -> None:
-    """K7 and K8 at their serve shapes on every tree, with each tree's
-    share of the tolerances."""
+    """K7 and K8 at their serve shapes and their backwards at the training
+    shapes on every tree, with each tree's share of the tolerances."""
     k7, shares = k7_calls(libs, trees, stream)
     for tree, sh in shares.items():
         print(f"K7 {tree}: share of SCAN_TOL used, y {sh['y']:.4f}, "
@@ -471,6 +532,17 @@ def time_ssm(libs, trees, n_rounds: int, stream, result: dict) -> None:
               f"state {sh['state']:.4f}")
     result["mamba2_ssd"] = {"shape": list(K8_SHAPE), "tol_share": shares,
                             "ms": rounds(k8, n_rounds, "K8")}
+    del k8
+    for kind, name in (("wkv", "rwkv6_scan_bwd"), ("ssd", "mamba2_ssd_bwd")):
+        calls, shares = scan_bwd_calls(libs, trees, stream, kind)
+        for tree, sh in shares.items():
+            print(f"{name} {tree}: share of 1e-2 used, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sh.items() if k != "workspace_bytes")
+                + f"; workspace {sh['workspace_bytes'] / 2**30:.4f} GiB")
+        result[name] = {"shape": list(BWD_SCAN_SHAPES[kind]),
+                        "tol_share": shares,
+                        "ms": rounds(calls, n_rounds, name)}
+        del calls
 
 
 def main(argv=None) -> int:

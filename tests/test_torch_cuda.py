@@ -1107,6 +1107,35 @@ def test_scan_bwds_are_deterministic_on_the_card(card):
 
 
 @pytest.mark.parametrize("kind", ["wkv", "ssd"])
+def test_chunked_scan_bwds_give_the_same_bits_twice_on_the_card(card, kind):
+    """The bf16 routes (the chunked kernels) with a final-state cotangent,
+    several column tiles and, for K8, several groups of 8 heads whose dB
+    and dC partials a last launch adds: two calls give the same bits."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+
+    g = torch.Generator(device=card)
+    g.manual_seed(97)
+    rnd = lambda *s: torch.randn(s, generator=g, device=card)
+    if kind == "ssd":
+        x, log_a, Bm, Cm = _mamba2_inputs(card, 2, 20, 300, 130, 64,
+                                          torch.bfloat16)
+        args = (x, log_a, Bm, Cm, rnd(2, 20, 300, 130).bfloat16(),
+                rnd(2, 20, 64, 130))
+        fn = mamba2_ssd_bwd
+    else:
+        w = torch.exp(-torch.exp(-4 + 5 * torch.rand(
+            (2, 8, 300, 64), generator=g, device=card)))
+        args = tuple(a.bfloat16() for a in (
+            rnd(2, 8, 300, 64), rnd(2, 8, 300, 64), rnd(2, 8, 300, 130), w,
+            rnd(8, 64), rnd(2, 8, 300, 130))) + (rnd(2, 8, 64, 130),)
+        fn = rwkv6_scan_bwd
+    first = fn(*args)
+    for a, b_ in zip(first, fn(*args)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,t,rows,cols", [
     (1, 1, 1, 16, 1), (2, 3, 17, 48, 70), (8, 64, 1024, 64, 64),
@@ -1122,7 +1151,7 @@ def test_scan_bwd_workspace_is_the_dryruns_on_the_card(card, kind, dtype, b,
     query = (lib.repro_rwkv6_scan_bwd_ws if kind == "wkv"
              else lib.repro_mamba2_ssd_bwd_ws)
     floats = query(b, h, t, rows, cols, DTYPE_CODES[dtype])
-    assert 4 * floats == meta.scan_bwd_workspace_bytes(kind, dtype, b * h, t,
+    assert 4 * floats == meta.scan_bwd_workspace_bytes(kind, dtype, b, h, t,
                                                        rows, cols)
 
 

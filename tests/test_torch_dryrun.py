@@ -147,7 +147,7 @@ def test_the_scan_backwards_workspace_is_in_the_activations(arch, kind):
     heads = (cfg.d_model if kind == "wkv" else s.expand * cfg.d_model
              ) // s.head_dim
     want = meta.scan_bwd_workspace_bytes(
-        kind, getattr(torch, cfg.compute_dtype), 2 * heads, 64, rows, cols)
+        kind, getattr(torch, cfg.compute_dtype), 2, heads, 64, rows, cols)
     assert mem["bwd_workspace_bytes"] == want > 0
     assert mem["activation_bytes"] == (
         mem["saved_bytes"] + mem["remat_input_bytes"]
