@@ -307,7 +307,14 @@ KERNEL_DESIGN = {
                                         "wgmma + TMA, a consumer warpgroup "
                                         "and a producer warp a block, P from "
                                         "the forward's LSE, P and dS in two "
-                                        "bf16 pieces; at D = 256 dK/dV in "
+                                        "bf16 pieces; at D = 80 and 128 the "
+                                        "pair route: each launch one "
+                                        "persistent block an SM over "
+                                        "128-row items in snake order, two "
+                                        "consumer warpgroups of 64 rows and "
+                                        "a producer warpgroup (setmaxnreg "
+                                        "24 / 240), resident tiles in two "
+                                        "slots; at D = 256 dK/dV in "
                                         "two consumer warpgroups by column "
                                         "halves, a group's heads over two "
                                         "blocks and a third launch adding "
@@ -2027,10 +2034,10 @@ def bwd_cases():
     """K5 backward cases (b, h, g, sq, sk, d, dv, causal, window): the
     training shapes (phase 10 (b)'s families' too: MLA's q/k 96 with v 64,
     zamba2-2.7b's head dim 80), a window, a ragged Sq, the other built
-    head dims (32 non-causal with a padded kv tile, 80 MQA, 128 windowed,
-    256 ragged and windowed), 96 / 64 ragged and windowed, and Sq > Sk
-    under the causal mask, whose first Sq - Sk rows see no key (a q tile
-    of them wholly)."""
+    head dims (32 non-causal with a padded kv tile, 80 MQA, 80 ragged and
+    windowed, 128 windowed, 256 ragged and windowed), 96 / 64 ragged and
+    windowed, and Sq > Sk under the causal mask, whose first Sq - Sk rows
+    see no key (a q tile of them wholly; at 64 and 128)."""
     return [
         (8, 15, 5, 1024, 1024, 64, 64, True, None),    # smollm-360m
         (8, 16, 16, 1024, 1024, 128, 128, True, None),  # deepseek-moe-16b
@@ -2047,6 +2054,8 @@ def bwd_cases():
         (1, 4, 1, 200, 200, 80, 80, True, None),
         (1, 4, 2, 150, 150, 128, 128, True, 40),
         (1, 4, 2, 203, 130, 64, 64, True, None),        # 73 rows see no key
+        (1, 8, 1, 203, 130, 128, 128, True, None),      # the same at D=128
+        (1, 4, 4, 200, 333, 80, 80, True, 70),          # D=80 ragged, window
         (8, 8, 1, 1024, 1024, 256, 256, True, None),    # gemma-2b training
         (1, 8, 1, 300, 517, 256, 256, True, 100),       # D=256 ragged, window
     ]
@@ -2139,7 +2148,9 @@ def check_attention_bwd(torch) -> dict:
 
 
 #: K5's backward's launches, as their names appear in a trace: dQ and
-#: dK/dV, and at head dim 256 the sum of the two head halves' dK and dV
+#: dK/dV (prefixes of the pair route's ``bwd_dq_wgmma_pair`` and
+#: ``bwd_dkv_wgmma_pair`` at head dims 80 and 128 too), and at head dim
+#: 256 the sum of the two head halves' dK and dV
 BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dkv_sum")
 
 
@@ -2160,9 +2171,9 @@ def attention_bwd_bound(shape, itemsize: int):
 
 
 def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
-    """K5's backward at ``arch``'s training shape (``BWD_TIMED``) in bf16:
-    card time (and each of its two launches' from a trace), plain version,
-    SDPA's backward (``torch.autograd.grad`` through
+    """K5's backward at ``arch``'s training shape (``BWD_TIMED``) in bf16,
+    two calls held bit for bit: card time (and each launch's from a
+    trace), plain version, SDPA's backward (``torch.autograd.grad`` through
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on a
     kept graph, with the backend it ran), bound; K5's forward there with and without its LSE,
     and SDPA's forward; -> its ``kernels`` row."""
@@ -2199,6 +2210,9 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
     err = max(_attention_err(torch, a, w, BWD_TOL["bfloat16"],
                              f"flash_attention_bwd at {shape}")
               for a, w in zip(got, want))
+    # no atomics: a second call gives the same bits
+    if not all(torch.equal(a, b) for a, b in zip(got, kern(None))):
+        fail(f"flash_attention_bwd at {shape}: two calls differ in bits")
     timed = {}
     fwd = {"fwd_": lambda _: flash_attention(q, k, v),  # no graph: no LSE
            "fwd_lse_": lambda _: flash_attention_lse(q, k, v),

@@ -32,32 +32,42 @@
 //
 // Each dtype has its own pair of kernels, picked by the C dispatcher:
 //
-//  - bf16 (the train path): bwd_dq_wgmma / bwd_dkv_wgmma, every product
-//    on the tensor cores as wgmma with fp32 accumulators (helpers in
-//    hopper.cuh).  A block is one consumer warpgroup of 64 rows (q rows in
-//    A, kv rows in B) and a producer warp; two blocks share an SM up to
-//    D = 80, so one block's softmax-like pass runs under the other's
-//    products.  The resident pair of 64-row tiles (A: Q, dO; B: K, V)
-//    arrives by TMA once; the producer streams the other pair (A: K, V; B:
-//    Q, dO, with the rows' LSE and Delta, which its 32 lanes copy) through a
-//    3-stage ring, mbarriers handing stages over.  A computes S = Q K^T and
-//    dP = dO V^T, B S^T = K Q^T and dP^T = V dO^T (wgmma SS, K-major
-//    operands), so that P (P^T) and dS (dS^T) come out as accumulator
-//    fragments whose rows are the next product's M: split in registers into
-//    two bf16 pieces (the rounding and the rounding of the rest), they are
-//    the A operand of dQ += dS K, dV += P^T dO and dK += dS^T Q (wgmma RS,
-//    the tile the MN-major B operand).  The gradients then carry only their
-//    own bf16 rounding.  Masks apply only to the tiles that straddle the
-//    diagonal, the window edge or Sk.  D = 80 runs a 64-wide and a 16-wide
-//    column block, as the forward does, and q/k at 96 (MLA) a 64-wide and a
-//    32-wide one; every kernel is templated on (D, DV): S, dQ and dK are D
-//    wide, dP, dV and Delta's rowsum DV wide.  At D = 256 the ring has two
-//    stages (64 KB each), dQ takes one block an SM (its 128 accumulators
-//    beside S and dP), and dK/dV is bwd_dkv_wgmma2: two consumer
-//    warpgroups own a 128-column half of dK and dV each and share S^T and
-//    dP^T through shared memory, and an even group's heads split over two
-//    blocks a kv tile whose fp32 sums a third launch, bwd_dkv_sum, adds
-//    (see there).
+//  - bf16 (the train path), every product on the tensor cores as wgmma
+//    with fp32 accumulators (helpers in hopper.cuh).  S = Q K^T and dP =
+//    dO V^T (dK/dV: S^T = K Q^T and dP^T = V dO^T) run as wgmma SS on
+//    K-major tiles, so that P (P^T) and dS (dS^T) come out as accumulator
+//    fragments whose rows are the next product's M: split in registers
+//    into two bf16 pieces (the rounding and the rounding of the rest),
+//    they are the A operand of dQ += dS K, dV += P^T dO and dK += dS^T Q
+//    (wgmma RS, the tile the MN-major B operand).  The gradients then
+//    carry only their own bf16 rounding.  Masks apply only to the tiles
+//    that straddle the diagonal, the window edge or Sk.  Tiles arrive by
+//    TMA; mbarriers hand stages over.  Three forms, by head dim:
+//     - D = 80 and 128: the pair route, bwd_dq_wgmma_pair /
+//       bwd_dkv_wgmma_pair (see there).  Each launch is one persistent
+//       block an SM of two consumer warpgroups and a producer warpgroup
+//       that hands its registers over (setmaxnreg), walking items of 128
+//       rows (q rows for dQ, kv rows for dK/dV) of which each consumer
+//       owns 64; both read each stage of the streamed pair, and one's
+//       exp2 and piece pass runs under the other's products.  D = 80 runs
+//       a 64-wide and a 16-wide column block, as the forward does.
+//     - D = 32, 64, MLA's q/k 96 with v 64, and D = 256's dQ:
+//       bwd_dq_wgmma / bwd_dkv_wgmma, a block of one consumer warpgroup
+//       of 64 rows (q rows in A, kv rows in B) and a producer warp, two
+//       blocks an SM below D = 256 so that one block's softmax-like pass
+//       runs under the other's products.  The resident pair of 64-row
+//       tiles (A: Q, dO; B: K, V) arrives once; the producer streams the
+//       other pair (A: K, V; B: Q, dO, with the rows' LSE and Delta, which
+//       its 32 lanes copy) through a 3-stage ring (2 at D = 256).  q/k at
+//       96 runs a 64-wide and a 32-wide column block; the kernels are
+//       templated on (D, DV): S, dQ and dK are D wide, dP, dV and Delta's
+//       rowsum DV wide.  D = 256's dQ takes one block an SM (its 128
+//       accumulators beside S and dP).
+//     - D = 256's dK/dV: bwd_dkv_wgmma2, two consumer warpgroups own a
+//       128-column half of dK and dV each and share S^T and dP^T through
+//       shared memory, and an even group's heads split over two blocks a
+//       kv tile whose fp32 sums a third launch, bwd_dkv_sum, adds (see
+//       there).
 //  - fp32: bwd_dq / bwd_dkv, fp32 FMAs on the CUDA cores (a tensor-core
 //    route would be TF32, too coarse for the fp32 tolerance).  A block of
 //    256 threads is a 16 x 16 grid, each thread owning a 4 x 4 piece of a
@@ -70,12 +80,14 @@
 // Bound on the card at the training shape: operations (five products of
 // 2 D FLOP per visible (query, key) pair, 989 TFLOP/s on the bf16 tensor
 // cores); the bf16 route runs ten (the second pieces, S again in B).  Of
-// the forms timed (PERF.md §6), two one-warpgroup blocks an SM beat one
-// block of two warpgroups that share each stage.  Head dims 32, 64, 80,
-// 128 and 256 with DV = D, and q/k 96 with v 64.  A query row that sees no key gets zero gradients
-// (the plain version gives NaN there, as the forward's does).  The launcher
-// returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue when a
-// tensor map cannot be made.
+// the one-warpgroup forms timed at D = 64 (PERF.md §6), two blocks an SM
+// beat one block of two warpgroups that share each stage; at D = 80 and
+// 128, where a thread's accumulators and pieces outgrow 168 registers,
+// the pair route's 240 and persistent blocks took over.  Head dims 32,
+// 64, 80, 128 and 256 with DV = D, and q/k 96 with v 64.  A query row that
+// sees no key gets zero gradients (the plain version gives NaN there, as
+// the forward's does).  The launcher returns cudaGetLastError() (0 =
+// success), or cudaErrorInvalidValue when a tensor map cannot be made.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -409,12 +421,12 @@ struct BwTile {
   // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
   // base
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
-  // two blocks an SM up to D = 80 and at MLA's 96 / 64 (the dK/dV
-  // kernel's 80 accumulators a thread either way): ptxas then holds a
-  // thread to 168 registers (two blocks' ten warps put three on one SM
-  // sub-partition, of 16,384 registers); from D = 128 one block (up to 255
-  // registers: D = 128's dK/dV kernel holds 128 accumulators a thread, D =
-  // 256's dQ kernel 128 beside S and dP)
+  // two blocks an SM at D = 32, 64 and MLA's 96 / 64 (the dK/dV kernel's
+  // 80 accumulators a thread at 96 / 64): ptxas then holds a thread to 168
+  // registers (two blocks' ten warps put three on one SM sub-partition, of
+  // 16,384 registers); D = 256's dQ takes one block (up to 255 registers:
+  // 128 accumulators beside S and dP).  D = 80 and 128 take the pair
+  // route (BwPair), not these kernels.
   static constexpr int MIN_BLOCKS = D + DV <= 160 ? 2 : 1;
   static_assert(TILE % 1024 == 0 && TILE_V % 1024 == 0,
                 "swizzled blocks must stay 1024-byte aligned");
@@ -1059,6 +1071,622 @@ bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
   reinterpret_cast<uint2*>(dv)[i] = v;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 80 and 128 (DV = D): the pair route.  Both kernels are one
+// persistent block an SM of two consumer warpgroups and a producer
+// warpgroup, which gives its registers away (setmaxnreg 24; the consumers
+// take 240, where the one-warpgroup kernels were held to 168 and, at D =
+// 80, serialized their wgmma).  A block walks work items (a 128-row q
+// block for dQ, a 128-row kv block for dK/dV; head by head, so that the
+// blocks in flight share a head's tiles in L2) in a snake order over the
+// grid: round r gives block x item r * grid + x, or r * grid + grid - 1 -
+// x when r is odd (snake_item).  Warpgroup w owns
+// rows [64 w, 64 w + 64) of the item, whose tiles (dQ: Q and dO; dK/dV: K
+// and V) the producer's thread 0 loads by TMA into a slot (two slots: the
+// next item's tiles arrive while this one runs; a slot is freed once its
+// tiles' last product has read them), and both warpgroups read each stage
+// of the other pair that it streams through an NS-stage ring (dQ: K and V;
+// dK/dV: Q and dO, with the 64 rows' base-2 LSE and Delta, which the
+// producer's 128 threads write, one value each).  A warpgroup skips the
+// stages its rows cannot see (the diagonal, a window) but still waits for
+// and releases each, so that neither runs ahead by a round.  With two
+// warpgroups an SM, one's exp2, mask and piece pass runs under the other's
+// products.  Per visible tile a warpgroup does what the one-warpgroup
+// kernels do, in the same roundings: S (S^T) and dP (dP^T) as wgmma SS, P
+// and dS in two bf16 pieces as the A operand of the D-wide products, each
+// one wgmma of N = D (pair_tma: D = 80's tiles are five 16-wide blocks
+// with the 32-byte swizzle, not the forward's 64 + 16).  dQ and D = 80's
+// dK/dV keep the pieces in registers (RS); D = 128's dK/dV writes P^T's and
+// dS^T's to shared memory in the 128-byte swizzle and reads them back as
+// SS operands, so that only its 128 accumulators stay in registers beside
+// S^T and dP^T (in registers the pieces serialized its wgmma, C7512).
+// Forms that were timed and were slower are in PERF.md §6 (the next
+// tile's S and dP queued behind this tile's products; Delta from O loaded
+// by TMA).  The sums start at an item's first visible tile and end at its
+// last, as the one-warpgroup kernels' do; no atomics.
+constexpr int BWP_THREADS = 384;  // two consumer warpgroups, then the producer's
+constexpr int QB = 2 * WT;        // rows of an item: a q block or a kv block
+
+// Shared memory of a pair kernel (DKV: the dK/dV one), from a 1024-byte
+// aligned base: NSLOT slots of both warpgroups' resident pairs, NS stages
+// of the streamed pair, dK/dV's P^T and dS^T pieces when they go through
+// shared memory (each warpgroup's four 64 x 64 bf16 tiles: P^T hi, lo,
+// dS^T hi, lo), fp32 rows (dK/dV: each stage's base-2 LSE and Delta),
+// barriers.
+template <int D, bool DKV>
+struct BwPair {
+  static constexpr int TILE = WT * D * 2;  // a 64-row Q, K, V or dO tile
+  static constexpr int PAIR = 2 * TILE;    // (Q, dO) or (K, V)
+  static constexpr int SLOT = 2 * PAIR;    // warpgroup 0's pair, then 1's
+  static constexpr int PIECE = WT * WT * 2;
+  // dK/dV's pieces go through shared memory at D = 128: in registers,
+  // beside 128 accumulators and S^T and dP^T, ptxas serialized the wgmma
+  // (C7512); at D = 80 they stay in registers (faster there, no spill)
+  static constexpr bool SMEM_PIECES = DKV && D == 128;
+  // slots of the resident pairs: two (the next item's arrive while this
+  // one runs), one for D = 128's dK/dV, whose pieces take the room of the
+  // other (its items are long: a group's heads over up to 16 q tiles)
+  static constexpr int NSLOT = SMEM_PIECES ? 1 : 2;
+  // stages of the ring: D = 128's dQ two (two 64 KB slots beside them)
+  static constexpr int NS = D == 128 ? (DKV ? 3 : 2) : 4;
+  static constexpr int STAGE_OFF = NSLOT * SLOT;
+  static constexpr int PIECE_OFF = STAGE_OFF + NS * PAIR;
+  static constexpr int ROWS_OFF = PIECE_OFF + (SMEM_PIECES ? 8 * PIECE : 0);
+  // dK/dV's rows: each stage's 64 base-2 LSE, then 64 Delta
+  static constexpr int BAR_OFF = ROWS_OFF + (DKV ? NS * 2 * WT * 4 : 0);
+  // barriers: res_full[2], res_empty[2], full[NS], empty[NS]; 1024 bytes
+  // to align the base
+  static constexpr int SMEM = BAR_OFF + 8 * (4 + 2 * NS) + 1024;
+  static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "more shared memory than a block can have");
+};
+
+__device__ __forceinline__ void wg_sync(int wg) {  // one consumer warpgroup
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// acc (64 x 128) += A X over the 64 k rows of X: A two 64 x 64 bf16 pieces
+// in shared memory (hi at `a`, lo one PIECE on; K-major, 128-byte
+// swizzle), X a 64-row D = 128 tile (MN-major): one N = 128 wgmma a piece
+// and 16 k rows
+__device__ __forceinline__ void ss_pieces(float* acc, uint32_t a, uint32_t x) {
+#pragma unroll
+  for (int kk = 0; kk < WT / 16; ++kk)
+#pragma unroll
+    for (int pc = 0; pc < 2; ++pc)  // hi, then lo
+      wgmma_ss_mn<128>(acc, gmma_desc(a + pc * WT * WT * 2 + 32 * kk, 128, false),
+                       gmma_desc_mn(x + kk * 16 * 128, 128, WT * 128));
+}
+
+// put_pieces through 32-bit shared-memory addresses (hi_t, lo_t: the two
+// tiles' shared addresses), for the pair route's dK/dV at D = 128, whose
+// consumers have no registers to spare for put_pieces' 64-bit generic
+// pointers (with them the kernel spilled)
+__device__ __forceinline__ void put_pieces_s(uint32_t hi_t, uint32_t lo_t,
+                                             const float* x, int r0, int cw,
+                                             int quad) {
+#pragma unroll
+  for (int j = 0; j < WT / 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r0, r0 + 8
+      const uint32_t at = swz128(r0 + 8 * h, cw + 8 * j + 2 * quad);
+      const float a = x[4 * j + 2 * h], b = x[4 * j + 2 * h + 1];
+      const uint32_t hi = pack_bf16(a, b);
+      const uint32_t lo = pack_bf16(a - __uint_as_float(hi << 16),
+                                    b - __uint_as_float(hi & 0xffff0000u));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(hi_t + at), "r"(hi) : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo_t + at), "r"(lo) : "memory");
+    }
+}
+
+// The pair route's tiles: D = 128 as Cols<128> (two 64-wide blocks, the
+// 128-byte swizzle), D = 80 as five 16-wide blocks with the 32-byte
+// swizzle, 2 KB each (five boxes of its 16-wide map), so that a product
+// whose N is D is one wgmma (N = 128 or 80), where Cols<80>'s 64 + 16
+// took two.
+template <int D>
+__device__ __forceinline__ void pair_tma(uint32_t dst, const CUtensorMap* m0,
+                                         const CUtensorMap* m1, uint32_t bar,
+                                         int row, int head) {
+  if constexpr (D == 80) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) tma_load_3d(dst + c * WT * 32, m1, bar, 16 * c, row, head);
+  } else {
+    tma_tile<D>(dst, m0, m1, bar, row, head);
+  }
+}
+
+// acc (64 x 64) = A B^T over D, A and B 64-row tiles (K-major)
+template <int D>
+__device__ __forceinline__ void pair_ss(float* acc, uint32_t a, uint32_t b) {
+  if constexpr (D == 80) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+      wgmma_ss<WT>(acc, gmma_desc(a + c * WT * 32, 32, false),
+                   gmma_desc(b + c * WT * 32, 32, false), c > 0);
+  } else {
+    ss_tile<D, WT>(acc, a, WT, 0, b);
+  }
+}
+
+// acc (64 x D) += A X over the 64 k rows of X, A in two bf16 pieces in
+// registers (hi, then lo), X a 64-row tile (MN-major): one wgmma a piece
+// and 16 k rows
+template <int D>
+__device__ __forceinline__ void pair_rs(float* acc, uint32_t (*hi)[4],
+                                        uint32_t (*lo)[4], uint32_t x) {
+#pragma unroll
+  for (int kk = 0; kk < WT / 16; ++kk) {
+    const uint64_t db = D == 80 ? gmma_desc_mn(x + kk * 16 * 32, 32, WT * 32)
+                                : gmma_desc_mn(x + kk * 16 * 128, 128, WT * 128);
+    wgmma_rs<D>(acc, hi[kk], db);
+    wgmma_rs<D>(acc, lo[kk], db);
+  }
+}
+
+// a pair kernel's shared-memory layout from the dynamic base: the 1024-byte
+// aligned base, dK/dV's rows and the barriers
+template <class L>
+struct PairSmem {
+  uint32_t sbase, bars;
+  float* rows;
+  __device__ explicit PairSmem(uint8_t* smem) {
+    const uint32_t raw = smem_u32(smem);
+    sbase = (raw + 1023u) & ~1023u;
+    rows = reinterpret_cast<float*>(smem + (sbase - raw) + L::ROWS_OFF);
+    bars = sbase + L::BAR_OFF;
+  }
+  __device__ uint32_t res_full(int slot) const { return bars + 8u * slot; }
+  __device__ uint32_t res_empty(int slot) const { return bars + 8u * (2 + slot); }
+  __device__ uint32_t full(int s) const { return bars + 8u * (4 + s); }
+  __device__ uint32_t empty(int s) const { return bars + 8u * (4 + L::NS + s); }
+};
+
+// this block's n-th item in the snake order, or -1 past the last
+__device__ __forceinline__ int snake_item(int n, int n_items) {
+  const int g = gridDim.x, x = blockIdx.x;
+  const int item = n * g + ((n & 1) ? g - 1 - x : x);
+  return item < n_items ? item : -1;
+}
+
+// a dQ item: q block q0 of head bh and the kv tiles [t_begin, t_begin +
+// n_tiles) that any of its rows can see.  Items run head by head (a
+// head's q blocks the last, the longest causal rows, first), so that the
+// blocks in flight share their heads' K and V in L2: ordered by q block
+// over all heads, they read each head's K and V from memory again for
+// each of its q blocks
+struct DqItem {
+  int bh, q0, t_begin, n_tiles;
+};
+
+__device__ __forceinline__ DqItem dq_item(int item, int sq, int sk,
+                                          int causal, int window) {
+  DqItem w;
+  const int n_qb = (sq + QB - 1) / QB;
+  w.bh = item / n_qb;
+  w.q0 = (n_qb - 1 - item % n_qb) * QB;
+  const int off = sk - sq, rows = min(QB, sq - w.q0);
+  const int k_end = causal ? min(sk, w.q0 + rows + off) : sk;
+  const int k_begin = window > 0 ? max(0, w.q0 + off - window + 1) : 0;
+  w.t_begin = k_begin / WT;
+  w.n_tiles = k_end > w.t_begin * WT ? (k_end - w.t_begin * WT + WT - 1) / WT : 0;
+  return w;
+}
+
+// a dK/dV item: kv block k0 of group bg and its q tiles i_begin + 64 t,
+// t < n_qt, per head of the group; group by group (a group's first kv
+// blocks, seen by the most causal rows, first), so that the blocks in
+// flight share their groups' Q and dO in L2
+struct DkvItem {
+  int bg, k0, i_begin, n_qt;
+};
+
+__device__ __forceinline__ DkvItem dkv_item(int item, int sq, int sk,
+                                            int causal, int window) {
+  DkvItem w;
+  const int n_kb = (sk + QB - 1) / QB;
+  w.bg = item / n_kb;
+  w.k0 = item % n_kb * QB;
+  const int off = sk - sq, kmax = min(sk, w.k0 + QB) - 1;
+  w.i_begin = causal ? max(0, w.k0 - off) : 0;
+  const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
+  w.n_qt = i_end > w.i_begin ? (i_end - w.i_begin + WT - 1) / WT : 0;
+  return w;
+}
+
+// Delta of this thread's rows i and i + 8 (rows `row0` + i of o and dO,
+// D wide): the quad's four threads each take a quarter of both rows and
+// add theirs by shuffles; quad 0 stores them to `delta` as well
+template <int D>
+__device__ __forceinline__ void quad_delta(float& d0, float& d1, const bf16* o,
+                                           const bf16* dout, float* delta,
+                                           size_t row0, int i, int sq, int quad) {
+  constexpr int NQ = D / 16;  // 4-value loads in a quarter row
+  uint2 x[2][NQ], y[2][NQ];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t at = (row0 + i + 8 * h) * D + quad * (D / 4);
+    const uint2* op = reinterpret_cast<const uint2*>(o + at);
+    const uint2* dp = reinterpret_cast<const uint2*>(dout + at);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const bool in = i + 8 * h < sq;
+      x[h][j] = in ? op[j] : make_uint2(0u, 0u);
+      y[h][j] = in ? dp[j] : make_uint2(0u, 0u);
+    }
+  }
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const bf16* xe = reinterpret_cast<const bf16*>(&x[h][j]);
+      const bf16* ye = reinterpret_cast<const bf16*>(&y[h][j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[h] = fmaf(__bfloat162float(ye[e]), __bfloat162float(xe[e]), s[h]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(FULL, s[h], 1);
+    s[h] += __shfl_xor_sync(FULL, s[h], 2);
+    if (quad == 0 && i + 8 * h < sq) delta[row0 + i + 8 * h] = s[h];
+  }
+  d0 = s[0];
+  d1 = s[1];
+}
+
+// dQ and each row's Delta, 128 q rows an item: warpgroup w's Q and dO tiles
+// (rows q0 + 64 w) stay in their slot; the producer streams the item's
+// visible K/V tiles.  Each consumer works out its rows' Delta from O and dO
+// in global memory at the item's start (quad_delta: its rows' Delta and
+// LSE in registers, no barrier).
+template <int D>
+__global__ void __launch_bounds__(BWP_THREADS, 1)
+bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
+                  const __grid_constant__ CUtensorMap tq1,
+                  const __grid_constant__ CUtensorMap tdo0,
+                  const __grid_constant__ CUtensorMap tdo1,
+                  const __grid_constant__ CUtensorMap tk0,
+                  const __grid_constant__ CUtensorMap tk1,
+                  const __grid_constant__ CUtensorMap tv0,
+                  const __grid_constant__ CUtensorMap tv1,
+                  const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, bf16* __restrict__ dq,
+                  float* __restrict__ delta, int B, int H, int G, int sq, int sk,
+                  int causal, int window, float scale) {
+  using L = BwPair<D, false>;
+  constexpr int NS = L::NS;
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t raw = smem_u32(bw_smem);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  const uint32_t bars = sbase + L::BAR_OFF;
+  auto res_full = [&](int slot) { return bars + 8u * slot; };
+  auto res_empty = [&](int slot) { return bars + 8u * (2 + slot); };
+  auto full = [&](int s) { return bars + 8u * (4 + s); };
+  auto empty = [&](int s) { return bars + 8u * (4 + NS + s); };
+
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(res_full(slot), 1);
+      mbar_init(res_empty(slot), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer: its thread 0 issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const int n_items = (sq + QB - 1) / QB * B * H;
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int item = snake_item(n, n_items);
+        if (item < 0) break;
+        const DqItem w = dq_item(item, sq, sk, causal, window);
+        const int slot = n % L::NSLOT;
+        mbar_wait(res_empty(slot), ((n / L::NSLOT) & 1) ^ 1);  // rounds 0 pass at once
+        mbar_expect_tx(res_full(slot), L::SLOT);
+        const uint32_t dst = sbase + slot * L::SLOT;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          pair_tma<D>(dst + c * L::PAIR, &tq0, &tq1, res_full(slot),
+                      w.q0 + WT * c, w.bh);
+          pair_tma<D>(dst + c * L::PAIR + L::TILE, &tdo0, &tdo1, res_full(slot),
+                      w.q0 + WT * c, w.bh);
+        }
+        const int bg = w.bh / H * G + w.bh % H / (H / G);
+        for (int i = 0; i < w.n_tiles; ++i, ++it) {
+          const int s = it % NS;
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(full(s), L::PAIR);
+          const uint32_t st = sbase + L::STAGE_OFF + s * L::PAIR;
+          const int k0 = (w.t_begin + i) * WT;
+          pair_tma<D>(st, &tk0, &tk1, full(s), k0, bg);
+          pair_tma<D>(st + L::TILE, &tv0, &tv1, full(s), k0, bg);
+        }
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int n_items = (sq + QB - 1) / QB * B * H;
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int off = sk - sq;
+  const float sl2 = scale * LOG2E;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int item = snake_item(n, n_items);
+    if (item < 0) break;
+    const DqItem w = dq_item(item, sq, sk, causal, window);
+    const int slot = n % L::NSLOT;
+    // this warpgroup's rows and the kv positions they can see
+    const int qw0 = w.q0 + WT * wg, rows = min(WT, sq - qw0);
+    const int qlo = qw0 + off, qhi = qw0 + rows - 1 + off;
+    const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
+    const int k_end = rows <= 0 ? 0 : causal ? min(sk, qhi + 1) : sk;
+    const size_t row0 = (size_t)w.bh * sq;
+    float dl0, dl1;
+    quad_delta<D>(dl0, dl1, o, dout, delta, row0, qw0 + r0, sq, quad);
+    const float L0 = lse2(lse, row0, qw0 + r0, sq);
+    const float L1 = lse2(lse, row0, qw0 + r0 + 8, sq);
+    const int qp0 = qw0 + r0 + off, qp1 = qp0 + 8;
+    mbar_wait(res_full(slot), (n / L::NSLOT) & 1);
+    const uint32_t qa = sbase + slot * L::SLOT + wg * L::PAIR, doa = qa + L::TILE;
+    if (w.n_tiles == 0) release(res_empty(slot), lane);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < w.n_tiles; ++i, ++it) {
+      const int s = it % NS;
+      const bool last = i + 1 == w.n_tiles;
+      mbar_wait(full(s), (it / NS) & 1);
+      const int k0 = (w.t_begin + i) * WT;
+      if (k0 < k_end && k0 + WT > k_begin) {
+        const uint32_t kt = sbase + L::STAGE_OFF + s * L::PAIR;
+        float sc[WT / 2], dp[WT / 2];
+        uint32_t hi[WT / 16][4], lo[WT / 16][4];
+        wg_fence();
+        pair_ss<D>(sc, qa, kt);             // S = Q K^T
+        pair_ss<D>(dp, doa, kt + L::TILE);  // dP = dO V^T
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<WT / 2>(sc);
+        reg_fence<WT / 2>(dp);
+        if (last) release(res_empty(slot), lane);  // Q and dO are read
+        const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > qlo) ||
+                          (window > 0 && k0 <= qhi - window);
+#pragma unroll
+        for (int j = 0; j < WT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            float p = ex2(sc[x] * sl2 - (e < 2 ? L0 : L1));
+            if (edge && !visible(e < 2 ? qp0 : qp1, k0 + 8 * j + 2 * quad + (e & 1),
+                                 sk, causal, window))
+              p = 0.f;
+            dp[x] = p * (dp[x] - (e < 2 ? dl0 : dl1));
+          }
+        split_pieces(hi, lo, dp);
+        wg_fence();
+        pair_rs<D>(acc, hi, lo, kt);  // dQ += dS K
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<D / 2>(acc);
+      } else if (last) {
+        release(res_empty(slot), lane);
+      }
+      release(empty(s), lane);
+    }
+    store_rows<D>(dq + row0 * D, acc, qw0 + r0, sq, quad, scale);
+  }
+}
+
+// dK and dV, 128 kv rows an item over the group's heads: warpgroup w's K
+// and V tiles (rows k0 + 64 w) stay in their slot; the producer streams
+// the Q and dO tiles that can see the block, and its 128 threads write
+// each stage's rows' base-2 LSE (threads 0-63) and Delta (64-127).
+template <int D>
+__global__ void __launch_bounds__(BWP_THREADS, 1)
+bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
+                   const __grid_constant__ CUtensorMap tq1,
+                   const __grid_constant__ CUtensorMap tdo0,
+                   const __grid_constant__ CUtensorMap tdo1,
+                   const __grid_constant__ CUtensorMap tk0,
+                   const __grid_constant__ CUtensorMap tk1,
+                   const __grid_constant__ CUtensorMap tv0,
+                   const __grid_constant__ CUtensorMap tv1,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
+                   int G, int sq, int sk, int causal, int window, float scale) {
+  using L = BwPair<D, true>;
+  constexpr int NS = L::NS;
+  extern __shared__ uint8_t bw_smem[];
+  // the layout (PairSmem) and counts are worked out in each role past its
+  // setmaxnreg (values held across it were spilled), the item count anew
+  // each item from the parameters (held through the loop, it was)
+  auto n_items = [&] {
+    int b = B;
+    asm volatile("" : "+r"(b));
+    return (sk + QB - 1) / QB * b * G;
+  };
+  if (threadIdx.x == 0) {
+    const PairSmem<L> m(bw_smem);
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(m.res_full(slot), 1);
+      mbar_init(m.res_empty(slot), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(m.full(s), 1 + 128);  // the copies' byte count, then
+                                      // every producer thread (its row)
+      mbar_init(m.empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer: thread 0 issues every copy, thread t
+                  // writes row t's LSE (t < 64) or Delta of each stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const PairSmem<L> m(bw_smem);
+    const int hg = H / G;
+    const int pt = threadIdx.x - 256;
+    int it = 0;
+    for (int n = 0;; ++n) {
+      const int item = snake_item(n, n_items());
+      if (item < 0) break;
+      const DkvItem w = dkv_item(item, sq, sk, causal, window);
+      if (pt == 0) {
+        const int slot = n % L::NSLOT;
+        mbar_wait(m.res_empty(slot), ((n / L::NSLOT) & 1) ^ 1);  // rounds 0 pass at once
+        mbar_expect_tx(m.res_full(slot), L::SLOT);
+        const uint32_t dst = m.sbase + slot * L::SLOT;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          pair_tma<D>(dst + c * L::PAIR, &tk0, &tk1, m.res_full(slot),
+                      w.k0 + WT * c, w.bg);
+          pair_tma<D>(dst + c * L::PAIR + L::TILE, &tv0, &tv1, m.res_full(slot),
+                      w.k0 + WT * c, w.bg);
+        }
+      }
+      const int h0 = w.bg / G * H + w.bg % G * hg;  // the group's first head
+      const int n_it = hg * w.n_qt;
+      for (int j = 0; j < n_it; ++j, ++it) {
+        const int s = it % NS;
+        const int bh = h0 + j / w.n_qt;
+        const int i0 = w.i_begin + j % w.n_qt * WT;
+        const int i = i0 + pt % WT;
+        const float val = pt < WT ? lse2(lse, (size_t)bh * sq, i, sq)
+                                  : (i < sq ? delta[(size_t)bh * sq + i] : 0.f);
+        mbar_wait(m.empty(s), ((it / NS) & 1) ^ 1);  // round 0 passes at once
+        if (pt == 0) {
+          mbar_expect_tx(m.full(s), L::PAIR);
+          const uint32_t st = m.sbase + L::STAGE_OFF + s * L::PAIR;
+          pair_tma<D>(st, &tq0, &tq1, m.full(s), i0, bh);
+          pair_tma<D>(st + L::TILE, &tdo0, &tdo1, m.full(s), i0, bh);
+        }
+        m.rows[s * 2 * WT + pt] = val;
+        mbar_arrive(m.full(s));  // releases this thread's row
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const PairSmem<L> m(bw_smem);
+  const int hg = H / G, off = sk - sq;
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's kv rows: r0, r0 + 8
+  const float sl2 = scale * LOG2E;
+  // this warpgroup's pieces when they go through shared memory: P^T hi,
+  // lo, dS^T hi, lo
+  const uint32_t pieces = m.sbase + L::PIECE_OFF + wg * 4 * L::PIECE;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int item = snake_item(n, n_items());
+    if (item < 0) break;
+    const DkvItem w = dkv_item(item, sq, sk, causal, window);
+    const int slot = n % L::NSLOT;
+    // this warpgroup's kv rows and the q rows that can see them
+    const int kw0 = w.k0 + WT * wg;
+    const int kp0 = kw0 + r0, kp1 = kp0 + 8;
+    const int kmax = min(sk, kw0 + WT) - 1;
+    const int i_begin = causal ? max(0, kw0 - off) : 0;
+    const int i_end = kw0 >= sk ? 0 : window > 0 ? min(sq, kmax + window - off) : sq;
+    const int n_it = hg * w.n_qt;
+
+    mbar_wait(m.res_full(slot), (n / L::NSLOT) & 1);
+    const uint32_t ka = m.sbase + slot * L::SLOT + wg * L::PAIR, va = ka + L::TILE;
+    if (n_it == 0) release(m.res_empty(slot), lane);
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int j = 0; j < n_it; ++j, ++it) {
+      const int s = it % NS;
+      const bool last = j + 1 == n_it;
+      mbar_wait(m.full(s), (it / NS) & 1);
+      const int i0 = w.i_begin + j % w.n_qt * WT;
+      if (i0 < i_end && i0 + WT > i_begin) {
+        const uint32_t qt = m.sbase + L::STAGE_OFF + s * L::PAIR, dot = qt + L::TILE;
+        const float* Ls = m.rows + s * 2 * WT;
+        const float* Ds = Ls + WT;
+        float st[WT / 2], dpt[WT / 2];
+        wg_fence();
+        pair_ss<D>(st, ka, qt);    // S^T = K Q^T
+        pair_ss<D>(dpt, va, dot);  // dP^T = V dO^T
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<WT / 2>(st);
+        reg_fence<WT / 2>(dpt);
+        if (last) release(m.res_empty(slot), lane);  // K and V are read
+        // P^T and dS^T on the fragments: rows kv, columns q rows i0 + c
+        const bool edge = kw0 + WT > sk || (causal && kw0 + WT - 1 > i0 + off) ||
+                          (window > 0 && kw0 <= i0 + WT - 1 + off - window);
+#pragma unroll
+        for (int jj = 0; jj < WT / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * jj + e, c = 8 * jj + 2 * quad + (e & 1);
+            float p = ex2(st[x] * sl2 - Ls[c]);
+            if (edge && !visible(i0 + c + off, e < 2 ? kp0 : kp1, sk, causal, window))
+              p = 0.f;
+            dpt[x] = p * (dpt[x] - Ds[c]);
+            st[x] = p;
+          }
+        if constexpr (L::SMEM_PIECES) {
+          // the last tile's products, the pieces' last readers, are done
+          // (its wait); each warp writes the 16 rows its part of them read
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // q columns [32 h, 32 h + 32)
+            put_pieces_s(pieces, pieces + L::PIECE, st + 16 * h, r0, 32 * h, quad);
+            put_pieces_s(pieces + 2 * L::PIECE, pieces + 3 * L::PIECE, dpt + 16 * h,
+                         r0, 32 * h, quad);
+          }
+          // the pieces, written by the generic proxy, are read by wgmma's
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          wg_sync(wg);
+          wg_fence();
+          ss_pieces(dva, pieces, dot);                // dV += P^T dO
+          ss_pieces(dka, pieces + 2 * L::PIECE, qt);  // dK += dS^T Q
+          wg_commit();
+        } else {
+          uint32_t hi[WT / 16][4], lo[WT / 16][4];
+          split_pieces(hi, lo, st);  // P^T
+          wg_fence();
+          pair_rs<D>(dva, hi, lo, dot);  // dV += P^T dO
+          wg_commit();
+          uint32_t dh[WT / 16][4], dl[WT / 16][4];
+          split_pieces(dh, dl, dpt);  // dS^T, while dV's products run
+          wg_fence();
+          pair_rs<D>(dka, dh, dl, qt);  // dK += dS^T Q
+          wg_commit();
+        }
+        wg_wait<0>();
+        reg_fence<D / 2>(dka);
+        reg_fence<D / 2>(dva);
+      } else if (last) {
+        release(m.res_empty(slot), lane);
+      }
+      release(m.empty(s), lane);
+    }
+    const size_t at = (size_t)w.bg * sk * D;
+    store_rows<D>(dk + at, dka, kp0, sk, quad, scale);
+    store_rows<D>(dv + at, dva, kp0, sk, quad, 1.f);
+  }
+}
+
 // the two maps of a (heads, rows, W) bf16 tensor, boxes of 64 rows: its
 // first column block, then its narrower second one (W = 80, 96; else the
 // first again)
@@ -1134,6 +1762,50 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+// the pair route (D = 80, 128): both kernels persistent, one block an SM
+template <int D>
+int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* lse, void* dq, void* dk,
+                    void* dv, float* delta, int64_t B, int64_t H, int64_t G,
+                    int64_t sq, int64_t sk, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  using LQ = BwPair<D, false>;
+  using LK = BwPair<D, true>;
+  CUtensorMap m[8];
+  std::memset(m, 0, sizeof(m));
+  int e = make_maps<D>(&m[0], q, sq, B * H);
+  if (!e) e = make_maps<D>(&m[2], dout, sq, B * H);
+  if (!e) e = make_maps<D>(&m[4], k, sk, B * G);
+  if (!e) e = make_maps<D>(&m[6], v, sk, B * G);
+  if (e) return e;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dq_wgmma_pair<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma_pair<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LK::SMEM);
+  if (err != cudaSuccess) return err;
+  const int64_t n_dq = (sq + QB - 1) / QB * B * H;
+  bwd_dq_wgmma_pair<D><<<(unsigned)(n_dq < n_sm ? n_dq : n_sm), BWP_THREADS,
+                         LQ::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+      static_cast<bf16*>(dq), delta, (int)B, (int)H, (int)G, (int)sq, (int)sk,
+      causal, window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t n_dkv = (sk + QB - 1) / QB * B * G;
+  bwd_dkv_wgmma_pair<D><<<(unsigned)(n_dkv < n_sm ? n_dkv : n_sm), BWP_THREADS,
+                          LK::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
+      (int)sq, (int)sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <int D, int DV = D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk, void* dv,
@@ -1165,8 +1837,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-// each dtype has one pair of kernels: fp32 the SIMT pair, bf16 the wgmma
-// pair; v as wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
+// each dtype has one pair of kernels a head dim: fp32 the SIMT pair, bf16
+// the one-warpgroup wgmma kernels (the pair route at D = 80 and 128); v as
+// wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
 int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
                const void* v, const void* o, const void* dout, const float* lse,
                void* dq, void* dk, void* dv, float* delta, float* part,
@@ -1192,8 +1865,8 @@ int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
     switch (D) {
       case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
       case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
-      case 80: return launch_bwd_wgmma<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
-      case 128: return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 80: return launch_bwd_pair<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_bwd_pair<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       case 256: return launch_bwd_wgmma<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }

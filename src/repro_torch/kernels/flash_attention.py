@@ -38,10 +38,15 @@ on a CUDA tensor K5's backward (``csrc/attention_bwd.cu``, its own
 library), two kernels a call counted as one launch of
 ``flash_attention_bwd``: dQ with each row's Delta, then dK and dV per kv
 tile over the group's heads.  bf16 runs them on the tensor cores
-(``wgmma`` fed by TMA, P and dS in two bf16 pieces; at head dim 256 the
-dK/dV kernel splits the head dim over two warpgroups and an even group's
-heads over two blocks, whose fp32 sums a third kernel adds), fp32 on the
-CUDA cores (tiles of 32 rows at head dim 256).  Both take the forward's
+(``wgmma`` fed by TMA, P and dS in two bf16 pieces): at head dims 80 and
+128 as the pair route (``bwd_dq_wgmma_pair``, ``bwd_dkv_wgmma_pair``: each
+launch one persistent block an SM of two consumer warpgroups, 64 rows
+each of a 128-row item, and a producer warpgroup), at 32, 64 and MLA's
+96 / 64 as one consumer warpgroup and a producer warp a block; at head
+dim 256 the dK/dV kernel splits the head dim over two warpgroups and an
+even group's heads over two blocks, whose fp32 sums a third kernel adds
+(the one workspace beside Delta's rows).  fp32 runs on the CUDA cores
+(tiles of 32 rows at head dim 256).  Both take the forward's
 pairs: every head dim of ``HEAD_DIMS`` with ``Dv = D`` and the narrow-v
 pairs of ``NARROW_V`` (MLA's training: dQ and dK 96 wide, dV, dO, O and
 Delta's rowsum 64).  When a graph will be recorded (grad mode on and an input that

@@ -14,7 +14,9 @@ one process each); the lines give the registers and spills of
 ``scan_lookback``, of ``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk
 = 64, of the codec kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's
 ``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``) and of K5's
-backward launches at D = 64 and 256, and ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
+backward launches at D = 64, 256, 128 and 80 (the pair route's kernels,
+or a parent's one-warpgroup ones), and ``ptxas``'s warnings that
+``wgmma`` runs serialized.  The C
 entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
 geometry; a tree whose source declares the entry without it, the first
@@ -43,8 +45,9 @@ bit against the plain version; beside K2 and K4 each tree's launch floor
 (the same entry at (1, 16, 8) and (1, 8, 16)), and K2 and K4 once more
 with the L2 cache flushed before every launch (a 128 MB buffer written
 outside the timed events), as the write path's freshly uploaded pages
-find it.  K5's backward runs causal at smollm-360m's and gemma-2b's
-training shapes ``BWD_SHAPES`` on the output and rows' LSE of the checkout's K5 forward: a
+find it.  K5's backward runs causal at the training shapes ``BWD_SHAPES``
+(smollm-360m's, gemma-2b's, chameleon-34b's, zamba2-2.7b's and
+minicpm3-4b's) on the output and rows' LSE of the checkout's K5 forward: a
 tree whose entry takes the LSE as an input (``const void* lse`` after
 ``dout``) gets the forward's, an older one (the LSE a workspace after
 ``dv``) recomputes it; each tree's gradients are printed as the largest
@@ -76,16 +79,23 @@ K8_SHAPE = (16, 80, 1000, 64, 64)  # (B, H, T, P, N)
 BWD_SCAN_SHAPES = {"wkv": (8, 64, 1024, 64, 64),   # (B, H, T, Dk, Dv)
                    "ssd": (8, 80, 1024, 64, 64)}   # (B, H, T, P, N)
 K1_SIZES = (100_000, 1_100_003, 1 << 24)
-#: K5's backward: smollm-360m's and gemma-2b's training shapes (B, H, G,
-#: S, D), causal
-BWD_SHAPES = ((8, 15, 5, 1024, 64), (8, 8, 1, 1024, 256))
+#: K5's backward: the training shapes (B, H, G, S, D, DV), causal, of
+#: smollm-360m, gemma-2b, chameleon-34b and zamba2-2.7b (the pair route at
+#: D = 128 and 80) and minicpm3-4b (MLA's q/k 96, v 64)
+BWD_SHAPES = ((8, 15, 5, 1024, 64, 64), (8, 8, 1, 1024, 256, 256),
+              (8, 64, 8, 1024, 128, 128), (8, 32, 32, 1024, 80, 80),
+              (8, 40, 40, 1024, 96, 64))
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "ssd_bwd_localILi64", "ssd_bwd_chunkILi64",
                  "wkv_bwd_statesILi64", "wkv_bwd_chunksILi64",
                  "shuffle_reg", "shuffle_vec", "unsplit_reg", "unsplit_vec",
                  "decode_offsets",
                  "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64",
-                 "bwd_dq_wgmmaILi256", "bwd_dkv_wgmma2")
+                 "bwd_dq_wgmmaILi256", "bwd_dkv_wgmma2",
+                 "bwd_dq_wgmma_pairILi128", "bwd_dkv_wgmma_pairILi128",
+                 "bwd_dq_wgmma_pairILi80", "bwd_dkv_wgmma_pairILi80",
+                 "bwd_dq_wgmmaILi128", "bwd_dkv_wgmmaILi128",
+                 "bwd_dq_wgmmaILi80", "bwd_dkv_wgmmaILi80")
 #: which libraries each group of timings needs
 GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
               "bwd": ("attention_bwd",)}
@@ -349,13 +359,13 @@ def bwd_calls(libs, trees, stream, shape) -> tuple:
     at ``shape`` on the checkout's K5 forward output and LSE."""
     from repro_torch.kernels.flash_attention import flash_attention_lse
 
-    b, h, g, s, d = shape
+    b, h, g, s, d, dv = shape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
-    q, do = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn((b, g, s, d), generator=gen, device="cuda").bfloat16()
-            for _ in range(2))
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device="cuda").bfloat16()
+    q, k = rnd(b, h, s, d), rnd(b, g, s, d)
+    v, do = rnd(b, g, s, dv), rnd(b, h, s, dv)
     out, lse = flash_attention_lse(q, k, v)
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        out.float(), lse, do.float())
@@ -365,16 +375,19 @@ def bwd_calls(libs, trees, stream, shape) -> tuple:
     for tree in trees:
         f = libs[(tree, "attention_bwd")].repro_flash_attention_bwd
         grads = [torch.empty_like(t) for t in (q, k, v)]
-        dq, dk, dv = (t.data_ptr() for t in grads)
+        ptrs = tuple(t.data_ptr() for t in grads)  # dq, dk, dv
         if "const void* lse" in c_params(trees[tree], "attention_bwd",
                                          "repro_flash_attention_bwd"):
             # the forward's LSE, after dout
-            mid = (lse.data_ptr(), dq, dk, dv, delta.data_ptr())
+            mid = (lse.data_ptr(), *ptrs, delta.data_ptr())
         else:  # an LSE workspace after dv
-            mid = (dq, dk, dv, work.data_ptr(), delta.data_ptr())
+            mid = (*ptrs, work.data_ptr(), delta.data_ptr())
         if has_part(trees[tree]):
             mid += (part.data_ptr(),)
-        dims = (d, d) if has_dv(trees[tree]) else (d,)
+        if not has_dv(trees[tree]) and dv != d:
+            print(f"{tree}: repro_flash_attention_bwd takes no v head dim")
+            continue
+        dims = (d, dv) if has_dv(trees[tree]) else (d,)
 
         def call(f=f, mid=mid, dims=dims):
             return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

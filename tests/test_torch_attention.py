@@ -302,18 +302,26 @@ def _pieces(x):
 
 
 def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
-    """K5's bf16 backward (``bwd_dq_wgmma``, then ``bwd_dkv_wgmma``) in
-    plain PyTorch, one (query tile, kv tile) of 64 rows at a time in the
+    """K5's bf16 backward (a dQ launch, then a dK/dV launch) in plain
+    PyTorch, one (query tile, kv tile) of 64 rows at a time in the
     kernels' order: fp32 products of the bf16 values, ``P = exp2(S scale
     log2(e) - LSE log2(e))`` from the forward's LSE, Delta from the stored
     output, P and dS in two bf16 pieces as the A operand of the products
     that accumulate dQ, dV and dK in fp32, the tiles a tile cannot see
-    skipped, the gradients rounded to bf16.  At D = 256 the dK/dV kernel
-    (``bwd_dkv_wgmma2``) is two warpgroups: warpgroup w forms S^T and dP^T
-    for q columns [32 w, 32 w + 32) of the tile over all of D, and owns
-    columns [128 w, 128 w + 128) of dK and dV, which it sums from the whole
-    tile's pieces; an even group's heads split over two blocks, whose fp32
-    sums are added at the end."""
+    skipped, the gradients rounded to bf16.  At D = 80 and 128 (the pair
+    route: ``bwd_dq_wgmma_pair``, ``bwd_dkv_wgmma_pair``) an item is a
+    block of 128 rows (q rows for dQ, kv rows for dK/dV) whose warpgroups
+    own 64 each: both walk the tiles the block streams (the kv tiles any of
+    the block's q rows sees; the q tiles of 64 from the block's first
+    visible q row, per head), and each skips those its own rows cannot
+    see, its sums starting at its first visible tile and ending at its
+    last; elsewhere (``bwd_dq_wgmma``, ``bwd_dkv_wgmma``) an item is one
+    warpgroup's 64 rows.  At D = 256 the dK/dV kernel (``bwd_dkv_wgmma2``)
+    is two warpgroups: warpgroup w forms S^T and dP^T for q columns [32 w,
+    32 w + 32) of the tile over all of D, and owns columns [128 w, 128 w +
+    128) of dK and dV, which it sums from the whole tile's pieces; an even
+    group's heads split over two blocks, whose fp32 sums are added at the
+    end."""
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     hg, off = h // g, sk - sq
@@ -324,6 +332,7 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     l2 = torch.where(lse > float("-inf"), lse * LOG2E,
                      torch.tensor(float("inf")))
     delta = (dof * out.float()).sum(-1)
+    item = 2 * t if d in (80, 128) else t  # rows of an item
 
     def p_ds(rows, cols, s, dp, lr, dr):  # s, dp (..., rows, cols)
         qpos, kpos = rows[:, None] + off, cols[None, :]
@@ -336,51 +345,64 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
         return p, p * (dp - dr[..., None])
 
     dq = torch.zeros(b, h, sq, d)
-    for q0 in range(0, sq, t):  # launch A: a q tile over its kv tiles
-        rows = torch.arange(q0, min(q0 + t, sq))
-        k_end = min(sk, int(rows[-1]) + off + 1) if causal else sk
-        k_begin = max(0, q0 + off - window + 1) if window else 0
-        acc = torch.zeros(b, h, len(rows), d)
-        for k0 in range(k_begin // t * t, k_end, t):
-            cols = torch.arange(k0, min(k0 + t, sk))
-            s = qf[:, :, rows] @ kx[:, :, cols].transpose(-1, -2)
-            dp = dof[:, :, rows] @ vx[:, :, cols].transpose(-1, -2)
-            _p, ds = p_ds(rows, cols, s, dp, l2[:, :, rows], delta[:, :, rows])
-            for piece in _pieces(ds):
-                acc = acc + piece @ kx[:, :, cols]
-        dq[:, :, rows] = acc * scale
+    for qb in range(0, sq, item):  # launch A: a q block over its kv tiles
+        last = min(qb + item, sq) - 1
+        k_end_b = min(sk, last + off + 1) if causal else sk
+        k_begin_b = max(0, qb + off - window + 1) if window else 0
+        for q0 in range(qb, last + 1, t):  # each warpgroup's q rows
+            rows = torch.arange(q0, min(q0 + t, sq))
+            k_end = min(sk, int(rows[-1]) + off + 1) if causal else sk
+            k_begin = max(0, q0 + off - window + 1) if window else 0
+            acc = torch.zeros(b, h, len(rows), d)
+            for k0 in range(k_begin_b // t * t, k_end_b, t):
+                if not (k0 < k_end and k0 + t > k_begin):
+                    continue  # this warpgroup's rows see none of the tile
+                cols = torch.arange(k0, min(k0 + t, sk))
+                s = qf[:, :, rows] @ kx[:, :, cols].transpose(-1, -2)
+                dp = dof[:, :, rows] @ vx[:, :, cols].transpose(-1, -2)
+                _p, ds = p_ds(rows, cols, s, dp, l2[:, :, rows],
+                              delta[:, :, rows])
+                for piece in _pieces(ds):
+                    acc = acc + piece @ kx[:, :, cols]
+            dq[:, :, rows] = acc * scale
     dk, dv = torch.zeros(b, g, sk, d), torch.zeros(b, g, sk, d)
     qg, dog = (x.reshape(b, g, hg, sq, d) for x in (qf, dof))
     lg, dg = (x.reshape(b, g, hg, sq) for x in (l2, delta))
     wgs = 2 if d == 256 else 1  # warpgroups sharing a kv tile
     halves = 2 if d == 256 and hg % 2 == 0 else 1  # blocks sharing it
-    for k0 in range(0, sk, t):  # launch B: a kv tile over heads, q tiles
-        cols = torch.arange(k0, min(k0 + t, sk))
-        i_begin = max(0, k0 - off) if causal else 0
-        i_end = min(sq, int(cols[-1]) + window - off) if window else sq
-        dka = torch.zeros(halves, b, g, len(cols), d)
-        dva = torch.zeros(halves, b, g, len(cols), d)
-        for hh in range(hg):
-            hs = hh // (hg // halves)
-            for i0 in range(i_begin, i_end, t):
-                rows = torch.arange(i0, min(i0 + t, sq))
-                qt, dot = qg[:, :, hh, rows], dog[:, :, hh, rows]
-                # S^T and dP^T by q-column groups of t / wgs
-                st = torch.cat([kf[:, :, cols] @ x.transpose(-1, -2) for x in
-                                qt.split(t // wgs, dim=2)], -1)
-                dpt = torch.cat([vf[:, :, cols] @ x.transpose(-1, -2) for x in
-                                 dot.split(t // wgs, dim=2)], -1)
-                p, ds = p_ds(rows, cols, st.transpose(-1, -2),
-                             dpt.transpose(-1, -2), lg[:, :, hh, rows],
-                             dg[:, :, hh, rows])
-                for w in range(wgs):  # each warpgroup's columns of dK, dV
-                    dc = slice(w * d // wgs, (w + 1) * d // wgs)
-                    for piece in _pieces(p.transpose(-1, -2)):
-                        dva[hs, ..., dc] += piece @ dot[..., dc]
-                    for piece in _pieces(ds.transpose(-1, -2)):
-                        dka[hs, ..., dc] += piece @ qt[..., dc]
-        dk[:, :, cols] = dka.sum(0) * scale
-        dv[:, :, cols] = dva.sum(0)
+    for kb in range(0, sk, item):  # launch B: a kv block over heads, q tiles
+        kmax = min(kb + item, sk) - 1
+        i_begin_b = max(0, kb - off) if causal else 0
+        i_end_b = min(sq, kmax + window - off) if window else sq
+        for k0 in range(kb, kmax + 1, t):  # each warpgroup's kv rows
+            cols = torch.arange(k0, min(k0 + t, sk))
+            i_begin = max(0, k0 - off) if causal else 0
+            i_end = min(sq, int(cols[-1]) + window - off) if window else sq
+            dka = torch.zeros(halves, b, g, len(cols), d)
+            dva = torch.zeros(halves, b, g, len(cols), d)
+            for hh in range(hg):
+                hs = hh // (hg // halves)
+                for i0 in range(i_begin_b, i_end_b, t):
+                    if not (i0 < i_end and i0 + t > i_begin):
+                        continue  # no row of the tile sees these kv rows
+                    rows = torch.arange(i0, min(i0 + t, sq))
+                    qt, dot = qg[:, :, hh, rows], dog[:, :, hh, rows]
+                    # S^T and dP^T by q-column groups of t / wgs
+                    st = torch.cat([kf[:, :, cols] @ x.transpose(-1, -2)
+                                    for x in qt.split(t // wgs, dim=2)], -1)
+                    dpt = torch.cat([vf[:, :, cols] @ x.transpose(-1, -2)
+                                     for x in dot.split(t // wgs, dim=2)], -1)
+                    p, ds = p_ds(rows, cols, st.transpose(-1, -2),
+                                 dpt.transpose(-1, -2), lg[:, :, hh, rows],
+                                 dg[:, :, hh, rows])
+                    for w in range(wgs):  # each warpgroup's columns of dK, dV
+                        dc = slice(w * d // wgs, (w + 1) * d // wgs)
+                        for piece in _pieces(p.transpose(-1, -2)):
+                            dva[hs, ..., dc] += piece @ dot[..., dc]
+                        for piece in _pieces(ds.transpose(-1, -2)):
+                            dka[hs, ..., dc] += piece @ qt[..., dc]
+            dk[:, :, cols] = dka.sum(0) * scale
+            dv[:, :, cols] = dva.sum(0)
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
@@ -390,6 +412,9 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     (2, 3, 1, 77, 200, 32, True, None),    # MQA, D=32, ragged Sq
     (1, 4, 4, 90, 90, 80, True, None),     # D=80
     (1, 2, 1, 60, 140, 80, False, None),   # non-causal, padded kv tile
+    (1, 4, 4, 170, 230, 80, True, None),   # D=80: two kv blocks, ragged
+    (1, 8, 1, 200, 200, 128, True, None),  # chameleon-34b's GQA 8:1
+    (1, 4, 4, 300, 300, 128, True, 100),   # D=128: MHA, window
     (1, 8, 1, 130, 130, 256, True, None),  # gemma-2b's MQA 8:1, D=256
     (1, 8, 1, 100, 160, 256, True, 40),    # D=256, window, Sq < Sk
 ])
@@ -423,6 +448,8 @@ def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
 @pytest.mark.parametrize("b,h,g,sq,sk,d,window", [
     (1, 4, 2, 203, 130, 64, None),   # a q tile wholly empty, one in part
     (1, 2, 1, 150, 40, 32, 16),      # window, Sq > Sk
+    (1, 8, 1, 203, 130, 128, None),  # D=128: a warpgroup's rows all empty
+    (1, 4, 4, 260, 190, 80, 50),     # D=80: window, Sq > Sk
 ])
 def test_k5_bwd_bf16_numerics_zero_the_rows_that_see_no_key(b, h, g, sq, sk,
                                                             d, window):

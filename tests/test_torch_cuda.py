@@ -854,6 +854,8 @@ BWD_CARD_CASES = [  # b, h, g, sq, sk, d, causal, window
     (1, 4, 4, 77, 130, 32, False, None),      # non-causal, padded kv tile
     (1, 4, 1, 200, 200, 80, True, None),      # D=80, MQA
     (1, 4, 2, 150, 150, 128, True, 40),       # D=128 with a window
+    (1, 8, 1, 203, 130, 128, True, None),     # D=128: 73 rows see no key
+    (1, 4, 4, 200, 333, 80, True, 70),        # D=80: ragged, window
     (1, 4, 2, 203, 130, 64, True, None),      # Sq > Sk: 73 rows see no key
     (8, 8, 1, 1024, 1024, 256, True, None),   # gemma-2b's training shape
     (1, 8, 1, 300, 517, 256, True, 100),      # D=256: ragged, window
@@ -927,15 +929,18 @@ def test_flash_attention_bwd_on_the_card(card, b, h, g, sq, sk, d, causal,
         _bwd_close(a, w, dtype)
 
 
-def test_flash_attention_bwd_is_deterministic_on_the_card(card):
-    """Two launches, no atomics: the same inputs give the same bits."""
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_flash_attention_bwd_is_deterministic_on_the_card(card, d):
+    """No atomics: the same inputs give the same bits, at head dim 64 (the
+    one-warpgroup kernels) and at 80 and 128 (the pair route's persistent
+    blocks)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_lse,
     )
 
-    q, k, v, do = _attn_inputs(card, 11, torch.bfloat16, (2, 15, 1024, 64),
-                               (2, 5, 1024, 64), (2, 5, 1024, 64),
-                               (2, 15, 1024, 64))
+    q, k, v, do = _attn_inputs(card, 11, torch.bfloat16, (2, 15, 1024, d),
+                               (2, 5, 1024, d), (2, 5, 1024, d),
+                               (2, 15, 1024, d))
     out, lse = flash_attention_lse(q, k, v)
     first = flash_attention_bwd(q, k, v, out, lse, do)
     for a, b in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
