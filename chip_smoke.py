@@ -296,25 +296,36 @@ KERNEL_DESIGN = {
                                    "prmt transpose, 16-byte plane stores"},
     "decode_offset_pages": {"uint8": "one thread-block cluster per page"},
     "byteshuffle": {"uint8": "K2's register form, one page"},
-    "flash_attention": {"bfloat16": "wgmma+tma", "float32": "simt fp32"},
+    "flash_attention": {"bfloat16": "wgmma+tma; persistent blocks over "
+                                    "128-row work tiles, head by head in "
+                                    "a snake order where K and V outgrow "
+                                    "the L2 (or under four rounds), else "
+                                    "the longest causal tiles of every "
+                                    "head first",
+                        "float32": "simt fp32"},
     # K5's narrow-v form (MLA), timed in its own nested row
     "flash_attention q/k 96, v 64": {
         "bfloat16": "wgmma+tma; q/k in a 64-wide 128-byte-swizzled and a "
                     "32-wide 64-byte-swizzled block, v one 64-wide block, "
-                    "P V 64 wide",
+                    "P V 64 wide; work tiles head by head in a snake "
+                    "order (K and V, 105-205 MB, read once a head)",
         "float32": "simt fp32"},
     "flash_attention_bwd": {"bfloat16": "two launches (dQ; dK and dV), "
                                         "wgmma + TMA, a consumer warpgroup "
                                         "and a producer warp a block, P from "
                                         "the forward's LSE, P and dS in two "
-                                        "bf16 pieces; at D = 80 and 128 the "
+                                        "bf16 pieces; at D = 80, 128 and "
+                                        "q/k 96 with v 64 the "
                                         "pair route: each launch one "
                                         "persistent block an SM over "
                                         "128-row items in snake order, two "
                                         "consumer warpgroups of 64 rows and "
                                         "a producer warpgroup (setmaxnreg "
                                         "24 / 240), resident tiles in two "
-                                        "slots; at D = 256 dK/dV in "
+                                        "slots, 80- and 96-wide tiles as "
+                                        "16- and 32-wide blocks (each "
+                                        "product one wgmma of N = D); at "
+                                        "D = 256 dK/dV in "
                                         "two consumer warpgroups by column "
                                         "halves, a group's heads over two "
                                         "blocks and a third launch adding "
@@ -856,6 +867,7 @@ def attention_cases():
         (1, 4, 1, 1000, 1000, 256, 256, True, None),    # D=256 at the prefill length
         (2, 8, 1, 200, 300, 128, 128, True, None),      # MQA at D=128
         (2, 40, 40, 1000, 1000, 96, 64, True, None),    # minicpm3-4b MLA prefill
+        (5, 40, 40, 1100, 1100, 96, 64, True, None),    # head order, partial round
         (1, 4, 4, 129, 129, 96, 64, True, None),        # q/k 96, v 64, ragged
         (1, 6, 2, 77, 300, 96, 64, True, 50),           # GQA, Sq < Sk, window
         (1, 4, 4, 50, 200, 96, 64, False, None),        # non-causal, padded kv
@@ -1856,6 +1868,45 @@ def time_attention(torch, ops, shapes, counts, worst,
     return rows
 
 
+def time_attention_training(torch, shape) -> dict:
+    """K5's forward with its rows' LSE (what a training step's forward
+    runs) at ``shape`` (b, h, g, sq, sk, d, dv) in bf16, causal: card
+    time, the plain version (output and LSE), SDPA's forward, bound, max
+    abs err of the output against the fp32 plain version; -> a nested
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(78)
+    b, h, g, sq, sk, d, dv = shape
+    q, k, v = _attention_inputs(torch, gen, torch.bfloat16, (b, h, sq, d),
+                                (b, g, sk, d), (b, g, sk, dv))
+    _out, _lse, err, lse_err = k5_out(torch, q, k, v)
+    kern = lambda _: flash_attention_lse(q, k, v)
+    plain = lambda _: (ref.flash_attention_ref(q, k, v),
+                       ref.flash_attention_lse_ref(q, k))
+    lib = lambda _: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True)
+    timed = {}
+    for key, fn in (("", kern), ("plain_", plain), ("library_", lib)):
+        c_ms = call_ms(torch, fn, None, reps=10, warmup=2)
+        timed[key + "call_ms"] = c_ms
+        timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
+    b_ms, b_by, nbytes = attention_bound("flash_attention", shape, 2)
+    log(f"flash_attention at {shape} bf16 with its LSE (the training "
+        f"shape): card {timed['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
+        f"plain {timed['plain_ms']:.5f} ms, SDPA {timed['library_ms']:.5f} "
+        f"ms); max abs err {err:.3e}, LSE {lse_err:.3e}")
+    return {"shape": list(shape), "lse": True, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed["library_ms"], "max_abs_err": err,
+            "lse_max_abs_err": lse_err, "bytes": nbytes,
+            "call_ms": timed["call_ms"]}
+
+
 def scan_bound(name: str, shape, itemsize: int):
     """(bound_ms, bound_by, bytes) of one K7 or K8 launch: inputs read once
     and outputs written once over the memory rate (r/k/v/w/u and the
@@ -2049,6 +2100,8 @@ def bwd_cases():
         (2, 15, 5, 1024, 1024, 64, 64, True, 256),      # window
         (2, 15, 5, 300, 1024, 64, 64, True, None),      # ragged Sq
         (2, 8, 8, 300, 1024, 96, 64, True, None),       # MLA, ragged Sq
+        (2, 15, 5, 1024, 1024, 96, 64, True, None),     # MLA, GQA 3:1
+        (3, 40, 40, 1000, 1000, 96, 64, True, None),    # MLA, items past the grid
         (1, 8, 8, 700, 700, 96, 64, True, 129),         # MLA, window
         (1, 6, 2, 77, 130, 32, 32, False, None),
         (1, 4, 1, 200, 200, 80, 80, True, None),
@@ -4110,6 +4163,9 @@ def main() -> int:
                    launches_by_path={"minicpm3-4b": at_m[0]["launches"]},
                    design=KERNEL_DESIGN[narrow]["bfloat16"],
                    design_by_dtype=KERNEL_DESIGN[narrow])
+    # and at minicpm3-4b's training shape, with the LSE
+    at_m[0]["at_training"] = time_attention_training(
+        torch, BWD_TIMED["minicpm3-4b"])
     nested = ("launches", "shape", "length", "design", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms", "max_abs_err", "bytes",
               "call_ms")

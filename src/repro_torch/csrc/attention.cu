@@ -21,8 +21,12 @@
 // exactly one kernel, picked by the C dispatcher:
 //  - bf16 (the serve path): flash_fwd_wgmma.  Both products run on the
 //    tensor cores as wgmma with fp32 accumulators.  One persistent block
-//    per SM walks work tiles of 128 query rows of one (b, h), longest
-//    causal tile first, so the short ones fill the tail.  A producer
+//    per SM walks work tiles of 128 query rows of one (b, h): head by
+//    head (a head's query tiles one after another, so that the blocks in
+//    flight share its K and V in L2) in a snake order over the grid that
+//    pairs a long causal tile with a short one on each block, where K and
+//    V outgrow the L2; else the longest causal tiles of every head first,
+//    so the short ones fill the tail.  A producer
 //    warpgroup (one thread, registers given away with setmaxnreg) streams
 //    each tile's Q and a ring of 2-3 K/V tile stages with TMA (tensor maps
 //    over (B*G, Sk, D): rows past Sk arrive as zeros) into 128/64/32-byte
@@ -322,7 +326,7 @@ struct WgTile {
   static_assert(SMEM <= 232448, "over the block's shared memory");
 };
 
-template <int D, int DV>
+template <int D, int DV, bool BY_HEAD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
                 const __grid_constant__ CUtensorMap tq1,
@@ -350,22 +354,46 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
   auto full = [&](int s) { return bars + 8u * (2 * QB + s); };
   auto empty = [&](int s) { return bars + 8u * (2 * QB + NS + s); };
 
-  // persistent: block x takes work tiles x, x + gridDim.x, ...; tile j is
-  // (query tile n_qt - 1 - j / (B H), (b, h) = j % (B H)), so the longest
-  // causal tiles go first and the short ones fill the tail
-  const int n_qt = (sq + WG_BQ - 1) / WG_BQ;
-  const int n_work = n_qt * B * H;
-  const int q_offset = sk - sq;
+  // persistent: block x takes work tiles x, x + gridDim.x, ... (round n
+  // holds tiles [n grid, n grid + grid)); the launcher picks their order
+  // (an instance each: a flag read at run time cost 2-5 % at 96 / 64).
+  // BY_HEAD: round n's tiles run in a snake order over the grid (reversed
+  // when n is odd), and tile j is (b, h) = j / n_qt, query tile n_qt - 1 -
+  // j % n_qt: a head's query tiles run one after another, the longest
+  // causal one first, so that the blocks in flight (about grid / n_qt
+  // heads) share their heads' K and V in L2, and the snake pairs a block's
+  // tiles so that their causal lengths sum to about n_qt + 1 (at n_qt = 8
+  // and 132 blocks, query tiles i and 7 - i).  Otherwise tile j is (query
+  // tile n_qt - 1 - j / (B H), (b, h) = j % (B H)): the longest causal
+  // tiles of every head first.  That order reads each head's K and V from
+  // memory again for each of its query tiles once they outgrow the L2
+  // (MLA's 40 kv heads: 4.5 times); where they fit (smollm-360m's and
+  // chameleon-34b's GQA heads) the head order ran up to 5 % slower.  The
+  // counts are worked out from the parameters where they are used, past
+  // each role's setmaxnreg (held across it, values were spilled at D =
+  // 128).
+  auto n_qt = [&] { return (sq + WG_BQ - 1) / WG_BQ; };
+  auto n_work = [&] { return n_qt() * B * H; };
   int b = 0, h = 0, q0 = 0, qpos_lo = 0, qpos_hi = 0, t_begin = 0, n_tiles = 0;
-  auto work = [&](int j) {  // this work tile's (b, h, rows, kv tiles)
-    const int bh = j % (B * H);
+  auto work = [&](int j, int n) {  // work tile j, this block's n-th
+    int bh, qt;
+    if constexpr (BY_HEAD) {
+      const int g = gridDim.x, x = blockIdx.x;
+      const int in_round = min(g, n_work() - n * g);  // the last is partial
+      const int i = n * g + ((n & 1) ? in_round - 1 - x : x);
+      bh = i / n_qt();
+      qt = i % n_qt();
+    } else {
+      bh = j % (B * H);
+      qt = j / (B * H);
+    }
     b = bh / H;
     h = bh % H;
-    q0 = (n_qt - 1 - j / (B * H)) * WG_BQ;
+    q0 = (n_qt() - 1 - qt) * WG_BQ;
     // the kv range any row of this tile can see, in whole tiles
     const int rows = min(WG_BQ, sq - q0);
-    qpos_lo = q0 + q_offset;
-    qpos_hi = q0 + rows - 1 + q_offset;
+    qpos_lo = q0 + sk - sq;
+    qpos_hi = qpos_lo + rows - 1;
     const int k_end = causal ? min(sk, qpos_hi + 1) : sk;
     const int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
     t_begin = k_begin / BK;
@@ -392,8 +420,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
       int kv = 0, t = 0;
-      for (int j = blockIdx.x; j < n_work; j += gridDim.x, ++t) {
-        work(j);
+      for (int j = blockIdx.x; j < n_work(); j += gridDim.x, ++t) {
+        work(j, t);
         const int g = h / (H / G);
         if (t >= QB)  // the Q buffer's last work tile is done with it
           mbar_wait(q_empty(t), ((t / QB) - 1) & 1);
@@ -538,9 +566,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq0,
       release(empty((kv0 + i - 1) % NS));
     };
 
-    for (int j = blockIdx.x; j < n_work; j += gridDim.x, ++t) {
-      work(j);
-      qp0 = q0 + r0 + q_offset;
+    for (int j = blockIdx.x; j < n_work(); j += gridDim.x, ++t) {
+      work(j, t);
+      qp0 = q0 + r0 + sk - sq;
       qp1 = qp0 + 8;
 #pragma unroll
       for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
@@ -621,21 +649,38 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   if (CV::TAIL)  // and of v
     if ((e = make_map(&m[5], v, sk, B * G, DV, CV::width(1), L::BK))) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<D, DV, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<D, DV, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM);
   if (err != cudaSuccess) return err;
   // one resident block per SM walks the work tiles
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, l2 = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
+                                    dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev)) !=
+          cudaSuccess)
     return err;
   const int64_t n_work = (sq + WG_BQ - 1) / WG_BQ * B * H;
   const unsigned grid = (unsigned)(n_work < sms ? n_work : sms);
-  flash_fwd_wgmma<D, DV><<<grid, WG_THREADS, L::SMEM, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o), lse,
-      (int)B, (int)H, (int)G, (int)sq, (int)sk, causal, window,
-      scale * LOG2E);
+  // head by head where K and V outgrow the L2, or where the tiles make
+  // fewer than four rounds of the grid (the snake then balances the
+  // blocks better than the stride: gemma-2b's training shape, 3.9 rounds)
+  const bool by_head = B * G * sk * (D + DV) * 2 > (int64_t)l2 ||
+                       n_work < 4 * (int64_t)grid;
+  if (by_head)
+    flash_fwd_wgmma<D, DV, true><<<grid, WG_THREADS, L::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o), lse,
+        (int)B, (int)H, (int)G, (int)sq, (int)sk, causal, window,
+        scale * LOG2E);
+  else
+    flash_fwd_wgmma<D, DV, false><<<grid, WG_THREADS, L::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o), lse,
+        (int)B, (int)H, (int)G, (int)sq, (int)sk, causal, window,
+        scale * LOG2E);
   return cudaGetLastError();
 }
 

@@ -43,26 +43,26 @@
 //    carry only their own bf16 rounding.  Masks apply only to the tiles
 //    that straddle the diagonal, the window edge or Sk.  Tiles arrive by
 //    TMA; mbarriers hand stages over.  Three forms, by head dim:
-//     - D = 80 and 128: the pair route, bwd_dq_wgmma_pair /
-//       bwd_dkv_wgmma_pair (see there).  Each launch is one persistent
-//       block an SM of two consumer warpgroups and a producer warpgroup
-//       that hands its registers over (setmaxnreg), walking items of 128
-//       rows (q rows for dQ, kv rows for dK/dV) of which each consumer
-//       owns 64; both read each stage of the streamed pair, and one's
-//       exp2 and piece pass runs under the other's products.  D = 80 runs
-//       a 64-wide and a 16-wide column block, as the forward does.
-//     - D = 32, 64, MLA's q/k 96 with v 64, and D = 256's dQ:
+//     - D = 80, 128 and MLA's q/k 96 with v 64: the pair route,
+//       bwd_dq_wgmma_pair / bwd_dkv_wgmma_pair (see there).  Each launch
+//       is one persistent block an SM of two consumer warpgroups and a
+//       producer warpgroup that hands its registers over (setmaxnreg),
+//       walking items of 128 rows (q rows for dQ, kv rows for dK/dV) of
+//       which each consumer owns 64; both read each stage of the streamed pair, and one's
+//       exp2 and piece pass runs under the other's products.  Tiles of
+//       80 and 96 columns run as 16- and 32-wide blocks, so that each
+//       product is one wgmma; the kernels are templated on (D, DV): S,
+//       dQ and dK are D wide, dP, dV and Delta's rowsum DV wide.
+//     - D = 32, 64 and D = 256's dQ:
 //       bwd_dq_wgmma / bwd_dkv_wgmma, a block of one consumer warpgroup
 //       of 64 rows (q rows in A, kv rows in B) and a producer warp, two
 //       blocks an SM below D = 256 so that one block's softmax-like pass
 //       runs under the other's products.  The resident pair of 64-row
 //       tiles (A: Q, dO; B: K, V) arrives once; the producer streams the
 //       other pair (A: K, V; B: Q, dO, with the rows' LSE and Delta, which
-//       its 32 lanes copy) through a 3-stage ring (2 at D = 256).  q/k at
-//       96 runs a 64-wide and a 32-wide column block; the kernels are
-//       templated on (D, DV): S, dQ and dK are D wide, dP, dV and Delta's
-//       rowsum DV wide.  D = 256's dQ takes one block an SM (its 128
-//       accumulators beside S and dP).
+//       its 32 lanes copy) through a 3-stage ring (2 at D = 256).  D =
+//       256's dQ takes one block an SM (its 128 accumulators beside S and
+//       dP).
 //     - D = 256's dK/dV: bwd_dkv_wgmma2, two consumer warpgroups own a
 //       128-column half of dK and dV each and share S^T and dP^T through
 //       shared memory, and an even group's heads split over two blocks a
@@ -81,9 +81,9 @@
 // 2 D FLOP per visible (query, key) pair, 989 TFLOP/s on the bf16 tensor
 // cores); the bf16 route runs ten (the second pieces, S again in B).  Of
 // the one-warpgroup forms timed at D = 64 (PERF.md §6), two blocks an SM
-// beat one block of two warpgroups that share each stage; at D = 80 and
-// 128, where a thread's accumulators and pieces outgrow 168 registers,
-// the pair route's 240 and persistent blocks took over.  Head dims 32,
+// beat one block of two warpgroups that share each stage; at D = 80, 128
+// and 96 / 64, where a thread's accumulators and pieces outgrow 168
+// registers, the pair route's 240 and persistent blocks took over.  Head dims 32,
 // 64, 80, 128 and 256 with DV = D, and q/k 96 with v 64.  A query row that
 // sees no key gets zero gradients (the plain version gives NaN there, as
 // the forward's does).  The launcher returns cudaGetLastError() (0 =
@@ -406,13 +406,11 @@ constexpr int BW_THREADS = 160;  // a consumer warpgroup, then the producer warp
 // Shared memory of either bf16 kernel, from a 1024-byte aligned base: the
 // resident pair of 64-row tiles (dQ: Q, dO; dK/dV: K, V), NS stages of the
 // streamed pair (dQ: K, V; dK/dV: Q, dO), fp32 rows (dQ: the tile's Delta;
-// dK/dV: each stage's base-2 LSE and Delta), then the barriers.  A pair is
-// a q/k tile (D wide) and then a v/dO tile (DV wide).
-template <int D, int DV = D>
+// dK/dV: each stage's base-2 LSE and Delta), then the barriers.
+template <int D>
 struct BwTile {
-  static constexpr int TILE = WT * D * 2;     // Q or K
-  static constexpr int TILE_V = WT * DV * 2;  // V or dO
-  static constexpr int PAIR = TILE + TILE_V;
+  static constexpr int TILE = WT * D * 2;  // a 64-row Q, K, V or dO tile
+  static constexpr int PAIR = 2 * TILE;
   // stages of the TMA ring: three, two at D = 256 (64 KB a stage)
   static constexpr int NS = D <= 128 ? 3 : 2;
   static constexpr int STAGE_OFF = PAIR;
@@ -421,15 +419,13 @@ struct BwTile {
   // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
   // base
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
-  // two blocks an SM at D = 32, 64 and MLA's 96 / 64 (the dK/dV kernel's
-  // 80 accumulators a thread at 96 / 64): ptxas then holds a thread to 168
+  // two blocks an SM at D = 32 and 64: ptxas then holds a thread to 168
   // registers (two blocks' ten warps put three on one SM sub-partition, of
   // 16,384 registers); D = 256's dQ takes one block (up to 255 registers:
-  // 128 accumulators beside S and dP).  D = 80 and 128 take the pair
-  // route (BwPair), not these kernels.
-  static constexpr int MIN_BLOCKS = D + DV <= 160 ? 2 : 1;
-  static_assert(TILE % 1024 == 0 && TILE_V % 1024 == 0,
-                "swizzled blocks must stay 1024-byte aligned");
+  // 128 accumulators beside S and dP).  D = 80, 128 and 96 / 64 take the
+  // pair route (BwPair), not these kernels.
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
 };
 
 // one 64-row tile of width W (rows [row, row + 64) of head `head`, zeros
@@ -527,10 +523,9 @@ __device__ __forceinline__ void store_rows_f32(float* out, const float* acc,
 }
 
 // launch A: dQ of one q tile, and its rows' Delta.  Q and dO stay in shared
-// memory; the producer warp streams the visible K/V tiles.  q/k head dim D,
-// v's (o's, dO's) DV.
-template <int D, int DV>
-__global__ void __launch_bounds__(BW_THREADS, BwTile<D, DV>::MIN_BLOCKS)
+// memory; the producer warp streams the visible K/V tiles.
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
              const __grid_constant__ CUtensorMap tq1,
              const __grid_constant__ CUtensorMap tdo0,
@@ -543,7 +538,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
              const float* __restrict__ lse, bf16* __restrict__ dq,
              float* __restrict__ delta, int B, int H, int G, int sq, int sk,
              int causal, int window, float scale) {
-  using L = BwTile<D, DV>;
+  using L = BwTile<D>;
   extern __shared__ uint8_t bw_smem[];
   const uint32_t raw = smem_u32(bw_smem);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -581,7 +576,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
     if (threadIdx.x == 128) {
       mbar_expect_tx(res_full, L::PAIR);
       tma_tile<D>(sbase, &tq0, &tq1, res_full, q0, bh);
-      tma_tile<DV>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
+      tma_tile<D>(sbase + L::TILE, &tdo0, &tdo1, res_full, q0, bh);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % NS;
         mbar_wait(empty(s), ((i / NS) & 1) ^ 1);  // round 0 passes at once
@@ -589,7 +584,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
         const uint32_t dst = sbase + L::STAGE_OFF + s * L::PAIR;
         const int k0 = (t_begin + i) * WT;
         tma_tile<D>(dst, &tk0, &tk1, full(s), k0, b * G + g);
-        tma_tile<DV>(dst + L::TILE, &tv0, &tv1, full(s), k0, b * G + g);
+        tma_tile<D>(dst + L::TILE, &tv0, &tv1, full(s), k0, b * G + g);
       }
     }
     return;  // no block-wide barrier follows
@@ -604,11 +599,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
     const int r = tid / 2, half = tid % 2;
     float s = 0.f;
     if (q0 + r < sq) {
-      const size_t at = ((size_t)bh * sq + q0 + r) * DV + half * (DV / 2);
+      const size_t at = ((size_t)bh * sq + q0 + r) * D + half * (D / 2);
       const uint4* op = reinterpret_cast<const uint4*>(o + at);
       const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int j = 0; j < DV / 16; ++j) {
+      for (int j = 0; j < D / 16; ++j) {
         const uint4 x = op[j], y = dp[j];
         const bf16* xe = reinterpret_cast<const bf16*>(&x);
         const bf16* ye = reinterpret_cast<const bf16*>(&y);
@@ -642,7 +637,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
     const uint32_t kt = sbase + L::STAGE_OFF + s * L::PAIR;
     wg_fence();
     ss_tile<D, WT>(sc, sbase, WT, 0, kt);                       // S = Q K^T
-    ss_tile<DV, WT>(dp, sbase + L::TILE, WT, 0, kt + L::TILE);  // dP = dO V^T
+    ss_tile<D, WT>(dp, sbase + L::TILE, WT, 0, kt + L::TILE);  // dP = dO V^T
     wg_commit();
     wg_wait<0>();
     reg_fence<WT / 2>(sc);
@@ -677,8 +672,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq0,
 // launch B: dK and dV of one kv tile over its group's heads.  K and V stay
 // in shared memory; the producer warp streams the Q and dO tiles that can
 // see the kv tile, with their rows' LSE and Delta.
-template <int D, int DV>
-__global__ void __launch_bounds__(BW_THREADS, BwTile<D, DV>::MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, BwTile<D>::MIN_BLOCKS)
 bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
               const __grid_constant__ CUtensorMap tq1,
               const __grid_constant__ CUtensorMap tdo0,
@@ -690,7 +685,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int G,
               int sq, int sk, int causal, int window, float scale) {
-  using L = BwTile<D, DV>;
+  using L = BwTile<D>;
   extern __shared__ uint8_t bw_smem[];
   const uint32_t raw = smem_u32(bw_smem);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -729,7 +724,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
     if (lane == 0) {
       mbar_expect_tx(res_full, L::PAIR);
       tma_tile<D>(sbase, &tk0, &tk1, res_full, k0, bg);
-      tma_tile<DV>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
+      tma_tile<D>(sbase + L::TILE, &tv0, &tv1, res_full, k0, bg);
     }
     for (int it = 0; it < n_it; ++it) {
       const int s = it % NS;
@@ -748,7 +743,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
         mbar_expect_tx(full(s), L::PAIR);
         const uint32_t dst = sbase + L::STAGE_OFF + s * L::PAIR;
         tma_tile<D>(dst, &tq0, &tq1, full(s), i0, bh);
-        tma_tile<DV>(dst + L::TILE, &tdo0, &tdo1, full(s), i0, bh);
+        tma_tile<D>(dst + L::TILE, &tdo0, &tdo1, full(s), i0, bh);
       }
       float* Ls = rows_s + s * 2 * WT;
 #pragma unroll
@@ -766,11 +761,11 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   const int kp0 = k0 + r0, kp1 = kp0 + 8;
   const float sl2 = scale * LOG2E;
 
-  float dka[D / 2], dva[DV / 2];
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dva[i] = 0.f;
   float st[WT / 2], dpt[WT / 2];
   uint32_t ph[WT / 16][4], pl[WT / 16][4], dh[WT / 16][4], dl[WT / 16][4];
   mbar_wait(res_full, 0);
@@ -783,7 +778,7 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
     const float* Ds = Ls + WT;
     wg_fence();
     ss_tile<D, WT>(st, sbase, WT, 0, qt);              // S^T = K Q^T
-    ss_tile<DV, WT>(dpt, sbase + L::TILE, WT, 0, dot);  // dP^T = V dO^T
+    ss_tile<D, WT>(dpt, sbase + L::TILE, WT, 0, dot);  // dP^T = V dO^T
     wg_commit();
     wg_wait<0>();
     reg_fence<WT / 2>(st);
@@ -805,16 +800,16 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
     split_pieces(ph, pl, st);
     split_pieces(dh, dl, dpt);
     wg_fence();
-    rs_pieces<DV>(dva, ph, pl, dot);  // dV += P^T dO
+    rs_pieces<D>(dva, ph, pl, dot);  // dV += P^T dO
     rs_pieces<D>(dka, dh, dl, qt);    // dK += dS^T Q
     wg_commit();
     wg_wait<0>();
     reg_fence<D / 2>(dka);
-    reg_fence<DV / 2>(dva);
+    reg_fence<D / 2>(dva);
     release(empty(s), lane);
   }
   store_rows<D>(dk + (size_t)bg * sk * D, dka, kp0, sk, quad, scale);
-  store_rows<DV>(dv + (size_t)bg * sk * DV, dva, kp0, sk, quad, 1.f);
+  store_rows<D>(dv + (size_t)bg * sk * D, dva, kp0, sk, quad, 1.f);
 }
 
 // D = 256's dK and dV: 128 accumulators a thread of each in one warpgroup
@@ -1072,11 +1067,12 @@ bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 80 and 128 (DV = D): the pair route.  Both kernels are one
+// bf16 at D = 80 and 128 (DV = D) and at MLA's q/k 96 with v 64: the pair
+// route.  Both kernels are one
 // persistent block an SM of two consumer warpgroups and a producer
 // warpgroup, which gives its registers away (setmaxnreg 24; the consumers
 // take 240, where the one-warpgroup kernels were held to 168 and, at D =
-// 80, serialized their wgmma).  A block walks work items (a 128-row q
+// 80 and 96 / 64, serialized their wgmma).  A block walks work items (a 128-row q
 // block for dQ, a 128-row kv block for dK/dV; head by head, so that the
 // blocks in flight share a head's tiles in L2) in a snake order over the
 // grid: round r gives block x item r * grid + x, or r * grid + grid - 1 -
@@ -1093,10 +1089,14 @@ bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
 // warpgroups an SM, one's exp2, mask and piece pass runs under the other's
 // products.  Per visible tile a warpgroup does what the one-warpgroup
 // kernels do, in the same roundings: S (S^T) and dP (dP^T) as wgmma SS, P
-// and dS in two bf16 pieces as the A operand of the D-wide products, each
-// one wgmma of N = D (pair_tma: D = 80's tiles are five 16-wide blocks
-// with the 32-byte swizzle, not the forward's 64 + 16).  dQ and D = 80's
-// dK/dV keep the pieces in registers (RS); D = 128's dK/dV writes P^T's and
+// and dS in two bf16 pieces as the A operand of the products that sum dQ,
+// dK (N = D) and dV (N = DV), each one wgmma a piece and 16 k rows
+// (PairCols: D = 80's tiles are five 16-wide blocks with the 32-byte
+// swizzle, D = 96's three 32-wide blocks with the 64-byte swizzle, not the
+// forward's 64 + 16 or 64 + 32).  The kernels are templated on (D, DV):
+// Q, K, S, dQ and dK are D wide; V, dO, O (Delta's rowsum), dP and dV DV
+// wide.  dQ and the dK/dV of D = 80 and 96 / 64 (80 accumulators a
+// thread either way) keep the pieces in registers (RS); D = 128's dK/dV writes P^T's and
 // dS^T's to shared memory in the 128-byte swizzle and reads them back as
 // SS operands, so that only its 128 accumulators stay in registers beside
 // S^T and dP^T (in registers the pieces serialized its wgmma, C7512).
@@ -1113,15 +1113,17 @@ constexpr int QB = 2 * WT;        // rows of an item: a q block or a kv block
 // shared memory (each warpgroup's four 64 x 64 bf16 tiles: P^T hi, lo,
 // dS^T hi, lo), fp32 rows (dK/dV: each stage's base-2 LSE and Delta),
 // barriers.
-template <int D, bool DKV>
+template <int D, int DV, bool DKV>
 struct BwPair {
-  static constexpr int TILE = WT * D * 2;  // a 64-row Q, K, V or dO tile
-  static constexpr int PAIR = 2 * TILE;    // (Q, dO) or (K, V)
-  static constexpr int SLOT = 2 * PAIR;    // warpgroup 0's pair, then 1's
+  static constexpr int TILE = WT * D * 2;     // a 64-row Q or K tile
+  static constexpr int TILE_V = WT * DV * 2;  // a 64-row V or dO tile
+  static constexpr int PAIR = TILE + TILE_V;  // (Q, dO) or (K, V)
+  static constexpr int SLOT = 2 * PAIR;       // warpgroup 0's pair, then 1's
   static constexpr int PIECE = WT * WT * 2;
   // dK/dV's pieces go through shared memory at D = 128: in registers,
   // beside 128 accumulators and S^T and dP^T, ptxas serialized the wgmma
-  // (C7512); at D = 80 they stay in registers (faster there, no spill)
+  // (C7512); at D = 80 and 96 / 64 they stay in registers (faster there,
+  // no spill)
   static constexpr bool SMEM_PIECES = DKV && D == 128;
   // slots of the resident pairs: two (the next item's arrive while this
   // one runs), one for D = 128's dK/dV, whose pieces take the room of the
@@ -1137,7 +1139,8 @@ struct BwPair {
   // barriers: res_full[2], res_empty[2], full[NS], empty[NS]; 1024 bytes
   // to align the base
   static constexpr int SMEM = BAR_OFF + 8 * (4 + 2 * NS) + 1024;
-  static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
+  static_assert(TILE % 1024 == 0 && TILE_V % 1024 == 0,
+                "swizzled blocks must stay 1024-byte aligned");
   static_assert(SMEM <= 232448, "more shared memory than a block can have");
 };
 
@@ -1179,48 +1182,60 @@ __device__ __forceinline__ void put_pieces_s(uint32_t hi_t, uint32_t lo_t,
     }
 }
 
-// The pair route's tiles: D = 128 as Cols<128> (two 64-wide blocks, the
-// 128-byte swizzle), D = 80 as five 16-wide blocks with the 32-byte
-// swizzle, 2 KB each (five boxes of its 16-wide map), so that a product
-// whose N is D is one wgmma (N = 128 or 80), where Cols<80>'s 64 + 16
-// took two.
-template <int D>
+// The pair route's tiles of width W: column blocks of BW columns with the
+// swizzle of their row bytes (RB), each 64 rows (BLOCK bytes) after the
+// last: W = 64 and 128 as Cols<W> (64-wide blocks, the 128-byte swizzle),
+// W = 80 as five 16-wide blocks (the 32-byte swizzle), W = 96 as three
+// 32-wide blocks (the 64-byte swizzle), one box of the map of that width
+// each, so that a product whose N is W is one wgmma (N = 80 or 96), where
+// Cols<80>'s 64 + 16 and Cols<96>'s 64 + 32 took two.
+template <int W>
+struct PairCols {
+  static constexpr int BW = W == 80 ? 16 : W == 96 ? 32 : 64;
+  static constexpr int NB = W / BW;
+  static constexpr int RB = 2 * BW;
+  static constexpr int BLOCK = WT * RB;
+  static_assert(NB * BW == W, "a tile is whole blocks");
+};
+
+// a 64-row tile of width W by TMA: m0 is the map of 64-wide boxes, m1 of
+// the narrower second block's (make_maps: 16 wide at W = 80, 32 at 96)
+template <int W>
 __device__ __forceinline__ void pair_tma(uint32_t dst, const CUtensorMap* m0,
                                          const CUtensorMap* m1, uint32_t bar,
                                          int row, int head) {
-  if constexpr (D == 80) {
+  using P = PairCols<W>;
 #pragma unroll
-    for (int c = 0; c < 5; ++c) tma_load_3d(dst + c * WT * 32, m1, bar, 16 * c, row, head);
-  } else {
-    tma_tile<D>(dst, m0, m1, bar, row, head);
-  }
+  for (int c = 0; c < P::NB; ++c)
+    tma_load_3d(dst + c * P::BLOCK, P::BW == 64 ? m0 : m1, bar, P::BW * c, row,
+                head);
 }
 
-// acc (64 x 64) = A B^T over D, A and B 64-row tiles (K-major)
-template <int D>
+// acc (64 x 64) = A B^T over W, A and B 64-row tiles (K-major)
+template <int W>
 __device__ __forceinline__ void pair_ss(float* acc, uint32_t a, uint32_t b) {
-  if constexpr (D == 80) {
+  using P = PairCols<W>;
 #pragma unroll
-    for (int c = 0; c < 5; ++c)
-      wgmma_ss<WT>(acc, gmma_desc(a + c * WT * 32, 32, false),
-                   gmma_desc(b + c * WT * 32, 32, false), c > 0);
-  } else {
-    ss_tile<D, WT>(acc, a, WT, 0, b);
-  }
+  for (int c = 0; c < P::NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < P::BW / 16; ++kk)
+      wgmma_ss<WT>(acc, gmma_desc(a + c * P::BLOCK + 32 * kk, P::RB, false),
+                   gmma_desc(b + c * P::BLOCK + 32 * kk, P::RB, false),
+                   c > 0 || kk > 0);
 }
 
-// acc (64 x D) += A X over the 64 k rows of X, A in two bf16 pieces in
-// registers (hi, then lo), X a 64-row tile (MN-major): one wgmma a piece
-// and 16 k rows
-template <int D>
+// acc (64 x W) += A X over the 64 k rows of X, A in two bf16 pieces in
+// registers (hi, then lo), X a 64-row tile of width W (MN-major, its
+// blocks the swizzle atoms along N): one wgmma a piece and 16 k rows
+template <int W>
 __device__ __forceinline__ void pair_rs(float* acc, uint32_t (*hi)[4],
                                         uint32_t (*lo)[4], uint32_t x) {
+  using P = PairCols<W>;
 #pragma unroll
   for (int kk = 0; kk < WT / 16; ++kk) {
-    const uint64_t db = D == 80 ? gmma_desc_mn(x + kk * 16 * 32, 32, WT * 32)
-                                : gmma_desc_mn(x + kk * 16 * 128, 128, WT * 128);
-    wgmma_rs<D>(acc, hi[kk], db);
-    wgmma_rs<D>(acc, lo[kk], db);
+    const uint64_t db = gmma_desc_mn(x + kk * 16 * P::RB, P::RB, P::BLOCK);
+    wgmma_rs<W>(acc, hi[kk], db);
+    wgmma_rs<W>(acc, lo[kk], db);
   }
 }
 
@@ -1295,8 +1310,9 @@ __device__ __forceinline__ DkvItem dkv_item(int item, int sq, int sk,
 }
 
 // Delta of this thread's rows i and i + 8 (rows `row0` + i of o and dO,
-// D wide): the quad's four threads each take a quarter of both rows and
-// add theirs by shuffles; quad 0 stores them to `delta` as well
+// D wide: the pair route passes DV): the quad's four threads each take a
+// quarter of both rows and add theirs by shuffles; quad 0 stores them to
+// `delta` as well
 template <int D>
 __device__ __forceinline__ void quad_delta(float& d0, float& d1, const bf16* o,
                                            const bf16* dout, float* delta,
@@ -1341,7 +1357,7 @@ __device__ __forceinline__ void quad_delta(float& d0, float& d1, const bf16* o,
 // visible K/V tiles.  Each consumer works out its rows' Delta from O and dO
 // in global memory at the item's start (quad_delta: its rows' Delta and
 // LSE in registers, no barrier).
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(BWP_THREADS, 1)
 bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
                   const __grid_constant__ CUtensorMap tq1,
@@ -1355,7 +1371,7 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
                   const float* __restrict__ lse, bf16* __restrict__ dq,
                   float* __restrict__ delta, int B, int H, int G, int sq, int sk,
                   int causal, int window, float scale) {
-  using L = BwPair<D, false>;
+  using L = BwPair<D, DV, false>;
   constexpr int NS = L::NS;
   extern __shared__ uint8_t bw_smem[];
   const uint32_t raw = smem_u32(bw_smem);
@@ -1397,8 +1413,8 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
         for (int c = 0; c < 2; ++c) {
           pair_tma<D>(dst + c * L::PAIR, &tq0, &tq1, res_full(slot),
                       w.q0 + WT * c, w.bh);
-          pair_tma<D>(dst + c * L::PAIR + L::TILE, &tdo0, &tdo1, res_full(slot),
-                      w.q0 + WT * c, w.bh);
+          pair_tma<DV>(dst + c * L::PAIR + L::TILE, &tdo0, &tdo1,
+                       res_full(slot), w.q0 + WT * c, w.bh);
         }
         const int bg = w.bh / H * G + w.bh % H / (H / G);
         for (int i = 0; i < w.n_tiles; ++i, ++it) {
@@ -1408,7 +1424,7 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
           const uint32_t st = sbase + L::STAGE_OFF + s * L::PAIR;
           const int k0 = (w.t_begin + i) * WT;
           pair_tma<D>(st, &tk0, &tk1, full(s), k0, bg);
-          pair_tma<D>(st + L::TILE, &tv0, &tv1, full(s), k0, bg);
+          pair_tma<DV>(st + L::TILE, &tv0, &tv1, full(s), k0, bg);
         }
       }
     }
@@ -1435,7 +1451,7 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
     const int k_end = rows <= 0 ? 0 : causal ? min(sk, qhi + 1) : sk;
     const size_t row0 = (size_t)w.bh * sq;
     float dl0, dl1;
-    quad_delta<D>(dl0, dl1, o, dout, delta, row0, qw0 + r0, sq, quad);
+    quad_delta<DV>(dl0, dl1, o, dout, delta, row0, qw0 + r0, sq, quad);
     const float L0 = lse2(lse, row0, qw0 + r0, sq);
     const float L1 = lse2(lse, row0, qw0 + r0 + 8, sq);
     const int qp0 = qw0 + r0 + off, qp1 = qp0 + 8;
@@ -1457,7 +1473,7 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
         uint32_t hi[WT / 16][4], lo[WT / 16][4];
         wg_fence();
         pair_ss<D>(sc, qa, kt);             // S = Q K^T
-        pair_ss<D>(dp, doa, kt + L::TILE);  // dP = dO V^T
+        pair_ss<DV>(dp, doa, kt + L::TILE);  // dP = dO V^T
         wg_commit();
         wg_wait<0>();
         reg_fence<WT / 2>(sc);
@@ -1495,7 +1511,7 @@ bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
 // and V tiles (rows k0 + 64 w) stay in their slot; the producer streams
 // the Q and dO tiles that can see the block, and its 128 threads write
 // each stage's rows' base-2 LSE (threads 0-63) and Delta (64-127).
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(BWP_THREADS, 1)
 bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
                    const __grid_constant__ CUtensorMap tq1,
@@ -1508,7 +1524,7 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
                    int G, int sq, int sk, int causal, int window, float scale) {
-  using L = BwPair<D, true>;
+  using L = BwPair<D, DV, true>;
   constexpr int NS = L::NS;
   extern __shared__ uint8_t bw_smem[];
   // the layout (PairSmem) and counts are worked out in each role past its
@@ -1555,8 +1571,8 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
         for (int c = 0; c < 2; ++c) {
           pair_tma<D>(dst + c * L::PAIR, &tk0, &tk1, m.res_full(slot),
                       w.k0 + WT * c, w.bg);
-          pair_tma<D>(dst + c * L::PAIR + L::TILE, &tv0, &tv1, m.res_full(slot),
-                      w.k0 + WT * c, w.bg);
+          pair_tma<DV>(dst + c * L::PAIR + L::TILE, &tv0, &tv1,
+                       m.res_full(slot), w.k0 + WT * c, w.bg);
         }
       }
       const int h0 = w.bg / G * H + w.bg % G * hg;  // the group's first head
@@ -1573,7 +1589,7 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
           mbar_expect_tx(m.full(s), L::PAIR);
           const uint32_t st = m.sbase + L::STAGE_OFF + s * L::PAIR;
           pair_tma<D>(st, &tq0, &tq1, m.full(s), i0, bh);
-          pair_tma<D>(st + L::TILE, &tdo0, &tdo1, m.full(s), i0, bh);
+          pair_tma<DV>(st + L::TILE, &tdo0, &tdo1, m.full(s), i0, bh);
         }
         m.rows[s * 2 * WT + pt] = val;
         mbar_arrive(m.full(s));  // releases this thread's row
@@ -1610,9 +1626,11 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
     const uint32_t ka = m.sbase + slot * L::SLOT + wg * L::PAIR, va = ka + L::TILE;
     if (n_it == 0) release(m.res_empty(slot), lane);
 
-    float dka[D / 2], dva[D / 2];
+    float dka[D / 2], dva[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
     for (int j = 0; j < n_it; ++j, ++it) {
       const int s = it % NS;
       const bool last = j + 1 == n_it;
@@ -1625,7 +1643,7 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
         float st[WT / 2], dpt[WT / 2];
         wg_fence();
         pair_ss<D>(st, ka, qt);    // S^T = K Q^T
-        pair_ss<D>(dpt, va, dot);  // dP^T = V dO^T
+        pair_ss<DV>(dpt, va, dot);  // dP^T = V dO^T
         wg_commit();
         wg_wait<0>();
         reg_fence<WT / 2>(st);
@@ -1665,7 +1683,7 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
           uint32_t hi[WT / 16][4], lo[WT / 16][4];
           split_pieces(hi, lo, st);  // P^T
           wg_fence();
-          pair_rs<D>(dva, hi, lo, dot);  // dV += P^T dO
+          pair_rs<DV>(dva, hi, lo, dot);  // dV += P^T dO
           wg_commit();
           uint32_t dh[WT / 16][4], dl[WT / 16][4];
           split_pieces(dh, dl, dpt);  // dS^T, while dV's products run
@@ -1675,15 +1693,14 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
         }
         wg_wait<0>();
         reg_fence<D / 2>(dka);
-        reg_fence<D / 2>(dva);
+        reg_fence<DV / 2>(dva);
       } else if (last) {
         release(m.res_empty(slot), lane);
       }
       release(m.empty(s), lane);
     }
-    const size_t at = (size_t)w.bg * sk * D;
-    store_rows<D>(dk + at, dka, kp0, sk, quad, scale);
-    store_rows<D>(dv + at, dva, kp0, sk, quad, 1.f);
+    store_rows<D>(dk + (size_t)w.bg * sk * D, dka, kp0, sk, quad, scale);
+    store_rows<DV>(dv + (size_t)w.bg * sk * DV, dva, kp0, sk, quad, 1.f);
   }
 }
 
@@ -1701,27 +1718,26 @@ int make_maps(CUtensorMap* m, const void* base, int64_t rows, int64_t heads) {
   return make_map(&m[1], base, rows, heads, W, C::width(1), WT);
 }
 
-template <int D, int DV = D>
+template <int D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, void* dk,
                      void* dv, float* delta, float* part, int64_t B, int64_t H,
                      int64_t G, int64_t sq, int64_t sk, int causal, int window,
                      float scale, cudaStream_t stream) {
-  using L = BwTile<D, DV>;
-  // q, dO over (B H, Sq, D or DV); k, v over (B G, Sk, D or DV); boxes of
-  // 64 rows; the odd ones are the narrower second blocks
+  using L = BwTile<D>;
+  // q, dO over (B H, Sq, D); k, v over (B G, Sk, D); boxes of 64 rows
   CUtensorMap m[8];
   std::memset(m, 0, sizeof(m));
   int e = make_maps<D>(&m[0], q, sq, B * H);
-  if (!e) e = make_maps<DV>(&m[2], dout, sq, B * H);
+  if (!e) e = make_maps<D>(&m[2], dout, sq, B * H);
   if (!e) e = make_maps<D>(&m[4], k, sk, B * G);
-  if (!e) e = make_maps<DV>(&m[6], v, sk, B * G);
+  if (!e) e = make_maps<D>(&m[6], v, sk, B * G);
   if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_wgmma<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
   const unsigned n_dq = (unsigned)((sq + WT - 1) / WT * B * H);
-  bwd_dq_wgmma<D, DV><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
+  bwd_dq_wgmma<D><<<n_dq, BW_THREADS, L::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
       static_cast<bf16*>(dq), delta, (int)B, (int)H, (int)G, (int)sq, (int)sk,
@@ -1751,10 +1767,10 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
           static_cast<bf16*>(dv), n4, scale);
     }
   } else {
-    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D, DV>,
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (err != cudaSuccess) return err;
-    bwd_dkv_wgmma<D, DV><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
+    bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
         m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
         (int)sq, (int)sk, causal, window, scale);
@@ -1762,35 +1778,36 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-// the pair route (D = 80, 128): both kernels persistent, one block an SM
-template <int D>
+// the pair route (D = 80, 128 and 96 / 64): both kernels persistent, one
+// block an SM
+template <int D, int DV = D>
 int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const float* lse, void* dq, void* dk,
                     void* dv, float* delta, int64_t B, int64_t H, int64_t G,
                     int64_t sq, int64_t sk, int causal, int window, float scale,
                     cudaStream_t stream) {
-  using LQ = BwPair<D, false>;
-  using LK = BwPair<D, true>;
+  using LQ = BwPair<D, DV, false>;
+  using LK = BwPair<D, DV, true>;
   CUtensorMap m[8];
   std::memset(m, 0, sizeof(m));
   int e = make_maps<D>(&m[0], q, sq, B * H);
-  if (!e) e = make_maps<D>(&m[2], dout, sq, B * H);
+  if (!e) e = make_maps<DV>(&m[2], dout, sq, B * H);
   if (!e) e = make_maps<D>(&m[4], k, sk, B * G);
-  if (!e) e = make_maps<D>(&m[6], v, sk, B * G);
+  if (!e) e = make_maps<DV>(&m[6], v, sk, B * G);
   if (e) return e;
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bwd_dq_wgmma_pair<D>,
+    err = cudaFuncSetAttribute(bwd_dq_wgmma_pair<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bwd_dkv_wgmma_pair<D>,
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma_pair<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, LK::SMEM);
   if (err != cudaSuccess) return err;
   const int64_t n_dq = (sq + QB - 1) / QB * B * H;
-  bwd_dq_wgmma_pair<D><<<(unsigned)(n_dq < n_sm ? n_dq : n_sm), BWP_THREADS,
+  bwd_dq_wgmma_pair<D, DV><<<(unsigned)(n_dq < n_sm ? n_dq : n_sm), BWP_THREADS,
                          LQ::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
@@ -1798,7 +1815,7 @@ int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
       causal, window, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int64_t n_dkv = (sk + QB - 1) / QB * B * G;
-  bwd_dkv_wgmma_pair<D><<<(unsigned)(n_dkv < n_sm ? n_dkv : n_sm), BWP_THREADS,
+  bwd_dkv_wgmma_pair<D, DV><<<(unsigned)(n_dkv < n_sm ? n_dkv : n_sm), BWP_THREADS,
                           LK::SMEM, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
@@ -1838,7 +1855,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 }
 
 // each dtype has one pair of kernels a head dim: fp32 the SIMT pair, bf16
-// the one-warpgroup wgmma kernels (the pair route at D = 80 and 128); v as
+// the one-warpgroup wgmma kernels (the pair route at D = 80, 128 and 96 /
+// 64); v as
 // wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
 int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
                const void* v, const void* o, const void* dout, const float* lse,
@@ -1848,7 +1866,7 @@ int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
   if (DV != D) {
     if (D != 96 || DV != 64) return cudaErrorInvalidValue;
     if (dtype == 0) return launch_bwd<96, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
-    if (dtype == 1) return launch_bwd_wgmma<96, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+    if (dtype == 1) return launch_bwd_pair<96, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
     return cudaErrorInvalidValue;
   }
   if (dtype == 0) {

@@ -15,7 +15,11 @@ it launches the kernel of its dtype or raises:
 - bfloat16 (the serve path): ``flash_fwd_wgmma``, both products on the
   tensor cores (``wgmma``, fp32 accumulators, P rounded to bf16 before
   ``P V``), K/V tiles streamed by TMA through a ring of shared-memory
-  stages.  ``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.
+  stages.  ``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.  One
+  persistent block an SM walks work tiles of 128 query rows; where K and V
+  outgrow the L2 (MLA's and zamba2-2.7b's heads), head by head in a snake
+  order over the grid, so that the blocks in flight share their heads' K
+  and V in L2 (:func:`work_tiles` mirrors the order).
 - float32: ``flash_fwd``, fp32 FMAs on the CUDA cores (a tensor-core
   route would be TF32, too coarse for the fp32 tolerance of 2e-5).
 
@@ -39,10 +43,12 @@ library), two kernels a call counted as one launch of
 ``flash_attention_bwd``: dQ with each row's Delta, then dK and dV per kv
 tile over the group's heads.  bf16 runs them on the tensor cores
 (``wgmma`` fed by TMA, P and dS in two bf16 pieces): at head dims 80 and
-128 as the pair route (``bwd_dq_wgmma_pair``, ``bwd_dkv_wgmma_pair``: each
-launch one persistent block an SM of two consumer warpgroups, 64 rows
-each of a 128-row item, and a producer warpgroup), at 32, 64 and MLA's
-96 / 64 as one consumer warpgroup and a producer warp a block; at head
+128 and MLA's 96 / 64 as the pair route (``bwd_dq_wgmma_pair``,
+``bwd_dkv_wgmma_pair``: each launch one persistent block an SM of two
+consumer warpgroups, 64 rows each of a 128-row item, and a producer
+warpgroup; 96-wide tiles as three 32-wide blocks, so that dQ's and dK's
+products are one ``wgmma`` of N = 96), at 32 and 64 as one consumer
+warpgroup and a producer warp a block; at head
 dim 256 the dK/dV kernel splits the head dim over two warpgroups and an
 even group's heads over two blocks, whose fp32 sums a third kernel adds
 (the one workspace beside Delta's rows).  fp32 runs on the CUDA cores
@@ -76,6 +82,47 @@ HEAD_DIMS = (32, 64, 80, 128, 256)
 NARROW_V = ((96, 64),)
 #: the kernels' dtype codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: query rows of a bf16 work tile (``WG_BQ`` in ``csrc/attention.cu``)
+WORK_ROWS = 128
+
+
+def work_tiles(b: int, h: int, g: int, sq: int, sk: int, d: int, dv: int,
+               grid: int, causal: bool = True, window: Optional[int] = None,
+               l2_bytes: int = 50 << 20) -> tuple:
+    """The bf16 forward's work order, as ``flash_fwd_wgmma`` and its
+    launcher compute it on the card -> ``(by_head, tiles)``: ``tiles``
+    holds, for each of ``grid`` persistent blocks, its work tiles in order
+    as ``(b * H + h, first query row, kv tiles it reads)``; block x takes
+    tile ``n grid + x`` in its round n.  By head (where K and V, ``b g sk
+    (d + dv)`` bf16 values, outgrow ``l2_bytes``, or the tiles make fewer
+    than four rounds of the grid) round n runs reversed when n is odd, and
+    tile i is head ``i // n_qt``, query tile ``n_qt - 1 - i % n_qt``;
+    otherwise tile j is head ``j % (b h)``, query tile ``n_qt - 1 - j //
+    (b h)``.  kv tiles are 128 rows (64 at ``d`` = 256)."""
+    bk = 128 if d <= 128 else 64
+    n_qt = -(-sq // WORK_ROWS)
+    n_work = n_qt * b * h
+    by_head = 2 * b * g * sk * (d + dv) > l2_bytes or n_work < 4 * grid
+    tiles = []
+    for x in range(grid):
+        mine = []
+        for j in range(x, n_work, grid):
+            n = j // grid
+            if by_head:
+                in_round = min(grid, n_work - n * grid)
+                i = n * grid + (in_round - 1 - x if n & 1 else x)
+                bh, qt = i // n_qt, i % n_qt
+            else:
+                bh, qt = j % (b * h), j // (b * h)
+            q0 = (n_qt - 1 - qt) * WORK_ROWS
+            rows = min(WORK_ROWS, sq - q0)
+            lo, hi = q0 + sk - sq, q0 + rows - 1 + sk - sq
+            k_end = min(sk, hi + 1) if causal else sk
+            t_begin = max(0, lo - window + 1) // bk if window else 0
+            n_tiles = max(0, -(-(k_end - t_begin * bk) // bk))
+            mine.append((bh, q0, n_tiles))
+        tiles.append(mine)
+    return by_head, tiles
 
 
 def check_kernel_args(name: str, q: torch.Tensor, *rest: torch.Tensor,

@@ -1,7 +1,7 @@
 """Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs), K8 (Mamba-2
-SSD, bf16 x), the codec kernels K2, K3, K4 and K9 and K5's backward (bf16)
-as built from several source trees against each other on one card, in one
-process.
+SSD, bf16 x), the codec kernels K2, K3, K4 and K9 and K5's forward and
+backward (bf16) as built from several source trees against each other on
+one card, in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
         [NAME=CSRC_DIR ...] [--rounds 3] [--only GROUP ...] [--out DIR]
@@ -9,13 +9,16 @@ process.
 Each ``NAME=CSRC_DIR`` is a copy of ``src/repro_torch/csrc`` (a parent
 commit's, from ``git archive``, or an edited variant); the checkout's own
 sources are always built as ``tree``.  Every tree's ``byteplanes.cu``,
-``scans.cu``, ``ssm.cu`` and ``attention_bwd.cu`` compile together (nvcc,
+``scans.cu``, ``ssm.cu``, ``attention.cu`` and ``attention_bwd.cu``
+compile together (nvcc,
 one process each); the lines give the registers and spills of
 ``scan_lookback``, of ``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk
 = 64, of the codec kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's
-``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``) and of K5's
-backward launches at D = 64, 256, 128 and 80 (the pair route's kernels,
-or a parent's one-warpgroup ones), and ``ptxas``'s warnings that
+``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``), of K5's
+forward (``flash_fwd_wgmma`` at each head dim) and of its backward
+launches at D = 64, 256, 128 and 80 and at q/k 96 with v 64 (the pair
+route's kernels, or a parent's one-warpgroup ones), and ``ptxas``'s
+warnings that
 ``wgmma`` runs serialized.  The C
 entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
@@ -25,7 +28,8 @@ a tile.  A variant of a kernel (one bf16 piece per operand instead of
 two, a part taken out) is timed as an edited copy of the checkout's
 ``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8 and
 their backwards),
-``k1``, ``codec``, ``bwd`` (K5's backward); all by default.
+``k1``, ``codec``, ``fwd`` (K5's forward), ``bwd`` (K5's backward); all
+by default.
 
 K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
 inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
@@ -52,7 +56,15 @@ tree whose entry takes the LSE as an input (``const void* lse`` after
 ``dout``) gets the forward's, an older one (the LSE a workspace after
 ``dv``) recomputes it; each tree's gradients are printed as the largest
 share of the card's bf16 tolerance 1e-2 they use against
-``ref.flash_attention_bwd_ref`` in fp32.  Times are card times (CUDA events between launches queued
+``ref.flash_attention_bwd_ref`` in fp32.  K5's forward runs causal at
+``FWD_SHAPES``: the serve shapes (16 x 1,000 tokens) of smollm-360m (64),
+zamba2-2.7b (80) and minicpm3-4b (q/k 96, v 64), and with the rows' LSE
+the training shapes (8 x 1,024) of smollm-360m, zamba2-2.7b,
+minicpm3-4b, chameleon-34b and deepseek-moe-16b (128) and gemma-2b
+(256); each tree's output and LSE are printed as the largest share of
+chip_smoke's tolerances (1.6e-2 and 2e-5, ``(1 + |want|)``) they use
+against ``ref.flash_attention_ref`` / ``ref.flash_attention_lse_ref`` in
+fp32.  Times are card times (CUDA events between launches queued
 behind a sleep kernel, median), the trees interleaved in ``--rounds``
 rounds whose order alternates.  The last line is one JSON object of every
 number.  Needs a CUDA card.
@@ -85,6 +97,17 @@ K1_SIZES = (100_000, 1_100_003, 1 << 24)
 BWD_SHAPES = ((8, 15, 5, 1024, 64, 64), (8, 8, 1, 1024, 256, 256),
               (8, 64, 8, 1024, 128, 128), (8, 32, 32, 1024, 80, 80),
               (8, 40, 40, 1024, 96, 64))
+#: K5's forward: (B, H, G, S, D, DV, with the LSE), causal: the serve
+#: shapes of smollm-360m, zamba2-2.7b and minicpm3-4b, then the training
+#: shapes of smollm-360m, zamba2-2.7b, minicpm3-4b, chameleon-34b,
+#: deepseek-moe-16b and gemma-2b
+FWD_SHAPES = ((16, 15, 5, 1000, 64, 64, False), (16, 32, 32, 1000, 80, 80, False),
+              (16, 40, 40, 1000, 96, 64, False),
+              (8, 15, 5, 1024, 64, 64, True), (8, 32, 32, 1024, 80, 80, True),
+              (8, 40, 40, 1024, 96, 64, True), (8, 64, 8, 1024, 128, 128, True),
+              (8, 16, 16, 1024, 128, 128, True), (8, 8, 1, 1024, 256, 256, True))
+#: chip_smoke's tolerances of K5's bf16 output and of its LSE
+FWD_TOL, LSE_TOL = 1.6e-2, 2e-5
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "ssd_bwd_localILi64", "ssd_bwd_chunkILi64",
                  "wkv_bwd_statesILi64", "wkv_bwd_chunksILi64",
@@ -94,11 +117,16 @@ PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "bwd_dq_wgmmaILi256", "bwd_dkv_wgmma2",
                  "bwd_dq_wgmma_pairILi128", "bwd_dkv_wgmma_pairILi128",
                  "bwd_dq_wgmma_pairILi80", "bwd_dkv_wgmma_pairILi80",
+                 "bwd_dq_wgmma_pairILi96", "bwd_dkv_wgmma_pairILi96",
+                 "bwd_dq_wgmmaILi96", "bwd_dkv_wgmmaILi96",
+                 "flash_fwd_wgmmaILi64", "flash_fwd_wgmmaILi80",
+                 "flash_fwd_wgmmaILi96", "flash_fwd_wgmmaILi128",
+                 "flash_fwd_wgmmaILi256",
                  "bwd_dq_wgmmaILi128", "bwd_dkv_wgmmaILi128",
                  "bwd_dq_wgmmaILi80", "bwd_dkv_wgmmaILi80")
 #: which libraries each group of timings needs
 GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
-              "bwd": ("attention_bwd",)}
+              "fwd": ("attention",), "bwd": ("attention_bwd",)}
 
 #: the codec kernels' timed shapes: K2's four on the write path (most
 #: launches first), K4's two and K3's most frequent on the read path, K9's
@@ -403,6 +431,41 @@ def bwd_calls(libs, trees, stream, shape) -> tuple:
     return calls, shares
 
 
+def fwd_calls(libs, trees, stream, shape) -> tuple:
+    """({tree: call}, {tree: {"out": share, "lse": share}}) of K5's
+    forward (bf16, causal) at ``shape``, with the rows' LSE where the
+    shape asks for it."""
+    b, h, g, s, d, dv, with_lse = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device="cuda").bfloat16()
+    q, k, v = rnd(b, h, s, d), rnd(b, g, s, d), rnd(b, g, s, dv)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    want_lse = (ref.flash_attention_lse_ref(q.float(), k.float())
+                if with_lse else None)
+    calls, shares = {}, {}
+    for tree in trees:
+        f = libs[(tree, "attention")].repro_flash_attention
+        out = torch.empty((b, h, s, dv), dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty((b, h, s), device="cuda") if with_lse else None
+
+        def call(f=f, out=out, lse=lse):
+            return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), b, h, g, s, s,
+                     d, dv, 1, 1, 0, d ** -0.5, stream)
+
+        if call() != 0:
+            sys.exit(f"{tree}: repro_flash_attention failed at {shape}")
+        torch.cuda.synchronize()
+        shares[tree] = {"out": tol_share(out, want, FWD_TOL)}
+        if with_lse:
+            shares[tree]["lse"] = tol_share(lse, want_lse, LSE_TOL)
+        calls[tree] = call
+    del want, want_lse
+    return calls, shares
+
+
 def cold_ms(fn, reps: int = 20) -> float:
     """Median card time of one call with the L2 cache flushed before it:
     each launch follows a write of ``L2_FLUSH_BYTES`` outside the events
@@ -581,6 +644,17 @@ def main(argv=None) -> int:
         result["codec"] = time_codec(libs, trees, args.rounds, stream)
     if "ssm" in args.only:
         time_ssm(libs, trees, args.rounds, stream, result)
+    if "fwd" in args.only:
+        result["flash_attention"] = []
+        for shape in FWD_SHAPES:
+            calls, shares = fwd_calls(libs, trees, stream, shape)
+            for tree, sh in shares.items():
+                print(f"K5 {shape} {tree}: share of the tolerances used, "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in sh.items()))
+            result["flash_attention"].append({
+                "shape": list(shape), "tol_share": shares,
+                "ms": rounds(calls, args.rounds, f"K5 {shape}")})
+            del calls
     if "bwd" in args.only:
         result["flash_attention_bwd"] = []
         for shape in BWD_SHAPES:

@@ -27,6 +27,7 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as j_decode
 from repro.kernels.flash_attention import flash_attention as j_flash
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     MAX_CHUNKS, TILE_ROWS, chunking, decode_attention, heads_per_block,
@@ -295,6 +296,52 @@ def test_k5_bf16_narrow_v_numerics_fit_the_card_tolerance(b, h, g, sq, sk,
     assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
 
 
+@pytest.mark.parametrize("b,h,g,sq,d,dv,grid,by_head", [
+    (16, 40, 40, 1000, 96, 64, 132, True),   # minicpm3-4b's prefill (MLA)
+    (8, 40, 40, 1024, 96, 64, 132, True),    # its training shape
+    (16, 32, 32, 1000, 80, 80, 132, True),   # zamba2-2.7b's prefill
+    (8, 16, 16, 1024, 128, 128, 132, True),  # deepseek-moe-16b's training
+    (8, 8, 1, 1024, 256, 256, 132, True),    # gemma-2b's: 3.9 rounds
+    (5, 40, 40, 1100, 96, 64, 132, True),    # n_qt 9, a reversed partial round
+    (3, 40, 40, 1000, 96, 64, 132, False),   # K, V 38 MB: in L2
+    (16, 15, 5, 1000, 64, 64, 132, False),   # smollm-360m's: K, V in L2
+    (8, 64, 8, 1024, 128, 128, 132, False),  # chameleon-34b's: 33.5 MB
+    (1, 4, 4, 129, 96, 64, 5, True),         # a ragged last query tile
+])
+def test_k5_work_order_covers_each_tile_once_and_balances_the_blocks(
+        b, h, g, sq, d, dv, grid, by_head):
+    """The bf16 forward's work order (``work_tiles``, the mirror of
+    ``flash_fwd_wgmma``'s and its launcher's): every (b h, query tile)
+    exactly once, in either order; the head order where K and V outgrow
+    the 50 MB L2 or the tiles make under four rounds, its blocks' tiles
+    head by head (the n-th in round n: the blocks in flight hold about
+    grid / n_qt heads); and wherever the grid is a multiple of n_qt / 2
+    (132 blocks at n_qt = 8), a block's tiles of two full rounds 2m and
+    2m + 1 read n_qt + 1 kv tiles of 128 rows together (causal: query
+    tiles i and n_qt - 1 - i), so that no block reads more than n_qt such
+    tiles more than the mean."""
+    n_qt = -(-sq // fa.WORK_ROWS)
+    got_by_head, order = fa.work_tiles(b, h, g, sq, sq, d, dv, grid)
+    assert got_by_head == by_head
+    seen = [(bh, q0) for mine in order for bh, q0, _n in mine]
+    assert sorted(seen) == [(bh, q * fa.WORK_ROWS) for bh in range(b * h)
+                            for q in range(n_qt)]
+    if not by_head:
+        return
+    for mine in order:
+        for n, (bh, _q0, _k) in enumerate(mine):
+            assert n * grid <= bh * n_qt + n_qt - 1
+            assert bh * n_qt < (n + 1) * grid
+    per_tile = fa.WORK_ROWS // (128 if d <= 128 else 64)
+    loads = [sum(k for _bh, _q0, k in mine) for mine in order]
+    if (2 * grid) % n_qt == 0:
+        full_rounds = b * h * n_qt // grid
+        for mine in order:
+            for n in range(0, min(len(mine), full_rounds) - 1, 2):
+                assert mine[n][2] + mine[n + 1][2] == (n_qt + 1) * per_tile
+        assert max(loads) <= sum(loads) / grid + n_qt * per_tile
+
+
 def _pieces(x):
     """x in two bf16 pieces: the rounding, and the rounding of the rest."""
     hi = x.bfloat16().float()
@@ -308,8 +355,9 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     log2(e) - LSE log2(e))`` from the forward's LSE, Delta from the stored
     output, P and dS in two bf16 pieces as the A operand of the products
     that accumulate dQ, dV and dK in fp32, the tiles a tile cannot see
-    skipped, the gradients rounded to bf16.  At D = 80 and 128 (the pair
-    route: ``bwd_dq_wgmma_pair``, ``bwd_dkv_wgmma_pair``) an item is a
+    skipped, the gradients rounded to bf16.  At D = 80 and 128 and at
+    MLA's q/k 96 with v 64 (the pair route: ``bwd_dq_wgmma_pair``,
+    ``bwd_dkv_wgmma_pair``; dQ and dK 96 wide, dV, Delta 64) an item is a
     block of 128 rows (q rows for dQ, kv rows for dK/dV) whose warpgroups
     own 64 each: both walk the tiles the block streams (the kv tiles any of
     the block's q rows sees; the q tiles of 64 from the block's first
@@ -323,7 +371,7 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     group's heads split over two blocks, whose fp32 sums are added at the
     end."""
     b, h, sq, d = q.shape
-    g, sk = k.shape[1], k.shape[2]
+    g, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     hg, off = h // g, sk - sq
     scale = 1.0 / np.sqrt(d)
     c = LOG2E * scale
@@ -332,7 +380,8 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     l2 = torch.where(lse > float("-inf"), lse * LOG2E,
                      torch.tensor(float("inf")))
     delta = (dof * out.float()).sum(-1)
-    item = 2 * t if d in (80, 128) else t  # rows of an item
+    pair_route = (d, dv) in ((80, 80), (128, 128), (96, 64))
+    item = 2 * t if pair_route else t  # rows of an item
 
     def p_ds(rows, cols, s, dp, lr, dr):  # s, dp (..., rows, cols)
         qpos, kpos = rows[:, None] + off, cols[None, :]
@@ -365,8 +414,9 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
                 for piece in _pieces(ds):
                     acc = acc + piece @ kx[:, :, cols]
             dq[:, :, rows] = acc * scale
-    dk, dv = torch.zeros(b, g, sk, d), torch.zeros(b, g, sk, d)
-    qg, dog = (x.reshape(b, g, hg, sq, d) for x in (qf, dof))
+    dk, dvs = torch.zeros(b, g, sk, d), torch.zeros(b, g, sk, dv)
+    qg = qf.reshape(b, g, hg, sq, d)
+    dog = dof.reshape(b, g, hg, sq, dv)
     lg, dg = (x.reshape(b, g, hg, sq) for x in (l2, delta))
     wgs = 2 if d == 256 else 1  # warpgroups sharing a kv tile
     halves = 2 if d == 256 and hg % 2 == 0 else 1  # blocks sharing it
@@ -379,7 +429,7 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
             i_begin = max(0, k0 - off) if causal else 0
             i_end = min(sq, int(cols[-1]) + window - off) if window else sq
             dka = torch.zeros(halves, b, g, len(cols), d)
-            dva = torch.zeros(halves, b, g, len(cols), d)
+            dva = torch.zeros(halves, b, g, len(cols), dv)
             for hh in range(hg):
                 hs = hh // (hg // halves)
                 for i0 in range(i_begin_b, i_end_b, t):
@@ -397,13 +447,14 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
                                  dg[:, :, hh, rows])
                     for w in range(wgs):  # each warpgroup's columns of dK, dV
                         dc = slice(w * d // wgs, (w + 1) * d // wgs)
+                        vc = slice(w * dv // wgs, (w + 1) * dv // wgs)
                         for piece in _pieces(p.transpose(-1, -2)):
-                            dva[hs, ..., dc] += piece @ dot[..., dc]
+                            dva[hs, ..., vc] += piece @ dot[..., vc]
                         for piece in _pieces(ds.transpose(-1, -2)):
                             dka[hs, ..., dc] += piece @ qt[..., dc]
             dk[:, :, cols] = dka.sum(0) * scale
-            dv[:, :, cols] = dva.sum(0)
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+            dvs[:, :, cols] = dva.sum(0)
+    return dq.bfloat16(), dk.bfloat16(), dvs.bfloat16()
 
 
 @pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
@@ -417,6 +468,9 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     (1, 4, 4, 300, 300, 128, True, 100),   # D=128: MHA, window
     (1, 8, 1, 130, 130, 256, True, None),  # gemma-2b's MQA 8:1, D=256
     (1, 8, 1, 100, 160, 256, True, 40),    # D=256, window, Sq < Sk
+    (1, 4, 4, 256, 256, (96, 64), True, None),  # MLA: MHA, two kv blocks
+    (1, 4, 4, 200, 200, (96, 64), True, 70),    # MLA: ragged Sq, window
+    (1, 2, 2, 100, 230, (96, 64), True, None),  # MLA: Sq < Sk
 ])
 def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
                                                      causal, window):
@@ -424,9 +478,10 @@ def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
     bf16 pieces, fp32 accumulation, a bf16 store) on the bf16 forward's
     output and LSE stays within the card's backward tolerance, 1e-2 (1 +
     |g|), of ``jax.vjp`` of the JAX oracle in fp32 on the same bf16
-    inputs."""
+    inputs.  ``d`` is a (q/k, v) pair at MLA's narrow v."""
+    d, dv = d if isinstance(d, tuple) else (d, d)
     arrs = _inputs(7 * sq + sk + d, (b, h, sq, d), (b, g, sk, d),
-                   (b, g, sk, d), (b, h, sq, d))
+                   (b, g, sk, dv), (b, h, sq, dv))
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
     out, lse = _k5_bf16_emulation(q, k, v, causal, window,
                                   bk=128 if d <= 128 else 64, with_lse=True)
@@ -450,6 +505,7 @@ def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
     (1, 2, 1, 150, 40, 32, 16),      # window, Sq > Sk
     (1, 8, 1, 203, 130, 128, None),  # D=128: a warpgroup's rows all empty
     (1, 4, 4, 260, 190, 80, 50),     # D=80: window, Sq > Sk
+    (1, 4, 4, 230, 100, (96, 64), None),  # MLA: a q block wholly empty
 ])
 def test_k5_bwd_bf16_numerics_zero_the_rows_that_see_no_key(b, h, g, sq, sk,
                                                             d, window):
@@ -457,10 +513,12 @@ def test_k5_bwd_bf16_numerics_zero_the_rows_that_see_no_key(b, h, g, sq, sk,
     bf16 route writes their LSE -inf and output 0; its backward gives them
     dq 0 and takes nothing from them into dk and dv, so its gradients
     equal, within 1e-2 (1 + |g|), ``jax.vjp`` of the oracle over the other
-    rows alone (the oracle is NaN in an empty row)."""
+    rows alone (the oracle is NaN in an empty row).  ``d`` is a (q/k, v)
+    pair at MLA's narrow v."""
+    d, dv = d if isinstance(d, tuple) else (d, d)
     e = sq - sk
     arrs = _inputs(5 * sq + sk + d, (b, h, sq, d), (b, g, sk, d),
-                   (b, g, sk, d), (b, h, sq, d))
+                   (b, g, sk, dv), (b, h, sq, dv))
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
     out, lse = _k5_bf16_emulation(q, k, v, True, window, with_lse=True)
     assert bool(torch.isneginf(lse[:, :, :e]).all())

@@ -453,6 +453,7 @@ def test_flash_attention_on_the_card(card, b, h, g, sq, sk, d, causal,
 
 @pytest.mark.parametrize("b,h,g,sq,sk,causal,window", [
     (2, 40, 40, 1000, 1000, True, None),    # minicpm3-4b's MLA prefill heads
+    (5, 40, 40, 1100, 1100, True, None),    # head order, a partial reversed round
     (1, 4, 4, 129, 129, True, None),        # a ragged second query tile
     (1, 6, 2, 77, 300, True, 50),           # GQA, Sq < Sk, window
     (1, 4, 4, 50, 200, False, None),        # non-causal, padded kv tile
@@ -929,18 +930,18 @@ def test_flash_attention_bwd_on_the_card(card, b, h, g, sq, sk, d, causal,
         _bwd_close(a, w, dtype)
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
-def test_flash_attention_bwd_is_deterministic_on_the_card(card, d):
+@pytest.mark.parametrize("d,dv", [(64, 64), (80, 80), (128, 128), (96, 64)])
+def test_flash_attention_bwd_is_deterministic_on_the_card(card, d, dv):
     """No atomics: the same inputs give the same bits, at head dim 64 (the
-    one-warpgroup kernels) and at 80 and 128 (the pair route's persistent
-    blocks)."""
+    one-warpgroup kernels) and at 80, 128 and MLA's q/k 96 with v 64 (the
+    pair route's persistent blocks)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_lse,
     )
 
     q, k, v, do = _attn_inputs(card, 11, torch.bfloat16, (2, 15, 1024, d),
-                               (2, 5, 1024, d), (2, 5, 1024, d),
-                               (2, 15, 1024, d))
+                               (2, 5, 1024, d), (2, 5, 1024, dv),
+                               (2, 15, 1024, dv))
     out, lse = flash_attention_lse(q, k, v)
     first = flash_attention_bwd(q, k, v, out, lse, do)
     for a, b in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
