@@ -325,11 +325,22 @@ KERNEL_DESIGN = {
                                         "slots, 80- and 96-wide tiles as "
                                         "16- and 32-wide blocks (each "
                                         "product one wgmma of N = D); at "
-                                        "D = 256 dK/dV in "
-                                        "two consumer warpgroups by column "
-                                        "halves, a group's heads over two "
-                                        "blocks and a third launch adding "
-                                        "their fp32 sums",
+                                        "D = 256 each launch one "
+                                        "persistent block an SM whose two "
+                                        "consumer warpgroups split a "
+                                        "64-row tile by role (one forms S "
+                                        "and P and hands P over in fp32 "
+                                        "through shared memory, the other "
+                                        "dP and dS; dK/dV: dV += P^T dO in "
+                                        "one, dK += dS^T Q in the other, "
+                                        "each one N = 256 wgmma a piece; "
+                                        "dQ: 128 columns each, dS's pieces "
+                                        "in shared memory), items longest "
+                                        "first in snake order, an even "
+                                        "group's heads over two blocks a "
+                                        "kv tile of which the second to "
+                                        "finish adds the first one's fp32 "
+                                        "sums (a ticket counter)",
                             "float32": "two launches, simt fp32, P from the "
                                        "forward's LSE"},
     "decode_attention": {"bfloat16": "cp.async ring",
@@ -657,6 +668,32 @@ def ptxas_report(path) -> list:
             # anonymous namespace
             short = name.split("_cu_", 1)[-1][:80]
             out.append(f"ptxas {short}: {line.split(':')[-1].strip()}")
+    return out
+
+
+#: head dim 256's backward kernels, whose ptxas figures phase 1 sums up
+BWD256_KERNELS = ("bwd_dq_wgmma256", "bwd_dkv_wgmma256")
+
+
+def bwd256_ptxas(path) -> list:
+    """One line per kernel of ``BWD256_KERNELS`` from ``ptxas -v``'s log:
+    its registers, its stack frame and spills, and whether ``ptxas`` warns
+    that its ``wgmma`` runs serialized (C7512 and its kin)."""
+    lines = open(path, errors="replace").read().splitlines()
+    out = []
+    for k in BWD256_KERNELS:
+        regs, frame, serial, inside = "?", "?", False, False
+        for line in lines:
+            if "Compiling entry function" in line:
+                inside = k in line
+            elif "Performance Loss" in line and k in line:
+                serial = True
+            elif inside and "stack frame" in line:
+                frame = line.strip()
+            elif inside and "Used" in line:
+                regs = line.split("Used", 1)[1].split(",")[0].strip()
+        out.append(f"ptxas D = 256 backward {k}: {regs}; {frame}; wgmma "
+                   f"{'SERIALIZED' if serial else 'not serialized'}")
     return out
 
 
@@ -2086,9 +2123,10 @@ def bwd_cases():
     training shapes (phase 10 (b)'s families' too: MLA's q/k 96 with v 64,
     zamba2-2.7b's head dim 80), a window, a ragged Sq, the other built
     head dims (32 non-causal with a padded kv tile, 80 MQA, 80 ragged and
-    windowed, 128 windowed, 256 ragged and windowed), 96 / 64 ragged and
+    windowed, 128 windowed, 256 ragged and windowed, 256 with an odd
+    group, whose heads do not split over two blocks), 96 / 64 ragged and
     windowed, and Sq > Sk under the causal mask, whose first Sq - Sk rows
-    see no key (a q tile of them wholly; at 64 and 128)."""
+    see no key (a q tile of them wholly; at 64, 128 and 256)."""
     return [
         (8, 15, 5, 1024, 1024, 64, 64, True, None),    # smollm-360m
         (8, 16, 16, 1024, 1024, 128, 128, True, None),  # deepseek-moe-16b
@@ -2111,6 +2149,8 @@ def bwd_cases():
         (1, 4, 4, 200, 333, 80, 80, True, 70),          # D=80 ragged, window
         (8, 8, 1, 1024, 1024, 256, 256, True, None),    # gemma-2b training
         (1, 8, 1, 300, 517, 256, 256, True, 100),       # D=256 ragged, window
+        (1, 3, 1, 190, 190, 256, 256, True, None),      # D=256, odd group
+        (1, 8, 1, 203, 130, 256, 256, True, None),      # D=256, Sq > Sk
     ]
 
 
@@ -2202,9 +2242,9 @@ def check_attention_bwd(torch) -> dict:
 
 #: K5's backward's launches, as their names appear in a trace: dQ and
 #: dK/dV (prefixes of the pair route's ``bwd_dq_wgmma_pair`` and
-#: ``bwd_dkv_wgmma_pair`` at head dims 80 and 128 too), and at head dim
-#: 256 the sum of the two head halves' dK and dV
-BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dkv_sum")
+#: ``bwd_dkv_wgmma_pair`` and of head dim 256's ``bwd_dq_wgmma256`` and
+#: ``bwd_dkv_wgmma256`` too)
+BWD_LAUNCHES = ("bwd_dq_wgmma", "bwd_dkv_wgmma")
 
 
 def attention_bwd_bound(shape, itemsize: int):
@@ -2287,7 +2327,7 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
             fn(None)
 
     for what, fn in (("", kern), ("sdpa ", lib)):
-        want = () if what else BWD_LAUNCHES[:2 if d < 256 else 3]
+        want = () if what else BWD_LAUNCHES
         for _attempt in range(3):
             _busy, by_name = trace_card(
                 torch, f"flash_attention_bwd_{reps}_calls",
@@ -2301,7 +2341,7 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
             by_launch["sdpa"] = {key[:80]: t / c / 1e3 for key, (t, c) in
                                  by_name.items()}
             continue
-        for n in BWD_LAUNCHES[:2 if d < 256 else 3]:
+        for n in BWD_LAUNCHES:
             hits = [tc for key, tc in by_name.items() if n in key]
             if not hits:
                 fail(f"the trace of {reps} calls holds no launch of {n}")
@@ -3996,6 +4036,8 @@ def main() -> int:
     for lib in ("attention", "attention_bwd", "byteplanes", "scans", "ssm"):
         for line in ptxas_report(_build.build_log(lib)):
             log(line)
+    for line in bwd256_ptxas(_build.build_log("attention_bwd")):
+        log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
     lap_t = [time.perf_counter()]

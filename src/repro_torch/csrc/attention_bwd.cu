@@ -53,21 +53,20 @@
 //       80 and 96 columns run as 16- and 32-wide blocks, so that each
 //       product is one wgmma; the kernels are templated on (D, DV): S,
 //       dQ and dK are D wide, dP, dV and Delta's rowsum DV wide.
-//     - D = 32, 64 and D = 256's dQ:
-//       bwd_dq_wgmma / bwd_dkv_wgmma, a block of one consumer warpgroup
-//       of 64 rows (q rows in A, kv rows in B) and a producer warp, two
-//       blocks an SM below D = 256 so that one block's softmax-like pass
-//       runs under the other's products.  The resident pair of 64-row
+//     - D = 32 and 64: bwd_dq_wgmma / bwd_dkv_wgmma, a block of one
+//       consumer warpgroup of 64 rows (q rows in A, kv rows in B) and a
+//       producer warp, two blocks an SM so that one block's softmax-like
+//       pass runs under the other's products.  The resident pair of 64-row
 //       tiles (A: Q, dO; B: K, V) arrives once; the producer streams the
 //       other pair (A: K, V; B: Q, dO, with the rows' LSE and Delta, which
-//       its 32 lanes copy) through a 3-stage ring (2 at D = 256).  D =
-//       256's dQ takes one block an SM (its 128 accumulators beside S and
-//       dP).
-//     - D = 256's dK/dV: bwd_dkv_wgmma2, two consumer warpgroups own a
-//       128-column half of dK and dV each and share S^T and dP^T through
-//       shared memory, and an even group's heads split over two blocks a
-//       kv tile whose fp32 sums a third launch, bwd_dkv_sum, adds (see
-//       there).
+//       its 32 lanes copy) through a 3-stage ring.
+//     - D = 256: bwd_dq_wgmma256 / bwd_dkv_wgmma256 (see there), each one
+//       persistent block an SM whose two consumer warpgroups split a 64-row
+//       tile's work by role: one forms S (S^T) and P and hands P over in
+//       fp32 through shared memory, the other forms dP (dP^T) and dS; dK/dV
+//       sums dV in the first and dK in the second, and the two blocks that
+//       share a kv tile when an even group splits its heads add their fp32
+//       sums in the dK/dV launch itself (the second to finish adds).
 //  - fp32: bwd_dq / bwd_dkv, fp32 FMAs on the CUDA cores (a tensor-core
 //    route would be TF32, too coarse for the fp32 tolerance).  A block of
 //    256 threads is a 16 x 16 grid, each thread owning a 4 x 4 piece of a
@@ -411,20 +410,19 @@ template <int D>
 struct BwTile {
   static constexpr int TILE = WT * D * 2;  // a 64-row Q, K, V or dO tile
   static constexpr int PAIR = 2 * TILE;
-  // stages of the TMA ring: three, two at D = 256 (64 KB a stage)
-  static constexpr int NS = D <= 128 ? 3 : 2;
+  static constexpr int NS = 3;  // stages of the TMA ring
   static constexpr int STAGE_OFF = PAIR;
   static constexpr int ROWS_OFF = STAGE_OFF + NS * PAIR;
   static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
   // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
   // base
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
-  // two blocks an SM at D = 32 and 64: ptxas then holds a thread to 168
-  // registers (two blocks' ten warps put three on one SM sub-partition, of
-  // 16,384 registers); D = 256's dQ takes one block (up to 255 registers:
-  // 128 accumulators beside S and dP).  D = 80, 128 and 96 / 64 take the
-  // pair route (BwPair), not these kernels.
-  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  // two blocks an SM (these kernels serve D = 32 and 64): ptxas then holds
+  // a thread to 168 registers (two blocks' ten warps put three on one SM
+  // sub-partition, of 16,384 registers).  D = 80, 128 and 96 / 64 take the
+  // pair route (BwPair), D = 256 its own (Bw256).
+  static constexpr int MIN_BLOCKS = 2;
+  static_assert(D <= 64, "the one-warpgroup kernels serve D = 32 and 64");
   static_assert(TILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
 };
 
@@ -441,15 +439,16 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* m0,
                 64 * c, row, head);
 }
 
-// x (a 64 x 64 accumulator fragment) -> the A fragments of its four
+// x (a 64 x N accumulator fragment) -> the A fragments of its N / 16
 // 16-column blocks in two bf16 pieces: hi, the rounding, and lo, the
 // rounding of what hi leaves (~16 bits of each value; one piece,
 // FlashAttention's rounding, drifted past the card check's 1e-2 (1 + |g|)
 // at the training shape)
+template <int N = WT>
 __device__ __forceinline__ void split_pieces(uint32_t (*hi)[4], uint32_t (*lo)[4],
                                              const float* x) {
 #pragma unroll
-  for (int kk = 0; kk < WT / 16; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
@@ -812,258 +811,11 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq0,
   store_rows<D>(dv + (size_t)bg * sk * D, dva, kp0, sk, quad, 1.f);
 }
 
-// D = 256's dK and dV: 128 accumulators a thread of each in one warpgroup
-// will not fit, so two consumer warpgroups share a kv tile, each owning a
-// 128-column half of dK and dV (64 + 64 accumulators), and a producer
-// warpgroup streams Q and dO through a 2-stage ring (one thread issues the
-// copies; each of the 128 writes one of the stage's 64 rows' base-2 LSE
-// or Delta into shared memory; setmaxnreg hands its registers to the
-// consumers).  S^T = K Q^T and dP^T = V dO^T (64 x 64, over all of D) are
-// formed once: warpgroup w takes q columns [32 w, 32 w + 32) (wgmma SS, N
-// = 32).  Its P^T and dS^T go to shared memory as two bf16 pieces each,
-// four 64 x 64 tiles in the 128-byte swizzle a K-major operand reads, and
-// both warpgroups then take the whole tiles as the A operand of dV[:,
-// half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] (wgmma SS,
-// the streamed tile MN-major).  The 128 accumulators leave too few of the
-// 240 registers for S^T and dP^T (ptxas serializes their products and
-// spills one while the other forms); the rows in shared memory, in place
-// of 16 loads a thread and tile, took 12 % off the launch.  A kv tile's
-// work grows with the q tiles that see it (causal: 16 down to 1 at Sq =
-// Sk = 1024), and at gemma-2b's shape there are only B G Sk / 64 = 128
-// tiles for 132 SMs, so the first tile's block set the launch's time:
-// when H / G is even each tile takes two blocks, one a half of the group's
-// heads, which store fp32 sums for bwd_dkv_sum to add (two terms add the
-// same in either order, so the result stays deterministic); that took the
-// launch from 0.80 to 0.47 ms (PERF.md §6).
-constexpr int BW2_THREADS = 384;  // two consumer warpgroups, then the producer's
-
-struct Bw256 {
-  static constexpr int D = 256;
-  static constexpr int TILE = WT * D * 2;            // 32 KB
-  static constexpr int NS = 2;                       // stages of Q and dO
-  static constexpr int STAGE_OFF = 2 * TILE;         // after K and V
-  static constexpr int PIECE = WT * WT * 2;          // a 64 x 64 bf16 tile
-  // P^T hi, P^T lo, dS^T hi, dS^T lo
-  static constexpr int PIECE_OFF = STAGE_OFF + NS * 2 * TILE;
-  // each stage's q rows' base-2 LSE and Delta (fp32), written by the
-  // producer warpgroup's 128 threads
-  static constexpr int ROWS_OFF = PIECE_OFF + 4 * PIECE;
-  static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
-  // barriers: resident full, full[NS], empty[NS]; 1024 bytes to align the
-  // base (231,464 bytes of the 232,448 a block can have)
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;
-  static_assert(PIECE_OFF % 1024 == 0, "swizzled tiles must stay 1024-byte aligned");
-};
-
 // byte offset of element (row, col) (col even) in a 64 x 64 bf16 tile laid
 // out as TMA's 128-byte swizzle lays it: 128-byte rows, the 16-byte chunk
 // index XORed with the row's low three bits
 __device__ __forceinline__ uint32_t swz128(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
-}
-
-// a warpgroup's 64 x 32 fragment x (rows r0, r0 + 8 of each thread,
-// columns cw + 8 j + 2 quad + e) -> two bf16 pieces, hi (the rounding) and
-// lo (the rounding of the rest), into the swizzled tiles at hi_t and lo_t
-__device__ __forceinline__ void put_pieces(uint8_t* hi_t, uint8_t* lo_t,
-                                           const float* x, int r0, int cw,
-                                           int quad) {
-#pragma unroll
-  for (int j = 0; j < WT / 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows r0, r0 + 8
-      const uint32_t at = swz128(r0 + 8 * h, cw + 8 * j + 2 * quad);
-      const float a = x[4 * j + 2 * h], b = x[4 * j + 2 * h + 1];
-      const uint32_t hi = pack_bf16(a, b);
-      *reinterpret_cast<uint32_t*>(hi_t + at) = hi;
-      *reinterpret_cast<uint32_t*>(lo_t + at) =
-          pack_bf16(a - __uint_as_float(hi << 16),
-                    b - __uint_as_float(hi & 0xffff0000u));
-    }
-}
-
-__device__ __forceinline__ void pair_sync() {  // both consumer warpgroups
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-__global__ void __launch_bounds__(BW2_THREADS, 1)
-bwd_dkv_wgmma2(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tdo,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv,
-               float* __restrict__ part, int B, int H, int G, int sq, int sk,
-               int causal, int window, float scale) {
-  using L = Bw256;
-  constexpr int D = L::D, NS = L::NS;
-  extern __shared__ uint8_t bw_smem[];
-  const uint32_t raw = smem_u32(bw_smem);
-  const uint32_t sbase = (raw + 1023u) & ~1023u;
-  uint8_t* pieces_g = bw_smem + (sbase - raw) + L::PIECE_OFF;
-  float* rows_s = reinterpret_cast<float*>(bw_smem + (sbase - raw) + L::ROWS_OFF);
-  const uint32_t pieces = sbase + L::PIECE_OFF;
-  const uint32_t res_full = sbase + L::BAR_OFF;
-  auto full = [&](int s) { return res_full + 8u * (1 + s); };
-  auto empty = [&](int s) { return res_full + 8u * (1 + NS + s); };
-
-  // block -> (kv tile, b, g, half of the group's heads when it splits):
-  // the first kv tiles (seen by the most causal rows) first
-  const int hg = H / G, off = sk - sq;
-  const int split = part != nullptr ? 2 : 1, hs = (int)blockIdx.x % split;
-  const int bg = (int)blockIdx.x / split % (B * G);
-  const int k0 = (int)blockIdx.x / split / (B * G) * WT;
-  const int b = bg / G, g = bg % G;
-  const int h0 = b * H + g * hg + hs * (hg / split);  // this block's first head
-  // the q rows that can see a key of this tile, in tiles of 64, per head
-  const int kmax = min(sk, k0 + WT) - 1;
-  const int i_begin = causal ? max(0, k0 - off) : 0;
-  const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
-  const int n_qt = i_end > i_begin ? (i_end - i_begin + WT - 1) / WT : 0;
-  const int n_it = hg / split * n_qt;
-
-  if (threadIdx.x == 0) {
-    mbar_init(res_full, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(full(s), 1 + 128);  // the copies' byte count, then every
-                                    // producer thread (its row value)
-      mbar_init(empty(s), 8);       // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // the producer: thread 0 issues every copy, and thread
-                  // t writes row t's LSE (t < 64) or Delta of each stage
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    const int pt = threadIdx.x - 256;
-    if (pt == 0) {
-      mbar_expect_tx(res_full, 2 * L::TILE);
-      tma_tile<D>(sbase, &tk, &tk, res_full, k0, bg);
-      tma_tile<D>(sbase + L::TILE, &tv, &tv, res_full, k0, bg);
-    }
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it % NS;
-      const int bh = h0 + it / n_qt;
-      const int i0 = i_begin + (it % n_qt) * WT;
-      const int i = i0 + pt % WT;
-      const float val = pt < WT ? lse2(lse, (size_t)bh * sq, i, sq)
-                                : (i < sq ? delta[(size_t)bh * sq + i] : 0.f);
-      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);  // round 0 passes at once
-      if (pt == 0) {
-        mbar_expect_tx(full(s), 2 * L::TILE);
-        const uint32_t dst = sbase + L::STAGE_OFF + s * 2 * L::TILE;
-        tma_tile<D>(dst, &tq, &tq, full(s), i0, bh);
-        tma_tile<D>(dst + L::TILE, &tdo, &tdo, full(s), i0, bh);
-      }
-      rows_s[s * 2 * WT + pt] = val;
-      mbar_arrive(full(s));  // releases this thread's row
-    }
-    return;  // no block-wide barrier follows
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int quad = lane % 4;
-  const int r0 = 16 * warp + lane / 4;  // this thread's kv rows: r0, r0 + 8
-  const int kp0 = k0 + r0, kp1 = kp0 + 8;
-  const int cw = 32 * wg;               // this warpgroup's q columns of S^T
-  const float sl2 = scale * LOG2E;
-
-  // dK[:, 128 wg + ...] and dV[:, ...]: two 64-wide column blocks each
-  constexpr int NJ = WT / 16;  // 8-column groups of a 32-column half
-  float dka[D / 4], dva[D / 4];
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) dka[i] = dva[i] = 0.f;
-  float st[WT / 4], dpt[WT / 4];
-  mbar_wait(res_full, 0);
-  for (int it = 0; it < n_it; ++it) {
-    const int s = it % NS;
-    const int i0 = i_begin + (it % n_qt) * WT;
-    mbar_wait(full(s), (it / NS) & 1);
-    const uint32_t qt = sbase + L::STAGE_OFF + s * 2 * L::TILE, dot = qt + L::TILE;
-    wg_fence();
-    ss_tile<D, WT / 2>(st, sbase, WT, 0, qt, WT, cw);            // S^T = K Q^T
-    ss_tile<D, WT / 2>(dpt, sbase + L::TILE, WT, 0, dot, WT, cw);  // dP^T = V dO^T
-    wg_commit();
-    wg_wait<0>();
-    reg_fence<WT / 4>(st);
-    reg_fence<WT / 4>(dpt);
-    // P^T and dS^T on the fragments: rows kv, columns q rows i0 + c
-    const float* Ls = rows_s + s * 2 * WT;
-    const float* Ds = Ls + WT;
-    const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > i0 + off) ||
-                      (window > 0 && k0 <= i0 + WT - 1 + off - window);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * j + e, c = cw + 8 * j + 2 * quad + (e & 1);
-        float p = ex2(st[x] * sl2 - Ls[c]);
-        if (edge && !visible(i0 + c + off, e < 2 ? kp0 : kp1, sk, causal, window))
-          p = 0.f;
-        dpt[x] = p * (dpt[x] - Ds[c]);
-        st[x] = p;
-      }
-    pair_sync();  // both warpgroups' products of the last tile read the pieces
-    put_pieces(pieces_g, pieces_g + L::PIECE, st, r0, cw, quad);  // P^T
-    put_pieces(pieces_g + 2 * L::PIECE, pieces_g + 3 * L::PIECE, dpt, r0, cw,
-               quad);                                               // dS^T
-    // the pieces, written by the generic proxy, are read by wgmma's
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    pair_sync();
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < WT / 16; ++kk)
-#pragma unroll
-      for (int pc = 0; pc < 2; ++pc) {  // hi, then lo
-        const uint64_t pa = gmma_desc(pieces + pc * L::PIECE + 32 * kk, 128, false);
-        const uint64_t da = gmma_desc(pieces + (2 + pc) * L::PIECE + 32 * kk, 128, false);
-#pragma unroll
-        for (int cb = 0; cb < 2; ++cb) {  // this half's two 64-wide blocks
-          const uint32_t blk = (2 * wg + cb) * WT * 128 + kk * 16 * 128;
-          wgmma_ss_mn<64>(dva + 32 * cb, pa, gmma_desc(dot + blk, 128, true));
-          wgmma_ss_mn<64>(dka + 32 * cb, da, gmma_desc(qt + blk, 128, true));
-        }
-      }
-    wg_commit();
-    wg_wait<0>();
-    reg_fence<D / 4>(dka);
-    reg_fence<D / 4>(dva);
-    release(empty(s), lane);
-  }
-  const size_t at = (size_t)bg * sk * D + 128 * wg;
-  if (split == 1) {
-    store_rows<D / 2, D>(dk + at, dka, kp0, sk, quad, scale);
-    store_rows<D / 2, D>(dv + at, dva, kp0, sk, quad, 1.f);
-    return;
-  }
-  // this half's sums, unscaled, for bwd_dkv_sum: part[0 or 1] dK of head
-  // half 0 or 1, part[2 or 3] dV
-  const size_t n = (size_t)B * G * sk * D;
-  store_rows_f32<D / 2, D>(part + hs * n + at, dka, kp0, sk, quad);
-  store_rows_f32<D / 2, D>(part + (2 + hs) * n + at, dva, kp0, sk, quad);
-}
-
-// dK = (half 0 + half 1) scale and dV = half 0 + half 1 from
-// bwd_dkv_wgmma2's fp32 sums, four values a thread.  Two terms add the
-// same in either order, so the result does not depend on which block
-// finished first.
-__global__ void __launch_bounds__(256)
-bwd_dkv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, int64_t n4, float scale) {
-  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n4) return;
-  const float4 a = part[i], b = part[n4 + i], c = part[2 * n4 + i],
-               d = part[3 * n4 + i];
-  uint2 k, v;
-  k.x = pack_bf16((a.x + b.x) * scale, (a.y + b.y) * scale);
-  k.y = pack_bf16((a.z + b.z) * scale, (a.w + b.w) * scale);
-  v.x = pack_bf16(c.x + d.x, c.y + d.y);
-  v.y = pack_bf16(c.z + d.z, c.w + d.w);
-  reinterpret_cast<uint2*>(dk)[i] = k;
-  reinterpret_cast<uint2*>(dv)[i] = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -1161,10 +913,11 @@ __device__ __forceinline__ void ss_pieces(float* acc, uint32_t a, uint32_t x) {
                        gmma_desc_mn(x + kk * 16 * 128, 128, WT * 128));
 }
 
-// put_pieces through 32-bit shared-memory addresses (hi_t, lo_t: the two
-// tiles' shared addresses), for the pair route's dK/dV at D = 128, whose
-// consumers have no registers to spare for put_pieces' 64-bit generic
-// pointers (with them the kernel spilled)
+// a warpgroup's 64 x 32 fragment x (rows r0, r0 + 8 of each thread,
+// columns cw + 8 j + 2 quad + e) -> two bf16 pieces, hi (the rounding) and
+// lo (the rounding of the rest), into the swizzled tiles at the shared
+// addresses hi_t and lo_t (32-bit addresses: with 64-bit generic pointers
+// the pair route's dK/dV at D = 128 spilled)
 __device__ __forceinline__ void put_pieces_s(uint32_t hi_t, uint32_t lo_t,
                                              const float* x, int r0, int cw,
                                              int quad) {
@@ -1704,6 +1457,619 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 256 (gemma-2b): two persistent kernels of one block an SM,
+// two consumer warpgroups and a producer warpgroup (setmaxnreg 24 / 240,
+// as the pair route), items in the snake order, the longest first.  A
+// 64-row tile's 128 accumulators a thread leave a warpgroup no room for
+// S, dP and their pieces beside them (with S^T and dP^T split by 32 q
+// columns over two warpgroups that each own half of dK's and dV's columns
+// instead, ptxas spilled and serialized the wgmma, C7512), so the two
+// kernels take two different ways out:
+//
+//  - dK/dV (bwd_dkv_wgmma256) splits a tile's work by role.  An item is a
+//    64-row kv tile of a group and half of its heads (when H / G is even;
+//    all of them when it is odd), items kv tile by kv tile.  Warpgroup 0
+//    forms S^T = K Q^T (N = 64, K = 256) and P^T and hands P^T over in
+//    fp32 through one of two 16 KB shared-memory buffers, in the
+//    accumulator fragments' own order (a float4 a thread at a time,
+//    neighbouring threads on neighbouring addresses), then sums all of dV
+//    += P^T dO (P^T's two bf16 pieces in registers, one N = 256 wgmma a
+//    piece and 16 rows).  Warpgroup 1 forms dP^T = V dO^T meanwhile,
+//    waits for P^T alone (one way: an mbarrier full, one empty, per
+//    buffer), forms dS^T and sums dK += dS^T Q in the same form.  The
+//    roundings are the one-warpgroup kernels' (P^T crosses in fp32).  K
+//    and V are one slot, freed after an item's last S^T and dP^T, so that
+//    the next item's arrive under its last products; Q and dO (with the
+//    rows' base-2 LSE and Delta) run through two 64 KB stages.  The two
+//    blocks of a kv tile add their sums without a third launch: each
+//    warpgroup takes a ticket (an integer counter a kv tile and
+//    warpgroup, which the dQ launch zeroes); the first stores its fp32
+//    sum, the second waits for it, adds it to its own (two terms add the
+//    same in either order: the result is deterministic) and stores the
+//    bf16 result.
+//  - dQ (bwd_dq_wgmma256) splits the rows, as the pair route does: an
+//    item is 128 q rows of a head (the last, longest causal rows first),
+//    warpgroup w owns rows [64 w, 64 w + 64) with their Q and dO resident
+//    and their 128 accumulators, and the producer streams the visible K
+//    and V in stages of 32 rows (three fit beside the resident 128 KB), so
+//    that S and dP are N = 32 products (16 accumulators each) and dS's
+//    pieces fit in registers as the A operand of dQ += dS K (one N = 256
+//    wgmma a piece and 16 rows).  The warpgroups share each stage and
+//    nothing else, so one's exp2 and piece pass runs under the other's
+//    products.  A row's Delta reads O from memory and dO from the slot.
+//    (Forms that were timed and were slower are in PERF.md §6: dQ's tile
+//    split by role, as dK/dV's is; the next item's Q, dO and O prefetched
+//    into the L2; the next stage's S and dP issued ahead of this stage's
+//    dQ products, which spilled.)
+constexpr int B256_THREADS = 384;  // two consumer warpgroups, then the producer's
+
+// Shared memory of bwd_dkv_wgmma256, from a 1024-byte aligned base: K and
+// V, NS stages of Q and dO, the two fp32 P^T buffers, each stage's 64
+// base-2 LSE and 64 Delta, barriers, a ticket word a consumer warpgroup.
+struct Bw256 {
+  static constexpr int D = 256;
+  static constexpr int TILE = WT * D * 2;  // a 64-row tile: 32 KB
+  static constexpr int PAIR = 2 * TILE;
+  static constexpr int NS = 2;
+  static constexpr int STAGE_OFF = PAIR;
+  static constexpr int XFER = WT * WT * 4;  // a 64 x 64 fp32 tile
+  static constexpr int XFER_OFF = STAGE_OFF + NS * PAIR;
+  static constexpr int ROWS_OFF = XFER_OFF + 2 * XFER;
+  static constexpr int BAR_OFF = ROWS_OFF + NS * 2 * WT * 4;
+  // res_full, res_empty, full[NS], empty[NS], xfull[2], xempty[2]
+  static constexpr int NBAR = 2 + 2 * NS + 4;
+  static constexpr int SMEM = BAR_OFF + 8 * NBAR + 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block can have");
+};
+
+// Shared memory of bwd_dq_wgmma256: the slot (warpgroup 0's Q and dO,
+// then 1's), NS stages of 32 K rows and 32 V rows (each four 64-wide
+// blocks with the 128-byte swizzle), barriers.
+struct Bw256Q {
+  static constexpr int D = 256;
+  static constexpr int TILE = WT * D * 2;  // 64 rows of Q or dO: 32 KB
+  static constexpr int PAIR = 2 * TILE;
+  static constexpr int SLOT = 2 * PAIR;
+  static constexpr int KR = 32;             // kv rows a stage
+  static constexpr int KTILE = KR * D * 2;  // 32 rows of K or V: 16 KB
+  static constexpr int NS = 3;
+  static constexpr int STAGE_OFF = SLOT;
+  static constexpr int ROWS_OFF = STAGE_OFF + NS * 2 * KTILE;  // none
+  static constexpr int BAR_OFF = ROWS_OFF;
+  // res_full, res_empty, full[NS], empty[NS]
+  static constexpr int NBAR = 2 + 2 * NS;
+  static constexpr int SMEM = BAR_OFF + 8 * NBAR + 8 + 1024;
+  static_assert(KTILE % 1024 == 0, "swizzled blocks must stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "more shared memory than a block can have");
+};
+
+template <class L>
+struct Smem256 {
+  uint32_t sbase, bars;
+  float* rows;
+  int* ticket;  // one a consumer warpgroup
+  __device__ explicit Smem256(uint8_t* smem) {
+    const uint32_t raw = smem_u32(smem);
+    sbase = (raw + 1023u) & ~1023u;
+    rows = reinterpret_cast<float*>(smem + (sbase - raw) + L::ROWS_OFF);
+    ticket = reinterpret_cast<int*>(smem + (sbase - raw) + L::BAR_OFF + 8 * L::NBAR);
+    bars = sbase + L::BAR_OFF;
+  }
+  __device__ uint32_t res_full() const { return bars; }
+  __device__ uint32_t res_empty() const { return bars + 8u; }
+  __device__ uint32_t full(int s) const { return bars + 8u * (2 + s); }
+  __device__ uint32_t empty(int s) const { return bars + 8u * (2 + L::NS + s); }
+  __device__ uint32_t xfull(int x) const { return bars + 8u * (2 + 2 * L::NS + x); }
+  __device__ uint32_t xempty(int x) const { return bars + 8u * (4 + 2 * L::NS + x); }
+};
+
+// a warpgroup's 64 x 64 fp32 fragment x <-> the hand-over buffer at `buf`
+// (shared address), in the fragment's order: float4 j of thread tid at
+// (128 j + tid) 16 bytes
+__device__ __forceinline__ void put_fragment(uint32_t buf, const float* x, int tid) {
+#pragma unroll
+  for (int j = 0; j < WT / 8; ++j)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(buf + (128 * j + tid) * 16),
+                 "f"(x[4 * j]), "f"(x[4 * j + 1]), "f"(x[4 * j + 2]), "f"(x[4 * j + 3])
+                 : "memory");
+}
+
+// element e of a float4 (e a constant once unrolled: no local memory)
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// float4 j of thread tid's fragment from the buffer at `buf`
+__device__ __forceinline__ float4 get_fragment(uint32_t buf, int j, int tid) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(buf + (128 * j + tid) * 16)
+               : "memory");
+  return v;
+}
+
+// a D = 256 dK/dV item: kv tile kt of group bg, the heads [h0, h0 + nh)
+// (half hs of the group's when it splits), and its q tiles i_begin + 64 t,
+// t < n_qt, per head.  Items run kv tile by kv tile, the first (seen by
+// the most causal rows) first; flash_attention.bwd256_items mirrors them.
+struct Dkv256Item {
+  int bg, kt, h0, nh, i_begin, n_qt;
+};
+
+__device__ __forceinline__ Dkv256Item dkv256_item(int item, int split, int B, int H,
+                                                  int G, int sq, int sk, int causal,
+                                                  int window) {
+  Dkv256Item w;
+  const int hg = H / G, hs = item % split;
+  w.bg = item / split % (B * G);
+  w.kt = item / split / (B * G);
+  w.nh = hg / split;
+  w.h0 = w.bg / G * H + w.bg % G * hg + hs * w.nh;
+  const int k0 = w.kt * WT, off = sk - sq, kmax = min(sk, k0 + WT) - 1;
+  w.i_begin = causal ? max(0, k0 - off) : 0;
+  const int i_end = window > 0 ? min(sq, kmax + window - off) : sq;
+  w.n_qt = i_end > w.i_begin ? (i_end - w.i_begin + WT - 1) / WT : 0;
+  return w;
+}
+
+// a D = 256 dQ item: q block q0 (128 rows) of head bh and the 32-row kv
+// stages [t_begin, t_begin + n_tiles) that any of its rows can see; the
+// last q blocks (the longest causal rows) of every head first
+__device__ __forceinline__ DqItem dq256_item(int item, int BH, int sq, int sk,
+                                             int causal, int window) {
+  constexpr int KR = 32;
+  DqItem w;
+  const int n_qb = (sq + QB - 1) / QB;
+  w.bh = item % BH;
+  w.q0 = (n_qb - 1 - item / BH) * QB;
+  const int off = sk - sq, rows = min(QB, sq - w.q0);
+  const int k_end = causal ? min(sk, w.q0 + rows + off) : sk;
+  const int k_begin = window > 0 ? max(0, w.q0 + off - window + 1) : 0;
+  w.t_begin = k_begin / KR;
+  w.n_tiles = k_end > w.t_begin * KR ? (k_end - w.t_begin * KR + KR - 1) / KR : 0;
+  return w;
+}
+
+// spin until *p == want (a ticket's other half stored); a wait of more than
+// 4 s traps, as mbar_wait does
+__device__ __forceinline__ void spin_until(const int* p, int want) {
+  uint64_t t0 = 0;
+  while (true) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    if (v == want) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > 4000000000ull)
+      __trap();
+  }
+}
+
+// acc (a 64 x D fragment, rows `row`, `row` + 8) += the fp32 rows at `in`
+// (rows D apart) below n, read past the L1 (another SM wrote them)
+template <int D>
+__device__ __forceinline__ void add_rows_f32(float* acc, const float* in, int row,
+                                             int n, int quad) {
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * quad;
+    if (row < n) {
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(in + (size_t)row * D + col));
+      acc[4 * jj] += a.x;
+      acc[4 * jj + 1] += a.y;
+    }
+    if (row + 8 < n) {
+      const float2 a =
+          __ldcg(reinterpret_cast<const float2*>(in + (size_t)(row + 8) * D + col));
+      acc[4 * jj + 2] += a.x;
+      acc[4 * jj + 3] += a.y;
+    }
+  }
+}
+
+// dK and dV: warpgroup 0 sums dV, warpgroup 1 dK, of an item's kv tile.
+// part (when an even group splits its heads): 2 B G Sk D fp32 (the first
+// finisher's dV, then its dK), then 2 B G ceil(Sk / 64) int tickets.
+__global__ void __launch_bounds__(B256_THREADS, 1)
+bwd_dkv_wgmma256(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 float* __restrict__ part, int B, int H, int G, int sq, int sk,
+                 int causal, int window, float scale) {
+  using L = Bw256;
+  constexpr int D = L::D, NS = L::NS;
+  extern __shared__ uint8_t bw_smem[];
+  // the layout and counts are worked out in each role past its setmaxnreg
+  // (values held across it are spilled), the item count anew each item
+  auto n_items = [&] {
+    int b = B;
+    asm volatile("" : "+r"(b));
+    return (sk + WT - 1) / WT * b * G * (part != nullptr ? 2 : 1);
+  };
+  if (threadIdx.x == 0) {
+    const Smem256<L> m(bw_smem);
+    mbar_init(m.res_full(), 1);
+    mbar_init(m.res_empty(), 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(m.full(s), 1 + 128);  // the copies' byte count, then every
+                                      // producer thread (its row)
+      mbar_init(m.empty(s), 8);
+    }
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(m.xfull(x), 128);  // every thread of warpgroup 0
+      mbar_init(m.xempty(x), 4);   // lane 0 of each warp of warpgroup 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer: thread 0 issues every copy, thread t
+                  // writes row t's LSE (t < 64) or Delta of each stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const Smem256<L> m(bw_smem);
+    const int pt = threadIdx.x - 256, split = part != nullptr ? 2 : 1;
+    int it = 0;
+    for (int n = 0;; ++n) {
+      const int item = snake_item(n, n_items());
+      if (item < 0) break;
+      const Dkv256Item w = dkv256_item(item, split, B, H, G, sq, sk, causal, window);
+      if (pt == 0) {
+        mbar_wait(m.res_empty(), (n & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(m.res_full(), L::PAIR);
+        tma_tile<D>(m.sbase, &tk, &tk, m.res_full(), w.kt * WT, w.bg);
+        tma_tile<D>(m.sbase + L::TILE, &tv, &tv, m.res_full(), w.kt * WT, w.bg);
+      }
+      const int n_it = w.nh * w.n_qt;
+      for (int j = 0; j < n_it; ++j, ++it) {
+        const int s = it % NS;
+        const int bh = w.h0 + j / w.n_qt;
+        const int i0 = w.i_begin + j % w.n_qt * WT, i = i0 + pt % WT;
+        const float val = pt < WT ? lse2(lse, (size_t)bh * sq, i, sq)
+                                  : (i < sq ? delta[(size_t)bh * sq + i] : 0.f);
+        mbar_wait(m.empty(s), ((it / NS) & 1) ^ 1);
+        if (pt == 0) {
+          mbar_expect_tx(m.full(s), L::PAIR);
+          const uint32_t st = m.sbase + L::STAGE_OFF + s * L::PAIR;
+          tma_tile<D>(st, &tq, &tq, m.full(s), i0, bh);
+          tma_tile<D>(st + L::TILE, &tdo, &tdo, m.full(s), i0, bh);
+        }
+        m.rows[s * 2 * WT + pt] = val;
+        mbar_arrive(m.full(s));  // releases this thread's row
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const Smem256<L> m(bw_smem);
+  const int split = part != nullptr ? 2 : 1, off = sk - sq;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's kv rows: r0, r0 + 8
+  const float sl2 = scale * LOG2E;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int item = snake_item(n, n_items());
+    if (item < 0) break;
+    const Dkv256Item w = dkv256_item(item, split, B, H, G, sq, sk, causal, window);
+    const int k0 = w.kt * WT, kp0 = k0 + r0, kp1 = kp0 + 8;
+    const int n_it = w.nh * w.n_qt;
+    mbar_wait(m.res_full(), n & 1);
+    if (n_it == 0) release(m.res_empty(), lane);
+
+    float acc[D / 2];  // warpgroup 0: dV; 1: dK (unscaled)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < n_it; ++j, ++it) {
+      const int s = it % NS, x = it % 2;
+      mbar_wait(m.full(s), (it / NS) & 1);
+      const int i0 = w.i_begin + j % w.n_qt * WT;
+      const uint32_t qt = m.sbase + L::STAGE_OFF + s * L::PAIR, dot = qt + L::TILE;
+      const float* Ls = m.rows + s * 2 * WT;
+      float sx[WT / 2];  // warpgroup 0: S^T, then P^T; 1: dP^T, then dS^T
+      wg_fence();
+      pair_ss<D>(sx, m.sbase + wg * L::TILE, wg ? dot : qt);  // K Q^T or V dO^T
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<WT / 2>(sx);
+      if (j + 1 == n_it) release(m.res_empty(), lane);  // K and V are read
+      // rows kv, columns q rows i0 + c; P^T one way, warpgroup 0 to 1
+      const uint32_t buf = m.sbase + L::XFER_OFF + x * L::XFER;
+      mbar_wait(wg ? m.xfull(x) : m.xempty(x), ((it / 2) & 1) ^ (wg ? 0 : 1));
+      if (wg == 0) {
+        const bool edge = k0 + WT > sk || (causal && k0 + WT - 1 > i0 + off) ||
+                          (window > 0 && k0 <= i0 + WT - 1 + off - window);
+#pragma unroll
+        for (int jj = 0; jj < WT / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int y = 4 * jj + e, c = 8 * jj + 2 * quad + (e & 1);
+            float p = ex2(sx[y] * sl2 - Ls[c]);
+            if (edge && !visible(i0 + c + off, e < 2 ? kp0 : kp1, sk, causal, window))
+              p = 0.f;
+            sx[y] = p;
+          }
+        put_fragment(buf, sx, tid);
+        mbar_arrive(m.xfull(x));
+      } else {
+        const float* Ds = Ls + WT;
+#pragma unroll
+        for (int jj = 0; jj < WT / 8; ++jj) {
+          const float4 p = get_fragment(buf, jj, tid);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int y = 4 * jj + e;
+            sx[y] = f4_at(p, e) * (sx[y] - Ds[8 * jj + 2 * quad + (e & 1)]);
+          }
+        }
+        release(m.xempty(x), lane);
+      }
+      uint32_t hi[WT / 16][4], lo[WT / 16][4];
+      split_pieces(hi, lo, sx);
+      wg_fence();
+      pair_rs<D>(acc, hi, lo, wg ? qt : dot);  // dV += P^T dO or dK += dS^T Q
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<D / 2>(acc);
+      release(m.empty(s), lane);
+    }
+    const size_t at = (size_t)w.bg * sk * D;
+    bf16* out = (wg ? dk : dv) + at;
+    const float mul = wg ? scale : 1.f;
+    if (split == 1) {
+      store_rows<D>(out, acc, kp0, sk, quad, mul);
+      continue;
+    }
+    // the kv tile's two halves: the first to take the ticket stores its
+    // fp32 sum, then adds 2; the second waits for both tickets and the 2
+    const size_t n_all = (size_t)B * G * sk * D;
+    float* ws = part + wg * n_all + at;
+    int* cnt = reinterpret_cast<int*>(part + 2 * n_all) + 2 * (w.kt * B * G + w.bg) + wg;
+    if (tid == 0) m.ticket[wg] = atomicAdd(cnt, 1);
+    wg_sync(wg);
+    const int first = *reinterpret_cast<volatile int*>(&m.ticket[wg]) == 0;
+    wg_sync(wg);  // every thread has read the ticket before the next item's
+    if (first) {
+      store_rows_f32<D, D>(ws, acc, kp0, sk, quad);
+      __threadfence();
+      wg_sync(wg);
+      if (tid == 0) {
+        __threadfence();  // every thread's stores before the 2
+        atomicAdd(cnt, 2);
+      }
+    } else {
+      if (tid == 0) spin_until(cnt, 4);
+      wg_sync(wg);
+      __threadfence();
+      add_rows_f32<D>(acc, ws, kp0, sk, quad);
+      store_rows<D>(out, acc, kp0, sk, quad, mul);
+    }
+  }
+}
+
+// this thread's quarter (columns [D/4 quad, D/4 quad + D/4)) of rows i
+// and i + 8 of a (rows, D) bf16 tensor (rows `row0` + i on; 0 past sq)
+template <int D>
+__device__ __forceinline__ void quad_rows(uint2 (&x)[2][D / 16], const bf16* t,
+                                          size_t row0, int i, int sq, int quad) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint2* p = reinterpret_cast<const uint2*>(t + (row0 + i + 8 * h) * D +
+                                                    quad * (D / 4));
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      x[h][j] = i + 8 * h < sq ? p[j] : make_uint2(0u, 0u);
+  }
+}
+
+// quad_delta with O's quarter rows already loaded (ox, quad_rows) and dO
+// from its 64-row tile in shared memory (`tile`: 64-wide blocks in the
+// 128-byte swizzle; this thread's rows r, r + 8 of it, its quarter one
+// block at D = 256), in quad_delta's order of sums
+template <int D>
+__device__ __forceinline__ void quad_delta_s(float& d0, float& d1,
+                                             const uint2 (&ox)[2][D / 16],
+                                             uint32_t tile, float* delta,
+                                             size_t row0, int i, int r, int sq,
+                                             int quad) {
+  static_assert(D == 256, "a quarter row is one 64-wide block");
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r + 8 * h;
+    const uint32_t row = tile + quad * WT * 128 + rr * 128;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {  // 16-byte chunk j / 2, swizzled
+      uint2 y;
+      asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                   : "=r"(y.x), "=r"(y.y)
+                   : "r"(row + ((((j >> 1) ^ rr) & 7) << 4) + (j & 1) * 8));
+      const bf16* xe = reinterpret_cast<const bf16*>(&ox[h][j]);
+      const bf16* ye = reinterpret_cast<const bf16*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[h] = fmaf(__bfloat162float(ye[e]), __bfloat162float(xe[e]), s[h]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(FULL, s[h], 1);
+    s[h] += __shfl_xor_sync(FULL, s[h], 2);
+    if (quad == 0 && i + 8 * h < sq) delta[row0 + i + 8 * h] = s[h];
+  }
+  d0 = s[0];
+  d1 = s[1];
+}
+
+// dQ and each row's Delta, 128 q rows an item: warpgroup w owns rows q0 +
+// 64 w (their Q and dO stay in the slot, their 128 accumulators are the
+// whole width of their dQ) and works out their Delta at the item's start
+// (quad_rows, quad_delta_s); the producer streams the item's visible K/V
+// rows in stages of 32 (three fit beside the slot), and each warpgroup
+// skips the stages its rows cannot see.  tickets (n_tickets ints, or
+// null): the dK/dV launch's, zeroed here (that launch runs after this
+// one).
+__global__ void __launch_bounds__(B256_THREADS, 1)
+bwd_dq_wgmma256(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ dq,
+                float* __restrict__ delta, int* __restrict__ tickets, int n_tickets,
+                int B, int H, int G, int sq, int sk, int causal, int window,
+                float scale) {
+  using L = Bw256Q;
+  constexpr int D = L::D, NS = L::NS, KR = L::KR;
+  extern __shared__ uint8_t bw_smem[];
+  for (int i = blockIdx.x * B256_THREADS + threadIdx.x; i < n_tickets;
+       i += gridDim.x * B256_THREADS)
+    tickets[i] = 0;
+  auto n_items = [&] {
+    int b = B;
+    asm volatile("" : "+r"(b));
+    return (sq + QB - 1) / QB * b * H;
+  };
+  if (threadIdx.x == 0) {
+    const Smem256<L> m(bw_smem);
+    mbar_init(m.res_full(), 1);
+    mbar_init(m.res_empty(), 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(m.full(s), 1);
+      mbar_init(m.empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer: its thread 0 issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const Smem256<L> m(bw_smem);
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int item = snake_item(n, n_items());
+        if (item < 0) break;
+        const DqItem w = dq256_item(item, B * H, sq, sk, causal, window);
+        mbar_wait(m.res_empty(), (n & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(m.res_full(), L::SLOT);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          tma_tile<D>(m.sbase + c * L::PAIR, &tq, &tq, m.res_full(), w.q0 + WT * c,
+                      w.bh);
+          tma_tile<D>(m.sbase + c * L::PAIR + L::TILE, &tdo, &tdo, m.res_full(),
+                      w.q0 + WT * c, w.bh);
+        }
+        const int bg = w.bh / H * G + w.bh % H / (H / G);
+        for (int i = 0; i < w.n_tiles; ++i, ++it) {
+          const int s = it % NS;
+          mbar_wait(m.empty(s), ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(m.full(s), 2 * L::KTILE);
+          const uint32_t st = m.sbase + L::STAGE_OFF + s * 2 * L::KTILE;
+          const int k0 = (w.t_begin + i) * KR;
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {  // 32-row boxes of 64 columns
+            tma_load_3d(st + c * KR * 128, &tk, m.full(s), 64 * c, k0, bg);
+            tma_load_3d(st + L::KTILE + c * KR * 128, &tv, m.full(s), 64 * c, k0, bg);
+          }
+        }
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const Smem256<L> m(bw_smem);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int off = sk - sq;
+  const float sl2 = scale * LOG2E;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int item = snake_item(n, n_items());
+    if (item < 0) break;
+    const DqItem w = dq256_item(item, B * H, sq, sk, causal, window);
+    // this warpgroup's rows and the kv positions they can see
+    const int qw0 = w.q0 + WT * wg, rows = min(WT, sq - qw0);
+    const int qlo = qw0 + off, qhi = qw0 + rows - 1 + off;
+    const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
+    const int k_end = rows <= 0 ? 0 : causal ? min(sk, qhi + 1) : sk;
+    const size_t row0 = (size_t)w.bh * sq;
+    // Delta of this thread's rows from O (its loads issued before the wait
+    // for the slot) and the slot's dO (read from memory too, as quad_delta
+    // reads it, it held the launch up: PERF.md §6)
+    uint2 ox[2][D / 16];
+    quad_rows<D>(ox, o, row0, qw0 + r0, sq, quad);
+    const float L0 = lse2(lse, row0, qw0 + r0, sq);
+    const float L1 = lse2(lse, row0, qw0 + r0 + 8, sq);
+    const int qp0 = qw0 + r0 + off, qp1 = qp0 + 8;
+    mbar_wait(m.res_full(), n & 1);
+    const uint32_t qa = m.sbase + wg * L::PAIR, doa = qa + L::TILE;
+    float dl0, dl1;
+    quad_delta_s<D>(dl0, dl1, ox, doa, delta, row0, qw0 + r0, r0, sq, quad);
+    if (w.n_tiles == 0) release(m.res_empty(), lane);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < w.n_tiles; ++i, ++it) {
+      const int s = it % NS;
+      const bool last = i + 1 == w.n_tiles;
+      mbar_wait(m.full(s), (it / NS) & 1);
+      const int k0 = (w.t_begin + i) * KR;
+      if (k0 < k_end && k0 + KR > k_begin) {
+        const uint32_t kt = m.sbase + L::STAGE_OFF + s * 2 * L::KTILE;
+        float sc[KR / 2], dp[KR / 2];
+        uint32_t hi[KR / 16][4], lo[KR / 16][4];
+        wg_fence();
+        ss_tile<D, KR>(sc, qa, WT, 0, kt);               // S = Q K^T
+        ss_tile<D, KR>(dp, doa, WT, 0, kt + L::KTILE);   // dP = dO V^T
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<KR / 2>(sc);
+        reg_fence<KR / 2>(dp);
+        if (last) release(m.res_empty(), lane);  // Q and dO are read
+        const bool edge = k0 + KR > sk || (causal && k0 + KR - 1 > qlo) ||
+                          (window > 0 && k0 <= qhi - window);
+#pragma unroll
+        for (int j = 0; j < KR / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            float p = ex2(sc[x] * sl2 - (e < 2 ? L0 : L1));
+            if (edge && !visible(e < 2 ? qp0 : qp1, k0 + 8 * j + 2 * quad + (e & 1),
+                                 sk, causal, window))
+              p = 0.f;
+            dp[x] = p * (dp[x] - (e < 2 ? dl0 : dl1));
+          }
+        split_pieces<KR>(hi, lo, dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KR / 16; ++kk) {  // dQ += dS K: one N = 256 wgmma a piece
+          const uint64_t db = gmma_desc_mn(kt + kk * 16 * 128, 128, KR * 128);
+          wgmma_rs<D>(acc, hi[kk], db);
+          wgmma_rs<D>(acc, lo[kk], db);
+        }
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<D / 2>(acc);
+      } else if (last) {
+        release(m.res_empty(), lane);
+      }
+      release(m.empty(s), lane);
+    }
+    store_rows<D>(dq + row0 * D, acc, qw0 + r0, sq, quad, scale);
+  }
+}
+
 // the two maps of a (heads, rows, W) bf16 tensor, boxes of 64 rows: its
 // first column block, then its narrower second one (W = 80, 96; else the
 // first again)
@@ -1721,9 +2087,9 @@ int make_maps(CUtensorMap* m, const void* base, int64_t rows, int64_t heads) {
 template <int D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, void* dk,
-                     void* dv, float* delta, float* part, int64_t B, int64_t H,
-                     int64_t G, int64_t sq, int64_t sk, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     void* dv, float* delta, int64_t B, int64_t H, int64_t G,
+                     int64_t sq, int64_t sk, int causal, int window, float scale,
+                     cudaStream_t stream) {
   using L = BwTile<D>;
   // q, dO over (B H, Sq, D); k, v over (B G, Sk, D); boxes of 64 rows
   CUtensorMap m[8];
@@ -1745,36 +2111,13 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned n_dkv = (unsigned)((sk + WT - 1) / WT * B * G);
-  if constexpr (D == 256) {
-    // an even group splits its heads over two blocks a kv tile, summed by
-    // bwd_dkv_sum from the fp32 workspace `part` (4 B G Sk D values)
-    const bool split = (H / G) % 2 == 0;
-    if (split && part == nullptr) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(bwd_dkv_wgmma2,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Bw256::SMEM);
-    if (err != cudaSuccess) return err;
-    bwd_dkv_wgmma2<<<n_dkv * (split ? 2 : 1), BW2_THREADS, Bw256::SMEM,
-                     stream>>>(
-        m[0], m[2], m[4], m[6], lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), split ? part : nullptr, (int)B, (int)H,
-        (int)G, (int)sq, (int)sk, causal, window, scale);
-    if (split) {
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      const int64_t n4 = B * G * sk * D / 4;
-      bwd_dkv_sum<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-          reinterpret_cast<const float4*>(part), static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), n4, scale);
-    }
-  } else {
-    err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
-        m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
-        (int)sq, (int)sk, causal, window, scale);
-  }
+  err = cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  bwd_dkv_wgmma<D><<<n_dkv, BW_THREADS, L::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), (int)B, (int)H, (int)G,
+      (int)sq, (int)sk, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -1823,6 +2166,59 @@ int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+// D = 256 (bf16): both kernels persistent, one block an SM; part (2 B G
+// Sk D fp32, then the tickets) when an even group splits its heads
+int launch_bwd_256(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                   float* delta, float* part, int64_t B, int64_t H, int64_t G,
+                   int64_t sq, int64_t sk, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  constexpr int D = 256;
+  using LQ = Bw256Q;
+  using LK = Bw256;
+  // q, dO over (B H, Sq, D); k, v over (B G, Sk, D), boxes of 64 rows;
+  // then k and v in boxes of dQ's 32-row stages
+  CUtensorMap m[6];
+  std::memset(m, 0, sizeof(m));
+  int e = make_map(&m[0], q, sq, B * H, D, 64, WT);
+  if (!e) e = make_map(&m[1], dout, sq, B * H, D, 64, WT);
+  if (!e) e = make_map(&m[2], k, sk, B * G, D, 64, WT);
+  if (!e) e = make_map(&m[3], v, sk, B * G, D, 64, WT);
+  if (!e) e = make_map(&m[4], k, sk, B * G, D, 64, LQ::KR);
+  if (!e) e = make_map(&m[5], v, sk, B * G, D, 64, LQ::KR);
+  if (e) return e;
+  const bool split = (H / G) % 2 == 0;
+  if (split && part == nullptr) return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dq_wgmma256,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dkv_wgmma256,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LK::SMEM);
+  if (err != cudaSuccess) return err;
+  const int64_t n_kt = (sk + WT - 1) / WT;
+  int* tickets = split ? reinterpret_cast<int*>(part + 2 * B * G * sk * D) : nullptr;
+  const int64_t n_dq = (sq + QB - 1) / QB * B * H;
+  bwd_dq_wgmma256<<<(unsigned)(n_dq < n_sm ? n_dq : n_sm), B256_THREADS, LQ::SMEM,
+                    stream>>>(
+      m[0], m[1], m[4], m[5], static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, tickets,
+      split ? (int)(2 * n_kt * B * G) : 0, (int)B, (int)H, (int)G, (int)sq, (int)sk,
+      causal, window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t n_dkv = n_kt * B * G * (split ? 2 : 1);
+  bwd_dkv_wgmma256<<<(unsigned)(n_dkv < n_sm ? n_dkv : n_sm), B256_THREADS,
+                     LK::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), split ? part : nullptr, (int)B, (int)H, (int)G,
+      (int)sq, (int)sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <int D, int DV = D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk, void* dv,
@@ -1855,9 +2251,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 }
 
 // each dtype has one pair of kernels a head dim: fp32 the SIMT pair, bf16
-// the one-warpgroup wgmma kernels (the pair route at D = 80, 128 and 96 /
-// 64); v as
-// wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
+// the one-warpgroup wgmma kernels at D = 32 and 64, the pair route at D =
+// 80, 128 and 96 / 64, the D = 256 kernels at 256; v as wide as q/k at
+// every built head dim, or MLA's narrow v (96 / 64)
 int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
                const void* v, const void* o, const void* dout, const float* lse,
                void* dq, void* dk, void* dv, float* delta, float* part,
@@ -1881,11 +2277,11 @@ int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
   }
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
-      case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 32: return launch_bwd_wgmma<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
+      case 64: return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       case 80: return launch_bwd_pair<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
       case 128: return launch_bwd_pair<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, G, sq, sk, causal, window, scale, st);
-      case 256: return launch_bwd_wgmma<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_bwd_256(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1898,9 +2294,10 @@ int bwd_by_dim(int D, int DV, int dtype, const void* q, const void* k,
 //  dtype, causal, window, scale, stream); v, o, dout and dv have head dim
 // Dv (= D, or 64 at D = 96); lse is the forward's (B, H, Sq)
 // fp32 natural-log log-sum-exp of each row's scaled, masked scores, delta
-// (B, H, Sq) fp32 workspace, part a 4 B G Sk D fp32 workspace that bf16 at
-// D = 256 needs when H / G is even (else unused, may be null); window <= 0
-// disables the window
+// (B, H, Sq) fp32 workspace, part the workspace that bf16 at D = 256 needs
+// when H / G is even (else unused, may be null): 2 B G Sk D fp32 (the
+// first of a kv tile's two blocks' sums), then 2 B G ceil(Sk / 64) int32
+// tickets, which the dQ launch zeroes; window <= 0 disables the window
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,

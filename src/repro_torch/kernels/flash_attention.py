@@ -48,11 +48,17 @@ tile over the group's heads.  bf16 runs them on the tensor cores
 consumer warpgroups, 64 rows each of a 128-row item, and a producer
 warpgroup; 96-wide tiles as three 32-wide blocks, so that dQ's and dK's
 products are one ``wgmma`` of N = 96), at 32 and 64 as one consumer
-warpgroup and a producer warp a block; at head
-dim 256 the dK/dV kernel splits the head dim over two warpgroups and an
-even group's heads over two blocks, whose fp32 sums a third kernel adds
-(the one workspace beside Delta's rows).  fp32 runs on the CUDA cores
-(tiles of 32 rows at head dim 256).  Both take the forward's
+warpgroup and a producer warp a block; at head dim 256 as
+``bwd_dq_wgmma256`` / ``bwd_dkv_wgmma256``: each launch one persistent
+block an SM of two consumer warpgroups (dQ: 64 rows each of a 128-row
+item, K and V streamed in 32-row stages; dK/dV: a 64-row kv tile's work
+split by role, one forming P^T and handing it over in fp32 and summing
+dV, the other forming dP^T and dS^T and summing dK), work items in the
+order :func:`bwd256_items` mirrors; an even group's heads split over two
+blocks a kv tile, the second of which adds the first one's fp32 sums
+(``part``, the one workspace beside Delta's rows: 2 B G Sk D fp32 and a
+ticket a kv tile and warpgroup, zeroed by the dQ launch).  fp32 runs on the CUDA
+cores (tiles of 32 rows at head dim 256).  Both take the forward's
 pairs: every head dim of ``HEAD_DIMS`` with ``Dv = D`` and the narrow-v
 pairs of ``NARROW_V`` (MLA's training: dQ and dK 96 wide, dV, dO, O and
 Delta's rowsum 64).  When a graph will be recorded (grad mode on and an input that
@@ -123,6 +129,59 @@ def work_tiles(b: int, h: int, g: int, sq: int, sk: int, d: int, dv: int,
             mine.append((bh, q0, n_tiles))
         tiles.append(mine)
     return by_head, tiles
+
+
+def bwd256_items(b: int, h: int, g: int, sq: int, sk: int, grid: int,
+                 causal: bool = True, window: Optional[int] = None) -> tuple:
+    """The bf16 backward's work items at head dim 256, as
+    ``bwd_dq_wgmma256`` and ``bwd_dkv_wgmma256`` walk them on the card ->
+    ``(dq, dkv)``, each holding, for each of ``grid`` persistent blocks,
+    its items in order: block x takes item ``n grid + x`` in its round n,
+    ``n grid + grid - 1 - x`` when n is odd (the snake order).  dQ's item
+    i is ``(b * H + h, first query row, kv stages it reads)``: head ``i %
+    (b h)``, query block of 128 rows ``n_qb - 1 - i // (b h)`` (the
+    longest causal rows first), kv stages of 32 rows.  dK/dV's item i is
+    ``(b * G + g, kv tile, first head, heads, query tiles a head)``: kv
+    tile (64 rows) ``i // (b g s)``, group ``i // s % (b g)``, half ``i %
+    s`` of the group's heads, where ``s`` is 2 when ``h // g`` is even (the
+    two blocks of a kv tile add their sums) and 1 when it is odd; query
+    tiles of 64 rows."""
+    t, qb, kr = 64, 128, 32
+    n_qb, n_kt = -(-sq // qb), -(-sk // t)
+    off, hg = sk - sq, h // g
+    split = 2 if hg % 2 == 0 else 1
+
+    def dq_item(i):
+        bh, q0 = i % (b * h), (n_qb - 1 - i // (b * h)) * qb
+        rows = min(qb, sq - q0)
+        k_end = min(sk, q0 + rows + off) if causal else sk
+        t_begin = max(0, q0 + off - window + 1) // kr if window else 0
+        return bh, q0, max(0, -(-(k_end - t_begin * kr) // kr))
+
+    def dkv_item(i):
+        bg, kt = i // split % (b * g), i // split // (b * g)
+        nh = hg // split
+        h0 = bg // g * h + bg % g * hg + i % split * nh
+        i_begin = max(0, kt * t - off) if causal else 0
+        kmax = min(sk, kt * t + t) - 1
+        i_end = min(sq, kmax + window - off) if window else sq
+        return bg, kt, h0, nh, max(0, -(-(i_end - i_begin) // t))
+
+    def walk(n_items, item):
+        blocks = []
+        for x in range(min(grid, n_items)):
+            mine, n = [], 0
+            while True:
+                i = n * grid + (grid - 1 - x if n & 1 else x)
+                if i >= n_items:
+                    break
+                mine.append(item(i))
+                n += 1
+            blocks.append(mine)
+        return blocks
+
+    return (walk(n_qb * b * h, dq_item),
+            walk(n_kt * b * g * split, dkv_item))
 
 
 def check_kernel_args(name: str, q: torch.Tensor, *rest: torch.Tensor,
@@ -283,10 +342,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 0 or sk == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty_like(lse)  # rowsum(dout * out), written by launch A
-    # bf16 at D = 256: the fp32 sums of the two halves of a group's heads,
-    # which the dK/dV launch adds up (it splits an even group's heads)
-    part = (torch.empty(4 * k.numel(), dtype=torch.float32, device=q.device)
-            if d == 256 and q.dtype == torch.bfloat16 else None)
+    # bf16 at D = 256 when an even group splits its heads over the two
+    # blocks of a kv tile: the first block's fp32 dV and dK, which the
+    # second adds to its own, then a ticket a kv tile and warpgroup (int32,
+    # zeroed by the dQ launch, which runs first)
+    part = None
+    if d == 256 and q.dtype == torch.bfloat16 and (h // g) % 2 == 0:
+        tickets = 2 * -(-sk // 64) * b * g
+        part = torch.empty(2 * k.numel() + tickets, dtype=torch.float32,
+                           device=q.device)
     lib = _build.library("attention_bwd")
     guard, stream = _build.launch_args(q)
     with guard:

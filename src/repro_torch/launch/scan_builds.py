@@ -17,9 +17,8 @@ one process each); the lines give the registers and spills of
 ``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``), of K5's
 forward (``flash_fwd_wgmma`` at each head dim) and of its backward
 launches at D = 64, 256, 128 and 80 and at q/k 96 with v 64 (the pair
-route's kernels, or a parent's one-warpgroup ones), and ``ptxas``'s
-warnings that
-``wgmma`` runs serialized.  The C
+route's kernels and D = 256's, or a parent's one-warpgroup ones), and
+``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
 entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
 geometry; a tree whose source declares the entry without it, the first
@@ -56,7 +55,11 @@ tree whose entry takes the LSE as an input (``const void* lse`` after
 ``dout``) gets the forward's, an older one (the LSE a workspace after
 ``dv``) recomputes it; each tree's gradients are printed as the largest
 share of the card's bf16 tolerance 1e-2 they use against
-``ref.flash_attention_bwd_ref`` in fp32.  K5's forward runs causal at
+``ref.flash_attention_bwd_ref`` in fp32, each tree's launches split by a
+torch.profiler trace (card ms a launch), and SDPA's backward
+(``torch.autograd.grad`` through ``scaled_dot_product_attention``, the
+backend it ran printed) timed in the same rounds as one more call.  K5's
+forward runs causal at
 ``FWD_SHAPES``: the serve shapes (16 x 1,000 tokens) of smollm-360m (64),
 zamba2-2.7b (80) and minicpm3-4b (q/k 96, v 64), and with the rows' LSE
 the training shapes (8 x 1,024) of smollm-360m, zamba2-2.7b,
@@ -114,6 +117,7 @@ PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "shuffle_reg", "shuffle_vec", "unsplit_reg", "unsplit_vec",
                  "decode_offsets",
                  "bwd_dq_wgmmaILi64", "bwd_dkv_wgmmaILi64",
+                 "bwd_dq_wgmma256", "bwd_dkv_wgmma256",
                  "bwd_dq_wgmmaILi256", "bwd_dkv_wgmma2",
                  "bwd_dq_wgmma_pairILi128", "bwd_dkv_wgmma_pairILi128",
                  "bwd_dq_wgmma_pairILi80", "bwd_dkv_wgmma_pairILi80",
@@ -195,7 +199,7 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
             if "Compiling entry" in line:
                 current = next((k for k in PTXAS_KERNELS if k in line), None)
             elif "Performance Loss" in line:  # name the kernel, not its hash
-                fn = re.search(r"[A-Za-z_]+ILi\d+", line)
+                fn = re.search(r"[A-Za-z_]+ILi\d+|bwd_d\w*?wgmma(?:256|2)", line)
                 print(f"{tree} {fn.group(0) if fn else lib}: "
                       f"{line.split(':', 1)[-1].split(' for the function')[0].strip()}")
             elif current and ("Used" in line or "spill" in line):
@@ -431,6 +435,49 @@ def bwd_calls(libs, trees, stream, shape) -> tuple:
     return calls, shares
 
 
+def sdpa_bwd_call(shape):
+    """One call of SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on a
+    kept graph: cuDNN or FlashAttention, whichever PyTorch picks) at
+    K5's backward ``shape`` -> (call, the backend it ran)."""
+    import torch.nn.functional as F
+
+    b, h, g, s, d, dv = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    rnd = lambda *dims: torch.randn(dims, generator=gen, device="cuda",
+                                    dtype=torch.bfloat16, requires_grad=True)
+    leaves = [rnd(b, h, s, d), rnd(b, g, s, d), rnd(b, g, s, dv)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    do = torch.randn_like(out)
+    return (lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            type(out.grad_fn).__name__)
+
+
+def launch_split(call, reps: int = 10) -> dict:
+    """{kernel: card ms a launch} of ``reps`` calls, from a torch.profiler
+    trace (the calls queued behind a sleep kernel, so that the tracing is
+    on before the first of them runs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(2e6 * 20))
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+            name = e.name.replace("(anonymous namespace)::", "")[:60]
+            t, c = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + e.time_range.elapsed_us(), c + 1)
+    return {k: t / c / 1e3 for k, (t, c) in by_name.items()}
+
+
 def fwd_calls(libs, trees, stream, shape) -> tuple:
     """({tree: call}, {tree: {"out": share, "lse": share}}) of K5's
     forward (bf16, causal) at ``shape``, with the rows' LSE where the
@@ -662,10 +709,19 @@ def main(argv=None) -> int:
             for tree, share in shares.items():
                 print(f"K5 bwd {shape} {tree}: share of the bf16 tolerance "
                       f"used {share:.4f}")
+            split = {}
+            for tree, call in calls.items():
+                split[tree] = launch_split(call)
+                print(f"K5 bwd {shape} {tree}: trace, ms a launch: " + ", ".join(
+                    f"{k} {v:.5f}" for k, v in split[tree].items()), flush=True)
+            sdpa, backend = sdpa_bwd_call(shape)
+            calls["sdpa"] = sdpa
+            ms = rounds(calls, args.rounds, f"K5 bwd {shape}")
+            print(f"K5 bwd {shape}: SDPA's backward ran {backend}", flush=True)
             result["flash_attention_bwd"].append({
-                "shape": list(shape), "tol_share": shares,
-                "ms": rounds(calls, args.rounds, f"K5 bwd {shape}")})
-            del calls
+                "shape": list(shape), "tol_share": shares, "split": split,
+                "sdpa_backend": backend, "ms": ms})
+            del calls, sdpa
     if "k1" in args.only:
         result["offsets_scan"] = {}
         for n in K1_SIZES:

@@ -342,6 +342,54 @@ def test_k5_work_order_covers_each_tile_once_and_balances_the_blocks(
         assert max(loads) <= sum(loads) / grid + n_qt * per_tile
 
 
+@pytest.mark.parametrize("b,h,g,sq,sk,grid,causal,window", [
+    (8, 8, 1, 1024, 1024, 132, True, None),  # gemma-2b's training shape
+    (1, 3, 1, 190, 190, 132, True, None),    # an odd group: no head split
+    (1, 8, 1, 203, 130, 5, True, None),      # Sq > Sk, rounds past the grid
+    (2, 8, 2, 300, 517, 7, True, 100),       # GQA 4:1, window, ragged
+    (2, 4, 1, 200, 200, 132, False, None),   # non-causal
+])
+def test_k5_bwd_256_work_order_covers_each_tile_once_and_balances_the_blocks(
+        b, h, g, sq, sk, grid, causal, window):
+    """The bf16 backward's work items at head dim 256 (``bwd256_items``,
+    the mirror of ``bwd_dq_wgmma256``'s and ``bwd_dkv_wgmma256``'s): dQ
+    covers every (b h, 128-row query block) exactly once and dK/dV every
+    (64-row kv tile, head), a dK/dV item's heads all of its group (half of
+    them when the group is even); causal items (no window) run longest
+    first; and at gemma-2b's shape the snake order gives no block more
+    than 5 % above the mean load (32-row kv stages in dQ, tile pairs in
+    dK/dV)."""
+    n_qb, n_kt, hg = -(-sq // 128), -(-sk // 64), h // g
+    dq, dkv = fa.bwd256_items(b, h, g, sq, sk, grid, causal, window)
+    assert len(dq) <= grid and len(dkv) <= grid
+    seen = sorted((bh, q0) for mine in dq for bh, q0, _n in mine)
+    assert seen == [(bh, q * 128) for bh in range(b * h)
+                    for q in range(n_qb)]
+    seen = sorted((kt, hd) for mine in dkv for _bg, kt, h0, nh, _n in mine
+                  for hd in range(h0, h0 + nh))
+    assert seen == sorted((kt, bh) for kt in range(n_kt)
+                          for bh in range(b * h))
+    for mine in dkv:
+        for bg, _kt, h0, nh, _n in mine:
+            assert nh == (hg // 2 if hg % 2 == 0 else hg)
+            assert all(hd // h == bg // g and hd % h // hg == bg % g
+                       for hd in range(h0, h0 + nh))
+    if causal and not window:  # items (by their place in the walk)
+        # run longest first
+        for blocks, size in ((dq, lambda it: it[2]),
+                             (dkv, lambda it: it[3] * it[4])):
+            by_item = {}
+            for x, mine in enumerate(blocks):
+                for n, it in enumerate(mine):
+                    by_item[n * grid + (grid - 1 - x if n & 1 else x)] = it
+            sizes = [size(by_item[i]) for i in sorted(by_item)]
+            assert sizes == sorted(sizes, reverse=True)
+    if (b, h, g, sq, sk, grid) == (8, 8, 1, 1024, 1024, 132):
+        for loads in ([sum(n for *_x, n in mine) for mine in dq],
+                      [sum(nh * n for *_x, nh, n in mine) for mine in dkv]):
+            assert max(loads) <= 1.05 * sum(loads) / grid
+
+
 def _pieces(x):
     """x in two bf16 pieces: the rounding, and the rounding of the rest."""
     hi = x.bfloat16().float()
@@ -363,13 +411,16 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     the block's q rows sees; the q tiles of 64 from the block's first
     visible q row, per head), and each skips those its own rows cannot
     see, its sums starting at its first visible tile and ending at its
-    last; elsewhere (``bwd_dq_wgmma``, ``bwd_dkv_wgmma``) an item is one
-    warpgroup's 64 rows.  At D = 256 the dK/dV kernel (``bwd_dkv_wgmma2``)
-    is two warpgroups: warpgroup w forms S^T and dP^T for q columns [32 w,
-    32 w + 32) of the tile over all of D, and owns columns [128 w, 128 w +
-    128) of dK and dV, which it sums from the whole tile's pieces; an even
-    group's heads split over two blocks, whose fp32 sums are added at the
-    end."""
+    last; elsewhere an item is 64 rows.  At D = 256 (``bwd_dq_wgmma256``,
+    ``bwd_dkv_wgmma256``) dQ walks as the pair route does, 128-row items
+    of two warpgroups, over kv stages of 32 rows; dK/dV splits a 64-row
+    kv tile's work by role over two warpgroups: warpgroup 0 forms S^T and
+    P^T of the whole tile and sums dV, and hands P^T to warpgroup 1 in
+    fp32 (no rounding), which forms dP^T and dS^T and sums dK; an even
+    group's heads split over the two blocks of a kv tile (the first and
+    the second half of them), and the second block to finish adds the
+    first one's fp32 sums to its own before the scale and the bf16
+    store."""
     b, h, sq, d = q.shape
     g, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     hg, off = h // g, sk - sq
@@ -382,6 +433,8 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     delta = (dof * out.float()).sum(-1)
     pair_route = (d, dv) in ((80, 80), (128, 128), (96, 64))
     item = 2 * t if pair_route else t  # rows of an item
+    q_item = 2 * t if d == 256 else item  # dQ's
+    kr = t // 2 if d == 256 else t  # kv rows of a dQ stage
 
     def p_ds(rows, cols, s, dp, lr, dr):  # s, dp (..., rows, cols)
         qpos, kpos = rows[:, None] + off, cols[None, :]
@@ -394,8 +447,8 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
         return p, p * (dp - dr[..., None])
 
     dq = torch.zeros(b, h, sq, d)
-    for qb in range(0, sq, item):  # launch A: a q block over its kv tiles
-        last = min(qb + item, sq) - 1
+    for qb in range(0, sq, q_item):  # launch A: a q block over its kv tiles
+        last = min(qb + q_item, sq) - 1
         k_end_b = min(sk, last + off + 1) if causal else sk
         k_begin_b = max(0, qb + off - window + 1) if window else 0
         for q0 in range(qb, last + 1, t):  # each warpgroup's q rows
@@ -403,10 +456,10 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
             k_end = min(sk, int(rows[-1]) + off + 1) if causal else sk
             k_begin = max(0, q0 + off - window + 1) if window else 0
             acc = torch.zeros(b, h, len(rows), d)
-            for k0 in range(k_begin_b // t * t, k_end_b, t):
-                if not (k0 < k_end and k0 + t > k_begin):
+            for k0 in range(k_begin_b // kr * kr, k_end_b, kr):
+                if not (k0 < k_end and k0 + kr > k_begin):
                     continue  # this warpgroup's rows see none of the tile
-                cols = torch.arange(k0, min(k0 + t, sk))
+                cols = torch.arange(k0, min(k0 + kr, sk))
                 s = qf[:, :, rows] @ kx[:, :, cols].transpose(-1, -2)
                 dp = dof[:, :, rows] @ vx[:, :, cols].transpose(-1, -2)
                 _p, ds = p_ds(rows, cols, s, dp, l2[:, :, rows],
@@ -418,8 +471,7 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     qg = qf.reshape(b, g, hg, sq, d)
     dog = dof.reshape(b, g, hg, sq, dv)
     lg, dg = (x.reshape(b, g, hg, sq) for x in (l2, delta))
-    wgs = 2 if d == 256 else 1  # warpgroups sharing a kv tile
-    halves = 2 if d == 256 and hg % 2 == 0 else 1  # blocks sharing it
+    halves = 2 if d == 256 and hg % 2 == 0 else 1  # blocks sharing a tile
     for kb in range(0, sk, item):  # launch B: a kv block over heads, q tiles
         kmax = min(kb + item, sk) - 1
         i_begin_b = max(0, kb - off) if causal else 0
@@ -437,23 +489,19 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
                         continue  # no row of the tile sees these kv rows
                     rows = torch.arange(i0, min(i0 + t, sq))
                     qt, dot = qg[:, :, hh, rows], dog[:, :, hh, rows]
-                    # S^T and dP^T by q-column groups of t / wgs
-                    st = torch.cat([kf[:, :, cols] @ x.transpose(-1, -2)
-                                    for x in qt.split(t // wgs, dim=2)], -1)
-                    dpt = torch.cat([vf[:, :, cols] @ x.transpose(-1, -2)
-                                     for x in dot.split(t // wgs, dim=2)], -1)
+                    st = kf[:, :, cols] @ qt.transpose(-1, -2)    # S^T
+                    dpt = vf[:, :, cols] @ dot.transpose(-1, -2)  # dP^T
                     p, ds = p_ds(rows, cols, st.transpose(-1, -2),
                                  dpt.transpose(-1, -2), lg[:, :, hh, rows],
                                  dg[:, :, hh, rows])
-                    for w in range(wgs):  # each warpgroup's columns of dK, dV
-                        dc = slice(w * d // wgs, (w + 1) * d // wgs)
-                        vc = slice(w * dv // wgs, (w + 1) * dv // wgs)
-                        for piece in _pieces(p.transpose(-1, -2)):
-                            dva[hs, ..., vc] += piece @ dot[..., vc]
-                        for piece in _pieces(ds.transpose(-1, -2)):
-                            dka[hs, ..., dc] += piece @ qt[..., dc]
-            dk[:, :, cols] = dka.sum(0) * scale
-            dvs[:, :, cols] = dva.sum(0)
+                    for piece in _pieces(p.transpose(-1, -2)):
+                        dva[hs] += piece @ dot
+                    for piece in _pieces(ds.transpose(-1, -2)):
+                        dka[hs] += piece @ qt
+            # a kv tile's two blocks: the second adds the first's fp32 sums
+            dk[:, :, cols] = (dka[0] + dka[-1] if halves == 2
+                              else dka[0]) * scale
+            dvs[:, :, cols] = dva[0] + dva[-1] if halves == 2 else dva[0]
     return dq.bfloat16(), dk.bfloat16(), dvs.bfloat16()
 
 
@@ -468,6 +516,7 @@ def _k5_bwd_bf16_emulation(q, k, v, out, lse, dout, causal, window, t=64):
     (1, 4, 4, 300, 300, 128, True, 100),   # D=128: MHA, window
     (1, 8, 1, 130, 130, 256, True, None),  # gemma-2b's MQA 8:1, D=256
     (1, 8, 1, 100, 160, 256, True, 40),    # D=256, window, Sq < Sk
+    (1, 3, 1, 190, 190, 256, True, None),  # D=256, an odd group: no split
     (1, 4, 4, 256, 256, (96, 64), True, None),  # MLA: MHA, two kv blocks
     (1, 4, 4, 200, 200, (96, 64), True, 70),    # MLA: ragged Sq, window
     (1, 2, 2, 100, 230, (96, 64), True, None),  # MLA: Sq < Sk
@@ -506,6 +555,7 @@ def test_k5_bwd_bf16_numerics_fit_the_card_tolerance(b, h, g, sq, sk, d,
     (1, 8, 1, 203, 130, 128, None),  # D=128: a warpgroup's rows all empty
     (1, 4, 4, 260, 190, 80, 50),     # D=80: window, Sq > Sk
     (1, 4, 4, 230, 100, (96, 64), None),  # MLA: a q block wholly empty
+    (1, 8, 1, 203, 130, 256, None),  # D=256: a q tile wholly empty
 ])
 def test_k5_bwd_bf16_numerics_zero_the_rows_that_see_no_key(b, h, g, sq, sk,
                                                             d, window):

@@ -862,6 +862,7 @@ BWD_CARD_CASES = [  # b, h, g, sq, sk, d, causal, window
     (1, 8, 1, 300, 517, 256, True, 100),      # D=256: ragged, window
     (1, 8, 1, 203, 130, 256, True, None),     # D=256: 73 rows see no key
     (1, 4, 2, 77, 130, 256, False, None),     # D=256: non-causal, GQA
+    (1, 3, 1, 190, 190, 256, True, None),     # D=256: an odd group
 ]
 
 
@@ -948,19 +949,22 @@ def test_flash_attention_bwd_is_deterministic_on_the_card(card, d, dv):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b,h,g,s", [(8, 8, 1, 1024), (1, 3, 1, 190)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_at_head_dim_256_is_deterministic_on_the_card(
-        card, dtype):
-    """gemma-2b's training shape, both routes (bf16: two warpgroups split
-    dK and dV by columns; fp32: 32-row tiles): the same inputs give the
-    same bits, run to run."""
+        card, dtype, b, h, g, s):
+    """gemma-2b's training shape and an odd group, both routes (bf16:
+    ``bwd_dq_wgmma256`` / ``bwd_dkv_wgmma256``, persistent blocks, dK/dV's
+    tile split by role over its two warpgroups and gemma's even group over
+    two blocks a kv tile, whose fp32 sums the second to finish adds; fp32:
+    32-row tiles): the same inputs give the same bits, run to run."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_lse,
     )
 
-    q, k, v, do = _attn_inputs(card, 256, dtype, (8, 8, 1024, 256),
-                               (8, 1, 1024, 256), (8, 1, 1024, 256),
-                               (8, 8, 1024, 256))
+    q, k, v, do = _attn_inputs(card, 256, dtype, (b, h, s, 256),
+                               (b, g, s, 256), (b, g, s, 256),
+                               (b, h, s, 256))
     out, lse = flash_attention_lse(q, k, v)
     first = flash_attention_bwd(q, k, v, out, lse, do)
     for a, b in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
