@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
    ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
    of K2's and K3's register forms, of K4's cluster kernel, of the chunked
    routes of K7 and K8, of K5's backward (head dims 32 to 256, and q/k 96
-   with v 64) and of K7's and K8's backward;
+   with v 64) and of K7's and K8's backward, and a line each for head dim
+   256's backward kernels and the forward's split route (registers,
+   stack, serialized ``wgmma``);
 2. every kernel against its plain PyTorch version on the card: K1-K4 bit
    for bit at ragged shapes and at the paper configuration's page shapes
    (K1 up to 2^24 values; K2 at the write path's four page shapes in
@@ -32,7 +34,9 @@ Phases, in order; any failure exits non-zero:
    K5 (flash attention: bf16 on the tensor cores, fp32 on the CUDA cores)
    and K6 (decode attention) at ragged shapes, GQA, MQA and MHA, head
    dims 32 to 256 (80: zamba2's shared attention), K5 also at q/k 96 with
-   v 64 (minicpm3-4b's MLA prefill), Sk under one kv tile,
+   v 64 (minicpm3-4b's MLA prefill), bf16's split route at 128 and 256
+   (ragged, windowed, Sq < Sk, non-causal, fewer work tiles than SMs, a
+   partial last round), Sk under one kv tile,
    Sq of 1 and 129 against 1,000, windows, lengths from 1 to the cache,
    H/G of 1, 3 and 8, in fp32 (within 2e-5) and in
    bf16 (against the plain version computed in fp32 from the same bf16
@@ -301,7 +305,13 @@ KERNEL_DESIGN = {
                                     "a snake order where K and V outgrow "
                                     "the L2 (or under four rounds), else "
                                     "the longest causal tiles of every "
-                                    "head first",
+                                    "head first; at D = 128 and 256 the "
+                                    "split route: a stage's K and V on "
+                                    "barriers of their own (each K freed "
+                                    "with the tile before's V, so the "
+                                    "next tile's K and V load a step "
+                                    "ahead), O stored by TMA from the "
+                                    "work tile's Q buffer",
                         "float32": "simt fp32"},
     # K5's narrow-v form (MLA), timed in its own nested row
     "flash_attention q/k 96, v 64": {
@@ -671,17 +681,26 @@ def ptxas_report(path) -> list:
     return out
 
 
-#: head dim 256's backward kernels, whose ptxas figures phase 1 sums up
+#: kernels whose ptxas figures phase 1 sums up, by what they are: head dim
+#: 256's backward (attention_bwd) and the forward's split route
+#: (attention, at D = 128 and 256, each work order); each role sets its
+#: registers with setmaxnreg: the producer's 24, the consumers' 240
 BWD256_KERNELS = ("bwd_dq_wgmma256", "bwd_dkv_wgmma256")
+FWD_SPLIT_KERNELS = ("flash_fwd_wgmma_splitILi128ELb1",
+                     "flash_fwd_wgmma_splitILi128ELb0",
+                     "flash_fwd_wgmma_splitILi256ELb1",
+                     "flash_fwd_wgmma_splitILi256ELb0")
 
 
-def bwd256_ptxas(path) -> list:
-    """One line per kernel of ``BWD256_KERNELS`` from ``ptxas -v``'s log:
-    its registers, its stack frame and spills, and whether ``ptxas`` warns
-    that its ``wgmma`` runs serialized (C7512 and its kin)."""
+def ptxas_summary(path, kernels=BWD256_KERNELS,
+                  what="D = 256 backward") -> list:
+    """One line per kernel of ``kernels`` from ``ptxas -v``'s log: its
+    registers at launch (setmaxnreg gives its roles 24 and 240 after),
+    its stack frame and spills, and whether ``ptxas`` warns that its
+    ``wgmma`` runs serialized (C7512 and its kin)."""
     lines = open(path, errors="replace").read().splitlines()
     out = []
-    for k in BWD256_KERNELS:
+    for k in kernels:
         regs, frame, serial, inside = "?", "?", False, False
         for line in lines:
             if "Compiling entry function" in line:
@@ -692,7 +711,8 @@ def bwd256_ptxas(path) -> list:
                 frame = line.strip()
             elif inside and "Used" in line:
                 regs = line.split("Used", 1)[1].split(",")[0].strip()
-        out.append(f"ptxas D = 256 backward {k}: {regs}; {frame}; wgmma "
+        out.append(f"ptxas {what} {k}: {regs} at launch, setmaxnreg 24 / "
+                   f"240; {frame}; wgmma "
                    f"{'SERIALIZED' if serial else 'not serialized'}")
     return out
 
@@ -883,7 +903,10 @@ def attention_cases():
     K5, ten lanes a row in K6) and minicpm3-4b's MLA (q/k 96 in two
     swizzled blocks, v 64; 40 over 40) head shapes; Sk under one kv tile,
     Sq of 1 and 129 against 1,000 (q_offset no tile multiple), K6 at H/G
-    of 1, 3 and 8 with lengths from 1 to S."""
+    of 1, 3 and 8 with lengths from 1 to S; bf16's split route (D = 128
+    and 256) with a ragged last query tile, windows of 4,096 and shorter,
+    Sq < Sk, non-causal, fewer work tiles than SMs and a partial last
+    round in either order (its Sq > Sk cases are in ``bwd_cases``)."""
     flash = [
         (1, 15, 5, 1000, 1000, 64, 64, True, None),     # smollm-360m prefill
         (2, 8, 1, 1000, 1000, 256, 256, True, None),    # gemma-2b prefill
@@ -908,6 +931,19 @@ def attention_cases():
         (1, 4, 4, 129, 129, 96, 64, True, None),        # q/k 96, v 64, ragged
         (1, 6, 2, 77, 300, 96, 64, True, 50),           # GQA, Sq < Sk, window
         (1, 4, 4, 50, 200, 96, 64, False, None),        # non-causal, padded kv
+        # bf16's split route (D = 128, 256)
+        (1, 16, 2, 333, 333, 128, 128, True, None),     # ragged last tile
+        (2, 16, 1, 333, 333, 256, 256, True, None),
+        (1, 12, 2, 700, 700, 128, 128, True, 4096),     # mixtral's window
+        (2, 8, 2, 500, 500, 128, 128, True, 100),       # a short window
+        (1, 8, 1, 400, 400, 256, 256, True, 70),
+        (2, 8, 2, 200, 700, 128, 128, True, None),      # Sq < Sk
+        (1, 4, 1, 130, 517, 256, 256, True, None),
+        (1, 8, 2, 300, 200, 128, 128, False, None),     # non-causal
+        (1, 4, 1, 100, 300, 256, 256, False, 50),
+        (1, 2, 1, 129, 129, 256, 256, True, None),      # 4 tiles: fewer than SMs
+        (3, 8, 2, 1000, 1000, 128, 128, True, None),    # head order, partial round
+        (9, 16, 2, 1000, 1000, 128, 128, True, None),   # stride order, partial round
     ]
     decode = [
         (16, 15, 5, 1064, 64, None),               # smollm-360m decode
@@ -1914,7 +1950,9 @@ def time_attention_training(torch, shape) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_lse
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_lse, fwd_route,
+    )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(78)
@@ -1934,10 +1972,12 @@ def time_attention_training(torch, shape) -> dict:
         timed[key + "ms"] = device_ms(torch, fn, None, c_ms, reps=10)
     b_ms, b_by, nbytes = attention_bound("flash_attention", shape, 2)
     log(f"flash_attention at {shape} bf16 with its LSE (the training "
-        f"shape): card {timed['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
+        f"shape, {fwd_route(torch.bfloat16, d, dv)} route): card "
+        f"{timed['ms']:.5f} ms (bound {b_ms:.5f} ms by {b_by}, "
         f"plain {timed['plain_ms']:.5f} ms, SDPA {timed['library_ms']:.5f} "
         f"ms); max abs err {err:.3e}, LSE {lse_err:.3e}")
-    return {"shape": list(shape), "lse": True, "ms": timed["ms"],
+    return {"shape": list(shape), "lse": True,
+            "route": fwd_route(torch.bfloat16, d, dv), "ms": timed["ms"],
             "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timed["library_ms"], "max_abs_err": err,
             "lse_max_abs_err": lse_err, "bytes": nbytes,
@@ -2126,7 +2166,8 @@ def bwd_cases():
     windowed, 128 windowed, 256 ragged and windowed, 256 with an odd
     group, whose heads do not split over two blocks), 96 / 64 ragged and
     windowed, and Sq > Sk under the causal mask, whose first Sq - Sk rows
-    see no key (a q tile of them wholly; at 64, 128 and 256)."""
+    see no key (a q tile of them wholly; at 64, 128 and 256; two q tiles
+    of the forward's 128 rows at 128 and 256, its split route)."""
     return [
         (8, 15, 5, 1024, 1024, 64, 64, True, None),    # smollm-360m
         (8, 16, 16, 1024, 1024, 128, 128, True, None),  # deepseek-moe-16b
@@ -2151,6 +2192,9 @@ def bwd_cases():
         (1, 8, 1, 300, 517, 256, 256, True, 100),       # D=256 ragged, window
         (1, 3, 1, 190, 190, 256, 256, True, None),      # D=256, odd group
         (1, 8, 1, 203, 130, 256, 256, True, None),      # D=256, Sq > Sk
+        # the forward's split route with whole query tiles that see no key
+        (1, 8, 2, 400, 130, 128, 128, True, None),      # 270 rows
+        (1, 4, 1, 330, 60, 256, 256, True, None),       # 270 rows
     ]
 
 
@@ -2274,7 +2318,7 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_lse,
+        flash_attention, flash_attention_bwd, flash_attention_lse, fwd_route,
     )
 
     gen = torch.Generator(device="cuda")
@@ -2360,9 +2404,11 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
         f"{n} {ms:.5f}" for n, ms in by_launch.items() if n != "sdpa")
         + "; SDPA's: " + ", ".join(f"{n} {ms:.5f}" for n, ms in
                                    by_launch["sdpa"].items()))
-    log(f"flash_attention at {shape} bf16 (the training shape): card "
-        f"{timed['fwd_ms']:.5f} ms without its LSE, {timed['fwd_lse_ms']:.5f}"
-        f" ms with it; SDPA forward {timed['library_fwd_ms']:.5f} ms")
+    route = fwd_route(torch.bfloat16, d, dv)
+    log(f"flash_attention at {shape} bf16 (the training shape, {route} "
+        f"route): card {timed['fwd_ms']:.5f} ms without its LSE, "
+        f"{timed['fwd_lse_ms']:.5f} ms with it; SDPA forward "
+        f"{timed['library_fwd_ms']:.5f} ms")
     return {"name": "flash_attention_bwd", "route": "cuda", "source": source,
             "replaces": replaces,
             "replaces_note": "no pallas_call: the reference differentiates "
@@ -2376,7 +2422,8 @@ def time_attention_bwd(torch, arch: str, launches: int, worst: dict) -> dict:
             "launch_ms": by_launch,
             "forward_ms": {"no_lse": timed["fwd_ms"],
                            "lse": timed["fwd_lse_ms"],
-                           "library": timed["library_fwd_ms"]},
+                           "library": timed["library_fwd_ms"],
+                           "route": route},
             "design": KERNEL_DESIGN["flash_attention_bwd"]["bfloat16"],
             "design_by_dtype": KERNEL_DESIGN["flash_attention_bwd"],
             "path": f"train {arch}",
@@ -4036,7 +4083,10 @@ def main() -> int:
     for lib in ("attention", "attention_bwd", "byteplanes", "scans", "ssm"):
         for line in ptxas_report(_build.build_log(lib)):
             log(line)
-    for line in bwd256_ptxas(_build.build_log("attention_bwd")):
+    for line in ptxas_summary(_build.build_log("attention_bwd")):
+        log(line)
+    for line in ptxas_summary(_build.build_log("attention"),
+                              FWD_SPLIT_KERNELS, "forward split route"):
         log(line)
 
     # -- phase 2: kernels against their plain versions ----------------------
@@ -4205,9 +4255,14 @@ def main() -> int:
                    launches_by_path={"minicpm3-4b": at_m[0]["launches"]},
                    design=KERNEL_DESIGN[narrow]["bfloat16"],
                    design_by_dtype=KERNEL_DESIGN[narrow])
-    # and at minicpm3-4b's training shape, with the LSE
+    # and at minicpm3-4b's training shape, with the LSE; the split route
+    # (head dims 128 and 256) at gemma-2b's and chameleon-34b's
     at_m[0]["at_training"] = time_attention_training(
         torch, BWD_TIMED["minicpm3-4b"])
+    attn_rows[0]["at_training"] = {
+        arch: time_attention_training(torch, BWD_TIMED[arch]
+                                      + BWD_TIMED[arch][5:6])
+        for arch in (GEMMA_ARCH, "chameleon-34b")}
     nested = ("launches", "shape", "length", "design", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms", "max_abs_err", "bytes",
               "call_ms")

@@ -17,10 +17,10 @@
 // (-inf for a row that sees no key), from the (m, l) the epilogue holds.
 // Bound on the card at the prefill
 // shapes: operations at D = 64 (4 B H Sq Sk_eff D on the bf16 tensor
-// cores), bytes at D = 80 (q, k, v and o of 32 kv heads).  Each dtype has
-// exactly one kernel, picked by the C dispatcher:
-//  - bf16 (the serve path): flash_fwd_wgmma.  Both products run on the
-//    tensor cores as wgmma with fp32 accumulators.  One persistent block
+// cores), bytes at D = 80 (q, k, v and o of 32 kv heads).  The C
+// dispatcher picks the kernel by dtype (bf16's route by head dim):
+//  - bf16 (the serve path): flash_fwd_wgmma at D <= 96.  Both products
+//    run on the tensor cores as wgmma with fp32 accumulators.  One persistent block
 //    per SM walks work tiles of 128 query rows of one (b, h): head by
 //    head (a head's query tiles one after another, so that the blocks in
 //    flight share its K and V in L2) in a snake order over the grid that
@@ -28,11 +28,11 @@
 //    V outgrow the L2; else the longest causal tiles of every head first,
 //    so the short ones fill the tail.  A producer
 //    warpgroup (one thread, registers given away with setmaxnreg) streams
-//    each tile's Q and a ring of 2-3 K/V tile stages with TMA (tensor maps
+//    each tile's Q and a ring of 3 K/V tile stages with TMA (tensor maps
 //    over (B*G, Sk, D): rows past Sk arrive as zeros) into 128/64/32-byte
-//    swizzled column blocks; mbarriers hand Q (two buffers where they fit:
-//    the next tile's Q loads under this one's last products) and the
-//    stages over, and the ring runs on from one work tile into the next.
+//    swizzled column blocks; mbarriers hand Q (two buffers: the next
+//    tile's Q loads under this one's last products) and the stages over,
+//    and the ring runs on from one work tile into the next.
 //    Two consumer
 //    warpgroups each own 64 rows: S = Q K^T as wgmma m64nBKk16 from shared
 //    memory, the online softmax on the accumulator fragment (scale * log2 e
@@ -45,7 +45,23 @@
 //    tensor cores.
 //    D = 80 takes a 64-wide block with the 128-byte swizzle and a 16-wide
 //    one with the 32-byte swizzle; D = 32 the 64-byte swizzle.
-//    Both kernels are templated on (D, DV), v's and the output's head dim:
+//    At D = 128 and 256 the split route flash_fwd_wgmma_split runs the
+//    same blocks, kv tiles of 128 rows (64 at 256) in a ring of two, with
+//    two changes, each measured on an H100 against the route above at
+//    those head dims: a stage's K and V on barriers of their own (K_i is
+//    freed with V_{i-1}, a step before its stage's V, so that the ring
+//    loads the next tile's K and V under this tile's products: with one
+//    barrier pair a stage, the K of each tile at D = 256 was loaded only
+//    once it was due); and O leaves through the work tile's
+//    own Q buffer, written in Q's swizzled layout and stored by TMA boxes
+//    of whole 128-byte rows (the 4-byte stores from registers took about
+//    a fifth of the time at D = 256), the Q buffer freed once the boxes
+//    have read it (two Q buffers at D = 128, so that the next work tile's
+//    Q loads meanwhile).  Multicasting each K/V stage to a cluster of two
+//    blocks on two query heads of a kv group halved the L2 reads but ran
+//    1.2-1.5x slower, its no-math skeleton too.
+//    flash_fwd_wgmma and flash_fwd are templated on (D, DV), v's and the
+//    output's head dim:
 //    DV = D at every head dim, and MLA's prefill (minicpm3-4b) at q/k
 //    D = 96 (a 64-wide block with the 128-byte swizzle, then a 32-wide one
 //    with the 64-byte swizzle) and v DV = 64: a stage holds K at 96 and V
@@ -303,15 +319,16 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 constexpr int WG_BQ = 128;       // query rows per block: two warpgroups of 64
 constexpr int WG_THREADS = 384;  // two consumer warpgroups + the producer's
 
-// q/k head dim D, v and output head dim DV (DV = D but for MLA's 96 / 64)
+// q/k head dim D, v and output head dim DV (DV = D but for MLA's 96 / 64);
+// D <= 96 (128 and 256 take the split route)
 template <int D, int DV>
 struct WgTile {
-  static constexpr int BK = D <= 128 ? 128 : 64;  // kv rows per stage
-  static constexpr int NS = D <= 128 ? 3 : 2;     // stages in the ring
+  static constexpr int BK = 128;  // kv rows per stage
+  static constexpr int NS = 3;    // stages in the ring
   static constexpr int Q_BYTES = WG_BQ * D * 2;
-  // Q buffers: two where they fit, so the next work tile's Q loads while
-  // this one's last products run
-  static constexpr int QB = D <= 96 ? 2 : 1;
+  // two Q buffers, so the next work tile's Q loads while this one's last
+  // products run
+  static constexpr int QB = 2;
   static constexpr int K_BYTES = BK * D * 2;   // K of one stage
   static constexpr int V_BYTES = BK * DV * 2;  // V of one stage
   static constexpr int STAGE = K_BYTES + V_BYTES;
@@ -324,6 +341,7 @@ struct WgTile {
                     V_BYTES % 1024 == 0,
                 "swizzled blocks must stay 1024-byte aligned");
   static_assert(SMEM <= 232448, "over the block's shared memory");
+  static_assert(D <= 96, "the split route takes D = 128 and 256");
 };
 
 template <int D, int DV, bool BY_HEAD>
@@ -684,8 +702,396 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// each dtype has one kernel: fp32 the SIMT one, bf16 the wgmma one; v as
-// wide as q/k at every built head dim, or MLA's narrow v (96 / 64)
+// the split route's shared memory (D = 128 and 256): Q buffers, the ring's
+// stages (K, then V), the barriers
+template <int D>
+struct SplitTile {
+  static constexpr int BK = D <= 128 ? 128 : 64;  // kv rows per stage
+  static constexpr int NS = 2;                    // stages in the ring
+  // Q buffers: two at D = 128, so that the next work tile's Q loads while
+  // this one's O leaves through its own
+  static constexpr int QB = D <= 128 ? 2 : 1;
+  static constexpr int Q_BYTES = WG_BQ * D * 2;
+  static constexpr int K_BYTES = BK * D * 2;  // K (or V) of one stage
+  static constexpr int STAGE = 2 * K_BYTES;
+  static constexpr int K_OFF = QB * Q_BYTES;  // stage s: K, then V
+  static constexpr int BAR_OFF = K_OFF + NS * STAGE;
+  // barriers: Q full[QB], Q empty[QB], K full[NS], K empty[NS], V full[NS],
+  // V empty[NS]; 1024 bytes to align the base
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * QB + 4 * NS) + 1024;
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0,
+                "swizzled blocks must stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "over the block's shared memory");
+};
+
+// The bf16 forward's split route (D = 128 and 256): flash_fwd_wgmma with
+// a stage's K and V on barriers of their own, so that the consumers free
+// tile i's K with tile i - 1's V, a tile before the stage's V, and the
+// producer loads the next tile's K and V a whole tile ahead (with one
+// full/empty pair a stage, a ring of two frees a stage only as its next
+// tile is due); and O stored by TMA from the work tile's Q buffer.  Its
+// work order and its consumers' products and softmax are flash_fwd_wgmma's,
+// repeated: one body for both routes changed flash_fwd_wgmma's SASS.
+template <int D, bool BY_HEAD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_split(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int B, int H, int G, int sq, int sk, int causal,
+                      int window, float scale_log2) {
+  using L = SplitTile<D>;
+  using C = Cols<D>;
+  constexpr int DV = D;
+  constexpr int BK = L::BK, NS = L::NS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  // barriers: Q full[QB], Q empty[QB], then K's full[NS], empty[NS], then
+  // V's vfull[NS], vempty[NS]
+  constexpr int QB = L::QB;
+  const uint32_t bars = sbase + L::BAR_OFF;
+  auto q_full = [&](int t) { return bars + 8u * (t % QB); };
+  auto q_empty = [&](int t) { return bars + 8u * (QB + t % QB); };
+  auto q_smem = [&](int t) { return sbase + (t % QB) * L::Q_BYTES; };
+  auto full = [&](int s) { return bars + 8u * (2 * QB + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 * QB + NS + s); };
+  auto vfull = [&](int s) { return bars + 8u * (2 * QB + 2 * NS + s); };
+  auto vempty = [&](int s) { return bars + 8u * (2 * QB + 3 * NS + s); };
+
+  // persistent, the work tiles in flash_fwd_wgmma's orders (BY_HEAD: head
+  // by head in a snake order; else the longest causal tiles of every head
+  // first); the counts worked out from the parameters where they are used
+  auto n_qt = [&] { return (sq + WG_BQ - 1) / WG_BQ; };
+  auto n_work = [&] { return n_qt() * B * H; };
+  int b = 0, h = 0, q0 = 0, qpos_lo = 0, qpos_hi = 0, t_begin = 0, n_tiles = 0;
+  auto work = [&](int j, int n) {  // work tile j, this block's n-th
+    int bh, qt;
+    if constexpr (BY_HEAD) {
+      const int g = gridDim.x, x = blockIdx.x;
+      const int in_round = min(g, n_work() - n * g);  // the last is partial
+      const int i = n * g + ((n & 1) ? in_round - 1 - x : x);
+      bh = i / n_qt();
+      qt = i % n_qt();
+    } else {
+      bh = j % (B * H);
+      qt = j / (B * H);
+    }
+    b = bh / H;
+    h = bh % H;
+    q0 = (n_qt() - 1 - qt) * WG_BQ;
+    // the kv range any row of this tile can see, in whole tiles
+    const int rows = min(WG_BQ, sq - q0);
+    qpos_lo = q0 + sk - sq;
+    qpos_hi = qpos_lo + rows - 1;
+    const int k_end = causal ? min(sk, qpos_hi + 1) : sk;
+    const int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+    t_begin = k_begin / BK;
+    n_tiles = k_end > t_begin * BK ? (k_end - t_begin * BK + BK - 1) / BK : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int t = 0; t < QB; ++t) {
+      mbar_init(q_full(t), 1);
+      mbar_init(q_empty(t), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+      mbar_init(vfull(s), 1);
+      mbar_init(vempty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every copy; the ring's stages run on
+    // across work tiles (kv counts every kv tile this block loaded)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int kv = 0, t = 0;
+      for (int j = blockIdx.x; j < n_work(); j += gridDim.x, ++t) {
+        work(j, t);
+        const int g = h / (H / G);
+        if (t >= QB)  // the Q buffer's last work tile is done with it
+          mbar_wait(q_empty(t), ((t / QB) - 1) & 1);
+        mbar_expect_tx(q_full(t), L::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NB; ++c)
+          tma_load_3d(q_smem(t) + WG_BQ * 128 * c, &tq, q_full(t), 64 * c, q0,
+                      b * H + h);
+        for (int i = 0; i < n_tiles; ++i, ++kv) {
+          const int s = kv % NS;
+          const uint32_t ph = ((kv / NS) & 1) ^ 1;  // round 0 passes at once
+          const uint32_t kdst = sbase + L::K_OFF + s * L::STAGE;
+          const int k0 = (t_begin + i) * BK;
+          // K once the tile NS before has freed its K, then V once it has
+          // freed its V, each on its own barriers
+          mbar_wait(empty(s), ph);
+          mbar_expect_tx(full(s), L::K_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::NB; ++c)
+            tma_load_3d(kdst + BK * 128 * c, &tk, full(s), 64 * c, k0, b * G + g);
+          mbar_wait(vempty(s), ph);
+          mbar_expect_tx(vfull(s), L::K_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::NB; ++c)
+            tma_load_3d(kdst + L::K_BYTES + BK * 128 * c, &tv, vfull(s), 64 * c,
+                        k0, b * G + g);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    // this thread's rows of a work tile's accumulators: r0 and r0 + 8
+    const int r0 = wg * 64 + warp * 16 + lane / 4;
+
+    float oacc[DV / 2];
+    float sc[BK / 2];                         // scores of the newest tile
+    uint32_t pa[BK / 16][4], pb[BK / 16][4];  // P of two tiles, bf16 pairs
+    float m0, m1, l0, l1;      // l: this thread's columns
+    float a0 = 1.f, a1 = 1.f;  // O's rescale owed to the last softmax
+    int qp0 = 0, qp1 = 0;      // positions of rows r0, r0 + 8
+    int kv0 = 0;               // the block's kv tiles before this work tile
+    int t = 0;                 // this block's work tiles before this one
+
+    // S = Q K_i^T (64 x BK), K-major operands; committed, not waited
+    auto issue_qk = [&](int i) {
+      const int s = (kv0 + i) % NS;
+      mbar_wait(full(s), ((kv0 + i) / NS) & 1);
+      const uint32_t kt = sbase + L::K_OFF + s * L::STAGE;
+      wg_fence();
+      ss_tile<D, BK>(sc, q_smem(t), WG_BQ, wg * 64, kt);
+      wg_commit();
+    };
+    // O = O * alpha + P V_i, V the MN-major operand; committed, not waited
+    auto issue_pv = [&](uint32_t (*p)[4], int i) {
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        oacc[4 * j] *= a0;
+        oacc[4 * j + 1] *= a0;
+        oacc[4 * j + 2] *= a1;
+        oacc[4 * j + 3] *= a1;
+      }
+      const uint32_t vt =
+          sbase + L::K_OFF + ((kv0 + i) % NS) * L::STAGE + L::K_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) rs_tile<DV, BK>(oacc, p[kk], vt, kk);
+      wg_commit();
+    };
+    // the online softmax of tile i's scores: rows r0 (e = 0, 1) and r0 + 8
+    // (e = 2, 3), a row's columns spread over the 4 lanes of a quad; P in
+    // bf16 straight from the accumulator layout into A fragments
+    auto softmax = [&](uint32_t (*p)[4], int i) {
+      const int k0 = (t_begin + i) * BK;
+      // scale into log2 units; mask only where the tile straddles an edge
+      const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qpos_lo) ||
+                        (window > 0 && k0 < qpos_hi - window + 1);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * quad + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            const bool ok = kpos < sk && (!causal || kpos <= qp) &&
+                            (window <= 0 || kpos > qp - window);
+            sc[4 * j + e] = ok ? sc[4 * j + e] * scale_log2 : -CUDART_INF_F;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) sc[j] *= scale_log2;
+      }
+      float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite
+      a0 = ex2(m0 - mn0);
+      a1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j] = ex2(sc[4 * j] - mn0);  // masked: ex2(-inf) = 0
+        sc[4 * j + 1] = ex2(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = ex2(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = ex2(sc[4 * j + 3] - mn1);
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto release = [&](uint32_t bar) {  // this warp is done with a buffer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // V of tile i has landed
+    auto wait_v = [&](int i) {
+      mbar_wait(vfull((kv0 + i) % NS), ((kv0 + i) / NS) & 1);
+    };
+    // tile i: S_i = Q K_i^T and P_{i-1} V_{i-1} run on the tensor cores
+    // while the softmax of S_i runs on the CUDA cores; then K_i and
+    // V_{i-1} are free
+    auto step = [&](uint32_t (*p_prev)[4], uint32_t (*p_new)[4], int i) {
+      wait_v(i - 1);  // before any product is in flight
+      issue_qk(i);
+      issue_pv(p_prev, i - 1);
+      wg_wait<1>();  // S_i (the older group) is done
+      reg_fence<BK / 2>(sc);
+      softmax(p_new, i);
+      wg_wait<0>();  // P_{i-1} V_{i-1} is done
+      reg_fence<DV / 2>(oacc);
+      release(empty((kv0 + i) % NS));
+      release(vempty((kv0 + i - 1) % NS));
+    };
+
+    for (int j = blockIdx.x; j < n_work(); j += gridDim.x, ++t) {
+      work(j, t);
+      qp0 = q0 + r0 + sk - sq;
+      qp1 = qp0 + 8;
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+      m0 = m1 = NEG;
+      l0 = l1 = 0.f;
+      mbar_wait(q_full(t), (t / QB) & 1);
+      if (n_tiles > 0) {
+        issue_qk(0);
+        wg_wait<0>();
+        reg_fence<BK / 2>(sc);
+        release(empty(kv0 % NS));
+        softmax(pa, 0);
+        // tile i's P lands in pa for even i, in pb for odd i
+        for (int i = 1; i < n_tiles; i += 2) {
+          step(pa, pb, i);
+          if (i + 1 < n_tiles) step(pb, pa, i + 1);
+        }
+        wait_v(n_tiles - 1);
+        if ((n_tiles - 1) & 1)
+          issue_pv(pb, n_tiles - 1);
+        else
+          issue_pv(pa, n_tiles - 1);
+        wg_wait<0>();
+        reg_fence<DV / 2>(oacc);
+        release(vempty((kv0 + n_tiles - 1) % NS));
+      }
+      kv0 += n_tiles;
+
+      l0 += __shfl_xor_sync(FULL, l0, 1);
+      l0 += __shfl_xor_sync(FULL, l0, 2);
+      l1 += __shfl_xor_sync(FULL, l1, 1);
+      l1 += __shfl_xor_sync(FULL, l1, 2);
+      const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // no visible key -> 0
+      const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+      const int row0 = q0 + r0, row1 = row0 + 8;
+      if (lse != nullptr && quad == 0) {  // natural log; no visible key: -inf
+        float* lb = lse + (size_t)(b * H + h) * sq;
+        if (row0 < sq) lb[row0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : -CUDART_INF_F;
+        if (row1 < sq) lb[row1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : -CUDART_INF_F;
+      }
+      // O in bf16 into this warpgroup's 64 rows of the work tile's Q
+      // buffer (Q's layout: 64-column blocks in the 128-byte swizzle), then
+      // a TMA box a column block (rows past Sq are not written): the rows
+      // leave in whole 128-byte lines, not 4 bytes a thread.  The Q buffer
+      // frees once the boxes have read it.  This thread's rows r0 and r0 +
+      // 8 share a swizzle phase; their addresses are worked out here
+      // (hoisted out of the work-tile loop and held across it, they spilled)
+      uint32_t base = q_smem(t) + r0 * 128 + 4 * quad, phase = lane / 4;
+      asm volatile("" : "+r"(base), "+r"(phase));
+#pragma unroll
+      for (int jj = 0; jj < DV / 8; ++jj) {
+        const uint32_t a = base + (jj / 8) * WG_BQ * 128 + (((jj % 8) ^ phase) << 4);
+        st_shared_u32(a, pack_bf16(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0));
+        st_shared_u32(a + 8 * 128, pack_bf16(oacc[4 * jj + 2] * inv1,
+                                             oacc[4 * jj + 3] * inv1));
+      }
+      fence_async_shared();
+      warpgroup_sync(1 + wg);
+      if (tid == 0) {
+        const uint32_t rows = q_smem(t) + 64 * wg * 128;
+#pragma unroll
+        for (int c = 0; c < C::NB; ++c)
+          tma_store_3d(&to, rows + c * WG_BQ * 128, 64 * c, q0 + 64 * wg,
+                       b * H + h);
+        bulk_commit();
+        bulk_wait_read();  // (a wait for the stores' writes, after the
+                           // loop, made ptxas spill and serialize wgmma)
+        mbar_arrive_n(q_empty(t), 4);  // for this warpgroup's 4 warps
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_flash_wgmma_split(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int64_t B, int64_t H,
+                             int64_t G, int64_t sq, int64_t sk, int causal,
+                             int window, float scale, cudaStream_t stream) {
+  using L = SplitTile<D>;
+  CUtensorMap m[4];  // q, k, v, and o (stored by 64-row boxes)
+  std::memset(m, 0, sizeof(m));
+  int e;
+  if ((e = make_map(&m[0], q, sq, B * H, D, 64, WG_BQ))) return e;
+  if ((e = make_map(&m[1], k, sk, B * G, D, 64, L::BK))) return e;
+  if ((e = make_map(&m[2], v, sk, B * G, D, 64, L::BK))) return e;
+  if ((e = make_map(&m[3], o, sq, B * H, D, 64, 64))) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_split<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_split<D, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, l2 = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev)) !=
+          cudaSuccess)
+    return err;
+  // launch_flash_wgmma's grid and order
+  const int64_t n_work = (sq + WG_BQ - 1) / WG_BQ * B * H;
+  const unsigned grid = (unsigned)(n_work < sms ? n_work : sms);
+  const bool by_head = B * G * sk * 2 * D * 2 > (int64_t)l2 ||
+                       n_work < 4 * (int64_t)grid;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  if (by_head)
+    flash_fwd_wgmma_split<D, true><<<grid, WG_THREADS, L::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], out, lse, (int)B, (int)H, (int)G, (int)sq,
+        (int)sk, causal, window, scale * LOG2E);
+  else
+    flash_fwd_wgmma_split<D, false><<<grid, WG_THREADS, L::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], out, lse, (int)B, (int)H, (int)G, (int)sq,
+        (int)sk, causal, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// each dtype has one kernel: fp32 the SIMT one, bf16 the wgmma one (its
+// split route at D = 128 and 256); v as wide as q/k at every built head
+// dim, or MLA's narrow v (96 / 64)
 int flash_by_dim(int D, int DV, int dtype, const void* q, const void* k,
                  const void* v, void* o, float* lse, int64_t B, int64_t H, int64_t G,
                  int64_t sq, int64_t sk, int causal, int window, float scale,
@@ -711,8 +1117,8 @@ int flash_by_dim(int D, int DV, int dtype, const void* q, const void* k,
       case 32: return launch_flash_wgmma<32>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
       case 64: return launch_flash_wgmma<64>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
       case 80: return launch_flash_wgmma<80>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
-      case 128: return launch_flash_wgmma<128>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
-      case 256: return launch_flash_wgmma<256>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 128: return launch_flash_wgmma_split<128>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
+      case 256: return launch_flash_wgmma_split<256>(q, k, v, o, lse, B, H, G, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }

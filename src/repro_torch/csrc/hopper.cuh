@@ -1,5 +1,6 @@
 // Hopper building blocks shared by K5's forward (attention.cu) and its
-// backward (attention_bwd.cu): mbarriers, TMA loads of 3-D tensor maps,
+// backward (attention_bwd.cu): mbarriers, TMA loads (and the forward's
+// stores) of 3-D tensor maps,
 // wgmma (shared-memory descriptors of swizzled tiles, the SS and RS forms
 // at the widths the two use) and the host-side tensor-map encoder.  Each
 // library compiles exactly one .cu that includes this.
@@ -45,6 +46,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// `n` arrivals at once
+__device__ __forceinline__ void mbar_arrive_n(uint32_t bar, uint32_t n) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(n)
+               : "memory");
+}
+
 // spin until the barrier's phase `parity` has completed; a wait of more
 // than 4 s (a broken handoff) traps instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -78,6 +86,35 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// one TMA box of shared memory at `src` into a 3-D map (a bulk group of
+// this thread's; rows past the map's end are not written)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes seen by TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+// the 128 threads of a warpgroup meet at barrier `id` (1-15)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {

@@ -19,7 +19,13 @@ it launches the kernel of its dtype or raises:
   persistent block an SM walks work tiles of 128 query rows; where K and V
   outgrow the L2 (MLA's and zamba2-2.7b's heads), head by head in a snake
   order over the grid, so that the blocks in flight share their heads' K
-  and V in L2 (:func:`work_tiles` mirrors the order).
+  and V in L2 (:func:`work_tiles` mirrors the order).  At head dims 128
+  and 256 the split route ``flash_fwd_wgmma_split`` runs the same blocks
+  with a stage's K and V on barriers of their own: each K frees with the
+  tile before's V, a step before its stage would, so that the next tile's
+  K and V load while this one's products run (:func:`ring_lead` mirrors
+  how far ahead), and O leaves through the work tile's Q buffer by TMA
+  stores of whole rows (:func:`fwd_route` mirrors the choice).
 - float32: ``flash_fwd``, fp32 FMAs on the CUDA cores (a tensor-core
   route would be TF32, too coarse for the fp32 tolerance of 2e-5).
 
@@ -92,6 +98,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WORK_ROWS = 128
 
 
+def fwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The kernel K5's forward launches on the card, as ``flash_by_dim``
+    (``csrc/attention.cu``) picks it: ``"split"``
+    (``flash_fwd_wgmma_split``) for bf16 at ``d = dv`` of 128 or 256,
+    ``"wgmma"`` (``flash_fwd_wgmma``) for every other bf16 call, ``"simt"``
+    (``flash_fwd``) for fp32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "split" if d == dv and d in (128, 256) else "wgmma"
+
+
 def work_tiles(b: int, h: int, g: int, sq: int, sk: int, d: int, dv: int,
                grid: int, causal: bool = True, window: Optional[int] = None,
                l2_bytes: int = 50 << 20) -> tuple:
@@ -104,7 +121,8 @@ def work_tiles(b: int, h: int, g: int, sq: int, sk: int, d: int, dv: int,
     than four rounds of the grid) round n runs reversed when n is odd, and
     tile i is head ``i // n_qt``, query tile ``n_qt - 1 - i % n_qt``;
     otherwise tile j is head ``j % (b h)``, query tile ``n_qt - 1 - j //
-    (b h)``.  kv tiles are 128 rows (64 at ``d`` = 256)."""
+    (b h)``.  kv tiles are 128 rows (64 at ``d`` = 256).  Both bf16 routes
+    take this order."""
     bk = 128 if d <= 128 else 64
     n_qt = -(-sq // WORK_ROWS)
     n_work = n_qt * b * h
@@ -129,6 +147,45 @@ def work_tiles(b: int, h: int, g: int, sq: int, sk: int, d: int, dv: int,
             mine.append((bh, q0, n_tiles))
         tiles.append(mine)
     return by_head, tiles
+
+
+def ring_lead(tiles: list, ns: int, split: bool) -> list:
+    """How far ahead the bf16 forward's producer loads each K and V tile,
+    as its barriers allow: ``tiles`` the kv tiles of a block's work tiles
+    in order, ``ns`` the ring's stages -> ``[(k_lead, v_lead)]`` a kv tile,
+    the consumer steps that run while its load is in flight before it is
+    due (0: its whole load time stalls the consumers).  A work tile of n kv
+    tiles runs the steps: the first S; step i (1 <= i < n: S_i with P_{i-1}
+    V_{i-1}); the last P V.  K_i is due at the step that forms S_i, V_i at
+    the one that forms P_i V_i.  The one-block route frees tile i - 1's
+    stage (its K and V) at the end of step i and the last tile's after the
+    last P V; the split route frees K_i at the end of the step that formed
+    S_i and V_i at the end of the one that formed P_i V_i, on barriers of
+    their own.  The producer loads in order (K_j, then V_j), each into the
+    slot of tile j - ns once that is free."""
+    steps, due_k, due_v, frees = 0, [], [], {}  # frees: (kind, tile) -> step
+    j0 = 0
+    for n in tiles:
+        for i in range(n):
+            due_k.append(steps + i)
+            due_v.append(steps + i + 1)
+            if split:
+                frees[("k", j0 + i)] = steps + i
+                frees[("v", j0 + i)] = steps + i + 1
+            else:
+                frees[("k", j0 + i)] = frees[("v", j0 + i)] = (
+                    steps + i + 1)
+        steps += n + 1 if n else 0
+        j0 += n
+    lead, after = [], -1  # after: the step past which the last load issued
+    for j in range(j0):
+        out = []
+        for kind, due in (("k", due_k[j]), ("v", due_v[j])):
+            if j >= ns:
+                after = max(after, frees[(kind, j - ns)])
+            out.append(max(0, due - after - 1))
+        lead.append(tuple(out))
+    return lead
 
 
 def bwd256_items(b: int, h: int, g: int, sq: int, sk: int, grid: int,

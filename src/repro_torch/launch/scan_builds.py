@@ -4,18 +4,26 @@ backward (bf16) as built from several source trees against each other on
 one card, in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
-        [NAME=CSRC_DIR ...] [--rounds 3] [--only GROUP ...] [--out DIR]
+        [NAME=CSRC_DIR[+EDIT...] ...] [--rounds 3] [--only GROUP ...] [--out DIR]
 
 Each ``NAME=CSRC_DIR`` is a copy of ``src/repro_torch/csrc`` (a parent
 commit's, from ``git archive``, or an edited variant); the checkout's own
-sources are always built as ``tree``.  Every tree's ``byteplanes.cu``,
-``scans.cu``, ``ssm.cu``, ``attention.cu`` and ``attention_bwd.cu``
-compile together (nvcc,
+sources are always built as ``tree``, and ``tree`` as a CSRC_DIR names
+them.  ``+EDIT`` builds a copy of CSRC_DIR with ``EDITS[EDIT]`` applied to
+its ``attention.cu`` (several apply in order): ``no-math``, K5's forward
+with its products and softmax taken out, its stages still streamed,
+waited for and released; ``no-q-load``, without a block's Q loads past
+its first work tile; ``no-o-store`` / ``no-o-tma``, without the
+epilogue's O stores (the one-block route's / the split route's).  A text
+an edit looks for that the source lacks stops the run.  Every tree's
+``byteplanes.cu``, ``scans.cu``, ``ssm.cu``, ``attention.cu`` and
+``attention_bwd.cu`` compile together (nvcc,
 one process each); the lines give the registers and spills of
 ``scan_lookback``, of ``ssd_chunked`` at N = 64, of ``wkv_chunked`` at Dk
 = 64, of the codec kernels (K2's ``shuffle_reg`` or ``shuffle_vec``, K3's
 ``unsplit_reg`` or ``unsplit_vec``, K4's ``decode_offsets``), of K5's
-forward (``flash_fwd_wgmma`` at each head dim) and of its backward
+forward (``flash_fwd_wgmma`` at each head dim, ``flash_fwd_wgmma_split``
+at 128 and 256) and of its backward
 launches at D = 64, 256, 128 and 80 and at q/k 96 with v 64 (the pair
 route's kernels and D = 256's, or a parent's one-warpgroup ones), and
 ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
@@ -63,11 +71,14 @@ forward runs causal at
 ``FWD_SHAPES``: the serve shapes (16 x 1,000 tokens) of smollm-360m (64),
 zamba2-2.7b (80) and minicpm3-4b (q/k 96, v 64), and with the rows' LSE
 the training shapes (8 x 1,024) of smollm-360m, zamba2-2.7b,
-minicpm3-4b, chameleon-34b and deepseek-moe-16b (128) and gemma-2b
-(256); each tree's output and LSE are printed as the largest share of
-chip_smoke's tolerances (1.6e-2 and 2e-5, ``(1 + |want|)``) they use
-against ``ref.flash_attention_ref`` / ``ref.flash_attention_lse_ref`` in
-fp32.  Times are card times (CUDA events between launches queued
+minicpm3-4b, chameleon-34b, deepseek-moe-16b and mixtral-8x22b (128)
+and gemma-2b (256); each tree's output and LSE are printed as the
+largest share of chip_smoke's tolerances (1.6e-2 and 2e-5, ``(1 +
+|want|)``) they use against ``ref.flash_attention_ref`` /
+``ref.flash_attention_lse_ref`` in fp32, and SDPA's forward
+(``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+the same inputs, the backend it ran printed) is timed in the same rounds
+as one more call.  Times are card times (CUDA events between launches queued
 behind a sleep kernel, median), the trees interleaved in ``--rounds``
 rounds whose order alternates.  The last line is one JSON object of every
 number.  Needs a CUDA card.
@@ -103,12 +114,14 @@ BWD_SHAPES = ((8, 15, 5, 1024, 64, 64), (8, 8, 1, 1024, 256, 256),
 #: K5's forward: (B, H, G, S, D, DV, with the LSE), causal: the serve
 #: shapes of smollm-360m, zamba2-2.7b and minicpm3-4b, then the training
 #: shapes of smollm-360m, zamba2-2.7b, minicpm3-4b, chameleon-34b,
-#: deepseek-moe-16b and gemma-2b
+#: deepseek-moe-16b, gemma-2b and mixtral-8x22b (its window of 4,096 is
+#: longer than the sequence)
 FWD_SHAPES = ((16, 15, 5, 1000, 64, 64, False), (16, 32, 32, 1000, 80, 80, False),
               (16, 40, 40, 1000, 96, 64, False),
               (8, 15, 5, 1024, 64, 64, True), (8, 32, 32, 1024, 80, 80, True),
               (8, 40, 40, 1024, 96, 64, True), (8, 64, 8, 1024, 128, 128, True),
-              (8, 16, 16, 1024, 128, 128, True), (8, 8, 1, 1024, 256, 256, True))
+              (8, 16, 16, 1024, 128, 128, True), (8, 8, 1, 1024, 256, 256, True),
+              (8, 48, 8, 1024, 128, 128, True))
 #: chip_smoke's tolerances of K5's bf16 output and of its LSE
 FWD_TOL, LSE_TOL = 1.6e-2, 2e-5
 PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
@@ -125,9 +138,34 @@ PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "bwd_dq_wgmmaILi96", "bwd_dkv_wgmmaILi96",
                  "flash_fwd_wgmmaILi64", "flash_fwd_wgmmaILi80",
                  "flash_fwd_wgmmaILi96", "flash_fwd_wgmmaILi128",
-                 "flash_fwd_wgmmaILi256",
+                 "flash_fwd_wgmmaILi256", "flash_fwd_wgmma_splitILi128",
+                 "flash_fwd_wgmma_splitILi256",
                  "bwd_dq_wgmmaILi128", "bwd_dkv_wgmmaILi128",
                  "bwd_dq_wgmmaILi80", "bwd_dkv_wgmmaILi80")
+#: edits of a tree's ``attention.cu`` (``NAME=CSRC_DIR+EDIT``): each
+#: (text, replacement) must be found at least once
+EDITS = {
+    # K5's forward as a skeleton of its streaming: no S = Q K^T, no P V, no
+    # softmax (its waits, releases and epilogue stay)
+    "no-math": (("ss_tile<D, BK>(sc, q_smem(t), WG_BQ, wg * 64, kt);", ""),
+                ("rs_tile<DV, BK>(oacc, p[kk], vt, kk);", ";"),
+                ("softmax(p_new, i);", ""), ("softmax(pa, 0);", "")),
+    # the split route without its O stores (TMA boxes)
+    "no-o-tma": (("tma_store_3d(&to,", "if (sq < 0) tma_store_3d(&to,"),),
+    # no Q load past a block's first work tile (its Q buffer still waits
+    # to be free): the cost of the exposed Q load
+    "no-q-load": (("mbar_expect_tx(q_full(t), L::Q_BYTES);",
+                   "if (t >= QB) mbar_arrive(q_full(t)); "
+                   "else mbar_expect_tx(q_full(t), L::Q_BYTES);"),
+                  ("for (int c = 0; c < C::NB; ++c)\n          tma_load_3d(q_smem(t)",
+                   "for (int c = 0; c < (t >= QB ? 0 : C::NB); ++c)\n"
+                   "          tma_load_3d(q_smem(t)")),
+    # no O stores from the epilogue (the LSE's stay)
+    "no-o-store": (("if (row0 < sq)\n          *reinterpret_cast",
+                    "if (row0 < 0)\n          *reinterpret_cast"),
+                   ("if (row1 < sq)\n          *reinterpret_cast",
+                    "if (row1 < 0)\n          *reinterpret_cast")),
+}
 #: which libraries each group of timings needs
 GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
               "fwd": ("attention",), "bwd": ("attention_bwd",)}
@@ -221,6 +259,27 @@ def build(trees: dict, out_dir: Path, lib_names) -> dict:
             f.argtypes = args
         libs[(tree, lib)] = cdll
     return libs
+
+
+def edited(csrc: Path, edits, out_dir: Path) -> Path:
+    """A copy of the tree ``csrc`` at ``out_dir`` with ``EDITS[e]`` of each
+    ``e`` in ``edits`` applied to its ``attention.cu``, in order."""
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(csrc, out_dir)
+    path = out_dir / "attention.cu"
+    src = path.read_text()
+    for edit in edits:
+        if edit not in EDITS:
+            sys.exit(f"unknown edit {edit!r}: one of {sorted(EDITS)}")
+        for old, new in EDITS[edit]:
+            if old not in src:
+                sys.exit(f"{csrc}/attention.cu has no {old!r} for the edit "
+                         f"{edit}")
+            src = src.replace(old, new)
+    path.write_text(src)
+    return out_dir
 
 
 def has_part(csrc) -> bool:
@@ -513,6 +572,27 @@ def fwd_calls(libs, trees, stream, shape) -> tuple:
     return calls, shares
 
 
+def sdpa_fwd_call(shape):
+    """One call of SDPA's forward (``scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True)``) on :func:`fwd_calls`' inputs at
+    K5's forward ``shape`` -> (call, the backend it ran, read off the graph
+    of one call on inputs that require grad)."""
+    import torch.nn.functional as F
+
+    b, h, g, s, d, dv, _lse = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device="cuda").bfloat16()
+    q, k, v = rnd(b, h, s, d), rnd(b, g, s, d), rnd(b, g, s, dv)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    backend = type(F.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True).grad_fn).__name__
+    del leaves
+    return (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True), backend)
+
+
 def cold_ms(fn, reps: int = 20) -> float:
     """Median card time of one call with the L2 cache flushed before it:
     each launch follows a write of ``L2_FLUSH_BYTES`` outside the events
@@ -682,7 +762,10 @@ def main(argv=None) -> int:
     trees = {"tree": _build.CSRC}
     for item in args.trees:
         name, _, path = item.partition("=")
-        trees[name] = Path(path)
+        path, *edits = path.split("+")
+        path = _build.CSRC if path == "tree" else Path(path)
+        trees[name] = (edited(path, edits, Path(args.out) / f"csrc_{name}")
+                       if edits else path)
     lib_names = sorted({lib for g in args.only for lib in GROUP_LIBS[g]})
     libs = build(trees, Path(args.out), lib_names)
     stream = torch.cuda.current_stream().cuda_stream
@@ -698,8 +781,11 @@ def main(argv=None) -> int:
             for tree, sh in shares.items():
                 print(f"K5 {shape} {tree}: share of the tolerances used, "
                       + ", ".join(f"{k} {v:.4f}" for k, v in sh.items()))
+            calls["sdpa"], backend = sdpa_fwd_call(shape)
+            print(f"K5 {shape}: SDPA's forward runs {backend}", flush=True)
             result["flash_attention"].append({
                 "shape": list(shape), "tol_share": shares,
+                "sdpa_backend": backend,
                 "ms": rounds(calls, args.rounds, f"K5 {shape}")})
             del calls
     if "bwd" in args.only:

@@ -342,6 +342,59 @@ def test_k5_work_order_covers_each_tile_once_and_balances_the_blocks(
         assert max(loads) <= sum(loads) / grid + n_qt * per_tile
 
 
+@pytest.mark.parametrize("dtype,d,dv,route", [
+    (torch.bfloat16, 256, 256, "split"),   # gemma-2b
+    (torch.bfloat16, 128, 128, "split"),   # chameleon-34b, mixtral-8x22b,
+                                           # deepseek-moe-16b
+    (torch.bfloat16, 64, 64, "wgmma"),     # smollm-360m, musicgen-large
+    (torch.bfloat16, 80, 80, "wgmma"),     # zamba2-2.7b
+    (torch.bfloat16, 96, 64, "wgmma"),     # minicpm3-4b (MLA)
+    (torch.bfloat16, 32, 32, "wgmma"),
+    (torch.float32, 256, 256, "simt"),
+    (torch.float32, 128, 128, "simt"),
+    (torch.float32, 64, 64, "simt"),
+])
+def test_k5_forward_route_follows_dtype_and_head_dim(dtype, d, dv, route):
+    """``fwd_route`` (the mirror of ``flash_by_dim``): the split route takes
+    bf16 at head dims 128 and 256, the one-block wgmma route every other
+    bf16 call, the CUDA cores fp32."""
+    assert fa.fwd_route(dtype, d, dv) == route
+
+
+@pytest.mark.parametrize("tiles", [
+    [8],                       # one work tile of a causal row of 128-row tiles
+    [16, 1, 9, 2],             # gemma-2b's: query tiles paired by the snake
+    [4, 5, 6, 7, 8],           # chameleon-34b's: the stride order
+    [1, 1, 1, 3],              # short work tiles: the ring runs across them
+    [0, 5, 0, 2],              # query tiles that see no key
+])
+def test_k5_split_ring_loads_every_k_a_step_ahead(tiles):
+    """``ring_lead`` (the mirror of the forward's barriers): in a ring of 2
+    stages (head dim 256) the one-block route loads the K of a work tile's
+    third and later kv tiles only once it is due (the stage it reuses frees
+    at the end of the step before), so its load stalls the consumers; the
+    split route, freeing
+    each K a step before its stage's V, loads every K and V at least one
+    consumer step ahead past the block's first stage, as the one-block
+    route's ring of 3 (head dim 128) does, which the split route's ring of
+    3 takes to two steps for K."""
+    n = sum(tiles)
+    one2, split2 = fa.ring_lead(tiles, 2, False), fa.ring_lead(tiles, 2, True)
+    one3, split3 = fa.ring_lead(tiles, 3, False), fa.ring_lead(tiles, 3, True)
+    assert len(one2) == len(split2) == len(one3) == len(split3) == n
+    j = 0
+    for m in tiles:  # one-block, ring of 2: a work tile's K past its second
+        assert all(one2[j + i][0] == 0 for i in range(2, m))
+        j += m
+    for lead in (one2, split2, one3, split3):
+        assert all(v >= 1 for _k, v in lead)
+    assert all(k >= 1 for k, _v in split2[1:])
+    assert all(k >= 1 for k, _v in one3[1:])
+    assert all(k >= min(2, j) for j, (k, _v) in enumerate(split3))
+    for a, b in zip(split2, one2):  # never later than the one-block route
+        assert a[0] >= b[0] and a[1] >= b[1]
+
+
 @pytest.mark.parametrize("b,h,g,sq,sk,grid,causal,window", [
     (8, 8, 1, 1024, 1024, 132, True, None),  # gemma-2b's training shape
     (1, 3, 1, 190, 190, 132, True, None),    # an odd group: no head split

@@ -488,6 +488,53 @@ def test_flash_attention_narrow_v_on_the_card(card, b, h, g, sq, sk, causal,
                                          scale=scale), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("b,h,g,sq,sk,d,causal,window", [
+    (2, 8, 1, 1000, 1000, 256, True, None),   # gemma-2b's prefill heads
+    (1, 16, 2, 333, 333, 128, True, None),    # a ragged last query tile
+    (1, 12, 2, 700, 700, 128, True, 4096),    # mixtral-8x22b's window
+    (2, 8, 2, 500, 500, 128, True, 100),      # a short window
+    (1, 8, 1, 400, 400, 256, True, 70),
+    (2, 8, 2, 200, 700, 128, True, None),     # Sq < Sk
+    (1, 4, 1, 130, 517, 256, True, None),
+    (1, 8, 2, 400, 130, 128, True, None),     # Sq > Sk: 2 tiles see no key
+    (1, 4, 1, 330, 60, 256, True, None),
+    (1, 8, 2, 300, 200, 128, False, None),    # non-causal
+    (1, 4, 1, 100, 300, 256, False, 50),
+    (1, 2, 1, 129, 129, 256, True, None),     # 4 work tiles: fewer than SMs
+    (3, 8, 2, 1000, 1000, 128, True, None),   # head order, a partial round
+    (9, 16, 2, 1000, 1000, 128, True, None),  # stride order, a partial round
+    (1, 4, 2, 33, 97, 128, True, None),       # a warpgroup's rows all past Sq
+    (2, 3, 1, 190, 190, 256, True, None),     # an odd group
+    (1, 4, 4, 150, 150, 128, True, 40),       # MHA
+])
+def test_flash_attention_split_route_on_the_card(card, b, h, g, sq, sk, d,
+                                                 causal, window):
+    """K5's bf16 split route (D = 128 and 256: a stage's K and V on
+    barriers of their own, O stored from shared memory by TMA boxes that
+    stop at Sq) against its plain version, its LSE too; rows that see no
+    key give 0 and -inf."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    q, k, v = _attn_inputs(card, sq + sk + d, torch.bfloat16, (b, h, sq, d),
+                           (b, g, sk, d), (b, g, sk, d))
+    before = ops.launch_counts()["flash_attention"]
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    e = max(0, sq - sk) if causal else 0  # the first rows see no key
+    assert not out[:, :, :e].any()
+    assert torch.isneginf(lse[:, :, :e]).all()
+    want = ref.flash_attention_ref(q[:, :, e:].float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out[:, :, e:].float(), want, atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(
+        lse[:, :, e:], ref.flash_attention_lse_ref(
+            q, k, causal=causal, window=window)[:, :, e:],
+        atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("dv", [96, 32])
 def test_flash_attention_unbuilt_pairs_raise_on_the_card(card, dv):
     from repro_torch.kernels.flash_attention import flash_attention
