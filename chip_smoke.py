@@ -57,7 +57,8 @@ Phases, in order; any failure exits non-zero:
    kernels and once with the numpy backend: the files must be
    byte-identical;
 4. the serve path: ``repro_torch.launch.serve`` with smollm-360m,
-   rwkv6-7b, zamba2-2.7b, minicpm3-4b (MLA), deepseek-moe-16b (MoE),
+   gemma-2b (head dim 256 over one kv head), rwkv6-7b, zamba2-2.7b,
+   minicpm3-4b (MLA), deepseek-moe-16b (MoE),
    musicgen-large (4 codebooks), chameleon-34b and mixtral-8x22b (MoE,
    a window), one after another, each at its full width and its full
    depth but for ``SERVE_DEPTH`` (chameleon-34b and mixtral-8x22b: their
@@ -93,9 +94,9 @@ Phases, in order; any failure exits non-zero:
    card (CUDA events between 30 launches queued back to back) and per
    call with its host overhead, beside its bound, its plain version and,
    where one exists, the one PyTorch call computing the same function
-   (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's and
-   at zamba2-2.7b's head shapes, and K5 at minicpm3-4b's q/k 96, v 64 with
-   the SDPA backend it ran; none for K7 and K8); K9 and K10 at one
+   (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's, at
+   gemma-2b's and at zamba2-2.7b's head shapes, and K5 at minicpm3-4b's
+   q/k 96, v 64 with the SDPA backend it ran; none for K7 and K8); K9 and K10 at one
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
    K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``; K2 also
@@ -166,7 +167,18 @@ Phases, in order; any failure exits non-zero:
    shape, device), its loader where the live one stands, and one step of
    each loop equal bit for bit (loss, parameters and moments); save and
    restore seconds, MB/s and file size with the card's name and power
-   limit;
+   limit; (f) the chaos driver ``repro_torch.launch.chaos`` on the card
+   (its 800 entries from ``--seed``) with ``REPRO_TORCH_OFFSETS_MIN`` and
+   ``REPRO_TORCH_SHUFFLE_MIN`` at 0 (restored after), every scenario in
+   this process and held to its invariants by the driver (the ``mpkill``
+   matrix whole: 18 cells of 2 and 4 writer processes, forked by the
+   driver's fork server, and the straggler): K1 and K2 > 0 in each
+   scenario's writes (the children's own counts for ``mpkill`` and
+   ``mprecover``), K3 and K4 > 0 in each that reads a salvaged or
+   recovered file back on the card, ``kill``'s salvage list equal to the
+   same scenario on the numpy backend, then
+   ``python -m repro_torch.launch.chaos --scenario mprecover`` as a
+   subprocess; each scenario's seconds;
 9. the main path as one program and the skim: (a) ``repro_torch.launch.
    train.main`` trains smollm-360m at full width and depth (fp32
    parameters, bf16 compute, remat) on its one-rank NCCL mesh on phase
@@ -389,13 +401,14 @@ KERNEL_DESIGN = {
 }
 
 #: the served models, in the order they run: each at its full width and
-#: depth (but for ``SERVE_DEPTH``), the dense family (K5, K6), rwkv6 (K7),
-#: the zamba2 hybrid (K8, and K5/K6 at head dim 80 in its shared attention
-#: blocks), MLA (K5 at q/k 96, v 64; a latent decode without K6), MoE,
-#: 4 codebooks, qk-norm, MoE with a window
-SERVE_ARCHS = ("smollm-360m", "rwkv6-7b", "zamba2-2.7b", "minicpm3-4b",
-               "deepseek-moe-16b", "musicgen-large", "chameleon-34b",
-               "mixtral-8x22b")
+#: depth (but for ``SERVE_DEPTH``), the dense family (K5, K6; gemma-2b at
+#: head dim 256 over one kv head), rwkv6 (K7), the zamba2 hybrid (K8, and
+#: K5/K6 at head dim 80 in its shared attention blocks), MLA (K5 at q/k
+#: 96, v 64; a latent decode without K6), MoE, 4 codebooks, qk-norm, MoE
+#: with a window
+SERVE_ARCHS = ("smollm-360m", "gemma-2b", "rwkv6-7b", "zamba2-2.7b",
+               "minicpm3-4b", "deepseek-moe-16b", "musicgen-large",
+               "chameleon-34b", "mixtral-8x22b")
 #: depth cuts of the served models whose fp32 parameters do not fit one
 #: card whole: chameleon-34b (48 layers, 127.8 GiB) and mixtral-8x22b (56
 #: layers, 523.9 GiB) at full width and this many layers
@@ -1295,18 +1308,25 @@ def check_host_decode(np, torch, core, path) -> None:
 
 
 @contextlib.contextmanager
-def kernel_backend(backend: str):
-    """``REPRO_TORCH_KERNEL_BACKEND`` set to ``backend`` (``auto``: the
-    kernels; ``numpy``) for the writers made inside."""
-    old = os.environ.get("REPRO_TORCH_KERNEL_BACKEND")
-    os.environ["REPRO_TORCH_KERNEL_BACKEND"] = backend
+def env_vars(values: dict):
+    """The environment variables ``values`` set for the code inside (and
+    the processes it starts), their old values restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("REPRO_TORCH_KERNEL_BACKEND", None)
-        else:
-            os.environ["REPRO_TORCH_KERNEL_BACKEND"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def kernel_backend(backend: str):
+    """``REPRO_TORCH_KERNEL_BACKEND`` set to ``backend`` (``auto``: the
+    kernels; ``numpy``) for the writers made inside."""
+    return env_vars({"REPRO_TORCH_KERNEL_BACKEND": backend})
 
 
 def write_single(core, schema, opts, path, item, backend: str) -> float:
@@ -3218,6 +3238,88 @@ def remote_path(np, torch, core, ops, args, opts, data, file_path) -> dict:
     return {"remote write": w_counts, "remote read-back": r_counts}
 
 
+#: phase 8 (f): the write path's size floors at 0, so that every fill's
+#: offsets go through K1 and every seal's pages through K2 (the chaos
+#: scenarios fill one entry at a time into clusters of 2-16 KiB, far below
+#: the default floors)
+CHAOS_FLOORS = {"REPRO_TORCH_OFFSETS_MIN": "0", "REPRO_TORCH_SHUFFLE_MIN": "0"}
+#: phase 8 (f): the scenarios whose writers run in child processes, and
+#: those that read a salvaged or recovered file back on the card
+CHAOS_CHILDREN = ("mpkill", "mprecover")
+CHAOS_SALVAGED = ("kill", "mpkill", "mprecover", "remote", "skim")
+#: phase 8 (f): the driver's own default workload
+CHAOS_ENTRIES = 800
+
+
+def chaos_path(ops, args) -> dict:
+    """Phase 8 (f): the chaos driver (``repro_torch.launch.chaos``) on the
+    card with both floors at 0: every scenario in this process, each held
+    to its invariants by the driver; K1 and K2 > 0 in each scenario that
+    writes (in its children for the multi-process ones), K3 and K4 > 0 in
+    each that reads a salvaged or recovered file back on the card;
+    ``kill``'s salvage list equal to the same scenario on the numpy
+    backend; then the command line once as a subprocess, with its own
+    participant processes (``mprecover``).  -> {path: launch counts}."""
+    from repro_torch.launch import chaos
+
+    entries = chaos.make_entries(CHAOS_ENTRIES, args.seed)
+    counts, infos, secs = {}, {}, {}
+    with env_vars(CHAOS_FLOORS):
+        for name in sorted(chaos.SCENARIOS):
+            ops.reset_launch_counts()
+            chaos.reset_child_launches()
+            t0 = time.perf_counter()
+            try:
+                infos[name] = chaos.run(name, entries, args.seed, "cuda")
+            except AssertionError as e:
+                fail(f"chaos {name}: {e}")
+            secs[name] = time.perf_counter() - t0
+            c = counts[f"chaos {name}"] = ops.launch_counts()
+            w = c
+            if name in CHAOS_CHILDREN:
+                w = counts[f"chaos {name} (children)"] = dict(
+                    chaos.CHILD_LAUNCHES)
+            pairs = {"K1": w["offsets_scan"], "K2": w["byteshuffle_pages"]}
+            if name in CHAOS_SALVAGED:
+                pairs.update(K3=c["unsplit_pages"],
+                             K4=c["decode_offset_pages"])
+            ready = sorted(chaos.CHILD_READY_S)
+            log(f"chaos {name}: {secs[name]:.3f} s; {infos[name]}; "
+                + ", ".join(f"{k} {v}" for k, v in pairs.items())
+                + ("" if w is c else
+                   f" (K1 and K2 in the children; {len(ready)} children, "
+                   f"start to ready {ready[0]:.3f} / "
+                   f"{statistics.median(ready):.3f} / {ready[-1]:.3f} s "
+                   "min / median / max)"))
+            if min(pairs.values()) <= 0:
+                fail(f"chaos {name} launched no kernel of {pairs}")
+        with kernel_backend("numpy"):
+            t0 = time.perf_counter()
+            on_numpy = chaos.run("kill", entries, args.seed, "cuda")
+            np_s = time.perf_counter() - t0
+        if on_numpy["salvage"] != infos["kill"]["salvage"]:
+            fail(f"chaos kill: the card's salvage {infos['kill']['salvage']}"
+                 f" differs from numpy's {on_numpy['salvage']}")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.chaos", "--scenario",
+             "mprecover", "--entries", "200"],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+        cli_s = time.perf_counter() - t0
+    chaos.stop_forkserver()
+    if cli.returncode != 0 or "ok   mprecover" not in cli.stdout:
+        fail(f"python -m repro_torch.launch.chaos exited {cli.returncode}: "
+             f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    log(f"chaos kill on the numpy backend: the same salvage list "
+        f"({np_s:.3f} s); the command line (mprecover, 200 entries): "
+        f"{cli.stdout.splitlines()[0]} ({cli_s:.3f} s, its start included)")
+    log(f"phase 8 (f): {len(infos)} scenarios held their invariants on the "
+        f"card in {sum(secs.values()):.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in secs.items()) + ")")
+    return counts
+
+
 def same_bits(torch, a, b) -> bool:
     """``b`` (a tensor) holds ``a``'s bytes, dtype and shape."""
     if not torch.is_tensor(a):
@@ -4240,12 +4342,14 @@ def main() -> int:
                               for x in path_shapes[1:2]]
             rows[-1]["floor"] = time_wrapper(torch, fns, name,
                                              FLOOR_SHAPES[name], gen)
-    # K5/K6 at smollm-360m's shapes (the rows), and at zamba2-2.7b's
-    # head dim 80 (nested); launches summed over the serve paths; K5's
-    # narrow-v form at minicpm3-4b's q/k 96, v 64 (a row of its own, its
-    # launches minicpm3-4b's)
+    # K5/K6 at smollm-360m's shapes (the rows), at gemma-2b's head dim 256
+    # and at zamba2-2.7b's head dim 80 (nested); launches summed over the
+    # serve paths; K5's narrow-v form at minicpm3-4b's q/k 96, v 64 (a row
+    # of its own, its launches minicpm3-4b's)
     _cfg, d_counts, d_shapes = served["smollm-360m"]
     attn_rows = time_attention(torch, ops, d_shapes, d_counts, worst)
+    _cfg, g_counts, g_shapes = served[GEMMA_ARCH]
+    at_g = time_attention(torch, ops, g_shapes, g_counts, worst)
     at_z = time_attention(torch, ops, z_shapes, z_counts, worst)
     _cfg, m_counts, m_shapes = served["minicpm3-4b"]
     at_m = time_attention(torch, ops, m_shapes, m_counts, worst,
@@ -4266,12 +4370,13 @@ def main() -> int:
     nested = ("launches", "shape", "length", "design", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms", "max_abs_err", "bytes",
               "call_ms")
-    for row, rz in zip(attn_rows, at_z):
+    for row, rg, rz in zip(attn_rows, at_g, at_z):
         name = row["name"]
         row["path"] = "serve smollm-360m"
         row["launches_by_path"] = {a: c[name] for a, (_g, c, _s) in
                                    served.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
+        row[f"at_{GEMMA_ARCH}"] = {k: rg[k] for k in nested}
         row["at_zamba2-2.7b"] = {k: rz[k] for k in nested}
     rows += attn_rows + at_m
     rows += time_scans(torch, ops, served, worst)
@@ -4334,8 +4439,11 @@ def main() -> int:
     p8.update(remote_path(np, torch, core, ops, args, PAPER_WRITE_OPTIONS,
                           data, one))
     shutil.rmtree(tmp)
+    t8f = time.perf_counter()
+    p8.update(chaos_path(ops, args))
     w8 = time.perf_counter() - t8
-    log(f"phase 8: (a)-(d) {w8:.3f} s ((e) in phase 9 (a))")
+    log(f"phase 8: (a)-(d) {t8f - t8:.3f} s, (f) {w8 - (t8f - t8):.3f} s "
+        "((e) in phase 9 (a))")
     for row in rows:
         name = row["name"]
         if name in ops.WRITE_READ_KERNELS:

@@ -186,8 +186,9 @@ def _batched_split_into(a: np.ndarray, per: int, out_u8: np.ndarray,
     batched strided copy instead of a Python loop.  Large columns
     dispatch the full-pages block to ``shuffle`` (the writer's
     ``byteshuffle_pages`` kernel on its device) when the block reaches the
-    dispatch's size floor; the strided numpy copy is the reference and
-    the path below the floor.  A kernel failure raises: nothing falls back.
+    dispatch's size floor, and the partial last page as a page of its own
+    when it does; the strided numpy copy is the reference and the path
+    below the floor.  A kernel failure raises: nothing falls back.
     """
     if a.dtype.byteorder == ">":
         a = a.astype(a.dtype.newbyteorder("<"))
@@ -205,7 +206,11 @@ def _batched_split_into(a: np.ndarray, per: int, out_u8: np.ndarray,
                 src.transpose(0, 2, 1),
             )
     if head < n:
-        _split_into(a[head:], out_u8[head * nb :])
+        if shuffle is not None and shuffle.want((n - head) * nb):
+            out_u8[head * nb: n * nb].reshape(1, nb, n - head)[:] = shuffle(
+                a[head:].view(np.uint8).reshape(1, n - head, nb))
+        else:
+            _split_into(a[head:], out_u8[head * nb:])
 
 
 def precondition_column_pages(

@@ -114,8 +114,15 @@ def kernels_everywhere(monkeypatch):
     monkeypatch.delenv("REPRO_TORCH_KERNEL_BACKEND", raising=False)
     monkeypatch.setattr(t_scan, "offsets_scan_host", _counting(
         calls, "port_offsets", t_scan.offsets_scan_host))
-    monkeypatch.setattr(t_shuffle, "byteshuffle_pages_host", _counting(
-        calls, "port_shuffle", t_shuffle.byteshuffle_pages_host))
+    shuffle_entry = t_shuffle.byteshuffle_pages_host
+
+    def port_shuffle(pages, device):
+        # a column's full pages, or a seal's partial last page on its own
+        calls["port_shuffle" if pages.shape[1] * pages.shape[2] == PAGE
+              else "port_shuffle_tail"] += 1
+        return shuffle_entry(pages, device)
+
+    monkeypatch.setattr(t_shuffle, "byteshuffle_pages_host", port_shuffle)
     for d, name, entry in ((R_enc._OFFSETS, "ref_offsets", r_scan_host),
                            (R_enc._SHUFFLE, "ref_shuffle", r_shuffle_host)):
         monkeypatch.setattr(d, "backend", "pallas")
@@ -124,6 +131,8 @@ def kernels_everywhere(monkeypatch):
 
 
 N = 6000
+#: the page size of the files that ``kernels_everywhere`` counts
+PAGE = 4096
 
 
 @pytest.mark.parametrize("kind", ["seq", "par"])
@@ -136,7 +145,7 @@ def test_one_producer_files_are_byte_identical(tmp_path, kernels_everywhere,
     data = _make_data(N)
     opts = R.WriteOptions(codec=codec, buffered=buffered,
                           imt_workers=imt_workers, zone_maps=True,
-                          page_size=4096, cluster_bytes=96 * 1024)
+                          page_size=PAGE, cluster_bytes=96 * 1024)
     ref_path, port_path = tmp_path / "ref.rntj", tmp_path / "port.rntj"
     _write(R, REF_SCHEMA, str(ref_path), opts, data, N, kind)
     _write(T, _port_schema(), str(port_path),
@@ -152,6 +161,9 @@ def test_one_producer_files_are_byte_identical(tmp_path, kernels_everywhere,
     assert calls["port_offsets"] == calls["ref_offsets"] > 0
     assert calls["port_shuffle"] == calls["ref_shuffle"]
     assert (calls["port_shuffle"] > 0) == (buffered or kind == "seq")
+    # the port also splits each seal's partial last page of a column
+    # through K2 at floor 0 (the reference splits it with numpy)
+    assert (calls["port_shuffle_tail"] > 0) == (buffered or kind == "seq")
     with R.RNTJReader(str(ref_path)) as r:
         assert r.n_clusters >= 3  # several seals, each through K2
 

@@ -224,7 +224,7 @@ def test_the_scan_covers_the_skim_and_every_launcher():
     for mod in ("skim/__init__", "skim/engine", "train/loop", "launch/train",
                 "launch/quickstart", "launch/train_lm", "launch/skim",
                 "launch/parallel_checkpoint", "launch/serve_batch",
-                "launch/recover"):
+                "launch/recover", "launch/chaos"):
         assert f"repro_torch/{mod}.py" in scanned, mod
 
 
