@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one per source), with
-   ``ptxas``'s registers and spills of the tensor-core K5, of K6, of K1,
+   ``ptxas``'s registers and spills of the tensor-core K5, of K6 (its
+   ring and its tensor-core route ``decode_mma``), of K1,
    of K2's and K3's register forms, of K4's cluster kernel, of the chunked
    routes of K7 and K8, of K5's backward (head dims 32 to 256, and q/k 96
    with v 64) and of K7's and K8's backward, and a line each for head dim
@@ -95,8 +96,10 @@ Phases, in order; any failure exits non-zero:
    call with its host overhead, beside its bound, its plain version and,
    where one exists, the one PyTorch call computing the same function
    (``scaled_dot_product_attention`` for K5 and K6, at smollm-360m's, at
-   gemma-2b's and at zamba2-2.7b's head shapes, and K5 at minicpm3-4b's
-   q/k 96, v 64 with the SDPA backend it ran; none for K7 and K8); K9 and K10 at one
+   gemma-2b's and at zamba2-2.7b's head shapes, K6 also at chameleon-34b's
+   and mixtral-8x22b's decode shapes (the tensor-core route at gemma-2b's
+   and theirs), and K5 at minicpm3-4b's q/k 96, v 64, each with the SDPA
+   backend it ran; none for K7 and K8); K9 and K10 at one
    cluster's column of phase 3 (250,000 entries) and at a 2^24-element
    buffer (``t().contiguous()`` the library call of K9, none for K10);
    K1 also at 1,100,003 and 2^24 values beside ``torch.cumsum``; K2 also
@@ -365,7 +368,13 @@ KERNEL_DESIGN = {
                                         "sums (a ticket counter)",
                             "float32": "two launches, simt fp32, P from the "
                                        "forward's LSE"},
-    "decode_attention": {"bfloat16": "cp.async ring",
+    "decode_attention": {"bfloat16": "D = 128 and 256 with 4-8 query heads "
+                                     "a kv group: mma.sync + TMA (16-row "
+                                     "slices, a TMA ring a warp, the heads "
+                                     "as N = 8, P^T by movmatrix, one "
+                                     "wave of one block an SM "
+                                     "(mma_launch_shape)); else cp.async "
+                                     "ring",
                          "float32": "cp.async ring"},
     "rwkv6_scan": {"bfloat16": "chunked split-bf16 mma, state every 16 steps",
                    "float32": "simt steps"},
@@ -667,7 +676,8 @@ def time_offsets_sizes(torch, kern, plain, gen) -> list:
 
 #: the kernels whose registers and spills phase 1 prints (name fragments
 #: of their mangled names)
-PTXAS_KERNELS = ("wgmma", "decode_partial", "scan_lookback", "ssd_chunked",
+PTXAS_KERNELS = ("wgmma", "decode_partial", "decode_mma", "scan_lookback",
+                 "ssd_chunked",
                  "wkv_chunked", "shuffle_reg", "unsplit_reg",
                  "decode_offsets_cluster", "bwd_dq", "bwd_dkv", "wkv_bwd",
                  "ssd_bwd")
@@ -909,14 +919,18 @@ def check_codec(torch, kernels) -> None:
 
 def attention_cases():
     """K5 cases (b, h, g, sq, sk, d, dv, causal, window) and K6 cases
-    (b, h, g, s, d, window): no tile multiples, Sq < Sk, GQA 3:1, MQA and
+    (b, h, g, s, d, window[, lengths]): no tile multiples, Sq < Sk, GQA 3:1, MQA and
     MHA, windows, non-causal calls with a padded kv tile, smollm-360m's
     (D=64, 15 over 5 heads), gemma-2b's (D=256, 8 over 1), zamba2-2.7b's
     shared attention's (D=80, 32 over 32: two swizzled column blocks in
     K5, ten lanes a row in K6) and minicpm3-4b's MLA (q/k 96 in two
     swizzled blocks, v 64; 40 over 40) head shapes; Sk under one kv tile,
     Sq of 1 and 129 against 1,000 (q_offset no tile multiple), K6 at H/G
-    of 1, 3 and 8 with lengths from 1 to S; bf16's split route (D = 128
+    of 1, 3 and 8 with lengths from 1 to S, and bf16's tensor-core route
+    (H/G of 4-8 at D = 128 and 256: chameleon-34b's and mixtral-8x22b's
+    decodes, lengths of 1, one slice, a ragged last slice and the whole
+    cache, windows, a cache under one slice, one chunk a cache, 125
+    chunks); bf16's split route (D = 128
     and 256) with a ragged last query tile, windows of 4,096 and shorter,
     Sq < Sk, non-causal, fewer work tiles than SMs and a partial last
     round in either order (its Sq > Sk cases are in ``bwd_cases``)."""
@@ -971,6 +985,21 @@ def attention_cases():
         (2, 3, 1, 517, 64, None),                  # H/G = 3, lengths 1 and S
         (2, 8, 1, 517, 80, 7),                     # H/G = 8 at D=80
         (2, 2, 2, 517, 80, None),                  # H/G = 1 at D=80
+        # bf16's tensor-core route (H/G of 4-8 at D = 128 and 256): lengths
+        # of 1, one 16-row slice, a ragged last slice and the whole cache
+        (16, 64, 8, 1064, 128, None),              # chameleon-34b decode
+        (16, 48, 8, 1064, 128, None),              # mixtral-8x22b decode
+        (4, 8, 1, 300, 256, None, (1, 16, 37, 300)),
+        (4, 16, 4, 300, 128, None, (1, 16, 37, 300)),   # H/G = 4
+        (4, 12, 2, 517, 128, None, (1, 16, 250, 517)),  # H/G = 6
+        (4, 4, 1, 777, 256, None, (1, 16, 401, 777)),   # H/G = 4 at 256
+        (3, 12, 2, 777, 256, 37, None),            # H/G = 6 at 256, window
+        (4, 16, 2, 700, 128, 100, (1, 99, 350, 700)),   # a window
+        (3, 8, 1, 7, 256, None, None),             # a cache under one slice
+        (40, 32, 8, 300, 128, None, None),         # one chunk a cache
+        (2, 10, 2, 333, 256, 64, None),            # H/G = 5: padded heads
+        (2, 14, 2, 2049, 128, None, (2049, 1000)),  # H/G = 7
+        (1, 8, 1, 100000, 256, None, None),        # a chunk an SM
     ]
     return flash, decode
 
@@ -1019,12 +1048,15 @@ def check_attention(torch, flash_cases, decode_cases) -> dict:
             key = ("flash_attention", dname)
             worst[key] = max(worst.get(key, 0.0), err)
             del q, k, v, got, want
-        for b, h, g, s, d, window in decode_cases:
+        for b, h, g, s, d, window, *lengths in decode_cases:
             q, k, v = _attention_inputs(torch, gen, dtype, (b, h, d),
                                         (b, g, s, d), (b, g, s, d))
-            # lengths from 1 to s across the batch
-            length = torch.linspace(1, s, b, device="cuda").round().to(
-                torch.int32)
+            # the case's lengths, or lengths from 1 to s across the batch
+            length = (torch.tensor(lengths[0], dtype=torch.int32,
+                                   device="cuda")
+                      if lengths and lengths[0] else
+                      torch.linspace(1, s, b, device="cuda").round().to(
+                          torch.int32))
             got = decode_attention(q, k, v, length=length, window=window)
             torch.cuda.synchronize()
             want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
@@ -1868,15 +1900,24 @@ def time_wrapper(torch, fns, name: str, shape, gen, dname=None) -> dict:
             "plain_call_ms": timed["plain_call_ms"]}
 
 
+#: the design each route of K6 runs (``decode_attention.decode_route``)
+K6_DESIGN = {"mma": "mma.sync + TMA: 16-row slices in a TMA ring a warp, "
+                    "the group's heads as N = 8, P^T by movmatrix, one "
+                    "wave of one block an SM (mma_launch_shape)",
+             "ring": "cp.async ring"}
+
+
 def time_attention(torch, ops, shapes, counts, worst,
                    names=("flash_attention", "decode_attention")) -> list:
     """K5 and K6 (``names``) at the serve path's most frequent shape in
-    bf16: card time, plain version, SDPA (and, for K5, the SDPA backend
-    it ran), bound; -> their ``kernels`` rows."""
+    bf16: card time, plain version, SDPA and the backend it ran, bound;
+    K6's row names the route it timed; -> their ``kernels`` rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_route,
+    )
     from repro_torch.kernels.flash_attention import flash_attention
 
     gen = torch.Generator(device="cuda")
@@ -1917,6 +1958,11 @@ def time_attention(torch, ops, shapes, counts, worst,
                 q[:, :, None], k_l, v_l, enable_gqa=True)[:, :, 0]
             want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
                                             length=lens)
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (q[:, :, None], k_l, v_l)]
+            backend = type(F.scaled_dot_product_attention(
+                *leaves, enable_gqa=True).grad_fn).__name__
+            del leaves
         got = kern(None)
         torch.cuda.synchronize()
         err = _attention_err(torch, got, want, ATTN_TOL["bfloat16"],
@@ -1939,7 +1985,10 @@ def time_attention(torch, ops, shapes, counts, worst,
             "bound_by": b_by, "library_ms": timed["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "library_backend": backend,
-            "design": KERNEL_DESIGN[name]["bfloat16"],
+            "design": (K6_DESIGN[decode_route(bf16, shape[4],
+                                              shape[1] // shape[2])]
+                       if name == "decode_attention"
+                       else KERNEL_DESIGN[name]["bfloat16"]),
             "design_by_dtype": KERNEL_DESIGN[name],
             "shape": list(shape), "dtype": "bfloat16", "length": length,
             "bytes": nbytes, "call_ms": timed["call_ms"],
@@ -4351,6 +4400,12 @@ def main() -> int:
     _cfg, g_counts, g_shapes = served[GEMMA_ARCH]
     at_g = time_attention(torch, ops, g_shapes, g_counts, worst)
     at_z = time_attention(torch, ops, z_shapes, z_counts, worst)
+    # K6 at chameleon-34b's and mixtral-8x22b's decode (head dim 128, 8 and
+    # 6 query heads a kv group: the tensor-core route)
+    at_k6 = {arch: time_attention(torch, ops, served[arch][2],
+                                  served[arch][1], worst,
+                                  names=("decode_attention",))[0]
+             for arch in ("chameleon-34b", "mixtral-8x22b")}
     _cfg, m_counts, m_shapes = served["minicpm3-4b"]
     at_m = time_attention(torch, ops, m_shapes, m_counts, worst,
                           names=("flash_attention",))
@@ -4368,8 +4423,8 @@ def main() -> int:
                                       + BWD_TIMED[arch][5:6])
         for arch in (GEMMA_ARCH, "chameleon-34b")}
     nested = ("launches", "shape", "length", "design", "ms", "plain_ms",
-              "bound_ms", "bound_by", "library_ms", "max_abs_err", "bytes",
-              "call_ms")
+              "bound_ms", "bound_by", "library_ms", "library_backend",
+              "max_abs_err", "bytes", "call_ms")
     for row, rg, rz in zip(attn_rows, at_g, at_z):
         name = row["name"]
         row["path"] = "serve smollm-360m"
@@ -4378,6 +4433,9 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         row[f"at_{GEMMA_ARCH}"] = {k: rg[k] for k in nested}
         row["at_zamba2-2.7b"] = {k: rz[k] for k in nested}
+        if name == "decode_attention":
+            for arch, rk in at_k6.items():
+                row[f"at_{arch}"] = {k: rk[k] for k in nested}
     rows += attn_rows + at_m
     rows += time_scans(torch, ops, served, worst)
     rows += time_codec(torch, kernels, o_counts)

@@ -74,21 +74,46 @@
 // (src/repro/kernels/decode_attention.py): one query token per sequence
 // against a KV cache with per-sequence valid `length` (read on the card,
 // no host sync) and an optional window (pos >= length - window).  Bound
-// on the card: bytes (the cache read once).  Split-K flash-decoding: one
-// block of 4-8 warps per (cache chunk, kv group, group of up to 8 query
-// heads, b) reads each K/V row once for the heads of its group (the TPU
-// kernel's grid (b, h, nk) reloads it per head).  Each warp stages its
-// rows unconverted, in the input's type, with 16-byte cp.async into its
-// own 3-stage ring and waits on its own copies (no block barrier in the
-// loop).  A lane owns a 16-byte slice of a row (D = 80 in bf16: ten lanes
-// a row, three rows a warp), the heads' q slices and running (m, l, acc)
-// sit in registers, and a score is a shuffle sum over the row's lanes.
-// The warps' partials merge in shared memory.  A cache in one chunk
-// writes its result there; split into more, each chunk writes fp32
-// partials and the last block of each (b, head group) to finish, found
-// with an atomic counter, combines them.  Chunks past `length` (or before
-// the window) skip the work.  The wrapper splits only as far as half the
-// SMs need: each chunk adds a block's start-up and the combine.
+// on the card: bytes (the cache read once; its operations, 4 B H L D,
+// take 1/37 of the bytes' time on the bf16 tensor cores at gemma-2b's
+// decode).  Split-K flash-decoding: one block per (cache chunk, kv group,
+// b) reads each K/V row once for the heads of its group (the TPU kernel's
+// grid (b, h, nk) reloads it per head).  A cache in one chunk writes its result there;
+// split into more, each chunk writes fp32 partials and the last block of
+// each (b, head group) to finish, found with an atomic counter, combines
+// them.  Chunks past `length` (or before the window) skip the work.  The
+// C entry picks one of two kernels (decode_mma_route; decode_attention.py
+// mirrors it in decode_route):
+//  - bf16 at D = 128 and 256 with 4-8 query heads a kv group (gemma-2b's
+//    8 over one kv head of 256, chameleon-34b's and mixtral-8x22b's 8 and
+//    6 of 128): decode_mma.  On the ring below these groups cost a 5-level
+//    shuffle sum per score and 8 x 8 FMAs per row and head on the CUDA
+//    cores, ~1,100 instructions a warp per 4 KB of K/V at D = 256, at one
+//    warp per sub-partition: 9.0x the byte bound at gemma-2b's decode on
+//    an H100.
+//    Here the scores and P V run on the tensor cores as mma.sync m16n8k16
+//    with the group's heads as N = 8 (S^T = K Q^T, O^T += V^T P^T; ~160
+//    instructions a warp per 16-row slice, 16 KB of K/V at D = 256, where
+//    the ring spends ~4,400), and each warp's lane 0 loads 16-row slices
+//    of K and V by TMA (64-column boxes, 128-byte swizzle: conflict-free
+//    ldmatrix) into a ring of its own, 192 KB a block, so that a block
+//    has its whole chunk in flight at gemma-2b's decode.  The
+//    grid is one wave of one block an SM (on an H100 a second wave of 12
+//    blocks took 1.33x as long there); the last block's combine merges each chunk's (m, l,
+//    acc) in registers in one pass over L2.
+//  - every other call, fp32 among them (a tensor-core form would be TF32;
+//    fp32 is held to 2e-5): decode_partial, one block of 4-8 warps per
+//    (chunk, kv group, group of up to 8 query heads, b).  Each warp stages
+//    its rows unconverted, in the input's type, with 16-byte cp.async into
+//    its own 3-stage ring and waits on its own copies (no block barrier in
+//    the loop).  A lane owns a 16-byte slice of a row (D = 80 in bf16: ten
+//    lanes a row, three rows a warp), the heads' q slices and running (m,
+//    l, acc) sit in registers, and a score is a shuffle sum over the row's
+//    lanes.  The warps' partials merge in shared memory.  The wrapper
+//    splits only as far as half the SMs need: each chunk adds a block's
+//    start-up and the combine.  With 1-3 heads a group, or narrow heads, a
+//    score is a short shuffle sum and the ring stays within 1.04-1.11x
+//    SDPA on an H100 (smollm-360m, zamba2-2.7b).
 
 // Both take fp32 or bf16 inputs (dtype 0 / 1) with the output in the
 // input's type, and head dims 32, 64, 80, 128 and 256; K5 also q/k 96
@@ -1558,6 +1583,382 @@ int decode_by_dim(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6's tensor-core route: bf16 at head dims 128 and 256 with 4-8 query heads
+// a kv group (decode_route in decode_attention.py mirrors decode_mma_route)
+
+constexpr int DM_ROWS = 16;   // cache rows of a slice: the M of S^T, the K of P V
+constexpr int DM_HEADS = 8;   // a group's query heads, padded: the N of both
+constexpr int DM_ITEMS = 4;   // four-column pieces a thread of the combine
+constexpr int DM_MAX_SLOTS = 24;
+constexpr int DM_WARPS = 4;   // warps a block
+
+// slices in flight a block, split over its warps: 192 KB of K and V
+template <int D>
+__host__ __device__ constexpr int dm_slots() {
+  return D == 128 ? 24 : 12;
+}
+
+__host__ __device__ constexpr bool decode_mma_route(int dtype, int D, int hg) {
+  return dtype == 1 && (D == 128 || D == 256) && hg >= 4 && hg <= DM_HEADS;
+}
+
+template <int D>
+struct DmGeom {
+  static constexpr int NB = D / 64;                  // 64-column blocks
+  static constexpr int BOX_BYTES = DM_ROWS * 128;    // one TMA box: 16 rows x 64
+  static constexpr int K_BYTES = NB * BOX_BYTES;     // a slice's K, then its V
+  static constexpr int SLICE_BYTES = 2 * K_BYTES;
+  static constexpr int KSTEPS = D / 16;              // k-steps of S^T, row blocks of O^T
+  static constexpr int ACC_STRIDE = D + 4;           // merge rows: no bank conflicts
+};
+
+template <int D>
+size_t dm_smem() {
+  using Gm = DmGeom<D>;
+  constexpr int W = DM_WARPS;
+  const size_t ring = (size_t)dm_slots<D>() / W * W * Gm::SLICE_BYTES;
+  const size_t merge =
+      sizeof(float) * (2 * W * DM_HEADS + W * DM_HEADS * Gm::ACC_STRIDE +
+                       2 * DM_HEADS);
+  return (ring > merge ? ring : merge) + 1024;  // the ring's 1024-byte alignment
+}
+
+// d += a b: m16n8k16, a row-major 16 x 16, b col-major 16 x 8, bf16 in,
+// fp32 sum
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// four 8 x 8 bf16 tiles: lane i gives the address of row i % 8 of tile
+// i / 8; r[t] holds tile t's (g, 2 q) and (g, 2 q + 1) (g = lane / 4, q =
+// lane % 4), or with .trans its (2 q, g) and (2 q + 1, g)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// an 8 x 8 bf16 tile held as (g, 2 q), (g, 2 q + 1), transposed in registers
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// One block per (cache chunk, kv group, sequence), the chunk slowest (the
+// chunks past a short length come last); DM_WARPS warps, each of which takes
+// the chunk's 16-row slices warp, warp + DM_WARPS, ... through a ring of its
+// own of dm_slots / DM_WARPS slots: its lane 0 loads a slice's K and V by TMA
+// (64-column boxes, 128-byte swizzle; rows past S arrive as zeros) and the
+// warp waits on the slot's mbarrier.  A lane holds, of the group's heads
+// kq and kq + 1 (kq = 2 (lane % 4)), the running max and sum, and of O^T
+// (D x 8) rows 16 i + lane / 4 (+ 8).  A slice: S^T (16 x 8) = K Q^T on
+// mma.sync (Q^T's fragments in registers), masked past the chunk's end,
+// the max over the slice by 3 shuffles, P rounded to bf16 and turned into
+// P^T's B fragments by movmatrix, O^T += V^T P^T (V^T by ldmatrix.trans).
+// The warps merge in shared memory; a split cache writes fp32 partials and
+// the last block of its (b, group), by ticket, merges them in one pass.
+template <int D>
+__global__ void __launch_bounds__(32 * DM_WARPS)
+decode_mma(const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __nv_bfloat16* __restrict__ q, const int* __restrict__ length,
+           __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
+           float* __restrict__ pl, float* __restrict__ pacc,
+           int* __restrict__ counters, int B, int H, int G, int S, int chunk,
+           int nch, int window, float scale_log2) {
+  using Gm = DmGeom<D>;
+  constexpr int KS = Gm::KSTEPS;
+  const int bg = blockIdx.x % (B * G), c = blockIdx.x / (B * G);
+  const int b = bg / G, g = bg % G;
+  const int hg = H / G, h0 = g * hg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int nw = DM_WARPS, nslot = dm_slots<D>() / nw;
+  extern __shared__ uint8_t dsmem[];
+  uint8_t* base = dsmem + ((1024u - (smem_u32(dsmem) & 1023u)) & 1023u);
+  __shared__ __align__(8) uint64_t full[DM_MAX_SLOTS];
+  __shared__ int ticket;
+
+  const int len = min(length[b], S);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int c1 = min(min((c + 1) * chunk, S), len);
+  const int start = max(c * chunk, lo);
+  const int nsl = start < c1 ? (c1 - start + DM_ROWS - 1) / DM_ROWS : 0;
+  if (nsl == 0) {  // no visible position in this chunk: weight 0
+    if (nch == 1) {  // no visible position at all: 0
+      for (int idx = threadIdx.x; idx < hg * D; idx += blockDim.x)
+        o[((size_t)b * H + h0) * D + idx] = __float2bfloat16(0.f);
+      return;
+    }
+    if (threadIdx.x < hg) {
+      const size_t idx = ((size_t)b * H + h0 + threadIdx.x) * nch + c;
+      pm[idx] = NEG;
+      pl[idx] = 0.f;
+    }
+  } else {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nw * nslot; ++i) mbar_init(smem_u32(&full[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this warp's slices: warp + i nw, i < mine, in slot i % nslot
+  const int mine = nsl > warp ? (nsl - warp + nw - 1) / nw : 0;
+  uint8_t* ring = base + (size_t)warp * nslot * Gm::SLICE_BYTES;
+  auto load_slice = [&](int i) {
+    const int slot = i % nslot;
+    const uint32_t bar = smem_u32(&full[warp * nslot + slot]);
+    const uint32_t dst = smem_u32(ring + slot * Gm::SLICE_BYTES);
+    const int r0 = start + (warp + i * nw) * DM_ROWS;
+    mbar_expect_tx(bar, Gm::SLICE_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < Gm::NB; ++cb) {
+      tma_load_3d(dst + cb * Gm::BOX_BYTES, &tk, bar, 64 * cb, r0, bg);
+      tma_load_3d(dst + Gm::K_BYTES + cb * Gm::BOX_BYTES, &tv, bar, 64 * cb, r0, bg);
+    }
+  };
+  if (lane == 0)
+    for (int i = 0; i < min(mine, nslot); ++i) load_slice(i);
+
+  // Q^T's B fragments: head n = lane / 4 (zero past the group), rows
+  // 16 kk + kq (+ 8) of D
+  const int n = lane >> 2, kq = (lane & 3) * 2;
+  uint32_t qf[KS][2];
+  {
+    const bool in = n < hg;
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        q + ((size_t)b * H + h0 + (in ? n : 0)) * D + kq);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][0] = in ? qr[8 * kk] : 0u;
+      qf[kk][1] = in ? qr[8 * kk + 4] : 0u;
+    }
+  }
+  float acc[KS][4];  // O^T: d = 16 dm + n (+ 8 at j >= 2), head kq + (j & 1)
+#pragma unroll
+  for (int dm = 0; dm < KS; ++dm)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dm][j] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // heads kq, kq + 1
+
+  // ldmatrix addresses within a slot: K as the A operand (rows r_k, the
+  // k-step's 16-byte chunk ck + 2 (kk % 4)), V^T by .trans (rows r_v,
+  // chunk cv + 2 (dm % 4)); the 128-byte swizzle XORs the chunk with the
+  // row % 8, which is lane % 8 for both
+  const int r_k = (lane & 7) + ((lane >> 3) & 1) * 8, ck = lane >> 4;
+  const int r_v = (lane & 7) + (lane >> 4) * 8, cv = (lane >> 3) & 1;
+  for (int i = 0; i < mine; ++i) {
+    const int slot = i % nslot;
+    mbar_wait(smem_u32(&full[warp * nslot + slot]), (i / nslot) & 1);
+    const uint32_t kt = smem_u32(ring + slot * Gm::SLICE_BYTES);
+    const uint32_t vt = kt + Gm::K_BYTES;
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      const int ch = ((kk & 3) << 1) + ck;
+      ldmatrix_x4(a, kt + (kk >> 2) * Gm::BOX_BYTES + r_k * 128 +
+                         ((ch ^ (lane & 7)) << 4));
+      mma_bf16(sc[kk & 1], a, qf[kk][0], qf[kk][1]);
+    }
+    const int ra = start + (warp + i * nw) * DM_ROWS + n;  // rows ra, ra + 8
+    const bool oka = ra < c1, okb = ra + 8 < c1;
+    const float x0 = oka ? (sc[0][0] + sc[1][0]) * scale_log2 : -CUDART_INF_F;
+    const float x1 = oka ? (sc[0][1] + sc[1][1]) * scale_log2 : -CUDART_INF_F;
+    const float x2 = okb ? (sc[0][2] + sc[1][2]) * scale_log2 : -CUDART_INF_F;
+    const float x3 = okb ? (sc[0][3] + sc[1][3]) * scale_log2 : -CUDART_INF_F;
+    float mx0 = fmaxf(x0, x2), mx1 = fmaxf(x1, x3);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: >= NEG
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float p0 = ex2(x0 - mn0), p1 = ex2(x1 - mn1);  // masked rows: 0
+    const float p2 = ex2(x2 - mn0), p3 = ex2(x3 - mn1);
+    l0 = l0 * a0 + (p0 + p2);
+    l1 = l1 * a1 + (p1 + p3);
+#pragma unroll
+    for (int dm = 0; dm < KS; ++dm) {
+      acc[dm][0] *= a0;
+      acc[dm][1] *= a1;
+      acc[dm][2] *= a0;
+      acc[dm][3] *= a1;
+    }
+    // P^T's B fragments: the (row, head) tiles of rows 0-7 and 8-15,
+    // rounded to bf16 and transposed
+    const uint32_t b0 = movmatrix_trans(pack_bf16(p0, p1));
+    const uint32_t b1 = movmatrix_trans(pack_bf16(p2, p3));
+#pragma unroll
+    for (int dm = 0; dm < KS; ++dm) {
+      uint32_t a[4];
+      const int ch = ((dm & 3) << 1) + cv;
+      ldmatrix_x4_trans(a, vt + (dm >> 2) * Gm::BOX_BYTES + r_v * 128 +
+                               ((ch ^ (lane & 7)) << 4));
+      mma_bf16(acc[dm], a, b0, b1);
+    }
+    __syncwarp();  // every lane has read the slot before it is refilled
+    if (lane == 0 && i + nslot < mine) load_slice(i + nslot);
+  }
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {  // the sums over the 16-row groups
+    l0 += __shfl_xor_sync(FULL, l0, off);
+    l1 += __shfl_xor_sync(FULL, l1, off);
+  }
+  __syncthreads();  // the rings are drained: reuse them for the merge
+
+  float* sm_m = reinterpret_cast<float*>(base);  // [nw][8]: max, then weight
+  float* sm_l = sm_m + nw * DM_HEADS;             // [nw][8]
+  float* sm_acc = sm_l + nw * DM_HEADS;           // [nw][8][ACC_STRIDE]
+  float* stat = sm_acc + nw * DM_HEADS * Gm::ACC_STRIDE;  // [8] M, [8] L
+  if (lane < 4) {
+    sm_m[warp * DM_HEADS + kq] = m0;
+    sm_m[warp * DM_HEADS + kq + 1] = m1;
+    sm_l[warp * DM_HEADS + kq] = l0;
+    sm_l[warp * DM_HEADS + kq + 1] = l1;
+  }
+  {
+    float* wa = sm_acc + warp * DM_HEADS * Gm::ACC_STRIDE;
+#pragma unroll
+    for (int dm = 0; dm < KS; ++dm)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wa[(kq + (j & 1)) * Gm::ACC_STRIDE + 16 * dm + n + 8 * (j >> 1)] = acc[dm][j];
+  }
+  __syncthreads();
+  if (threadIdx.x < hg) {  // each warp's weight exp2(m - M) in sm_m
+    const int i = threadIdx.x;
+    float M = NEG;
+    for (int w = 0; w < nw; ++w)
+      if (sm_l[w * DM_HEADS + i] > 0.f) M = fmaxf(M, sm_m[w * DM_HEADS + i]);
+    float L = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float lw = sm_l[w * DM_HEADS + i];  // 0: the warp saw no row
+      const float wt = lw > 0.f ? exp2f(sm_m[w * DM_HEADS + i] - M) : 0.f;
+      sm_m[w * DM_HEADS + i] = wt;
+      L += lw * wt;
+    }
+    stat[i] = M;
+    stat[DM_HEADS + i] = L;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < hg * D; idx += blockDim.x) {
+    const int i = idx / D, d = idx % D;
+    float A = 0.f;
+    for (int w = 0; w < nw; ++w)
+      A = fmaf(sm_m[w * DM_HEADS + i],
+               sm_acc[(w * DM_HEADS + i) * Gm::ACC_STRIDE + d], A);
+    const float L = stat[DM_HEADS + i];
+    if (nch == 1) {  // the one chunk: the result itself
+      o[((size_t)b * H + h0 + i) * D + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
+      continue;
+    }
+    const size_t hidx = ((size_t)b * H + h0 + i) * nch + c;
+    pacc[hidx * D + d] = A;
+    if (d == 0) {
+      pm[hidx] = stat[i];
+      pl[hidx] = L;
+    }
+  }
+  }
+  if (nch == 1) return;
+
+  // the last block of this (b, kv group) to finish combines the chunks
+  // (the counter, zero before the launch, is zero again after it)
+  __syncthreads();  // the block's partials are written (block order) ...
+  int* counter = counters + bg;
+  if (threadIdx.x == 0) {
+    __threadfence();  // ... and visible on the card before the ticket
+    ticket = atomicAdd(counter, 1);
+    __threadfence();  // the last block sees every other block's partials
+  }
+  __syncthreads();
+  if (ticket != nch - 1) return;
+  // each thread merges every chunk's partials of DM_ITEMS four-column
+  // pieces itself, a running (M, L, acc) in registers: a chunk's m, l and
+  // piece load together, four chunks' at once, in one pass over L2
+  constexpr int D4 = D / 4;
+  const size_t hb = ((size_t)b * H + h0) * nch;  // (head h0, chunk 0)
+  for (int i0 = threadIdx.x; i0 < hg * D4; i0 += DM_ITEMS * blockDim.x) {
+    float4 a[DM_ITEMS];
+    float M[DM_ITEMS], L[DM_ITEMS];
+    int hi[DM_ITEMS], di[DM_ITEMS];
+#pragma unroll
+    for (int j = 0; j < DM_ITEMS; ++j) {
+      const int idx = min(i0 + j * (int)blockDim.x, hg * D4 - 1);
+      hi[j] = idx / D4;
+      di[j] = idx % D4;
+      a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      M[j] = NEG;
+      L[j] = 0.f;
+    }
+#pragma unroll 4
+    for (int cc = 0; cc < nch; ++cc) {
+#pragma unroll
+      for (int j = 0; j < DM_ITEMS; ++j) {
+        const size_t hc = hb + (size_t)hi[j] * nch + cc;
+        const float mc = __ldcg(pm + hc), lc = __ldcg(pl + hc);
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(pacc + hc * D) + di[j]);
+        if (lc > 0.f) {  // an empty chunk wrote no partial
+          const float mn = fmaxf(M[j], mc);
+          const float s0 = ex2(M[j] - mn), s1 = ex2(mc - mn);
+          a[j].x = a[j].x * s0 + x.x * s1;
+          a[j].y = a[j].y * s0 + x.y * s1;
+          a[j].z = a[j].z * s0 + x.z * s1;
+          a[j].w = a[j].w * s0 + x.w * s1;
+          L[j] = L[j] * s0 + lc * s1;
+          M[j] = mn;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DM_ITEMS; ++j) {
+      const int idx = i0 + j * (int)blockDim.x;
+      if (idx >= hg * D4) break;
+      const float inv = L[j] > 0.f ? 1.f / L[j] : 0.f;
+      uint2 out;
+      out.x = pack_bf16(a[j].x * inv, a[j].y * inv);
+      out.y = pack_bf16(a[j].z * inv, a[j].w * inv);
+      *reinterpret_cast<uint2*>(o + ((size_t)b * H + h0) * D + 4 * idx) = out;
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+template <int D>
+int launch_decode_mma(const void* q, const void* k, const void* v,
+                      const int* length, void* o, float* pm, float* pl,
+                      float* pacc, int* counters, int64_t B, int64_t H, int64_t G,
+                      int64_t S, int chunk, int nch, int window, float scale,
+                      cudaStream_t stream) {
+  if (nch > DA_MAX_CHUNKS || chunk < 1) return cudaErrorInvalidValue;
+  CUtensorMap m[2];  // k, v: 16-row boxes of 64 columns
+  int e;
+  if ((e = make_map(&m[0], k, S, B * G, D, 64, DM_ROWS))) return e;
+  if ((e = make_map(&m[1], v, S, B * G, D, 64, DM_ROWS))) return e;
+  const size_t smem = dm_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  decode_mma<D><<<(unsigned)(nch * B * G), 32 * DM_WARPS, smem, stream>>>(
+      m[0], m[1], static_cast<const __nv_bfloat16*>(q), length,
+      static_cast<__nv_bfloat16*>(o), pm, pl, pacc, counters, (int)B, (int)H,
+      (int)G, (int)S, chunk, nch, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // (q, k, v, o, lse, B, H, G, Sq, Sk, D, Dv, dtype, causal, window, scale,
@@ -1578,7 +1979,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // (q, k, v, length, o, part_m, part_l, part_acc, counters, B, H, G, S, D,
 //  dtype, chunk, n_chunks, warps, window, scale, stream); part_m/part_l are (B, H,
 // n_chunks) fp32 scratch, part_acc (B, H, n_chunks, D), counters B H int32
-// zeros (zero again when the launch ends; one set per stream)
+// zeros (zero again when the launch ends; one set per stream); bf16 at D =
+// 128 and 256 with 4-8 query heads a kv group takes decode_mma (DM_WARPS
+// warps a block; `warps` is ignored), every other call the cp.async ring
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
                                       void* o, void* pm, void* pl, void* pacc,
@@ -1592,6 +1995,11 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   float* l = static_cast<float*>(pl);
   float* acc = static_cast<float*>(pacc);
   int* cnt = static_cast<int*>(counters);
+  if (G > 0 && decode_mma_route(dtype, D, (int)(H / G))) {
+    if (D == 128)
+      return launch_decode_mma<128>(q, k, v, len, o, m, l, acc, cnt, B, H, G, S, chunk, nch, window, scale, st);
+    return launch_decode_mma<256>(q, k, v, len, o, m, l, acc, cnt, B, H, G, S, chunk, nch, window, scale, st);
+  }
   if (dtype == 0)
     return decode_by_dim<float>(D, q, k, v, len, o, m, l, acc, cnt, B, H, G, S, chunk, nch, warps, window, scale, st);
   if (dtype == 1)

@@ -3,22 +3,39 @@
 Replaces the Pallas ``decode_attention``
 (``src/repro/kernels/decode_attention.py``): q ``(B, H, D)`` against
 k/v ``(B, G, S, D)``, keys at positions ``< length[b]`` (and, with a
-window, ``>= length[b] - window``), fp32 softmax.  The CUDA kernel
-(``csrc/attention.cu``) is split-K flash-decoding: the cache splits into
-chunks, one block per (chunk, kv group, sequence) reads each K/V row once
-for the ``H // G`` query heads of its group (up to 8 per block) and
-writes fp32 partials; the last block of a head group to finish combines
-them.  It finds out through a counter per (sequence, head group), zero
-between launches; each stream has its own counters, so launches on two
-streams never share one.  A cache split into one chunk skips all that:
-its block writes the result.  Both dtypes take the same kernel: each warp
-stages its rows unconverted with 16-byte ``cp.async`` into a ring of
-three stages, a lane owns a 16-byte slice of a row, and the heads'
-running softmax stays in registers.  ``length`` stays on the card: the
-kernel reads it there and no step waits on the host.  On a CPU tensor
-the wrapper runs the plain version (``ref.decode_attention_ref``), on a
-``meta`` tensor the dry-run's stand-in (``meta.py``), on a CUDA tensor it
-launches the kernel or raises.
+window, ``>= length[b] - window``), fp32 softmax.  Bound on the card by
+bytes: the cache read once.  The CUDA kernels (``csrc/attention.cu``) are
+split-K flash-decoding: the cache splits into chunks, one block per
+(chunk, kv group, sequence) reads each K/V row once for the ``H // G``
+query heads of its group and writes fp32 partials; the last block of a
+group to finish combines them.  It finds out through a counter per
+(sequence, group), zero between launches; each stream has its own
+counters, so launches on two streams never share one.  A cache split into
+one chunk skips all that: its block writes the result.  ``length`` stays
+on the card: the kernels read it there and no step waits on the host.
+
+Two routes (``decode_route``):
+
+- ``"mma"`` (``decode_mma``): bf16 at head dims 128 and 256 with 4-8 query
+  heads a kv group (gemma-2b's 8 over one kv head of 256, chameleon-34b's
+  and mixtral-8x22b's 8 and 6 of 128).  Each warp loads 16-row slices of
+  K and V by TMA into a ring of its own and runs the scores and ``P V`` on
+  the tensor cores (``mma.sync``, the group's heads as its N of 8), so
+  that a slice (16 KB of K/V at D = 256) costs ~160 instructions a warp
+  where the ring's shuffle sums and FMAs on the CUDA cores cost ~4,400
+  (reckoned from the code); the split fills one wave of one block an SM
+  (``mma_launch_shape``).
+- ``"ring"`` (``decode_partial``): every other call, fp32 among them (a
+  tensor-core form would be TF32; fp32 is held to 2e-5).  Each warp stages
+  its rows unconverted with 16-byte ``cp.async`` into a ring of three
+  stages, a lane owns a 16-byte slice of a row, and the heads' running
+  softmax stays in registers; the split aims for half the SMs
+  (``launch_shape``).  With one to three heads a group, or narrow heads,
+  a row's score is a short shuffle sum and the ring stays near SDPA.
+
+On a CPU tensor the wrapper runs the plain version
+(``ref.decode_attention_ref``), on a ``meta`` tensor the dry-run's
+stand-in (``meta.py``), on a CUDA tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -63,11 +80,34 @@ def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 MAX_CHUNKS = 256
 
 
-def chunking(b: int, g: int, s: int, d: int, target: int):
-    """(chunk, n_chunks): whole tiles per chunk, enough chunks that the
-    (chunk, group, sequence) grid reaches ``target`` blocks, at most
-    ``MAX_CHUNKS``."""
-    tk = TILE_ROWS[d]
+#: cache rows of a slice of the tensor-core route (``DM_ROWS`` in the
+#: kernel): its chunks are whole multiples of it
+SLICE_ROWS = 16
+#: bf16 head dims and query heads a kv group that the tensor-core route
+#: takes (``decode_mma_route`` in the kernel)
+MMA_DIMS = (128, 256)
+MMA_GROUPS = (4, 8)
+#: warps a block of the tensor-core route (``DM_WARPS`` in the kernel)
+MMA_WARPS = 4
+
+
+def decode_route(dtype: torch.dtype, d: int, hg: int) -> str:
+    """The kernel K6 launches on the card, as ``decode_mma_route``
+    (``csrc/attention.cu``) picks it: ``"mma"`` (``decode_mma``) for bf16
+    at head dims 128 and 256 with 4-8 query heads a kv group, ``"ring"``
+    (``decode_partial``) for every other call."""
+    lo, hi = MMA_GROUPS
+    if dtype == torch.bfloat16 and d in MMA_DIMS and lo <= hg <= hi:
+        return "mma"
+    return "ring"
+
+
+def chunking(b: int, g: int, s: int, d: int, target: int,
+             tile: Optional[int] = None):
+    """(chunk, n_chunks): whole tiles (``TILE_ROWS[d]``, or ``tile``) per
+    chunk, enough chunks that the (chunk, group, sequence) grid reaches
+    ``target`` blocks, at most ``MAX_CHUNKS``."""
+    tk = tile or TILE_ROWS[d]
     tiles = -(-s // tk)
     split = max(1, min(tiles, MAX_CHUNKS, -(-target // (b * g))))
     chunk = -(-tiles // split) * tk
@@ -89,6 +129,17 @@ def launch_shape(b: int, g: int, hg: int, s: int, d: int, sms: int):
     chunk, nch = chunking(b, blocks // b, s, d, sms // 2)
     small = blocks * nch < sms and heads_per_block(hg) <= 4
     return chunk, nch, 8 if small else 4
+
+
+def mma_launch_shape(b: int, g: int, s: int, d: int, sms: int):
+    """(chunk, n_chunks) of a tensor-core launch on a card of ``sms``
+    SMs: 16-row slices, as many chunks as one wave of blocks holds (a
+    block an SM: its 192 KB of slices in flight take the SM's shared
+    memory), at least one.  A chunk more than fit, one block an SM, waits
+    for a second wave (at gemma-2b's decode on an H100, 144 blocks on its
+    132 SMs took 1.33x as long as the 128 of one wave)."""
+    return chunking(b, g, s, d, b * g * max(1, sms // (b * g)),
+                    tile=SLICE_ROWS)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,7 +175,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if s == 0:
         return out.zero_()
-    chunk, nch, warps = launch_shape(b, g, h // g, s, d, sm_count(q.device))
+    sms = sm_count(q.device)
+    if decode_route(q.dtype, d, h // g) == "mma":  # its warps are fixed
+        (chunk, nch), warps = mma_launch_shape(b, g, s, d, sms), 0
+    else:
+        chunk, nch, warps = launch_shape(b, g, h // g, s, d, sms)
     part_m = torch.empty((b, h, nch), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, h, nch, d), dtype=torch.float32,

@@ -1,7 +1,7 @@
 """Time K1 (offsets scan), K7 (RWKV-6 wkv, bf16 inputs), K8 (Mamba-2
-SSD, bf16 x), the codec kernels K2, K3, K4 and K9 and K5's forward and
-backward (bf16) as built from several source trees against each other on
-one card, in one process.
+SSD, bf16 x), the codec kernels K2, K3, K4 and K9, K5's forward and
+backward (bf16) and K6 (bf16) as built from several source trees against
+each other on one card, in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_builds \\
         [NAME=CSRC_DIR[+EDIT...] ...] [--rounds 3] [--only GROUP ...] [--out DIR]
@@ -14,8 +14,14 @@ its ``attention.cu`` (several apply in order): ``no-math``, K5's forward
 with its products and softmax taken out, its stages still streamed,
 waited for and released; ``no-q-load``, without a block's Q loads past
 its first work tile; ``no-o-store`` / ``no-o-tma``, without the
-epilogue's O stores (the one-block route's / the split route's).  A text
-an edit looks for that the source lacks stops the run.  Every tree's
+epilogue's O stores (the one-block route's / the split route's); K6's
+knockouts: ``ring-no-math`` / ``mma-no-math`` (the cp.async ring's /
+the tensor-core route's stages streamed with no products),
+``ring-combine-only`` / ``mma-combine-only`` (no chunk reads its rows, the
+last block combines), ``no-combine`` (either route's last block skips the
+combine), ``ring-8-warps`` (the ring's cap of 4 warps at 8 heads lifted),
+and the launch-only ``ring-all-sms`` (``DECODE_KNOBS``).  A text an edit
+looks for that the source lacks stops the run.  Every tree's
 ``byteplanes.cu``, ``scans.cu``, ``ssm.cu``, ``attention.cu`` and
 ``attention_bwd.cu`` compile together (nvcc,
 one process each); the lines give the registers and spills of
@@ -25,8 +31,9 @@ one process each); the lines give the registers and spills of
 forward (``flash_fwd_wgmma`` at each head dim, ``flash_fwd_wgmma_split``
 at 128 and 256) and of its backward
 launches at D = 64, 256, 128 and 80 and at q/k 96 with v 64 (the pair
-route's kernels and D = 256's, or a parent's one-warpgroup ones), and
-``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
+route's kernels and D = 256's, or a parent's one-warpgroup ones), of
+K6's ring (``decode_partial``, bf16 at 8 heads, D = 128 and 256) and
+tensor-core route (``decode_mma``), and ``ptxas``'s warnings that ``wgmma`` runs serialized.  The C
 entry points are called directly, so a
 tree's wrapper need not match this one's (K4's entry takes its cluster
 geometry; a tree whose source declares the entry without it, the first
@@ -35,8 +42,8 @@ a tile.  A variant of a kernel (one bf16 piece per operand instead of
 two, a part taken out) is timed as an edited copy of the checkout's
 ``csrc``, one more tree.  ``--only`` picks groups: ``ssm`` (K7, K8 and
 their backwards),
-``k1``, ``codec``, ``fwd`` (K5's forward), ``bwd`` (K5's backward); all
-by default.
+``k1``, ``codec``, ``fwd`` (K5's forward), ``bwd`` (K5's backward),
+``decode`` (K6); all by default.
 
 K7 runs at rwkv6-7b's prefill shape (16, 64, 1000, 64, 64) with bf16
 inputs (a parent tree's K7 is its bf16 route, whatever its design) and K8
@@ -78,7 +85,14 @@ largest share of chip_smoke's tolerances (1.6e-2 and 2e-5, ``(1 +
 ``ref.flash_attention_lse_ref`` in fp32, and SDPA's forward
 (``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
 the same inputs, the backend it ran printed) is timed in the same rounds
-as one more call.  Times are card times (CUDA events between launches queued
+as one more call.  K6 runs at ``DECODE_SHAPES`` (gemma-2b's,
+chameleon-34b's and mixtral-8x22b's decodes at length 1,032) through each
+tree's C entry with that tree's launch (the checkout's
+``decode_attention`` rules: the tensor-core route where the tree has
+``decode_mma`` and ``decode_route`` picks it, else the ring's), its share
+of the bf16 tolerance 1.6e-2 printed (a knockout's shows how wrong it
+is), beside SDPA on the cache's first 1,032 rows (its backend printed)
+and the byte bound.  Times are card times (CUDA events between launches queued
 behind a sleep kernel, median), the trees interleaved in ``--rounds``
 rounds whose order alternates.  The last line is one JSON object of every
 number.  Needs a CUDA card.
@@ -141,7 +155,19 @@ PTXAS_KERNELS = ("scan_lookback", "ssd_chunkedILi64", "wkv_chunkedILi64",
                  "flash_fwd_wgmmaILi256", "flash_fwd_wgmma_splitILi128",
                  "flash_fwd_wgmma_splitILi256",
                  "bwd_dq_wgmmaILi128", "bwd_dkv_wgmmaILi128",
-                 "bwd_dq_wgmmaILi80", "bwd_dkv_wgmmaILi80")
+                 "bwd_dq_wgmmaILi80", "bwd_dkv_wgmmaILi80",
+                 "decode_partialI13__nv_bfloat16Li256ELi8E",
+                 "decode_partialI13__nv_bfloat16Li128ELi8E",
+                 "decode_mmaILi256E", "decode_mmaILi128E")
+#: K6's timed shapes (B, H, G, S, D) at ``DECODE_LENGTH``: the decode
+#: shapes of gemma-2b (8 query heads over one kv head of 256),
+#: chameleon-34b (64 over 8 of 128) and mixtral-8x22b (48 over 8 of 128;
+#: its window of 4,096 is longer than the cache)
+DECODE_SHAPES = ((16, 8, 1, 1064, 256), (16, 64, 8, 1064, 128),
+                 (16, 48, 8, 1064, 128))
+#: cache rows each sequence sees: the middle of chip_smoke's decode (1,000
+#: prompt tokens and half of 64 new ones)
+DECODE_LENGTH = 1032
 #: edits of a tree's ``attention.cu`` (``NAME=CSRC_DIR+EDIT``): each
 #: (text, replacement) must be found at least once
 EDITS = {
@@ -165,10 +191,50 @@ EDITS = {
                     "if (row0 < 0)\n          *reinterpret_cast"),
                    ("if (row1 < sq)\n          *reinterpret_cast",
                     "if (row1 < 0)\n          *reinterpret_cast")),
+    # K6's cp.async ring (decode_partial) with no scores and no P V: its
+    # stages still streamed, waited for and released
+    "ring-no-math": (
+        ("for (int e = 0; e < E; ++e) part = fmaf(qv[i][e], kf[e], part);",
+         "for (int e = 0; e < 0; ++e) {}"),
+        ("const float x = row_sum<NS>(sp[i][p], lane, sl);",
+         "const float x = sp[i][p];"),
+        ("for (int e = 0; e < E; ++e) acc[i][e] = fmaf(pr, vf[e], acc[i][e]);",
+         "for (int e = 0; e < 0; ++e) {}")),
+    # the ring's cap of 4 warps at 8 heads a block lifted to 8 (the launch
+    # asks for 8: DECODE_KNOBS)
+    "ring-8-warps": (("return HGP <= 4 ? 512 : 128;",
+                      "return HGP <= 4 ? 512 : 256;"),),
+    # the ring's split aimed at every SM, not half (a launch argument only)
+    "ring-all-sms": (),
+    # the ring's combine alone: no chunk reads its rows (each writes the
+    # weight of a chunk that saw some), the last block combines them all
+    "ring-combine-only": (
+        ("if (start >= c1) {  // no visible position", "if (true) {  //"),
+        ("pm[idx] = NEG;\n      pl[idx] = 0.f;",
+         "pm[idx] = 0.f;\n      pl[idx] = 1.f;")),
+    # K6 without its combine (either route's): the last block only resets
+    # the counter
+    "no-combine": (("if (ticket != nch - 1) return;",
+                    "if (ticket != nch - 1) return;\n"
+                    "  if (threadIdx.x == 0) *counter = 0;\n"
+                    "  if (nch > 0) return;"),),
+    # the tensor-core route with no products: its slices still loaded,
+    # waited for and released, the softmax kept
+    "mma-no-math": (("mma_bf16(sc[kk & 1], a, qf[kk][0], qf[kk][1]);", ";"),
+                    ("mma_bf16(acc[dm], a, b0, b1);", ";")),
+    # the tensor-core route's combine alone, as ring-combine-only
+    "mma-combine-only": (
+        ("if (nsl == 0) {  // no visible position", "if (true) {  //"),
+        ("pm[idx] = NEG;\n      pl[idx] = 0.f;",
+         "pm[idx] = 0.f;\n      pl[idx] = 1.f;")),
 }
+#: the ring's launch arguments an edit sets: warps a block, the split's
+#: target as a share of the SMs (its rule: 0.5)
+DECODE_KNOBS = {"ring-8-warps": {"warps": 8}, "ring-all-sms": {"target": 1.0}}
 #: which libraries each group of timings needs
 GROUP_LIBS = {"ssm": ("ssm",), "k1": ("scans",), "codec": ("byteplanes", "scans"),
-              "fwd": ("attention",), "bwd": ("attention_bwd",)}
+              "fwd": ("attention",), "bwd": ("attention_bwd",),
+              "decode": ("attention",)}
 
 #: the codec kernels' timed shapes: K2's four on the write path (most
 #: launches first), K4's two and K3's most frequent on the read path, K9's
@@ -186,6 +252,7 @@ FLOOR_SHAPES = {"byteshuffle_pages": (1, 16, 8),
 #: bytes written between launches to flush the 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 #: K4's entry in its first design: (planes, out, n_pages, per, stream)
 K4_ARGS_BEFORE_CLUSTERS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                            ctypes.c_int64, ctypes.c_void_p]
@@ -593,6 +660,95 @@ def sdpa_fwd_call(shape):
                                                    enable_gqa=True), backend)
 
 
+def decode_launch(src: str, knobs: dict, shape, sms: int) -> tuple:
+    """(route, chunk, n_chunks, warps) of K6 at ``shape`` for a tree whose
+    ``attention.cu`` reads ``src``: the checkout's rule for its route
+    (``decode_attention.decode_route``) where the tree has the tensor-core
+    kernel (its warps ``MMA_WARPS``, fixed in the kernel), else the
+    cp.async ring's, with ``knobs``' warps a block and share of the
+    SMs its split aims for."""
+    from repro_torch.kernels import decode_attention as da
+
+    b, h, g, s, d = shape
+    hg = h // g
+    if "decode_mma" in src and da.decode_route(torch.bfloat16, d, hg) == "mma":
+        chunk, nch = da.mma_launch_shape(b, g, s, d, sms)
+        return "mma", chunk, nch, da.MMA_WARPS
+    blocks = b * g * -(-hg // da.heads_per_block(hg))
+    chunk, nch = da.chunking(b, blocks // b, s, d,
+                             int(sms * knobs.get("target", 0.5)))
+    warps = knobs.get("warps", da.launch_shape(b, g, hg, s, d, sms)[2])
+    return "ring", chunk, nch, warps
+
+
+def decode_calls(libs, trees, edits, stream, shape) -> tuple:
+    """({tree: call}, {tree: {"share": share of the bf16 tolerance,
+    "route", "chunk", "n_chunks", "warps"}}) of K6 (bf16) at ``shape``
+    and ``DECODE_LENGTH`` through each tree's C entry, each with its own
+    partials and counters; a knockout's share says how wrong it is."""
+    b, h, g, s, d = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3579)
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device="cuda").bfloat16()
+    q, k, v = rnd(b, h, d), rnd(b, g, s, d), rnd(b, g, s, d)
+    lens = torch.full((b,), DECODE_LENGTH, dtype=torch.int32, device="cuda")
+    want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                    length=lens)
+    calls, info = {}, {}
+    for tree, csrc in trees.items():
+        knobs = {}
+        for e in edits.get(tree, ()):
+            knobs.update(DECODE_KNOBS.get(e, {}))
+        route, chunk, nch, warps = decode_launch(
+            (Path(csrc) / "attention.cu").read_text(), knobs, shape, sms)
+        f = libs[(tree, "attention")].repro_decode_attention
+        out = torch.empty_like(q)
+        pm = torch.empty((b, h, nch), device="cuda")
+        pl = torch.empty_like(pm)
+        pacc = torch.empty((b, h, nch, d), device="cuda")
+        cnt = torch.zeros(b * h, dtype=torch.int32, device="cuda")
+
+        def call(f=f, out=out, pm=pm, pl=pl, pacc=pacc, cnt=cnt, chunk=chunk,
+                 nch=nch, warps=warps):
+            return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                     out.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                     pacc.data_ptr(), cnt.data_ptr(), b, h, g, s, d, 1, chunk,
+                     nch, warps, 0, d ** -0.5, stream)
+
+        if call() != 0:
+            sys.exit(f"{tree}: repro_decode_attention failed at {shape}")
+        torch.cuda.synchronize()
+        info[tree] = {"share": tol_share(out, want, FWD_TOL), "route": route,
+                      "chunk": chunk, "n_chunks": nch, "warps": warps}
+        calls[tree] = call
+    return calls, info
+
+
+def sdpa_decode_call(shape):
+    """One call of SDPA on :func:`decode_calls`' inputs (the query as one
+    row over the cache's first ``DECODE_LENGTH`` rows, ``enable_gqa``)
+    -> (call, the backend it ran, read off the graph of one call on
+    inputs that require grad)."""
+    import torch.nn.functional as F
+
+    b, h, g, s, d = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3579)
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device="cuda").bfloat16()
+    q, k, v = rnd(b, h, d), rnd(b, g, s, d), rnd(b, g, s, d)
+    q = q[:, :, None]
+    k, v = (t[:, :, :DECODE_LENGTH].contiguous() for t in (k, v))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    backend = type(F.scaled_dot_product_attention(
+        *leaves, enable_gqa=True).grad_fn).__name__
+    del leaves
+    return (lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+            backend)
+
+
 def cold_ms(fn, reps: int = 20) -> float:
     """Median card time of one call with the L2 cache flushed before it:
     each launch follows a write of ``L2_FLUSH_BYTES`` outside the events
@@ -759,13 +915,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("scan_builds needs a CUDA card")
-    trees = {"tree": _build.CSRC}
+    trees, tree_edits = {"tree": _build.CSRC}, {}
     for item in args.trees:
         name, _, path = item.partition("=")
         path, *edits = path.split("+")
         path = _build.CSRC if path == "tree" else Path(path)
         trees[name] = (edited(path, edits, Path(args.out) / f"csrc_{name}")
                        if edits else path)
+        tree_edits[name] = edits
     lib_names = sorted({lib for g in args.only for lib in GROUP_LIBS[g]})
     libs = build(trees, Path(args.out), lib_names)
     stream = torch.cuda.current_stream().cuda_stream
@@ -808,6 +965,26 @@ def main(argv=None) -> int:
                 "shape": list(shape), "tol_share": shares, "split": split,
                 "sdpa_backend": backend, "ms": ms})
             del calls, sdpa
+    if "decode" in args.only:
+        result["decode_attention"] = []
+        for shape in DECODE_SHAPES:
+            calls, info = decode_calls(libs, trees, tree_edits, stream, shape)
+            for tree, x in info.items():
+                print(f"K6 {shape} {tree}: {x['route']}, chunk {x['chunk']} x "
+                      f"{x['n_chunks']}, {x['warps']} warps; share of the bf16 "
+                      f"tolerance used {x['share']:.4f}")
+            calls["sdpa"], backend = sdpa_decode_call(shape)
+            b, h, g, s, d = shape
+            nbytes = 2 * (2 * b * g * DECODE_LENGTH * d + 2 * b * h * d)
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        4 * b * h * DECODE_LENGTH * d / BF16_OPS_PER_S) * 1e3
+            print(f"K6 {shape}: SDPA runs {backend}; bound {bound:.5f} ms",
+                  flush=True)
+            result["decode_attention"].append({
+                "shape": list(shape), "length": DECODE_LENGTH, "launch": info,
+                "sdpa_backend": backend, "bound_ms": bound,
+                "ms": rounds(calls, args.rounds, f"K6 {shape}")})
+            del calls
     if "k1" in args.only:
         result["offsets_scan"] = {}
         for n in K1_SIZES:

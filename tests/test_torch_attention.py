@@ -30,8 +30,8 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
-    MAX_CHUNKS, TILE_ROWS, chunking, decode_attention, heads_per_block,
-    launch_shape,
+    MAX_CHUNKS, MMA_WARPS, SLICE_ROWS, TILE_ROWS, chunking, decode_attention,
+    decode_route, heads_per_block, launch_shape, mma_launch_shape,
 )
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS, NARROW_V, check_kernel_args, flash_attention,
@@ -700,18 +700,29 @@ def test_decode_is_the_last_row_of_flash():
                                         (1, 1, 1, 100_000, 64), (2, 1, 15, 700, 256),
                                         (1, 1, 8, 7, 256), (128, 8, 2, 33, 32)])
 def test_decode_launch_shape(b, g, hg, s, d, sms):
+    """The ring's launch (fp32 at every shape, bf16 off the tensor-core
+    route) and, where bf16 takes it, the tensor-core route's."""
     chunk, nch, warps = launch_shape(b, g, hg, s, d, sms)
     assert (nch - 1) * chunk < s <= nch * chunk and nch <= MAX_CHUNKS
     assert warps in (4, 8)
     if heads_per_block(hg) > 4:
         assert warps == 4   # 8 heads a block: the registers of 128 threads
+    if decode_route(torch.bfloat16, d, hg) == "mma":
+        chunk, nch = mma_launch_shape(b, g, s, d, sms)
+        assert chunk % SLICE_ROWS == 0
+        assert (nch - 1) * chunk < s <= nch * chunk and nch <= MAX_CHUNKS
 
 
 def test_decode_launch_shape_at_the_serve_shapes():
     # smollm-360m: 80 (sequence, kv group) blocks, one chunk, 8 warps each;
-    # zamba2-2.7b: 512 blocks of 4 warps
+    # zamba2-2.7b: 512 blocks of 4 warps (both on the ring)
     assert launch_shape(16, 5, 3, 1064, 64, 132)[1:] == (1, 8)
     assert launch_shape(16, 32, 1, 1064, 80, 132)[1:] == (1, 4)
+    # the tensor-core route, one wave: gemma-2b 16 caches x 8 chunks of
+    # 144 rows; chameleon-34b and mixtral-8x22b 128 (sequence, group) pairs
+    # of one chunk
+    assert mma_launch_shape(16, 1, 1064, 256, 132) == (144, 8)
+    assert mma_launch_shape(16, 8, 1064, 128, 132) == (1072, 1)
 
 
 @pytest.mark.parametrize("target", [228, 264])   # two waves of 114 / 132 SMs
@@ -725,3 +736,170 @@ def test_decode_chunking_covers_the_cache(b, g, s, d, target):
     assert chunk % tile == 0 and chunk > 0
     assert (nch - 1) * chunk < s <= nch * chunk
     assert nch <= MAX_CHUNKS
+
+
+def _k6_bf16_emulation(q, k, v, length, window, sms):
+    """K6's tensor-core route in plain PyTorch, as the card runs it at
+    ``mma_launch_shape(.., sms)``: per chunk, each of its warps takes the
+    16-row slices ``w, w + warps, ...``: fp32 scores of the bf16 inputs
+    (``scale * log2(e)`` folded, ``exp2``), rows past the chunk's visible
+    end masked, the running max, P rounded to bf16 per slice before ``P
+    V``, fp32 ``(m, l, acc)``; the warps' partials merged, then the
+    chunks' (the fp32 combine), the output rounded to bf16."""
+    b, h, d = q.shape
+    g, s = k.shape[1], k.shape[2]
+    hg = h // g
+    (chunk, nch), warps = mma_launch_shape(b, g, s, d, sms), MMA_WARPS
+    c = LOG2E / np.sqrt(d)
+
+    def merge(parts):
+        ms = torch.stack([m for m, _l, _a in parts])
+        ls = torch.stack([l for _m, l, _a in parts])
+        accs = torch.stack([a for _m, _l, a in parts])
+        big = torch.where(ls > 0, ms, torch.tensor(-1e30)).amax(0)
+        w = torch.where(ls > 0, torch.exp2(ms - big), torch.zeros(()))
+        return big, (ls * w).sum(0), (accs * w[..., None]).sum(0)
+
+    out = torch.zeros(b, h, d)
+    for bi in range(b):
+        n = min(int(length[bi]), s)
+        lo = max(0, n - window) if window else 0
+        for gi in range(g):
+            qf = q[bi, gi * hg:(gi + 1) * hg].float()
+            kf, vf = k[bi, gi].float(), v[bi, gi].float()
+            chunks = []
+            for ci in range(nch):
+                c1, start = min((ci + 1) * chunk, s, n), max(ci * chunk, lo)
+                if start >= c1:
+                    continue  # an empty chunk: weight 0
+                slices = -(-(c1 - start) // SLICE_ROWS)
+                per_warp = []
+                for w in range(warps):
+                    m = torch.full((hg,), -1e30)
+                    l = torch.zeros(hg)
+                    acc = torch.zeros(hg, d)
+                    for si in range(w, slices, warps):
+                        rows = torch.arange(start + SLICE_ROWS * si,
+                                            start + SLICE_ROWS * (si + 1))
+                        ok = rows < c1
+                        rows = rows.clamp(max=s - 1)
+                        sc = (kf[rows] @ qf.T * c).masked_fill(
+                            ~ok[:, None], float("-inf"))
+                        m_new = torch.maximum(m, sc.amax(0))
+                        p = torch.exp2(sc - m_new)
+                        a = torch.exp2(m - m_new)
+                        l = l * a + p.sum(0)
+                        acc = acc * a[:, None] + p.bfloat16().float().T @ vf[rows]
+                        m = m_new
+                    per_warp.append((m, l, acc))
+                chunks.append(merge(per_warp))
+            if chunks:
+                _m, l, acc = merge(chunks)
+                out[bi, gi * hg:(gi + 1) * hg] = torch.where(
+                    l[:, None] > 0, acc / l.clamp_min(1e-30)[:, None],
+                    torch.zeros(()))
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("b,h,g,s,d,lengths,window", [
+    (2, 8, 1, 300, 256, None, None),          # gemma-2b's group and head dim
+    (2, 16, 2, 200, 128, None, None),         # H/G = 8 at 128 (chameleon-34b)
+    (2, 12, 2, 170, 128, None, None),         # H/G = 6 (mixtral-8x22b)
+    (4, 8, 1, 300, 256, [1, 16, 37, 300], None),   # ragged: 1, a slice, S
+    (4, 12, 2, 170, 128, [1, 16, 37, 170], 50),    # a window, mid-slice ends
+    (3, 8, 1, 7, 256, None, None),            # a cache under one slice
+])
+@pytest.mark.parametrize("sms", [132, 4])     # one slice a chunk; warps merge
+def test_k6_bf16_numerics_fit_the_card_tolerance(b, h, g, s, d, lengths,
+                                                 window, sms):
+    """The tensor-core route's rounding (P in bf16 per 16-row slice
+    against its warp's running max, the chunks and warps merged in fp32)
+    stays within the tolerance the card holds K6 to, against the JAX
+    oracle and the Pallas kernel in interpret mode, in fp32 on the same
+    bf16 inputs."""
+    assert decode_route(torch.bfloat16, d, h // g) == "mma"
+    arrs = _inputs(s + h + d, (b, h, d), (b, g, s, d), (b, g, s, d))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    length = (np.asarray(lengths, np.int32) if lengths else
+              np.random.default_rng(s).integers(1, s + 1, b).astype(np.int32))
+    got = _np(_k6_bf16_emulation(q, k, v, length, window, sms))
+    jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
+    jl = jnp.asarray(length)
+    for want in (jref.decode_attention_ref(jq, jk, jv, length=jl, window=window),
+                 j_decode(jq, jk, jv, length=jl, window=window, block_k=128,
+                          interpret=True)):
+        want = _np(want)
+        assert np.all(np.abs(got - want) <= CARD_BF16_TOL * (1 + np.abs(want)))
+
+
+def _c_route():
+    """``decode_mma_route``'s condition in ``csrc/attention.cu`` as a
+    Python expression of ``dtype``, ``D`` and ``hg``; checks on the way
+    that the kernel runs ``MMA_WARPS`` warps a block."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).parent.parent / "csrc" / "attention.cu").read_text()
+    body = re.search(r"constexpr bool decode_mma_route\(int dtype, int D, int hg\)"
+                     r" \{\s*return (.*?);\s*\}", src, re.S).group(1)
+    heads = re.search(r"constexpr int DM_HEADS = (\d+);", src).group(1)
+    warps = re.search(r"constexpr int DM_WARPS = (\d+);", src).group(1)
+    assert int(warps) == MMA_WARPS
+    return (body.replace("&&", " and ").replace("||", " or ")
+            .replace("DM_HEADS", heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_route_follows_the_cuda_entry(dtype):
+    """``decode_route`` names the kernel the CUDA entry picks
+    (``decode_mma_route``) at every built head dim and group size; fp32
+    never takes the tensor-core route."""
+    cond = _c_route()
+    for d in HEAD_DIMS:
+        for hg in range(1, 17):
+            want = eval(cond, {}, {"dtype": 1 if dtype == torch.bfloat16 else 0,
+                                   "D": d, "hg": hg})
+            assert (decode_route(dtype, d, hg) == "mma") == want, (d, hg)
+            if dtype == torch.float32:
+                assert decode_route(dtype, d, hg) == "ring"
+    assert decode_route(torch.bfloat16, 256, 8) == "mma"    # gemma-2b
+    assert decode_route(torch.bfloat16, 128, 6) == "mma"    # mixtral-8x22b
+    assert decode_route(torch.bfloat16, 64, 3) == "ring"    # smollm-360m
+
+
+@pytest.mark.parametrize("sms", [114, 132, 16])
+@pytest.mark.parametrize("b,g,s,d", [(16, 1, 1064, 256), (16, 8, 1064, 128),
+                                     (1, 1, 100_000, 256), (3, 1, 7, 256),
+                                     (40, 8, 300, 128), (2, 2, 2049, 128)])
+def test_k6_mma_grid_covers_every_row_once(b, g, s, d, sms):
+    """The tensor-core route's chunks, and the warps' 16-row slices in
+    them, cover every cache row once; at most ``MAX_CHUNKS`` chunks."""
+    (chunk, nch), warps = mma_launch_shape(b, g, s, d, sms), MMA_WARPS
+    assert nch <= MAX_CHUNKS and chunk % SLICE_ROWS == 0
+    seen = np.zeros(s, np.int64)
+    for ci in range(nch):
+        start, c1 = ci * chunk, min((ci + 1) * chunk, s)
+        slices = -(-(c1 - start) // SLICE_ROWS)
+        for w in range(warps):
+            for si in range(w, slices, warps):
+                r0 = start + SLICE_ROWS * si
+                seen[r0:min(r0 + SLICE_ROWS, c1)] += 1
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("b,g,s,d", [(16, 1, 1064, 256), (16, 8, 1064, 128),
+                                     (2, 2, 2049, 128), (1, 1, 100_000, 256)])
+def test_k6_mma_grid_fills_the_card_in_one_wave(b, g, s, d, sms):
+    """The tensor-core route's grid is one wave of one block an SM, more
+    than half full (whole slices a chunk round the split down): at
+    gemma-2b's decode (16 caches of one kv group) 112 / 128 blocks on 114
+    / 132 SMs, where the ring aimed for half of them (64 / 80)."""
+    chunk, nch = mma_launch_shape(b, g, s, d, sms)
+    slices = -(-s // SLICE_ROWS)
+    assert b * g * nch <= max(sms, b * g)   # one chunk when the pairs overflow
+    assert 2 * b * g * nch > min(sms, b * g * slices)
+    if (b, g, s, d) == (16, 1, 1064, 256):
+        assert 16 * nch >= sms - 16
+        ring = 16 * launch_shape(16, 1, 8, 1064, 256, sms)[1]
+        assert ring == {114: 64, 132: 80}[sms] < 16 * nch

@@ -650,6 +650,32 @@ def test_decode_attention_lengths_and_groups_on_the_card(card, hg, d, dtype):
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("hg", [4, 6, 8])
+@pytest.mark.parametrize("d", [128, 256])
+def test_decode_attention_tensor_core_route_on_the_card(card, hg, d):
+    """bf16 K6 on its tensor-core route (H / G of 4-8 at D = 128 and 256):
+    lengths of 1, one 16-row slice, a ragged last slice and the whole
+    cache, with and without a window, one launch a call."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_route,
+    )
+
+    assert decode_route(torch.bfloat16, d, hg) == "mma"
+    b, g, s = 4, 2, 517
+    q, k, v = _attn_inputs(card, hg * d + 1, torch.bfloat16, (b, g * hg, d),
+                           (b, g, s, d), (b, g, s, d))
+    length = torch.tensor([1, 16, 37, s], dtype=torch.int32, device=card)
+    tol = ATTN_TOL[torch.bfloat16]
+    for window in (None, 40):
+        before = ops.launch_counts()["decode_attention"]
+        got = decode_attention(q, k, v, length=length, window=window)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == before + 1
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        length=length, window=window)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # K7 / K8 against their plain versions.  Tolerances, as
 # ``|got - want| <= tol * (1 + |want|)``: fp32 within 1e-4 (the same
