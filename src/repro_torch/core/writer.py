@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.kernels.ops import encode_kernels, resolve_device
 
 from . import compression as comp
@@ -823,10 +824,11 @@ class FillContext:
         self._maybe_flush()
 
     def fill_batch(self, batch: ColumnBatch) -> None:
-        t0 = _ns()
-        self.builder.fill_batch(batch)
-        self._fill_ns += _ns() - t0
-        self._maybe_flush()
+        with obs.span("writer.fill_batch"):
+            t0 = _ns()
+            self.builder.fill_batch(batch)
+            self._fill_ns += _ns() - t0
+            self._maybe_flush()
 
     def _maybe_flush(self) -> None:
         o = self.writer.options
@@ -859,6 +861,10 @@ class FillContext:
             self._page_buf = []
 
     def close(self) -> None:
+        with obs.span("writer.close"):
+            self._close()
+
+    def _close(self) -> None:
         if self._ctx_closed:
             return
         self.flush_cluster()
@@ -896,19 +902,20 @@ class ParallelWriter(_WriterBase):
         return ctx
 
     def close(self) -> None:
-        if not self._closed:
-            # Flush (and drain the seal pipelines of) any contexts the
-            # producers did not close themselves.  One failing context
-            # must not stop the others from draining, nor leak the sink —
-            # the first error poisons finalization instead.
-            with self._ctx_lock:
-                for ctx in self._contexts:
-                    try:
-                        ctx.close()
-                    except BaseException as e:
-                        if self._commit_error is None:
-                            self._commit_error = e
-        super().close()
+        with obs.span("writer.close"):
+            if not self._closed:
+                # Flush (and drain the seal pipelines of) any contexts the
+                # producers did not close themselves.  One failing context
+                # must not stop the others from draining, nor leak the
+                # sink — the first error poisons finalization instead.
+                with self._ctx_lock:
+                    for ctx in self._contexts:
+                        try:
+                            ctx._close()
+                        except BaseException as e:
+                            if self._commit_error is None:
+                                self._commit_error = e
+            super().close()
 
 
 # ---------------------------------------------------------------------------

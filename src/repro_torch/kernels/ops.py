@@ -38,10 +38,10 @@ The models call the serve path's kernel wrappers directly
 ``rwkv6_scan.rwkv6_scan``, ``mamba2_ssd.mamba2_ssd``), which follow their
 inputs' device as the op entries do.
 
-Every kernel wrapper counts its launches here (:func:`count_launch`), one
-per launch of its CUDA kernel and nowhere else, with the shape it was
-given, so a run can show which kernels its path went through and at
-which shapes.
+Every kernel wrapper counts its launches here (:func:`count_launch`, kept in
+``repro_torch.obs``), one per launch of its CUDA kernel and
+nowhere else, with the shape it was given, so a run can show which
+kernels its path went through and at which shapes.
 The backwards (``flash_attention_bwd``, ``rwkv6_scan_bwd``,
 ``mamba2_ssd_bwd``) count one launch per call of their C entry, which
 runs their kernels (K5's: dQ, then dK and dV; K7's and K8's: the reverse
@@ -52,12 +52,12 @@ backward and refuses inputs that require grad (:func:`refuse_grad`).
 from __future__ import annotations
 
 import os
-import threading
-from collections import Counter
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable
 
 import torch
+
+from repro_torch import obs
 
 GLOBAL_BACKEND_ENV = "REPRO_TORCH_KERNEL_BACKEND"
 BACKENDS = ("auto", "numpy")
@@ -81,17 +81,9 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan",
 KERNELS = WRITE_READ_KERNELS + SERVE_KERNELS + CODEC_KERNELS + tuple(
     k for k in TRAIN_KERNELS if k not in SERVE_KERNELS)
 
-_count_lock = threading.Lock()
-_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-_shapes: Dict[str, Counter] = {k: Counter() for k in KERNELS}
-
-
-def count_launch(name: str, shape: Tuple[int, ...]) -> None:
-    """One launch of kernel ``name`` on an input of ``shape`` (thread-safe:
-    fills run on many producer threads, seals on the writer's pool)."""
-    with _count_lock:
-        _launches[name] += 1
-        _shapes[name][tuple(shape)] += 1
+obs.name_kernels(KERNELS)
+#: one launch of a kernel on an input shape, counted in ``repro_torch.obs``
+count_launch = obs.count_launch
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -104,22 +96,9 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             "under torch.no_grad() or with inputs that do not require grad")
 
 
-def launch_counts() -> Dict[str, int]:
-    with _count_lock:
-        return dict(_launches)
-
-
-def launch_shapes() -> Dict[str, Counter]:
-    """``{kernel: Counter({input shape: launches})}`` since the last reset."""
-    with _count_lock:
-        return {k: Counter(c) for k, c in _shapes.items()}
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in _launches:
-            _launches[k] = 0
-            _shapes[k].clear()
+launch_counts = obs.launch_counts
+launch_shapes = obs.launch_shapes
+reset_launch_counts = obs.reset_launch_counts
 
 
 def resolve_device(device="cuda") -> torch.device:

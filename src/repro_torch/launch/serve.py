@@ -34,13 +34,13 @@ from __future__ import annotations
 import argparse
 import os
 import tempfile
-import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ARCHS, get_arch, smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import Collection, ColumnBatch, Leaf, ParallelWriter, Schema
@@ -54,40 +54,52 @@ GEN_SCHEMA = Schema([
 
 
 def generate(bundle: ModelBundle, params: Dict, prompts: torch.Tensor,
-             max_new: int, keep_logits: bool = False,
-             timings: Optional[Dict[str, float]] = None):
+             max_new: int, keep_logits: bool = False):
     """Greedy decode a batch of same-length prompts (B, S[, Q]) int32 on
     the parameters' device -> (B, max_new[, Q]) int32 numpy array:
     prefill, then ``max_new - 1`` decode steps.
 
     ``keep_logits`` also returns the logits that chose each token,
-    (B, max_new[, Q], V) on the device.  ``timings`` (a dict) receives
-    ``prefill_s`` and ``decode_s``, each ended by a synchronize (the
-    copy of the tokens to the host ends the decode)."""
+    (B, max_new[, Q], V) on the device.  Spans (``repro_torch.obs``):
+    ``serve.generate`` around the call, ``serve.prefill`` (the prefill and
+    the first pick) and one ``serve.decode_step`` a step inside it, both
+    timed on the card."""
     b, s = prompts.shape[:2]
     dev = prompts.device
-    t0 = time.perf_counter()
-    logits, cache = bundle.prefill(params, prompts, max_len=s + max_new)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)            # (B, 1)
-    if timings is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        timings["prefill_s"] = t1 - t0
-    out, kept = [tok], [logits]
-    for i in range(max_new - 1):
-        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
-        logits, cache = bundle.decode_step(params, tok, cache, pos)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        out.append(tok)
-        if keep_logits:
-            kept.append(logits)
-    gen = torch.cat(out, dim=1).cpu().numpy()
-    if timings is not None:
-        timings["decode_s"] = time.perf_counter() - t1
+    on_card = dev.type == "cuda"
+    with obs.span("serve.generate"):
+        with obs.span("serve.prefill", card=on_card):
+            logits, cache = bundle.prefill(params, prompts, max_len=s + max_new)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)    # (B, 1)
+        out, kept = [tok], [logits]
+        for i in range(max_new - 1):
+            with obs.span("serve.decode_step", card=on_card):
+                pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+                logits, cache = bundle.decode_step(params, tok, cache, pos)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+            if keep_logits:
+                kept.append(logits)
+        gen = torch.cat(out, dim=1).cpu().numpy()
     if keep_logits:
         return gen, torch.cat(kept, dim=1)
     return gen
+
+
+def span_seconds(summary: Dict[str, Dict]) -> Dict[str, float]:
+    """``prefill_s``, ``decode_s`` and ``write_s`` of one served batch from
+    its spans' summary, as wall seconds: the prefill until its end on the
+    card (the ``serve.prefill`` span's card time; its host time on the
+    CPU), the decode from there to the tokens' arrival on the host (the
+    rest of ``serve.generate``), the writer's fills and closes (host)."""
+    def ms(name, key="host_ms"):
+        e = summary.get(name)
+        return 0.0 if e is None or e[key] is None else e[key]
+
+    prefill = ms("serve.prefill", "card_ms") or ms("serve.prefill")
+    return {"prefill_s": prefill / 1e3,
+            "decode_s": (ms("serve.generate") - prefill) / 1e3,
+            "write_s": (ms("writer.fill_batch") + ms("writer.close")) / 1e3}
 
 
 @dataclass
@@ -118,23 +130,23 @@ def serve_model(cfg: ArchConfig, requests: int, prompt_len: int, max_new: int,
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, shape).astype(np.int32)).to(dev)
 
-    timings: Dict[str, float] = {}
-    res = generate(bundle, params, prompts, max_new,
-                   keep_logits=keep_logits, timings=timings)
-    gen, logits = res if keep_logits else (res, None)
-    logged = gen[..., 0] if gen.ndim == 3 else gen  # the first codebook
-    t0 = time.perf_counter()
-    writer = ParallelWriter(GEN_SCHEMA, out, device=dev)
-    ctx = writer.create_fill_context()
-    ctx.fill_batch(ColumnBatch.from_arrays(GEN_SCHEMA, requests, {
-        "request_id": np.arange(requests, dtype=np.int64),
-        "prompt_len": np.full(requests, prompt_len, np.int32),
-        "tokens": np.full(requests, logged.shape[1], np.int64),
-        "tokens._0": logged.reshape(-1).astype(np.int32),
-    }))
-    ctx.close()
-    writer.close()
-    timings["write_s"] = time.perf_counter() - t0
+    since = obs.mark()
+    with obs.recording():
+        res = generate(bundle, params, prompts, max_new,
+                       keep_logits=keep_logits)
+        gen, logits = res if keep_logits else (res, None)
+        logged = gen[..., 0] if gen.ndim == 3 else gen  # the first codebook
+        writer = ParallelWriter(GEN_SCHEMA, out, device=dev)
+        ctx = writer.create_fill_context()
+        ctx.fill_batch(ColumnBatch.from_arrays(GEN_SCHEMA, requests, {
+            "request_id": np.arange(requests, dtype=np.int64),
+            "prompt_len": np.full(requests, prompt_len, np.int32),
+            "tokens": np.full(requests, logged.shape[1], np.int64),
+            "tokens._0": logged.reshape(-1).astype(np.int32),
+        }))
+        ctx.close()
+        writer.close()
+    timings = span_seconds(obs.summary(since))
     print(f"wrote {requests} generations x {logged.shape[1]} tokens -> {out}")
     return ServeResult(cfg, bundle, params, prompts, gen, logits, timings, out)
 

@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.registry import ModelBundle
@@ -192,34 +193,40 @@ class TrainLoop:
         batches = self.loader.batches()
         target = self.step + steps
         while self.step < target:
-            batch = next(batches)
-            t0 = time.perf_counter()
-            self.params, self.opt_state, self.err_state, metrics = self._step_fn(
-                self.params, self.opt_state, self.err_state, batch)
-            loss = float(metrics["loss"])
-            wall = time.perf_counter() - t0
-            self.step += 1
+            with obs.span("train.step"):
+                self._one_step(batches)
 
-            straggler = False
-            if len(self._step_times) >= 5:
-                med = float(np.median(self._step_times[-20:]))
-                straggler = wall > self.config.straggler_factor * med
-            self._step_times.append(wall)
-            ev = StepEvent(self.step, loss, wall, straggler)
-            self.history.append(ev)
-            if straggler and self.on_straggler:
-                self.on_straggler(ev)
-            if self.step % self.config.log_every == 0:
-                print(f"step {self.step:6d}  loss {loss:8.4f}  {wall*1e3:8.1f} ms",
-                      flush=True)
-            if self.step % self.config.ckpt_every == 0:
-                self._save()
         t0 = time.perf_counter()
         self.mgr.wait()
         if self.mesh is not None:
             torch.distributed.barrier()  # rank 0's save is committed
         self.wait_s = time.perf_counter() - t0
         return self.history
+
+    def _one_step(self, batches) -> None:
+        with obs.span("train.loader_next"):
+            batch = next(batches)
+        t0 = time.perf_counter()
+        self.params, self.opt_state, self.err_state, metrics = self._step_fn(
+            self.params, self.opt_state, self.err_state, batch)
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        self.step += 1
+
+        straggler = False
+        if len(self._step_times) >= 5:
+            med = float(np.median(self._step_times[-20:]))
+            straggler = wall > self.config.straggler_factor * med
+        self._step_times.append(wall)
+        ev = StepEvent(self.step, loss, wall, straggler)
+        self.history.append(ev)
+        if straggler and self.on_straggler:
+            self.on_straggler(ev)
+        if self.step % self.config.log_every == 0:
+            print(f"step {self.step:6d}  loss {loss:8.4f}  {wall*1e3:8.1f} ms",
+                  flush=True)
+        if self.step % self.config.ckpt_every == 0:
+            self._save()
 
 
 def _full(t):

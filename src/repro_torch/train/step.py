@@ -51,6 +51,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ShapeCell
 from repro_torch.distributed.collectives import sum_over
 from repro_torch.distributed.sharding import (
@@ -233,23 +234,27 @@ def make_train_step(bundle: ModelBundle, optimizer: Optional[AdamW] = None,
 
             view = _gatherer(mesh, row_axes)
             total = sum_over(mesh, row_axes)
-        if microbatches > 1:
-            grads, loss, metrics = _accumulated_grads(
-                bundle, params, batch, microbatches, local, view, total, mesh)
-        else:
-            loss, metrics, grads = loss_and_grads(
-                bundle, params, local(batch) if local else batch, view, total,
-                mesh)
+        on_card = params_device(params).type == "cuda"
+        with obs.span("train.forward_backward", card=on_card):
+            if microbatches > 1:
+                grads, loss, metrics = _accumulated_grads(
+                    bundle, params, batch, microbatches, local, view, total,
+                    mesh)
+            else:
+                loss, metrics, grads = loss_and_grads(
+                    bundle, params, local(batch) if local else batch, view,
+                    total, mesh)
         if total is not None:  # each rank's share -> the global batch's
             loss = total(loss)
             metrics = {k: total(v) for k, v in metrics.items()}
         if grad_compression:
             grads, error_state = compress_grads(grads, error_state)
-        if mesh is None:
-            params, opt_state = opt.update(grads, opt_state, params)
-        else:
-            params, opt_state = _sharded_update(opt, grads, opt_state,
-                                                params, mesh)
+        with obs.span("train.optimizer", card=on_card):
+            if mesh is None:
+                params, opt_state = opt.update(grads, opt_state, params)
+            else:
+                params, opt_state = _sharded_update(opt, grads, opt_state,
+                                                    params, mesh)
         return params, opt_state, error_state, {
             "loss": loss.float(),
             **{k: v.float() for k, v in metrics.items()}}

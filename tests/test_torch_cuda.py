@@ -1365,3 +1365,27 @@ def test_train_step_on_the_card(card, monkeypatch):
         torch.testing.assert_close(params["layers"]["attn"][k],
                                    params2["layers"]["attn"][k], atol=2e-4,
                                    rtol=0)
+
+
+def test_card_spans_time_the_stream_without_a_sync(card):
+    """``obs.span(..., card=True)``: the card time is the stream's between
+    the span's two events, and the span returns before the card is done
+    (nothing inside it synchronizes); ``summary()`` waits for the events."""
+    from repro_torch import obs
+
+    torch.ones(1, device=card).sum().item()      # the context is up
+    obs.reset()
+    with obs.recording():
+        with obs.span("outer"):
+            with obs.span("card.sleep", card=True):
+                torch.cuda._sleep(int(2e6 * 50))    # ~50 ms at ~2 GHz
+            with obs.span("card.none", card=True):
+                pass
+    s = obs.summary()
+    obs.reset()
+    sleep = s["card.sleep"]
+    assert sleep["parent"] == "outer" and sleep["count"] == 1
+    assert sleep["card_ms"] > 10.0
+    assert sleep["host_ms"] < sleep["card_ms"] / 2
+    assert 0.0 <= s["card.none"]["card_ms"] < 1.0
+    assert s["outer"]["card_ms"] is None
